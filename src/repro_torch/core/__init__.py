@@ -1,0 +1,21 @@
+"""Equinox's primary contribution: holistic-fairness counters, the HF
+scheduler (+ FCFS/RPM/VTC/DLPM baselines) and the policy-independent HF
+observer."""
+from repro_torch.core.counters import (DEFAULT_ALPHA, DEFAULT_BETA,
+                                       DEFAULT_DELTA, OUT_TOKEN_WEIGHT,
+                                       HFParams, hf_scores, rfc_increment,
+                                       select_min_hf, ufc_increment)
+from repro_torch.core.metrics import (HFObserver, delivered_jain, jain,
+                                      service_difference_stats, summarize)
+from repro_torch.core.request import (Interaction, Request, SLO_CLASSES,
+                                      SLOTarget, set_slo)
+from repro_torch.core.schedulers import (DLPM, FCFS, RPM, VTC, Equinox,
+                                         SchedulerBase, make_scheduler)
+
+__all__ = ["DEFAULT_ALPHA", "DEFAULT_BETA", "DEFAULT_DELTA",
+           "OUT_TOKEN_WEIGHT", "HFParams", "hf_scores", "rfc_increment",
+           "select_min_hf", "ufc_increment", "HFObserver", "delivered_jain",
+           "jain", "service_difference_stats", "summarize", "Interaction",
+           "Request", "SLO_CLASSES", "SLOTarget", "set_slo", "DLPM",
+           "FCFS", "RPM", "VTC", "Equinox", "SchedulerBase",
+           "make_scheduler"]
