@@ -10,8 +10,10 @@ The quickest proof that the port builds and serves on an NVIDIA H100:
    = 32, D = 128, page 16): decode batches of 8 and 64 rows at table
    widths 32 and 256, and ragged mixed launches (a prefill chunk over
    one table row, 8 decode rows, padding rows with ctx 0).  Each case
-   prints one JSON line with errors, the ctx-0 and bitwise-m checks,
-   and times (kernel, plain version, a library yardstick, the bound);
+   runs once more with f32 queries and f32 pools at a tight tolerance.
+   Each case prints one JSON line with errors, the ctx-0 and bitwise-m
+   checks, the int8 quantization noise, and times (kernel, plain
+   version, a library yardstick, the bound);
 3. the engine at full width: Llama-2-7B as registered (32 layers,
    d_model 4096, bf16; random weights from a seed), the Equinox
    scheduler with a MoPE predictor trained by the port, a dozen
@@ -47,10 +49,17 @@ import numpy as np
 ROOT = pathlib.Path(__file__).resolve().parent
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
-# kernel vs plain version on the same inputs: the bf16 tolerance of
-# tests/test_kernels.py for bf16 and for int8 pools alike (q and the
-# output are bf16 on the serving path; the int8 test's 1e-5 is for f32)
-BF16_TOL = 4e-2
+# kernel vs plain version on the same inputs, elementwise
+# |kernel - plain| <= atol + rtol * |plain|.  Both compute in f32 and
+# round once to the output type, so bf16 outputs may differ by one bf16
+# step (at most 2**-7 of the value); f32 outputs by summation order only.
+BF16_TOL = (2 ** -7, 1e-5)         # (rtol, atol): bf16 q, bf16 or int8 pools
+F32_TOL = (1e-5, 1e-5)             # f32 q, f32 pools
+# int8 pools vs the bf16 pools they were quantized from: the noise bound
+# of tests/test_paged_kernels.py (0.15 x std of the fp output), held by
+# the RMS of the difference; its max is reported (it grows with the
+# number of elements, while the std does not)
+INT8_NOISE_REL_STD = 0.15
 DENSE_REL_TOL = 5e-2               # served vs dense-forward first-token logits
 
 
@@ -167,6 +176,15 @@ def bound(torch, q, k_pool, v_pool, tables, ctx, row_map, k_scale):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def tol_ratio(out, plain, tol):
+    """(max abs error, max of |out - plain| / (atol + rtol |plain|)):
+    the second is at most 1 when every element is within tolerance."""
+    rtol, atol = tol
+    o, p = out.float(), plain.float()
+    d = (o - p).abs()
+    return d.max().item(), (d / (atol + rtol * p.abs())).max().item()
+
+
 def kernel_cases():
     """(name, ctx list, row_map list, table rows, width) at the serving
     path's shapes."""
@@ -214,22 +232,24 @@ def kernel_phase(torch):
         g = torch.Generator(device=dev).manual_seed(SEED + ci)
         B = len(ctx_l)
         n_pool = n_tab * W + 1
-        q = torch.randn(B, H, D, generator=g, device=dev).to(torch.bfloat16)
-        kp = torch.randn(n_pool, page, H, D, generator=g, device=dev).to(
-            torch.bfloat16)
-        vp = torch.randn(n_pool, page, H, D, generator=g, device=dev).to(
-            torch.bfloat16)
+        q32 = torch.randn(B, H, D, generator=g, device=dev)
+        kp32 = torch.randn(n_pool, page, H, D, generator=g, device=dev)
+        vp32 = torch.randn(n_pool, page, H, D, generator=g, device=dev)
+        q, kp, vp = (t.to(torch.bfloat16) for t in (q32, kp32, vp32))
         perm = torch.randperm(n_pool, generator=torch.Generator().manual_seed(ci))
         tables = perm[:n_tab * W].reshape(n_tab, W).to(torch.int32).to(dev)
         ctx = torch.tensor(ctx_l, dtype=torch.int32, device=dev)
         rmap = torch.tensor(rmap_l, dtype=torch.int32, device=dev)
         zero = ctx == 0
         valid = ~zero
-        for pools in ("bf16", "int8"):
+        for pools in ("bf16", "int8", "f32"):
+            tol = F32_TOL if pools == "f32" else BF16_TOL
             if pools == "int8":
                 kq, ks = quantize_kv(kp)
                 vq, vs = quantize_kv(vp)
                 args, scales = (q, kq, vq, tables, ctx), (ks, vs)
+            elif pools == "f32":
+                args, scales = (q32, kp32, vp32, tables, ctx), (None, None)
             else:
                 args, scales = (q, kp, vp, tables, ctx), (None, None)
             kw = dict(row_map=rmap, k_scale=scales[0], v_scale=scales[1])
@@ -241,32 +261,48 @@ def kernel_phase(torch):
             p_s = paged_attention_plain(*args, **kw)
             p_k = paged_attention_splitk_plain(*args, pages_per_split=pps,
                                                **kw)
-            err_s = (o_s.float() - p_s.float()).abs().max().item()
-            err_k = (o_k.float() - p_k.float()).abs().max().item()
+            err_s, ratio_s = tol_ratio(o_s, p_s, tol)
+            err_k, ratio_k = tol_ratio(o_k, p_k, tol)
             line = {"phase": "kernels", "case": name, "pools": pools,
-                    "rows": B, "width": W, "tol": BF16_TOL,
+                    "rows": B, "width": W, "rtol": tol[0], "atol": tol[1],
                     "serial_err": err_s, "splitk_err": err_k,
+                    "serial_tol_ratio": ratio_s, "splitk_tol_ratio": ratio_k,
                     "ctx0_rows": int(zero.sum()),
                     "ctx0_exact_zero": bool((o_s[zero] == 0).all()
                                             and (o_k[zero] == 0).all()),
                     "m_bitwise": bool(torch.equal(m_s, m_k)),
                     "finite": bool(torch.isfinite(o_s.float()).all()
                                    and torch.isfinite(o_k.float()).all())}
-            check(err_s <= BF16_TOL and err_k <= BF16_TOL,
-                  f"{name}/{pools}: kernel vs plain error {err_s}, {err_k}")
+            check(ratio_s <= 1 and ratio_k <= 1,
+                  f"{name}/{pools}: kernel vs plain outside tolerance "
+                  f"{tol}: max abs error {err_s}, {err_k}; ratio to the "
+                  f"tolerance {ratio_s}, {ratio_k}")
             check(line["ctx0_exact_zero"], f"{name}/{pools}: ctx=0 rows "
                   "are not exact zeros")
             check(line["m_bitwise"], f"{name}/{pools}: split-K m differs "
                   "from serial m")
             check(line["finite"], f"{name}/{pools}: non-finite output")
+            if pools == "f32":           # checked, not timed
+                emit(line)
+                for kname, err in (("paged_attention", err_s),
+                                   ("paged_attention_splitk", err_k)):
+                    rows[kname]["max_abs_err_f32"] = max(
+                        rows[kname].get("max_abs_err_f32", 0.0), err)
+                continue
             if pools == "int8":
                 ref_fp = paged_attention_plain(q, kp, vp, tables, ctx,
                                                row_map=rmap).float()[valid]
-                noise = (o_s.float()[valid] - ref_fp).abs().max().item()
-                # reported, not asserted: how far int8 pages move the
-                # output from the bf16 pools they were quantized from
-                line["int8_vs_fp_err"] = noise
-                line["int8_vs_fp_rel_std"] = noise / ref_fp.std().item()
+                std = ref_fp.std().item()
+                for kname, o in (("serial", o_s), ("splitk", o_k)):
+                    d = o.float()[valid] - ref_fp
+                    rms = d.square().mean().sqrt().item() / std
+                    line[f"{kname}_int8_noise_rms_rel_std"] = rms
+                    line[f"{kname}_int8_noise_max_rel_std"] = \
+                        d.abs().max().item() / std
+                    check(rms < INT8_NOISE_REL_STD,
+                          f"{name}/int8: {kname} quantization noise {rms} "
+                          f"(RMS over the fp output's std) above "
+                          f"{INT8_NOISE_REL_STD}")
             line["serial_ms"] = time_ms(
                 torch, lambda: paged_attention_kernel(*args, **kw), 20, flush)
             line["splitk_ms"] = time_ms(
@@ -315,13 +351,16 @@ def engine_phase(torch, kernel_rows):
     from repro_torch.workloads.traces import sample_prompt
 
     class TokenSpy(Observer):
-        """Every produced token, per request, in production order."""
+        """Every produced token, per request, in production order, and
+        the host clock at the end of every iteration."""
 
         def __init__(self):
             self.tokens = defaultdict(list)
+            self.stamps = []
 
         def on_iteration(self, now, *, t_iter, util, fresh, running,
                          produced, first):
+            self.stamps.append(time.perf_counter())
             for r in produced:
                 self.tokens[r.rid].append(int(r._next_token))
 
@@ -372,6 +411,7 @@ def engine_phase(torch, kernel_rows):
 
         eng._sample = checked_sample
         reqs = requests(short)
+        torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
         t0 = time.perf_counter()
         done = eng.run(reqs)
@@ -392,21 +432,25 @@ def engine_phase(torch, kernel_rows):
             got = launches[name]
             check(got > 0 if want else got == 0,
                   f"run {run}: {name} launched {got} times")
-        it = np.array([s for s, _, _ in eng.iter_log])
-        pf = [(s, c) for s, c, _ in eng.iter_log if c]
-        dec = [(s, d) for s, c, d in eng.iter_log if not c and d]
+        # whole iterations on the host clock (admission, planning, the
+        # model step, sampling, bookkeeping); the step span of iter_log
+        # is the model step and its copy back alone
+        it = np.diff([t0] + spy.stamps)
+        step = np.array([s for s, _, _ in eng.iter_log])
+        prompt_tokens = sum(r.prompt_len for r in done)
+        output_tokens = sum(r.generated for r in done)
         ttft = np.array([r.ttft() for r in done])
         emit({"phase": "engine", "run": run, "max_len": max_len,
               "kv_quant": kv_quant, "requests": len(done),
-              "prompt_tokens": sum(r.prompt_len for r in done),
-              "output_tokens": sum(r.generated for r in done),
+              "prompt_tokens": prompt_tokens, "output_tokens": output_tokens,
               "iterations": eng.iterations, "wall_s": wall,
+              "iter_ms_mean": wall / eng.iterations * 1e3,
               "iter_ms_median": float(np.median(it) * 1e3),
               "iter_ms_p90": float(np.percentile(it, 90) * 1e3),
-              "prefill_tok_per_s_wall": sum(c for _, c in pf)
-              / max(sum(s for s, _ in pf), 1e-9),
-              "decode_tok_per_s_wall": sum(d for _, d in dec)
-              / max(sum(s for s, _ in dec), 1e-9),
+              "prefill_tok_per_s_wall": prompt_tokens / wall,
+              "output_tok_per_s_wall": output_tokens / wall,
+              "model_step_ms_median": float(np.median(step) * 1e3),
+              "model_step_ms_p90": float(np.percentile(step, 90) * 1e3),
               "ttft_model_s_p50": float(np.percentile(ttft, 50)),
               "ttft_model_s_p90": float(np.percentile(ttft, 90)),
               "service": {k: round(v, 1) for k, v in sched.service.items()},

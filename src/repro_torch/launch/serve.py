@@ -40,7 +40,6 @@ def main(argv=None):
                     choices=["mope", "single", "oracle"])
     ap.add_argument("--workload", default="balanced")
     ap.add_argument("--duration", type=float, default=5.0)
-    ap.add_argument("--backend", default="paged", choices=["paged"])
     ap.add_argument("--max-slots", type=int, default=8)
     ap.add_argument("--scale-tokens", type=float, default=0.05,
                     help="scale workload token lengths for the reduced "
@@ -67,7 +66,7 @@ def main(argv=None):
         r.output_len = max(2, int(r.output_len * s))
 
     eng = ServingEngine(cfg, sched, max_slots=args.max_slots,
-                        max_len=512, cost_model=cm, backend=args.backend,
+                        max_len=512, cost_model=cm, backend="paged",
                         seed=args.seed, device=args.device)
     done = eng.run(reqs)
     ttfts = np.array([r.ttft() for r in done if r.ttft() is not None])

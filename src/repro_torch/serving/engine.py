@@ -7,7 +7,7 @@ pools on the device and the hand-written CUDA paged-attention kernels
 decode rows go down in one ragged ``_paged_decode_step`` call.
 
 Timing uses a dual clock: wall-clock for real measurements
-(``iter_log``) and the analytic cost model for target-hardware metrics
+(``iter_log``: each iteration's model step) and the analytic cost model for target-hardware metrics
 fed back to the scheduler.  Scheduling decisions (admission,
 ``canSchedule`` KV reservation, the chunked-prefill plan, the completion
 feedback loop) are not re-implemented here: the engine drives the same
@@ -135,7 +135,9 @@ class ServingEngine:
         self.running = self.core.running    # alias: core owns the batch
         self.reserved = self.core.reserved  # alias: core owns KV accounting
         self.t_model = 0.0            # modeled target-hardware clock
-        # wall clock per iteration: (seconds, chunk rows, decode rows)
+        # wall clock of each iteration's model step and its copy back,
+        # without the host's scheduling work: (seconds, chunk rows,
+        # decode rows)
         self.iter_log: List[Tuple[float, int, int]] = []
         self.finished: List[Request] = []
         self.iterations = 0
