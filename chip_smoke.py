@@ -4,26 +4,41 @@
 The quickest proof that the port builds and serves on an NVIDIA H100:
 
 1. device and build: the card's name and power limit (nvidia-smi), and
-   the CUDA kernels built from ``src/repro_torch/csrc`` with nvcc;
-2. kernels against their plain PyTorch versions on the card, serial and
-   split-K, bf16 and int8 pools, at the serving path's shapes (Hq = Hkv
-   = 32, D = 128, page 16): decode batches of 8 and 64 rows at table
-   widths 32 and 256, and ragged mixed launches (a prefill chunk over
-   one table row, 8 decode rows, padding rows with ctx 0).  Each case
-   runs once more with f32 queries and f32 pools at a tight tolerance.
-   Each case prints one JSON line with errors, the ctx-0 and bitwise-m
-   checks, the int8 quantization noise, and times (kernel, plain
-   version, a library yardstick, the bound);
-3. the engine at full width: Llama-2-7B as registered (32 layers,
-   d_model 4096, bf16; random weights from a seed), the Equinox
-   scheduler with a MoPE predictor trained by the port, a dozen
-   requests from three clients, served three times:
-     A  fp pools, max_len 512 (table width >= 32: the split-K kernel),
+   the CUDA kernels built from ``src/repro_torch/csrc`` with nvcc (one
+   nvcc per source, all started together), with ptxas' registers;
+2. kernels against their plain PyTorch versions on the card, at the
+   serving path's shapes:
+   - paged attention, serial and split-K, bf16 and int8 pools (Hq = Hkv
+     = 32, D = 128, page 16): decode batches of 8 and 64 rows at table
+     widths 32 and 256, and ragged mixed launches (a prefill chunk over
+     one table row, 8 decode rows, padding rows with ctx 0); each case
+     once more with f32 queries and f32 pools at a tight tolerance;
+   - flash attention (B = 1, Hq = Hkv = 32, D = 128): S = 128, 1024 and
+     1000 causal in bf16 and f32, one windowed case (window 256) and one
+     GQA case (Hkv = 8);
+   - the SSD scan at Mamba-2-2.7B's shape (H = 80, P = 64, G = 1, N =
+     128, chunk 128): S = 128, 1024 and 1000 with bf16 and f32 x.
+   Each case prints one JSON line with errors and times (kernel, plain
+   version, a library yardstick where one exists, the bound);
+3. the engine at full width, a dozen requests from three clients under
+   the Equinox scheduler with a MoPE predictor trained by the port:
+     A  Llama-2-7B as registered (32 layers, d_model 4096, bf16; random
+        weights from a seed), paged, fp pools, max_len 512 (table width
+        >= 32: the split-K kernel),
      B  A with int8 KV pages,
-     C  fp pools, max_len 64, prompt + output < 64 (the serial kernel);
-   plus a check of served first-token logits against a dense forward,
-   and a ``torch.profiler`` window of run A's configuration (device
-   busy share, kernel launches and device time by kernel per iteration);
+     C  A with max_len 64, prompt + output < 64 (the serial kernel),
+     D  A's weights and requests on the slots backend with whole-prompt
+        prefill, max_len 1280 (the flash kernel, one launch per layer and
+        prompt); its first-token logits against run A's,
+     E  Mamba-2-2.7B as registered (64 layers, d_model 2560, bf16; random
+        weights from a seed) on the slots backend, whose default for it
+        is whole-prompt prefill (the SSD-scan kernel, one launch per layer
+        and prompt), max_len 1280; plus prefill + one decode step against
+        prefill of the longer prompt;
+   plus a check of run A's first-token logits against a dense forward,
+   and a ``torch.profiler`` window of the configurations of runs A, D and
+   E (device busy share, kernel launches and device time by kernel per
+   iteration);
 4. a ``kernels`` JSON line, the nvidia-smi line, and last the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -49,18 +64,24 @@ import numpy as np
 ROOT = pathlib.Path(__file__).resolve().parent
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
+PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor-core bf16
+              "float32": 67e12}    # f32 outside the tensor cores
 # kernel vs plain version on the same inputs, elementwise
 # |kernel - plain| <= atol + rtol * |plain|.  Both compute in f32 and
 # round once to the output type, so bf16 outputs may differ by one bf16
 # step (at most 2**-7 of the value); f32 outputs by summation order only.
 BF16_TOL = (2 ** -7, 1e-5)         # (rtol, atol): bf16 q, bf16 or int8 pools
 F32_TOL = (1e-5, 1e-5)             # f32 q, f32 pools
+# the SSD scan: the gate of tests/test_kernels.py::test_ssd_kernel
+SSD_BF16_TOL = (2 ** -7, 1e-4)
+SSD_F32_TOL = (0.0, 5e-4)
 # int8 pools vs the bf16 pools they were quantized from: the noise bound
 # of tests/test_paged_kernels.py (0.15 x std of the fp output), held by
 # the RMS of the difference; its max is reported (it grows with the
 # number of elements, while the std does not)
 INT8_NOISE_REL_STD = 0.15
 DENSE_REL_TOL = 5e-2               # served vs dense-forward first-token logits
+MAX_LEN_SLOTS = 1280               # runs D and E: prompts <= 1024, outputs <= 128
 
 
 def fail(msg: str):
@@ -95,13 +116,17 @@ def main() -> int:
     # 1. build ---------------------------------------------------------------
     t0 = time.perf_counter()
     built = _build.build_all()
-    regs = sorted({line.split("Used")[1].split(",")[0].strip()
-                   for line in _build.build_log("paged_attention").splitlines()
-                   if "Used" in line and "registers" in line})
+    regs = {name: sorted({line.split("Used")[1].split(",")[0].strip()
+                          for line in _build.build_log(name).splitlines()
+                          if "Used" in line and "registers" in line})
+            for name in built}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": built, "ptxas_registers": regs})
 
-    kernel_rows = kernel_phase(torch)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    kernel_rows = kernel_phase(torch, flush)
+    kernel_rows.update(flash_phase(torch, flush))
+    kernel_rows.update(ssd_phase(torch, flush))
     engine_phase(torch, kernel_rows)
 
     print(smi, flush=True)
@@ -206,7 +231,7 @@ def kernel_cases():
     return cases
 
 
-def kernel_phase(torch):
+def kernel_phase(torch, flush):
     from repro_torch.kernels.paged_attention import (
         paged_attention_kernel, paged_attention_plain,
         paged_attention_splitk_kernel, paged_attention_splitk_plain)
@@ -214,7 +239,6 @@ def kernel_phase(torch):
 
     dev = torch.device("cuda")
     H, D, page, pps = 32, 128, 16, 4
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     rows = {"paged_attention": {"name": "paged_attention", "route": "cuda",
                                 "source": "src/repro_torch/csrc/paged_attention.cu",
                                 "replaces": "src/repro/kernels/paged_attention.py:242",
@@ -334,14 +358,198 @@ def kernel_phase(torch):
     return rows
 
 
+def kernel_modules():
+    """The three kernel modules (by module: the package exports functions
+    of the same names)."""
+    import importlib
+    return [importlib.import_module(f"repro_torch.kernels.{m}")
+            for m in ("paged_attention", "flash_attention", "ssd_scan")]
+
+
+def launch_counts():
+    counts = {}
+    for mod in kernel_modules():
+        counts.update(mod.LAUNCHES)
+    return counts
+
+
+def reset_launch_counts():
+    for mod in kernel_modules():
+        mod.reset_launch_counts()
+
+
+def flash_bound(S, Hq, Hkv, D, causal, window, dtype):
+    """(ms, bound_by): q, k, v read and out written once over HBM
+    bandwidth, against the multiply-adds of the (q, k) pairs the mask
+    keeps (QK^T and PV, 2 operations each) over the peak for the type."""
+    elem = {"bfloat16": 2, "float32": 4}[dtype]
+    n_bytes = S * (2 * Hq + 2 * Hkv) * D * elem
+    pairs = 0
+    for qpos in range(S):
+        lo = max(0, qpos - window + 1) if window else 0
+        hi = qpos + 1 if causal else S
+        pairs += hi - lo
+    flops = 2 * pairs * 2 * D * Hq
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def flash_phase(torch, flush):
+    """The flash-attention kernel against its plain version at the
+    whole-prompt prefill shapes of Llama-2-7B (B = 1, 32 heads, D = 128);
+    library yardstick: ``scaled_dot_product_attention``, timed here only."""
+    import importlib
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    F = torch.nn.functional
+    dev = torch.device("cuda")
+    row = {"name": "flash_attention", "route": "cuda",
+           "source": "src/repro_torch/csrc/flash_attention.cu",
+           "replaces": "src/repro/kernels/flash_attention.py:93",
+           "max_abs_err": 0.0}
+    cases = [(f"S{S}_causal", S, 32, True, 0, dt)
+             for S in (128, 1024, 1000) for dt in ("bfloat16", "float32")]
+    cases += [("S1024_window256", 1024, 32, True, 256, "bfloat16"),
+              ("S1024_gqa8", 1024, 8, True, 0, "bfloat16")]
+    for ci, (name, S, Hkv, causal, window, dt) in enumerate(cases):
+        g = torch.Generator(device=dev).manual_seed(SEED + 100 + ci)
+        dtype = getattr(torch, dt)
+        q = torch.randn(1, S, 32, 128, generator=g, device=dev).to(dtype)
+        k = torch.randn(1, S, Hkv, 128, generator=g, device=dev).to(dtype)
+        v = torch.randn(1, S, Hkv, 128, generator=g, device=dev).to(dtype)
+        tol = BF16_TOL if dt == "bfloat16" else F32_TOL
+        out = fa.flash_attention_kernel(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        plain = fa.flash_attention_plain(q, k, v, causal=causal,
+                                         window=window)
+        err, ratio = tol_ratio(out, plain, tol)
+        check(ratio <= 1, f"flash {name}/{dt}: kernel vs plain outside "
+              f"tolerance {tol}: max abs error {err}, ratio {ratio}")
+        check(bool(torch.isfinite(out.float()).all()),
+              f"flash {name}/{dt}: non-finite output")
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        mask = None
+        if window:
+            pos = torch.arange(S, device=dev)
+            mask = (pos[None] <= pos[:, None]) & (pos[None] > pos[:, None]
+                                                   - window)
+
+        def library():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+                enable_gqa=Hkv != 32)
+
+        line = {"phase": "kernels", "kernel": "flash_attention",
+                "case": name, "dtype": dt, "S": S, "Hq": 32, "Hkv": Hkv,
+                "D": 128, "window": window, "rtol": tol[0], "atol": tol[1],
+                "max_abs_err": err, "tol_ratio": ratio,
+                "ms": time_ms(torch, lambda: fa.flash_attention_kernel(
+                    q, k, v, causal=causal, window=window), 20, flush),
+                "plain_ms": time_ms(torch, lambda: fa.flash_attention_plain(
+                    q, k, v, causal=causal, window=window), 3, flush),
+                "library_ms": time_ms(torch, library, 10, flush)}
+        line["bound_ms"], line["bound_by"] = flash_bound(
+            S, 32, Hkv, 128, causal, window, dt)
+        emit(line)
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        if (name, dt) == ("S1024_causal", "bfloat16"):
+            row.update(ms=line["ms"], plain_ms=line["plain_ms"],
+                       bound_ms=line["bound_ms"], bound_by=line["bound_by"],
+                       library_ms=line["library_ms"],
+                       shape=f"{name}/{dt}")
+    return {"flash_attention": row}
+
+
+def ssd_bound(S, H, P, N, chunk, dtype):
+    """(ms, bound_by): x, la, B, C read and y and the f32 final state
+    written once over HBM bandwidth, against the multiply-adds each
+    chunk of this length needs (C B^T and its product with x over the
+    causal pairs, C state^T and the state update), 2 operations each,
+    over the peak for x's type."""
+    elem = {"bfloat16": 2, "float32": 4}[dtype]
+    n_bytes = S * (2 * H * P + 2 * N) * elem + S * H * 4 + H * P * N * 4
+    macs = 0
+    for t0 in range(0, S, chunk):
+        q = min(chunk, S - t0)
+        pairs = q * (q + 1) // 2
+        macs += H * (pairs * (N + P) + 2 * q * P * N)
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * macs / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ssd_phase(torch, flush):
+    """The SSD-scan kernel against its plain version at Mamba-2-2.7B's
+    whole-prompt prefill shape; no single PyTorch call computes it."""
+    import importlib
+    ss = importlib.import_module("repro_torch.kernels.ssd_scan")
+    dev = torch.device("cuda")
+    H, P, N, chunk = 80, 64, 128, 128
+    row = {"name": "ssd_scan", "route": "cuda",
+           "source": "src/repro_torch/csrc/ssd_scan.cu",
+           "replaces": "src/repro/kernels/ssd_scan.py:85",
+           "max_abs_err": 0.0, "library_ms": None}
+    # decays as the model makes them: la = -dt * A, dt log-uniform on
+    # [1e-3, 1e-1] (softplus of the dt_bias draw), A = 1 .. H; x at unit
+    # scale and B, C at 0.3 (the scores C.B then have unit scale at N =
+    # 128, as in tests/test_torch_kernels_cuda.py: at unit-scale B and C
+    # they reach 11, and f32 cancellation alone moves outputs near zero
+    # past the 1e-4 absolute tolerance on either side)
+    for ci, S in enumerate((128, 1024, 1000)):
+        for dt in ("bfloat16", "float32"):
+            g = torch.Generator(device=dev).manual_seed(SEED + 200 + ci)
+            dtype = getattr(torch, dt)
+            x = torch.randn(1, S, H, P, generator=g, device=dev).to(dtype)
+            step = torch.exp(torch.rand(1, S, H, generator=g, device=dev)
+                             * np.log(100.0) + np.log(1e-3))
+            la = -step * torch.arange(1, H + 1, device=dev)
+            Bm = (0.3 * torch.randn(1, S, 1, N, generator=g,
+                                    device=dev)).to(dtype)
+            Cm = (0.3 * torch.randn(1, S, 1, N, generator=g,
+                                    device=dev)).to(dtype)
+            tol = SSD_BF16_TOL if dt == "bfloat16" else SSD_F32_TOL
+            y, st = ss.ssd_scan_kernel(x, la, Bm, Cm, chunk=chunk)
+            torch.cuda.synchronize()
+            py, pst = ss.ssd_scan_plain(x, la, Bm, Cm, chunk=chunk)
+            err, ratio = tol_ratio(y, py, tol)
+            st_err, st_ratio = tol_ratio(st, pst, SSD_F32_TOL)
+            check(ratio <= 1 and st_ratio <= 1,
+                  f"ssd S{S}/{dt}: kernel vs plain outside tolerance {tol}: "
+                  f"y error {err} (ratio {ratio}), state error {st_err} "
+                  f"(ratio {st_ratio})")
+            check(bool(torch.isfinite(y.float()).all()
+                       and torch.isfinite(st).all()),
+                  f"ssd S{S}/{dt}: non-finite output")
+            line = {"phase": "kernels", "kernel": "ssd_scan", "case": f"S{S}",
+                    "dtype": dt, "S": S, "H": H, "P": P, "G": 1, "N": N,
+                    "chunk": chunk, "rtol": tol[0], "atol": tol[1],
+                    "max_abs_err": err, "tol_ratio": ratio,
+                    "state_max_abs_err": st_err,
+                    "state_tol_ratio": st_ratio,
+                    "ms": time_ms(torch, lambda: ss.ssd_scan_kernel(
+                        x, la, Bm, Cm, chunk=chunk), 20, flush),
+                    "plain_ms": time_ms(torch, lambda: ss.ssd_scan_plain(
+                        x, la, Bm, Cm, chunk=chunk), 3, flush),
+                    "library_ms": None,
+                    "grid_blocks": H, "sms": torch.cuda.get_device_properties(
+                        dev).multi_processor_count}
+            line["bound_ms"], line["bound_by"] = ssd_bound(S, H, P, N, chunk,
+                                                           dt)
+            emit(line)
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            if (S, dt) == (1024, "bfloat16"):
+                row.update(ms=line["ms"], plain_ms=line["plain_ms"],
+                           bound_ms=line["bound_ms"],
+                           bound_by=line["bound_by"], shape=f"S{S}/{dt}")
+    return {"ssd_scan": row}
+
+
 # ---------------------------------------------------------------------------
 # 3. the engine at full width
 # ---------------------------------------------------------------------------
 def engine_phase(torch, kernel_rows):
     from repro_torch.configs import get_config
     from repro_torch.core import Request, jain, make_scheduler
-    from repro_torch.kernels.paged_attention import (LAUNCHES,
-                                                     reset_launch_counts)
     from repro_torch.predictor import MoPE
     from repro_torch.serving.costmodel import H100_SXM, CostModel
     from repro_torch.serving.engine import ServingEngine
@@ -364,20 +572,23 @@ def engine_phase(torch, kernel_rows):
             for r in produced:
                 self.tokens[r.rid].append(int(r._next_token))
 
-    cfg = get_config("llama2-7b")
-    t0 = time.perf_counter()
-    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED),
-                         "cuda")
-    torch.cuda.synchronize()
-    t_init = time.perf_counter() - t0
-    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
-    cm = CostModel(cfg, H100_SXM)
-    t0 = time.perf_counter()
-    mope = MoPE(cm, corpus(4000, seed=SEED), epochs=20, seed=SEED)
-    emit({"phase": "engine_setup", "model": cfg.name, "n_layers": cfg.n_layers,
-          "d_model": cfg.d_model, "dtype": cfg.dtype,
-          "weight_gib": n_bytes / 2 ** 30, "init_s": t_init,
-          "mope_train_s": time.perf_counter() - t0})
+    def setup(arch):
+        """(cfg, weights drawn on the card from SEED, cost model, MoPE)."""
+        cfg = get_config(arch)
+        t0 = time.perf_counter()
+        params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+            SEED), "cuda")
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+        cm = CostModel(cfg, H100_SXM)
+        t0 = time.perf_counter()
+        mope = MoPE(cm, corpus(4000, seed=SEED), epochs=20, seed=SEED)
+        emit({"phase": "engine_setup", "model": cfg.name,
+              "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+              "dtype": cfg.dtype, "weight_gib": n_bytes / 2 ** 30,
+              "init_s": t_init, "mope_train_s": time.perf_counter() - t0})
+        return cfg, params, cm, mope
 
     def requests(short):
         rng = np.random.default_rng(SEED + short)
@@ -395,29 +606,45 @@ def engine_phase(torch, kernel_rows):
                                output_len=olen, keywords=kw))
         return out
 
-    def serve(run, max_len, kv_quant, short, expect):
+    def serve(run, model, max_len, short, expect, **engine_kw):
+        """One run on a fresh engine; ``expect`` maps each kernel to
+        whether the run must launch it (or an exact count)."""
+        cfg, params, cm, mope = model
         spy = TokenSpy()
         sched = make_scheduler("equinox", predictor=copy.deepcopy(mope))
         eng = ServingEngine(cfg, sched, params=params, max_len=max_len,
-                            kv_quant=kv_quant, cost_model=cm, seed=SEED,
-                            observer=spy, keep_first_logits=True,
-                            device="cuda")
+                            cost_model=cm, seed=SEED, observer=spy,
+                            keep_first_logits=True, device="cuda",
+                            **engine_kw)
         finite = []
         sample = eng._sample
+        prefills = [0]
+        whole = eng._prefill_whole
 
         def checked_sample(row):             # every decode row's logits
             finite.append(bool(np.isfinite(row).all()))
             return sample(row)
 
+        def counted_prefill(req):            # every whole-prompt prefill
+            prefills[0] += 1
+            return whole(req)
+
         eng._sample = checked_sample
+        eng._prefill_whole = counted_prefill
         reqs = requests(short)
+        if eng.backend == "slots":
+            # slot caches do not wrap for full attention: a write past
+            # max_len would be dropped
+            check(all(r.prompt_len + r.output_len + 1 <= max_len
+                      for r in reqs), f"run {run}: a request outgrows "
+                  f"max_len {max_len}")
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
         t0 = time.perf_counter()
         done = eng.run(reqs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = dict(LAUNCHES)
+        launches = launch_counts()
         check(len(done) == len(reqs), f"run {run}: {len(done)}/{len(reqs)} "
               "finished")
         for r in done:
@@ -430,8 +657,14 @@ def engine_phase(torch, kernel_rows):
         check(all(finite), f"run {run}: non-finite decode logits")
         for name, want in expect.items():
             got = launches[name]
-            check(got > 0 if want else got == 0,
-                  f"run {run}: {name} launched {got} times")
+            if want == "per_layer_prefill":
+                want_n = cfg.n_layers * prefills[0]
+                check(prefills[0] > 0 and got == want_n,
+                      f"run {run}: {name} launched {got} times, not "
+                      f"{cfg.n_layers} layers x {prefills[0]} prefills")
+            else:
+                check(got > 0 if want else got == 0,
+                      f"run {run}: {name} launched {got} times")
         # whole iterations on the host clock (admission, planning, the
         # model step, sampling, bookkeeping); the step span of iter_log
         # is the model step and its copy back alone
@@ -440,8 +673,10 @@ def engine_phase(torch, kernel_rows):
         prompt_tokens = sum(r.prompt_len for r in done)
         output_tokens = sum(r.generated for r in done)
         ttft = np.array([r.ttft() for r in done])
-        emit({"phase": "engine", "run": run, "max_len": max_len,
-              "kv_quant": kv_quant, "requests": len(done),
+        emit({"phase": "engine", "run": run, "model": cfg.name,
+              "backend": eng.backend, "chunked": eng.chunked,
+              "max_len": max_len, "kv_quant": eng.kv_quant,
+              "requests": len(done), "prefill_calls_whole": prefills[0],
               "prompt_tokens": prompt_tokens, "output_tokens": output_tokens,
               "iterations": eng.iterations, "wall_s": wall,
               "iter_ms_mean": wall / eng.iterations * 1e3,
@@ -463,30 +698,100 @@ def engine_phase(torch, kernel_rows):
         torch.cuda.empty_cache()
         return tokens, firsts, launches
 
-    tok_a, first_a, la = serve("A", 512, False, False,
-                               {"paged_attention_splitk": True,
-                                "paged_attention": False})
-    tok_b, _, lb = serve("B", 512, True, False,
-                         {"paged_attention_splitk": True,
-                          "paged_attention": False})
-    _, _, lc = serve("C", 64, False, True,
-                     {"paged_attention": True,
-                      "paged_attention_splitk": False})
+    paged = {"paged_attention": False, "paged_attention_splitk": False,
+             "flash_attention": False, "ssd_scan": False}
+    llama = setup("llama2-7b")
+    tok_a, first_a, la = serve("A", llama, 512, False,
+                               dict(paged, paged_attention_splitk=True),
+                               backend="paged")
+    tok_b, _, lb = serve("B", llama, 512, False,
+                         dict(paged, paged_attention_splitk=True),
+                         backend="paged", kv_quant=True)
+    _, _, lc = serve("C", llama, 64, True,
+                     dict(paged, paged_attention=True), backend="paged")
     # reported, not asserted: int8 pages may flip a near-tie argmax
     agree = np.mean([tok_a[rid] == tok_b[rid] for rid in tok_a])
     emit({"phase": "engine", "greedy_agreement_fp_vs_int8": float(agree)})
-    dense_check(torch, params, cfg, first_a)
-    profile_window(torch, ServingEngine(
-        cfg, make_scheduler("equinox", predictor=copy.deepcopy(mope)),
-        params=params, max_len=512, cost_model=cm, seed=SEED,
-        device="cuda"), requests(False))
-    for name in kernel_rows:
+    _, first_d, ld = serve("D", llama, MAX_LEN_SLOTS, False,
+                           dict(paged, flash_attention="per_layer_prefill"),
+                           backend="slots", chunked=False)
+    first_token_check(first_d, first_a)
+    dense_check(torch, llama[1], llama[0], first_a)
+
+    def profiled(run, model, max_len, **engine_kw):
+        cfg, params, cm, mope = model
+        profile_window(torch, run, ServingEngine(
+            cfg, make_scheduler("equinox", predictor=copy.deepcopy(mope)),
+            params=params, max_len=max_len, cost_model=cm, seed=SEED,
+            device="cuda", **engine_kw), requests(False))
+
+    profiled("A", llama, 512, backend="paged")
+    profiled("D", llama, MAX_LEN_SLOTS, backend="slots", chunked=False)
+    del llama
+    torch.cuda.empty_cache()
+
+    mamba = setup("mamba2-2.7b")
+    _, _, le = serve("E", mamba, MAX_LEN_SLOTS, False,
+                     dict(paged, ssd_scan="per_layer_prefill"),
+                     backend="slots")
+    decode_consistency(torch, mamba[1], mamba[0])
+    profiled("E", mamba, MAX_LEN_SLOTS, backend="slots")
+    for name in ("paged_attention", "paged_attention_splitk"):
         kernel_rows[name]["launches"] = la[name] + lb[name] + lc[name]
+    kernel_rows["flash_attention"]["launches"] = ld["flash_attention"]
+    kernel_rows["ssd_scan"]["launches"] = le["ssd_scan"]
 
 
-def profile_window(torch, eng, reqs, warm=14, steps=10):
-    """Where an iteration's time goes (config of run A): all requests
-    arrive at once, ``warm`` iterations run the prompts in, then
+def first_token_check(firsts, ref):
+    """Run D's first-token logits (whole-prompt prefill through the flash
+    kernel) against run A's (chunked paged prefill through the paged
+    kernels) for the same prompts and weights: equal argmax, max
+    difference within DENSE_REL_TOL of the largest logit."""
+    worst, n_equal = 0.0, 0
+    for rid, (toks, row) in firsts.items():
+        ref_toks, ref_row = ref[rid]
+        check(np.array_equal(toks, ref_toks), f"rid {rid}: prompts differ "
+              "between runs A and D")
+        rel = float(np.abs(row - ref_row).max() / np.abs(ref_row).max())
+        worst = max(worst, rel)
+        n_equal += int(np.argmax(row)) == int(np.argmax(ref_row))
+    emit({"phase": "first_token_check", "runs": "D vs A",
+          "requests": len(firsts), "argmax_equal": n_equal,
+          "max_rel_err": worst})
+    check(n_equal == len(firsts), f"run D: first-token argmax differs from "
+          f"run A's on {len(firsts) - n_equal} of {len(firsts)} requests")
+    check(worst < DENSE_REL_TOL, f"run D: first-token logits differ from "
+          f"run A's by {worst} (relative)")
+
+
+def decode_consistency(torch, params, cfg, n=300):
+    """prefill of n tokens against prefill of the first n - 1 followed by
+    one decode step: holds the SSD-scan kernel's final state (and the
+    conv tail) against the ``ssd_step`` recurrence, as
+    tests/test_decode_consistency.py does on the CPU."""
+    from repro_torch.models.model import decode_step, prefill
+
+    toks = torch.from_numpy(np.random.default_rng(SEED + 7).integers(
+        0, cfg.vocab_size, (1, n))).to("cuda")
+    full, _ = prefill(params, {"tokens": toks}, cfg, n + 4)
+    _, cache = prefill(params, {"tokens": toks[:, :-1]}, cfg, n + 4)
+    step, _ = decode_step(params, toks[:, -1], cache, cfg)
+    full, step = full.float()[0].cpu().numpy(), step.float()[0].cpu().numpy()
+    rel = float(np.abs(step - full).max() / np.abs(full).max())
+    same = int(np.argmax(step)) == int(np.argmax(full))
+    emit({"phase": "decode_consistency", "model": cfg.name, "prompt_len": n,
+          "max_rel_err": rel, "argmax_equal": same,
+          "finite": bool(np.isfinite(step).all() and np.isfinite(full).all())})
+    check(np.isfinite(step).all() and np.isfinite(full).all(),
+          "decode consistency: non-finite logits")
+    check(rel < DENSE_REL_TOL and same, f"decode consistency: prefill + one "
+          f"decode step differs from the longer prefill by {rel} "
+          f"(relative), argmax equal: {same}")
+
+
+def profile_window(torch, run, eng, reqs, warm=14, steps=10):
+    """Where an iteration's time goes (the configuration of ``run``): all
+    requests arrive at once, ``warm`` iterations run the prompts in, then
     ``steps`` iterations are timed on the host clock and ``steps`` more
     under ``torch.profiler`` for device time by kernel.  Device busy
     share = device time per iteration / wall time per iteration."""
@@ -520,7 +825,7 @@ def profile_window(torch, eng, reqs, warm=14, steps=10):
 
     device_ms = sum(dev_us(e) for e in events) / 1e3 / steps
     top = sorted(events, key=dev_us, reverse=True)[:8]
-    emit({"phase": "profile", "iterations": steps,
+    emit({"phase": "profile", "run": run, "iterations": steps,
           "rows_per_iteration": rows / steps,
           "wall_ms_per_iteration": wall_ms,
           "device_ms_per_iteration": device_ms,

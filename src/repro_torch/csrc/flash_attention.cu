@@ -1,0 +1,287 @@
+// Blockwise prefill attention (causal, windowed or full, with GQA), for
+// Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py
+// (flash_attention_pallas, _flash_kernel).
+//
+// What it computes (the TPU kernel's contract): q (B, S, Hq, D) attends
+// k (B, S, Hkv, D) and v (B, S, Hkv, Dv); query head h reads kv head h / G
+// (G = Hq / Hkv).  Scores are (q . k) * sm_scale in f32; a masked score is
+// *set* to NEG_INF = -1e30, which is finite.  The mask is kpos < S, plus
+// kpos <= qpos when causal, plus kpos > qpos - window when window > 0.
+// The online softmax keeps (m, l, acc) in f32 and the output is
+// acc / max(l, 1e-30), rounded once to q's type.  f32 inputs are computed
+// with f32 FMAs throughout (no TF32), so the f32 path holds 1e-5.
+//
+// Bound: at the serving shape (S up to 1024, D = 128) the work is
+// 4 * S^2/2 * D operations per head against 4 * S * D bytes, hundreds of
+// operations per byte: bound by operations.  This first version runs them
+// on the f32 FMA units, not the tensor cores: one thread block per
+// (q tile of 64 rows, query head, batch row), 256 threads, each thread a
+// 4 x 4 tile of scores and a 4 x 8 tile of the output; Q, K and V tiles in
+// shared memory as f32 (the P tile reuses the K buffer), plain loads, no
+// pipelining.  wgmma, TMA and warp specialisation are later work.
+//
+// The TPU kernel runs every kv tile, fully masked ones included.  This
+// kernel walks only the kv tiles that hold a valid key for some row of the
+// block (below the diagonal, inside the band).  Skipping changes nothing:
+// a row's own diagonal key is always valid and lies in a walked tile, so
+// the first valid score sets corr = exp(-1e30 - m) = 0 and wipes whatever
+// fully masked entries had added before it.  q tiles are taken in reverse
+// order, so the longest causal rows start first.
+//
+// Plain C interface (loaded with ctypes); the launch is on the caller's
+// stream, allocates nothing and returns cudaGetLastError().
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kBQ = 64;            // query rows per block
+constexpr int kBKV = 64;           // keys per kv tile
+constexpr int kThreads = 256;      // 16 x 16 threads
+constexpr int kMaxD = 128;         // largest D and Dv
+constexpr int kQKStride = kMaxD + 4;   // f32 row stride of the Q and K tiles
+constexpr int kVStride = kMaxD;        // f32 row stride of the V tile
+constexpr int kPStride = kBKV + 4;     // f32 row stride of the P tile
+constexpr float kNegInf = -1e30f;
+constexpr size_t kSmemBytes =
+    sizeof(float) * (2 * kBQ * kQKStride + kBKV * kVStride);
+
+static_assert(kBQ == kBKV, "the P tile lives in the K buffer");
+static_assert(kBQ * kPStride <= kBKV * kQKStride, "P fits the K buffer");
+
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
+  __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<uint32_t*>(&a);
+  u.y = *reinterpret_cast<uint32_t*>(&b);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+struct Shape {
+  int B, S, Hq, Hkv, G, D, Dv, causal, window;
+  float sm_scale;
+};
+
+// Copy rows [row0, row0 + 64) of head `h` of a (B, S, H, width) tensor into
+// a 64-row f32 tile of `stride`; rows at or past S read as zeros.
+template <typename T>
+__device__ __forceinline__ void load_tile(float* __restrict__ dst, int stride,
+                                          const T* __restrict__ src, int b, int row0,
+                                          int S, int H, int h, int width) {
+  const int per_row = width / 4;
+  for (int idx = threadIdx.x; idx < kBQ * per_row; idx += kThreads) {
+    const int r = idx / per_row;
+    const int c = (idx - r * per_row) * 4;
+    const int s = row0 + r;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (s < S) v = load4(src + ((static_cast<int64_t>(b) * S + s) * H + h) * width + c);
+    store4(dst + r * stride + c, v);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, T* __restrict__ out, Shape P) {
+  extern __shared__ float4 smem_raw[];
+  float* q_s = reinterpret_cast<float*>(smem_raw);
+  float* k_s = q_s + kBQ * kQKStride;      // K tile, then the P tile
+  float* v_s = k_s + kBKV * kQKStride;
+  float* p_s = k_s;
+
+  const int qt = gridDim.x - 1 - blockIdx.x;   // longest causal rows first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = h / P.G;
+  const int q0 = qt * kBQ;
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+
+  load_tile(q_s, kQKStride, q, b, q0, P.S, P.Hq, h, P.D);
+
+  float m[4], l[4], acc[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[i][c] = 0.f;
+  }
+
+  // kv tiles that hold a valid key for some row of this block
+  int kv_lo = 0, kv_hi = P.S;
+  if (P.causal) kv_hi = min(P.S, q0 + kBQ);
+  if (P.window > 0) kv_lo = max(0, q0 - P.window + 1);
+  const bool wide_v = P.Dv > 64;
+
+  for (int kv0 = (kv_lo / kBKV) * kBKV; kv0 < kv_hi; kv0 += kBKV) {
+    load_tile(k_s, kQKStride, k, b, kv0, P.S, P.Hkv, hk, P.D);
+    load_tile(v_s, kVStride, v, b, kv0, P.S, P.Hkv, hk, P.Dv);
+    __syncthreads();
+
+    // scores: rows ty*4 + i, keys tx + 16*j
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    for (int d = 0; d < P.D; d += 4) {
+      float4 qv[4], kv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qv[i] = load4(q_s + (ty * 4 + i) * kQKStride + d);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) kv[j] = load4(k_s + (tx + 16 * j) * kQKStride + d);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = __fmaf_rn(qv[i].x, kv[j].x, s[i][j]);
+          s[i][j] = __fmaf_rn(qv[i].y, kv[j].y, s[i][j]);
+          s[i][j] = __fmaf_rn(qv[i].z, kv[j].z, s[i][j]);
+          s[i][j] = __fmaf_rn(qv[i].w, kv[j].w, s[i][j]);
+        }
+    }
+
+    // mask, then the online softmax of each row over its 16 threads
+    float corr[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qpos = q0 + ty * 4 + i;
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kpos = kv0 + tx + 16 * j;
+        bool ok = kpos < P.S;
+        if (P.causal) ok = ok && kpos <= qpos;
+        if (P.window > 0) ok = ok && kpos > qpos - P.window;
+        s[i][j] = ok ? s[i][j] * P.sm_scale : kNegInf;
+        mx = fmaxf(mx, s[i][j]);
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[i], mx);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = expf(s[i][j] - m_new);
+        sum += s[i][j];
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      corr[i] = expf(m[i] - m_new);
+      l[i] = l[i] * corr[i] + sum;
+      m[i] = m_new;
+    }
+
+    __syncthreads();                       // every thread is done with K
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) p_s[(ty * 4 + i) * kPStride + tx + 16 * j] = s[i][j];
+    __syncthreads();
+
+    // acc = acc * corr + P . V; columns tx*4.. and 64 + tx*4..
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[i][c] *= corr[i];
+    for (int j = 0; j < kBKV; j += 4) {
+      float4 pv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pv[i] = load4(p_s + (ty * 4 + i) * kPStride + j);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const float4 v0 = load4(v_s + (j + jj) * kVStride + tx * 4);
+        float4 v1 = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (wide_v) v1 = load4(v_s + (j + jj) * kVStride + 64 + tx * 4);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float p = jj == 0 ? pv[i].x : jj == 1 ? pv[i].y : jj == 2 ? pv[i].z : pv[i].w;
+          acc[i][0] = __fmaf_rn(p, v0.x, acc[i][0]);
+          acc[i][1] = __fmaf_rn(p, v0.y, acc[i][1]);
+          acc[i][2] = __fmaf_rn(p, v0.z, acc[i][2]);
+          acc[i][3] = __fmaf_rn(p, v0.w, acc[i][3]);
+          acc[i][4] = __fmaf_rn(p, v1.x, acc[i][4]);
+          acc[i][5] = __fmaf_rn(p, v1.y, acc[i][5]);
+          acc[i][6] = __fmaf_rn(p, v1.z, acc[i][6]);
+          acc[i][7] = __fmaf_rn(p, v1.w, acc[i][7]);
+        }
+      }
+    }
+    __syncthreads();                       // before the next tile's loads
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int s_row = q0 + ty * 4 + i;
+    if (s_row >= P.S) continue;
+    const float lc = fmaxf(l[i], 1e-30f);
+    T* dst = out + ((static_cast<int64_t>(b) * P.S + s_row) * P.Hq + h) * P.Dv;
+    if (tx * 4 < P.Dv)
+      store4(dst + tx * 4, make_float4(acc[i][0] / lc, acc[i][1] / lc,
+                                       acc[i][2] / lc, acc[i][3] / lc));
+    if (64 + tx * 4 < P.Dv)
+      store4(dst + 64 + tx * 4, make_float4(acc[i][4] / lc, acc[i][5] / lc,
+                                            acc[i][6] / lc, acc[i][7] / lc));
+  }
+}
+
+template <typename T>
+int launch(const void* q, const void* k, const void* v, void* out, const Shape& P,
+           cudaStream_t stream) {
+  static bool configured = false;          // opt in to > 48 KiB once per type
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(kSmemBytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  const dim3 grid((P.S + kBQ - 1) / kBQ, P.Hq, P.B);
+  flash_attention_kernel<T><<<grid, kThreads, kSmemBytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(out), P);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// q, k, v, out contiguous; dtype 0 = f32, 1 = bf16 (all four alike).
+int flash_attention_fwd(const void* q, const void* k, const void* v, void* out, int B,
+                        int S, int Hq, int Hkv, int D, int Dv, int causal, int window,
+                        int dtype, float sm_scale, void* stream) {
+  if (B < 1 || S < 1 || Hkv < 1 || Hq % Hkv != 0 || D % 4 || Dv % 4 || D < 4 ||
+      Dv < 4 || D > kMaxD || Dv > kMaxD || window < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Shape P{B, S, Hq, Hkv, Hq / Hkv, D, Dv, causal, window, sm_scale};
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch<float>(q, k, v, out, P, st);
+  if (dtype == 1) return launch<__nv_bfloat16>(q, k, v, out, P, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // extern "C"

@@ -1,13 +1,19 @@
-"""Plain oracle for the paged-attention kernels (port of
-``repro/kernels/ref.py::paged_attention_ref``).
+"""Plain oracles for the port's kernels (port of ``repro/kernels/ref.py``).
 
-Like the reference it averages V on rows with ``ctx_lens == 0`` (softmax
+``paged_attention_ref`` averages V on rows with ``ctx_lens == 0`` (softmax
 over an all-masked row), where the kernels return zeros: hold the kernels
 to each other and to the reference kernel, not to this oracle, on such
 rows."""
 from __future__ import annotations
 
 import torch
+
+from repro_torch.models.attention import naive_attention
+from repro_torch.models.ssm import ssd_chunked
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=0):
+    return naive_attention(q, k, v, causal=causal, window=window)
 
 
 def paged_attention_ref(q, k_pool, v_pool, block_tables, ctx_lens):
@@ -30,3 +36,8 @@ def paged_attention_ref(q, k_pool, v_pool, block_tables, ctx_lens):
         o = torch.einsum("kgt,tkd->kgd", w, vc[b].float())
         out.append(o.reshape(Hq, -1))
     return torch.stack(out).to(q.dtype)
+
+
+def ssd_scan_ref(x, la, Bm, Cm, *, chunk=128):
+    """Oracle = the model-layer chunked SSD."""
+    return ssd_chunked(x, la, Bm, Cm, chunk)

@@ -1,0 +1,213 @@
+"""Chunked SSD scan: Mamba-2 prefill's hot spot.
+
+Port of ``repro/kernels/ssd_scan.py``.  One kernel, written by hand in
+CUDA C++ for Hopper (``csrc/ssd_scan.cu``), replaces ``ssd_scan_pallas``;
+beside it is a plain PyTorch version of the same function, the chunked
+dual form of ``repro/models/ssm.py::ssd_chunked``.
+
+Inputs, as in the reference:
+    x   (B, S, H, P)   f32 or bf16
+    la  (B, S, H)      f32 log decay (<= 0)
+    Bm  (B, S, G, N)   x's dtype; head h reads group h // (H / G)
+    Cm  (B, S, G, N)   x's dtype
+    initial_state (B, H, P, N) f32 or None (zeros)
+Returns y (B, S, H, P) in x's dtype and the final state (B, H, P, N) f32.
+
+Per (b, h) the chunks are walked in order with the f32 state carried
+across them: within a chunk ``y = (C B^T * L) x + exp(la_cum) * (C
+state^T)`` with ``L[i, j] = exp(la_cum[i] - la_cum[j])`` for i >= j and 0
+otherwise (selected, never multiplied: for i < j the exponent is positive
+and may overflow), then ``state = exp(la_tot) state + (x * exp(la_tot -
+la_cum))^T B``.  The tail is padded with ``la = 0`` and ``x = 0``, which
+leaves the state unchanged.
+
+A wrapper runs the plain version only when its tensors lie on the CPU
+(the tests).  On CUDA tensors it launches the kernel or raises; there is
+no fallback.  ``LAUNCHES`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import _build
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# what the CUDA kernel's shared-memory tiles hold
+MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE = 128, 64, 128
+
+LAUNCHES: Dict[str, int] = {"ssd_scan": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _validate(x, la, Bm, Cm, chunk, initial_state):
+    if x.ndim != 4 or la.ndim != 3 or Bm.ndim != 4 or Cm.ndim != 4:
+        raise ValueError(f"ssd scan: x (B,S,H,P), la (B,S,H), Bm/Cm "
+                         f"(B,S,G,N); got {tuple(x.shape)}, {tuple(la.shape)}, "
+                         f"{tuple(Bm.shape)}, {tuple(Cm.shape)}")
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    if la.shape != (Bsz, S, H) or Bm.shape[:2] != (Bsz, S) \
+            or Cm.shape != Bm.shape:
+        raise ValueError(f"ssd scan: x {tuple(x.shape)}, la "
+                         f"{tuple(la.shape)}, Bm {tuple(Bm.shape)}, Cm "
+                         f"{tuple(Cm.shape)} do not agree")
+    if G == 0 or H % G:
+        raise ValueError(f"ssd scan: H={H} heads do not group evenly over "
+                         f"G={G} groups")
+    if chunk < 1:
+        raise ValueError(f"ssd scan: chunk must be >= 1, got {chunk}")
+    if initial_state is not None and \
+            initial_state.shape != (Bsz, H, P, N):
+        raise ValueError(f"ssd scan: initial_state must be "
+                         f"{(Bsz, H, P, N)}, got "
+                         f"{tuple(initial_state.shape)}")
+    devices = {t.device for t in (x, la, Bm, Cm, initial_state)
+               if t is not None}
+    if len(devices) != 1:
+        raise ValueError(f"ssd scan: tensors on mixed devices "
+                         f"{sorted(map(str, devices))}")
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch version
+# ---------------------------------------------------------------------------
+def ssd_scan_plain(x, la, Bm, Cm, *, chunk=128, initial_state=None):
+    """The SSD dual form of the reference's ``ssd_chunked``: every chunk's
+    intra-chunk term and state at once, then the inter-chunk recurrence as
+    a loop over chunks, all in f32."""
+    _validate(x, la, Bm, Cm, chunk, initial_state)
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    pad = (-S) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        la = F.pad(la, (0, 0, 0, pad))
+        Bm = F.pad(Bm, (0, 0, 0, 0, 0, pad))
+        Cm = F.pad(Cm, (0, 0, 0, 0, 0, pad))
+    nc = (S + pad) // chunk
+    rep = H // G
+    xs = x.reshape(Bsz, nc, chunk, H, P).float()
+    las = la.reshape(Bsz, nc, chunk, H).float()
+    Bh = Bm.reshape(Bsz, nc, chunk, G, N).float().repeat_interleave(rep, 3)
+    Ch = Cm.reshape(Bsz, nc, chunk, G, N).float().repeat_interleave(rep, 3)
+
+    la_cum = las.cumsum(2)                           # (B, nc, Q, H)
+    la_tot = la_cum[:, :, -1]                        # (B, nc, H)
+
+    # intra-chunk: masked-decay scores
+    scores = torch.einsum("bcihn,bcjhn->bchij", Ch, Bh)
+    lc = la_cum.transpose(2, 3)                      # (B, nc, H, Q)
+    decay = lc[..., :, None] - lc[..., None, :]      # [i, j] = cum_i - cum_j
+    tri = torch.ones(chunk, chunk, dtype=torch.bool, device=x.device).tril()
+    L = torch.where(tri, torch.exp(decay), torch.zeros_like(decay))
+    y = torch.einsum("bchij,bcjhp->bcihp", scores * L, xs)
+
+    # chunk states, then the inter-chunk recurrence
+    w = torch.exp(la_tot[:, :, None] - la_cum)       # (B, nc, Q, H)
+    states = torch.einsum("bcjhn,bcjhp,bcjh->bchpn", Bh, xs, w)
+    state = (torch.zeros((Bsz, H, P, N), device=x.device)
+             if initial_state is None else initial_state.float())
+    y_inter = []
+    for c in range(nc):
+        y_inter.append(torch.einsum("bihn,bhpn,bih->bihp", Ch[:, c], state,
+                                    torch.exp(la_cum[:, c])))
+        state = torch.exp(la_tot[:, c])[:, :, None, None] * state \
+            + states[:, c]
+    y = y + torch.stack(y_inter, 1)
+    y = y.reshape(Bsz, nc * chunk, H, P)[:, :S]
+    return y.to(x.dtype), state
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel (csrc/ssd_scan.cu)
+# ---------------------------------------------------------------------------
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("ssd_scan")
+    if lib.ssd_scan_fwd.argtypes is None:
+        lib.ssd_scan_fwd.argtypes = [_P] * 7 + [_I] * 8 + [_P]
+        lib.ssd_scan_fwd.restype = _I
+    return lib
+
+
+def _check_cuda(x, la, Bm, Cm, chunk, initial_state):
+    """Refuse anything the CUDA kernel does not take."""
+    named = {"x": x, "la": la, "Bm": Bm, "Cm": Cm,
+             "initial_state": initial_state}
+    for name, t in named.items():
+        if t is None:
+            continue
+        if not t.is_contiguous():
+            raise ValueError(f"ssd scan: {name} must be contiguous")
+        if t.data_ptr() % (4 * t.element_size()):
+            raise ValueError(f"ssd scan: {name} must start on a 4-element "
+                             "boundary (vector loads)")
+    if x.dtype not in _DTYPE_CODE:
+        raise ValueError(f"ssd scan: x dtype {x.dtype} not in (float32, "
+                         "bfloat16)")
+    if Bm.dtype != x.dtype or Cm.dtype != x.dtype:
+        raise ValueError(f"ssd scan: Bm {Bm.dtype} and Cm {Cm.dtype} must "
+                         f"have x's dtype {x.dtype}")
+    if la.dtype != torch.float32:
+        raise ValueError(f"ssd scan: la must be float32, got {la.dtype}")
+    if initial_state is not None and initial_state.dtype != torch.float32:
+        raise ValueError(f"ssd scan: initial_state must be float32, got "
+                         f"{initial_state.dtype}")
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[3]
+    if not 1 <= chunk <= MAX_CHUNK:
+        raise ValueError(f"ssd scan: chunk {chunk} not in [1, {MAX_CHUNK}]")
+    if P % 4 or not 4 <= P <= MAX_HEAD_DIM:
+        raise ValueError(f"ssd scan: head dim P={P} must be a multiple of 4 "
+                         f"in [4, {MAX_HEAD_DIM}]")
+    if N % 4 or not 4 <= N <= MAX_STATE:
+        raise ValueError(f"ssd scan: state dim N={N} must be a multiple of "
+                         f"4 in [4, {MAX_STATE}]")
+    if Bsz < 1 or S < 1 or Bsz > 65535:
+        raise ValueError(f"ssd scan: batch {Bsz}, length {S}")
+
+
+def _ssd_cuda(x, la, Bm, Cm, chunk, initial_state):
+    _check_cuda(x, la, Bm, Cm, chunk, initial_state)
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    y = torch.empty_like(x)
+    state = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _lib().ssd_scan_fwd(
+            x.data_ptr(), la.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+            None if initial_state is None else initial_state.data_ptr(),
+            y.data_ptr(), state.data_ptr(),
+            Bsz, S, H, P, G, N, chunk, _DTYPE_CODE[x.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"ssd_scan_fwd: CUDA error {rc} "
+                           f"({torch.cuda.get_device_name(x.device)})")
+    LAUNCHES["ssd_scan"] += 1
+    return y, state
+
+
+# ---------------------------------------------------------------------------
+# public wrapper
+# ---------------------------------------------------------------------------
+def ssd_scan_kernel(x, la, Bm, Cm, *, chunk=128, initial_state=None):
+    """Chunked SSD scan.  CPU tensors run ``ssd_scan_plain``; CUDA tensors
+    the kernel.  Returns (y, final_state)."""
+    _validate(x, la, Bm, Cm, chunk, initial_state)
+    if x.device.type == "cpu":
+        return ssd_scan_plain(x, la, Bm, Cm, chunk=chunk,
+                              initial_state=initial_state)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd scan: no kernel for {x.device}")
+    return _ssd_cuda(x, la, Bm, Cm, chunk, initial_state)

@@ -2,11 +2,16 @@
 
 Port of ``repro/launch/serve.py``: the continuous-batching engine
 (reduced model) under any scheduler against a synthetic or trace
-workload, reporting the paper's metrics.  Runs on the card by default;
-``--device cpu`` runs the kernels' plain versions on the CPU.
+workload, reporting the paper's metrics.  ``--backend slots`` (the
+default) serves per-slot caches with whole-prompt prefill for stacks
+that cannot chunk (Mamba-2: the SSD-scan kernel) and chunked prefill for
+the others; ``--backend paged`` serves paged KV pools through the
+paged-attention kernels.  Runs on the card by default; ``--device cpu``
+runs the kernels' plain versions on the CPU.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cuda \
-        --scheduler equinox --workload balanced --duration 5
+        --backend slots --arch mamba2-2.7b --scheduler equinox \
+        --workload balanced --duration 5
 """
 from __future__ import annotations
 
@@ -33,7 +38,9 @@ def build_predictor(name, cm, seed=0):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="llama2-7b")
+    ap.add_argument("--arch", default="llama2-7b",
+                    choices=sorted(SMOKE_FACTORIES))
+    ap.add_argument("--backend", default="slots", choices=["slots", "paged"])
     ap.add_argument("--scheduler", default="equinox",
                     choices=["fcfs", "rpm", "vtc", "equinox"])
     ap.add_argument("--predictor", default="mope",
@@ -66,14 +73,15 @@ def main(argv=None):
         r.output_len = max(2, int(r.output_len * s))
 
     eng = ServingEngine(cfg, sched, max_slots=args.max_slots,
-                        max_len=512, cost_model=cm, backend="paged",
+                        max_len=512, cost_model=cm, backend=args.backend,
                         seed=args.seed, device=args.device)
     done = eng.run(reqs)
     ttfts = np.array([r.ttft() for r in done if r.ttft() is not None])
     lats = np.array([r.e2e_latency() for r in done])
     tput = sum(r.prompt_len + r.generated for r in done) / max(eng.t_model,
                                                                1e-9)
-    print(f"scheduler={args.scheduler} predictor={args.predictor} "
+    print(f"arch={args.arch} backend={args.backend} "
+          f"scheduler={args.scheduler} predictor={args.predictor} "
           f"workload={args.workload} device={eng.device}")
     print(f"finished {len(done)}/{len(reqs)} requests, "
           f"{eng.iterations} engine iterations")

@@ -1,0 +1,333 @@
+"""Model assembly: the decoder stacks the port serves, behind the
+reference's API.
+
+Port of ``repro/models/model.py`` for uniform stacks of dense GQA
+attention (``ATTN``, e.g. Llama-2-7B) and of Mamba-2 (``MAMBA2``).  The
+stack is grouped into *stages*, maximal runs of layers with identical
+(kind, is_moe) structure, each stage's per-layer parameters stacked on a
+leading axis; a stage runs as a Python loop over that axis (the
+reference's ``lax.scan``).  Other kinds and options raise
+``NotImplementedError`` naming the ``ROADMAP.md`` item that ports them.
+
+    prefill(params, batch, cfg, max_len)    -> (last_logits, cache)
+    prefill_chunk(params, tokens, cfg, cache) -> (last_logits, cache)
+    decode_step(params, tokens, cache, cfg) -> (logits, cache)
+    init_cache(cfg, batch, max_len, device=...) -> zeroed cache
+
+Caches keep the reference's layout (``{"pos": (B,), "stages":
+{"stage_i": {...}}}`` with a leading layer axis).  ``prefill_chunk`` and
+``decode_step`` update the cache they are given in place and return it
+with the new positions; ``prefill`` builds a new one.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import (ATTN, ATTN_LOCAL, ATTN_MLA, MAMBA2,
+                                      RGLRU, ModelConfig)
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.layers import dtype_of, embed, mlp, rmsnorm, unembed
+
+# what each stack feature still needs, by ROADMAP.md item
+_UNPORTED_KINDS = {
+    ATTN_LOCAL: "sliding-window attention (ROADMAP.md Queue A item 6b)",
+    ATTN_MLA: "MLA attention (ROADMAP.md Queue A item 6c)",
+    RGLRU: "RG-LRU blocks (ROADMAP.md Queue A item 6f)",
+}
+
+
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a stack the port cannot run yet."""
+    if cfg.moe is not None:
+        raise NotImplementedError(f"{cfg.name}: MoE layers (ROADMAP.md "
+                                  "Queue A item 6d) are not ported")
+    for kind in sorted(set(cfg.layer_kinds())):
+        if kind in _UNPORTED_KINDS:
+            raise NotImplementedError(
+                f"{cfg.name}: {_UNPORTED_KINDS[kind]} is not ported")
+        if kind not in (ATTN, MAMBA2):
+            raise NotImplementedError(f"{cfg.name}: layer kind {kind!r} is "
+                                      "not ported")
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(f"{cfg.name}: encoder-decoder stacks and "
+                                  "cross-attention (ROADMAP.md Queue A item "
+                                  "6e) are not ported")
+    if cfg.frontend != "text":
+        raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} frontend "
+                                  "(ROADMAP.md Queue A item 6g) is not "
+                                  "ported")
+    if cfg.kv_quant:
+        raise NotImplementedError(f"{cfg.name}: int8 slot caches "
+                                  "(cfg.kv_quant, ROADMAP.md Queue A item "
+                                  "6h) are not ported; int8 KV pages are "
+                                  "(ServingEngine(kv_quant=True))")
+
+
+# ---------------------------------------------------------------------------
+# Stage structure
+# ---------------------------------------------------------------------------
+def model_stages(cfg: ModelConfig):
+    """(kind, moe_flag, count) runs over the decoder stack."""
+    kinds = cfg.layer_kinds()
+    runs = []
+    for i, k in enumerate(kinds):
+        moe_flag = cfg.is_moe_layer(i) and k != MAMBA2
+        if runs and runs[-1][0] == k and runs[-1][1] == moe_flag:
+            runs[-1][2] += 1
+        else:
+            runs.append([k, moe_flag, 1])
+    return [tuple(r) for r in runs]
+
+
+def _window_for(cfg, kind):
+    if kind in (ATTN_LOCAL, ATTN_MLA):
+        return cfg.window
+    return 0
+
+
+def _layer(tree, i):
+    """Layer ``i`` of a stage's stacked parameter (or cache) tree."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _stack(entries):
+    """Per-layer dicts of tensors -> one dict with a leading layer axis."""
+    return {k: torch.stack([e[k] for e in entries]) for k in entries[0]}
+
+
+# ---------------------------------------------------------------------------
+# Block forward (full sequence: prefill)
+# ---------------------------------------------------------------------------
+def _block_forward(lp, x, cfg, kind, positions, *, want_cache=False):
+    """Returns (x, cache_entry_or_None)."""
+    h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
+    window = _window_for(cfg, kind)
+    cache = None
+    if kind == ATTN:
+        y, (k, v) = attn_mod.gqa_prefill(lp["attn"], h, positions, cfg,
+                                         window=window)
+        if want_cache:
+            cache = {"k": k, "v": v}
+    elif kind == MAMBA2:
+        y, st = ssm_mod.mamba2_prefill(lp["attn"], h, cfg)
+        if want_cache:
+            cache = st
+    else:
+        raise NotImplementedError(f"layer kind {kind!r} is not ported")
+    x = x + y
+    if kind != MAMBA2:
+        h2 = rmsnorm(lp["ln2"], x, cfg.norm_eps)
+        x = x + mlp(lp["ffn"], h2, cfg.act)
+    return x, cache
+
+
+def _fit_cache_seq(arr, S_cache):
+    """Place a (B, S, ...) prefill cache tensor into an S_cache ring/buffer
+    such that token t sits at slot t % S_cache (matches decode writes)."""
+    S = arr.shape[1]
+    if S == S_cache:
+        return arr
+    if S < S_cache:
+        out = arr.new_zeros((arr.shape[0], S_cache) + arr.shape[2:])
+        out[:, :S] = arr
+        return out
+    slots = torch.arange(S - S_cache, S, device=arr.device) % S_cache
+    out = arr.new_zeros((arr.shape[0], S_cache) + arr.shape[2:])
+    out[:, slots] = arr[:, S - S_cache:]
+    return out
+
+
+def _run_stage(stage_params, x, cfg, kind, count, positions, *,
+               want_cache=False):
+    """The stage's layers in order; returns (x, stacked caches or None)."""
+    caches = []
+    for i in range(count):
+        x, cache = _block_forward(_layer(stage_params, i), x, cfg, kind,
+                                  positions, want_cache=want_cache)
+        caches.append(cache)
+    return x, _stack(caches) if want_cache else None
+
+
+# ---------------------------------------------------------------------------
+# Full forward -> hidden states
+# ---------------------------------------------------------------------------
+@torch.no_grad()
+def forward_hidden(params, batch, cfg, *, want_cache=False):
+    """Causal forward of a text batch.  Returns (hidden (B,S,d), caches
+    per stage, or None per stage without ``want_cache``)."""
+    check_ported(cfg)
+    tokens = batch["tokens"]
+    x = embed(params["embed"], tokens).to(dtype_of(cfg))
+    B, S = tokens.shape
+    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    caches = []
+    for i, (kind, _moe, count) in enumerate(model_stages(cfg)):
+        x, cache = _run_stage(params["stages"][f"stage_{i}"], x, cfg, kind,
+                              count, positions, want_cache=want_cache)
+        caches.append(cache)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return x, caches
+
+
+# ---------------------------------------------------------------------------
+# KV / state cache
+# ---------------------------------------------------------------------------
+def _cache_seq_len(cfg, kind, max_len):
+    w = _window_for(cfg, kind)
+    return min(max_len, w) if w else max_len
+
+
+def _stage_cache_zeros(cfg, kind, count, B, max_len, dt, device):
+    hd = cfg.resolved_head_dim()
+    S_c = _cache_seq_len(cfg, kind, max_len)
+    if kind == ATTN:
+        shape = (count, B, S_c, cfg.n_kv_heads, hd)
+        return {"k": torch.zeros(shape, dtype=dt, device=device),
+                "v": torch.zeros(shape, dtype=dt, device=device)}
+    if kind == MAMBA2:
+        s = cfg.ssm
+        _, nh, conv_dim = ssm_mod.mamba2_dims(cfg)
+        return {"conv_state": torch.zeros((count, B, s.conv_width - 1,
+                                           conv_dim), dtype=dt, device=device),
+                "ssm_state": torch.zeros((count, B, nh, s.head_dim,
+                                          s.d_state), dtype=torch.float32,
+                                         device=device)}
+    raise NotImplementedError(f"layer kind {kind!r} is not ported")
+
+
+@torch.no_grad()
+def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
+               pos: int = 0, *, device):
+    check_ported(cfg)
+    dt = dtype_of(cfg)
+    cache = {"pos": torch.full((batch_size,), pos, dtype=torch.int32,
+                               device=device), "stages": {}}
+    for i, (kind, _moe, count) in enumerate(model_stages(cfg)):
+        cache["stages"][f"stage_{i}"] = _stage_cache_zeros(
+            cfg, kind, count, batch_size, max_len, dt, device)
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# Prefill (returns last-token logits + populated cache)
+# ---------------------------------------------------------------------------
+@torch.no_grad()
+def prefill(params, batch, cfg: ModelConfig, max_len: int):
+    hidden, caches = forward_hidden(params, batch, cfg, want_cache=True)
+    logits = unembed(params["embed"], hidden[:, -1])
+    B, S = batch["tokens"].shape
+    cache = {"pos": torch.full((B,), S, dtype=torch.int32,
+                               device=hidden.device), "stages": {}}
+    for i, (kind, _moe, _count) in enumerate(model_stages(cfg)):
+        sc = caches[i]
+        S_c = _cache_seq_len(cfg, kind, max_len)
+        fitted = {}
+        for name, arr in sc.items():
+            if kind == ATTN and name in ("k", "v"):
+                # (L, B, S, ...) -> fit each layer's (B, S, ...) slice
+                L = arr.shape[0]
+                fit = _fit_cache_seq(arr.reshape(L * B, *arr.shape[2:]), S_c)
+                fitted[name] = fit.reshape(L, B, *fit.shape[1:])
+            else:
+                fitted[name] = arr
+        cache["stages"][f"stage_{i}"] = fitted
+    return logits, cache
+
+
+# ---------------------------------------------------------------------------
+# Incremental (chunked) prefill: extend an existing cache by one chunk
+# ---------------------------------------------------------------------------
+def supports_chunked_prefill(cfg: ModelConfig) -> bool:
+    """Incremental prefill needs an append-only cache the chunk can attend
+    into: uniform full-attention dense/MoE GQA stacks (the paper's Llama-2
+    testbed shape, and everything the paged backend serves).  Recurrent,
+    hybrid, windowed, MLA, encoder-decoder and modality-frontend stacks
+    fall back to whole-prompt prefill in the engine."""
+    return (set(cfg.layer_kinds()) == {ATTN}
+            and not cfg.is_encoder_decoder
+            and cfg.frontend == "text"
+            and not cfg.kv_quant
+            and cfg.window == 0)
+
+
+@torch.no_grad()
+def prefill_chunk(params, tokens, cfg: ModelConfig, cache):
+    """Extend a ``prefill``/``init_cache``-layout cache by one prompt chunk,
+    in place.
+
+    tokens: (B, C) int at absolute positions [pos, pos+C) where
+    ``pos = cache["pos"]`` (all rows equal: the engine runs one request
+    per call).  Returns (last-token logits (B, V), the cache advanced to
+    pos+C).  ``prefill(p)`` equals any sequence of ``prefill_chunk`` calls
+    covering p."""
+    assert supports_chunked_prefill(cfg), \
+        f"{cfg.name}: architecture has no incremental-prefill support"
+    check_ported(cfg)
+    start = int(cache["pos"][0])
+    B, C = tokens.shape
+    x = embed(params["embed"], tokens).to(dtype_of(cfg))
+    for i, (_kind, _moe, count) in enumerate(model_stages(cfg)):
+        sp = params["stages"][f"stage_{i}"]
+        sc = cache["stages"][f"stage_{i}"]
+        for li in range(count):
+            lp = _layer(sp, li)
+            hn = rmsnorm(lp["ln1"], x, cfg.norm_eps)
+            y, _ = attn_mod.gqa_prefill_chunk(lp["attn"], hn, sc["k"][li],
+                                              sc["v"][li], start, cfg)
+            x = x + y
+            h2 = rmsnorm(lp["ln2"], x, cfg.norm_eps)
+            x = x + mlp(lp["ffn"], h2, cfg.act)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    logits = unembed(params["embed"], x[:, -1])
+    return logits, {"pos": cache["pos"] + C, "stages": cache["stages"]}
+
+
+# ---------------------------------------------------------------------------
+# Decode: one token through every layer
+# ---------------------------------------------------------------------------
+def _block_decode(lp, x1, c, pos, cfg, kind):
+    h = rmsnorm(lp["ln1"], x1, cfg.norm_eps)
+    window = _window_for(cfg, kind)
+    if kind == ATTN:
+        y, (k, v) = attn_mod.gqa_decode(lp["attn"], h, c["k"], c["v"], pos,
+                                        cfg, window=window)
+        c = dict(c, k=k, v=v)
+    elif kind == MAMBA2:
+        y, st = ssm_mod.mamba2_decode(
+            lp["attn"], h, {k: c[k] for k in ("conv_state", "ssm_state")}, cfg)
+        c = dict(c, **st)
+    else:
+        raise NotImplementedError(f"layer kind {kind!r} is not ported")
+    x1 = x1 + y
+    if kind != MAMBA2:
+        h2 = rmsnorm(lp["ln2"], x1, cfg.norm_eps)
+        x1 = x1 + mlp(lp["ffn"], h2, cfg.act)
+    return x1, c
+
+
+@torch.no_grad()
+def decode_step(params, tokens, cache, cfg: ModelConfig):
+    """tokens: (B,) int.  Returns (logits (B, V), cache), the cache updated
+    in place with ``pos`` advanced by one.
+
+    ``cache['pos']`` is a per-request (B,) position vector, so a decode
+    batch may mix requests at different sequence offsets (continuous
+    batching)."""
+    check_ported(cfg)
+    pos = cache["pos"]
+    x = embed(params["embed"], tokens)[:, None].to(dtype_of(cfg))
+    for i, (kind, _moe, count) in enumerate(model_stages(cfg)):
+        sp = params["stages"][f"stage_{i}"]
+        sc = cache["stages"][f"stage_{i}"]
+        for li in range(count):
+            c = _layer(sc, li)
+            x, c_new = _block_decode(_layer(sp, li), x, c, pos, cfg, kind)
+            for name, t in c_new.items():      # recurrent states are new
+                if t.data_ptr() != c[name].data_ptr():  # tensors: store
+                    sc[name][li].copy_(t)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    logits = unembed(params["embed"], x[:, 0])
+    return logits, {"pos": pos + 1, "stages": cache["stages"]}

@@ -1,0 +1,163 @@
+"""Mamba-2 block with the SSD (state-space duality) chunked algorithm.
+
+Port of ``repro/models/ssm.py``.  Prefill runs the chunked dual form
+[arXiv:2405.21060 §6]: on CUDA tensors ``ssd_chunked`` launches the
+hand-written SSD-scan kernel (``repro_torch.kernels.ssd_scan``, the port
+of ``ssd_scan_pallas``), on CPU tensors its plain version.  Decode runs
+the O(1)-per-token diagonal recurrence.  Plain functions over the
+reference's parameter layout; f32 wherever the reference computes in f32.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.ssd_scan import ssd_scan_kernel
+from repro_torch.models.layers import dense_init, rmsnorm
+
+
+def mamba2_dims(cfg):
+    s = cfg.ssm
+    d_in = s.expand * cfg.d_model
+    n_heads = d_in // s.head_dim
+    conv_dim = d_in + 2 * s.n_groups * s.d_state
+    return d_in, n_heads, conv_dim
+
+
+def mamba2_init(cfg, dtype, generator: torch.Generator, device):
+    """The reference's distributions: fan-in truncated-normal projections,
+    N(0, 0.1^2) conv taps, zero conv bias, A_log = log(1..H), dt_bias the
+    inverse softplus of a log-uniform draw on [1e-3, 1e-1], D = 1.
+    A_log, dt_bias and D stay f32 in a bf16 model."""
+    s = cfg.ssm
+    d = cfg.d_model
+    d_in, nh, conv_dim = mamba2_dims(cfg)
+    proj_out_dim = 2 * d_in + 2 * s.n_groups * s.d_state + nh
+    f32 = dict(dtype=torch.float32, device=device)
+    u = torch.rand((nh,), generator=generator, **f32)
+    dt = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
+    dt_bias = dt + torch.log(-torch.expm1(-dt))     # inverse softplus
+    conv_w = torch.randn((s.conv_width, conv_dim), generator=generator,
+                         **f32) * 0.1
+    return {
+        "in_proj": dense_init((d, proj_out_dim), dtype, generator, device),
+        "conv_w": conv_w.to(dtype),
+        "conv_b": torch.zeros((conv_dim,), dtype=dtype, device=device),
+        "A_log": torch.log(torch.arange(1, nh + 1, **f32)),
+        "dt_bias": dt_bias,
+        "D": torch.ones((nh,), **f32),
+        "norm": {"scale": torch.ones((d_in,), dtype=dtype, device=device)},
+        "out_proj": dense_init((d_in, d), dtype, generator, device),
+    }
+
+
+def _split_proj(cfg, proj):
+    s = cfg.ssm
+    d_in, _, _ = mamba2_dims(cfg)
+    gn = s.n_groups * s.d_state
+    z = proj[..., :d_in]
+    xbc = proj[..., d_in:2 * d_in + 2 * gn]
+    dt_raw = proj[..., 2 * d_in + 2 * gn:]
+    return z, xbc, dt_raw
+
+
+def causal_conv(x, w, b):
+    """Depthwise causal conv.  x: (B, S, C); w: (W, C).  The W taps are
+    summed in f32 on shifted copies (no cuDNN, so no TF32)."""
+    W, S = w.shape[0], x.shape[1]
+    xp = F.pad(x.float(), (0, 0, W - 1, 0))
+    wf = w.float()
+    out = xp[:, 0:S] * wf[0]
+    for t in range(1, W):
+        out = out + xp[:, t:t + S] * wf[t]
+    return (out + b.float()).to(x.dtype)
+
+
+def _conv_tail(x, conv_width):
+    """Last (W-1) raw conv inputs, left-padded with zeros if S < W-1."""
+    need = conv_width - 1
+    S = x.shape[1]
+    if S >= need:
+        return x[:, S - need:]
+    return F.pad(x, (0, 0, need - S, 0))
+
+
+def conv_step(x1, conv_state, w, b):
+    """One-token conv.  x1: (B, C); conv_state: (B, W-1, C) past inputs."""
+    window = torch.cat([conv_state, x1[:, None]], dim=1)     # (B, W, C)
+    out = torch.einsum("bwc,wc->bc", window.float(), w.float()) + b.float()
+    return out.to(x1.dtype), window[:, 1:]
+
+
+def ssd_chunked(x, la, Bm, Cm, chunk, initial_state=None):
+    """SSD dual form.  x: (B,S,H,P); la: (B,S,H) log-decay (<=0);
+    Bm/Cm: (B,S,G,N).  Returns (y, final_state (B,H,P,N) f32).  CUDA
+    tensors launch the SSD-scan kernel, initial state included."""
+    return ssd_scan_kernel(x, la, Bm, Cm, chunk=chunk,
+                           initial_state=initial_state)
+
+
+def ssd_step(x1, la1, B1, C1, state):
+    """One-token recurrence.  x1: (B,H,P); la1: (B,H); B1/C1: (B,G,N);
+    state: (B,H,P,N)."""
+    H, G = x1.shape[1], B1.shape[1]
+    Bh = B1.repeat_interleave(H // G, dim=1).float()         # (B,H,N)
+    Ch = C1.repeat_interleave(H // G, dim=1).float()
+    a = torch.exp(la1.float())[:, :, None, None]
+    state = a * state + x1.float()[..., None] * Bh[:, :, None, :]
+    y = torch.einsum("bhpn,bhn->bhp", state, Ch)
+    return y.to(x1.dtype), state
+
+
+def _gates(params, cfg, xbc_conv, dt_raw, lead):
+    """Split the conv output into x heads, B, C and the f32 step sizes."""
+    s = cfg.ssm
+    d_in, nh, _ = mamba2_dims(cfg)
+    gn = s.n_groups * s.d_state
+    xh = xbc_conv[..., :d_in].reshape(*lead, nh, s.head_dim)
+    Bm = xbc_conv[..., d_in:d_in + gn].reshape(*lead, s.n_groups, s.d_state)
+    Cm = xbc_conv[..., d_in + gn:].reshape(*lead, s.n_groups, s.d_state)
+    dt = F.softplus(dt_raw.float() + params["dt_bias"])
+    la = -dt * torch.exp(params["A_log"])                    # log decay
+    return xh, Bm, Cm, dt, la
+
+
+def mamba2_prefill(params, x, cfg):
+    """x: (B, S, d).  Returns (y, cache dict with conv_state + ssm_state)."""
+    s = cfg.ssm
+    d_in, _, _ = mamba2_dims(cfg)
+    Bsz, S, _ = x.shape
+    proj = x @ params["in_proj"]
+    z, xbc, dt_raw = _split_proj(cfg, proj)
+    xbc_conv = F.silu(causal_conv(xbc, params["conv_w"], params["conv_b"]))
+    xh, Bm, Cm, dt, la = _gates(params, cfg, xbc_conv, dt_raw, (Bsz, S))
+    x_in = (xh * dt[..., None].to(xh.dtype)).contiguous()
+    y, final_state = ssd_chunked(x_in, la.contiguous(), Bm.contiguous(),
+                                 Cm.contiguous(), s.chunk_size)
+    y = y + (params["D"][:, None] * xh.float()).to(y.dtype)
+    y = y.reshape(Bsz, S, d_in)
+    y = rmsnorm(params["norm"], y * F.silu(z), cfg.norm_eps)
+    out = y @ params["out_proj"]
+    cache = {"conv_state": _conv_tail(xbc, s.conv_width),
+             "ssm_state": final_state}
+    return out, cache
+
+
+def mamba2_decode(params, x1, cache, cfg):
+    """x1: (B, 1, d).  Returns (y, new cache dict)."""
+    d_in, _, _ = mamba2_dims(cfg)
+    Bsz = x1.shape[0]
+    proj = (x1 @ params["in_proj"])[:, 0]
+    z, xbc, dt_raw = _split_proj(cfg, proj)
+    xbc_c, conv_state = conv_step(xbc, cache["conv_state"], params["conv_w"],
+                                  params["conv_b"])
+    xh, Bm, Cm, dt, la = _gates(params, cfg, F.silu(xbc_c), dt_raw, (Bsz,))
+    y, state = ssd_step(xh * dt[..., None].to(xh.dtype), la, Bm, Cm,
+                        cache["ssm_state"])
+    y = y + (params["D"][:, None] * xh.float()).to(y.dtype)
+    y = y.reshape(Bsz, 1, d_in)
+    y = rmsnorm(params["norm"], y * F.silu(z[:, None]), cfg.norm_eps)
+    out = y @ params["out_proj"]
+    return out, {"conv_state": conv_state, "ssm_state": state}

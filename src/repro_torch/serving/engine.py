@@ -1,10 +1,19 @@
 """Continuous-batching serving engine running a PyTorch model on the card.
 
-Port of ``repro/serving/engine.py`` for ``backend="paged"`` with
-stall-free chunked prefill, the paper's Llama-2 testbed path: paged KV
-pools on the device and the hand-written CUDA paged-attention kernels
-(``repro_torch.kernels``).  Every iteration's prefill-chunk rows and
-decode rows go down in one ragged ``_paged_decode_step`` call.
+Port of ``repro/serving/engine.py``.  Two decode backends, as in the
+reference:
+
+- ``slots`` (the default): per-slot contiguous caches through
+  ``models.decode_step`` with per-request positions, for dense-attention
+  and Mamba-2 stacks.  Prompts run whole (``models.prefill``: the flash
+  attention kernel or the SSD-scan kernel, one launch per layer) or, for
+  stacks that ``supports_chunked_prefill``, in chunks
+  (``models.prefill_chunk``);
+- ``paged``: paged KV pools on the device and the hand-written CUDA
+  paged-attention kernels (``repro_torch.kernels``), the paper's Llama-2
+  testbed path.  With chunked prefill every iteration's prefill-chunk
+  rows and decode rows go down in one ragged ``_paged_decode_step`` call;
+  with whole-prompt prefill the prompt's cache is scattered into pages.
 
 Timing uses a dual clock: wall-clock for real measurements
 (``iter_log``: each iteration's model step) and the analytic cost model for target-hardware metrics
@@ -36,9 +45,13 @@ from repro_torch.kernels import paged_attention
 from repro_torch.models.attention import quantize_kv
 from repro_torch.models.layers import (apply_rope, dtype_of, embed, mlp,
                                        rmsnorm, unembed)
+from repro_torch.models.model import (check_ported, decode_step, init_cache,
+                                      model_stages, prefill, prefill_chunk,
+                                      supports_chunked_prefill)
 from repro_torch.serving.batch_core import BatchConfig, BatchCore
 from repro_torch.serving.costmodel import CostModel
-from repro_torch.serving.kv_cache import PagePool, make_pools
+from repro_torch.serving.kv_cache import (PagePool, make_pools,
+                                          scatter_prefill)
 from repro_torch.weights import init_params, resolve_device
 
 
@@ -53,9 +66,9 @@ class ServingEngine:
                  params=None, max_slots: int = 8, max_len: int = 512,
                  kv_budget_tokens: Optional[int] = None,
                  cost_model: Optional[CostModel] = None,
-                 backend: str = "paged", page_size: int = 16,
+                 backend: str = "slots", page_size: int = 16,
                  seed: int = 0, sample_temp: float = 0.0,
-                 chunked: bool = True,
+                 chunked: Optional[bool] = None,
                  prefill_chunk_tokens: int = 512,
                  target_iter_time: float = 0.25,
                  slo_budget: str = "static",
@@ -63,20 +76,9 @@ class ServingEngine:
                  kv_quant: bool = False,
                  keep_first_logits: bool = False,
                  observer=None, admission=None, device=None):
-        if backend != "paged" or not chunked:
-            raise NotImplementedError(
-                "only backend='paged' with chunked prefill is ported; the "
-                "slots backend and whole-prompt prefill are ROADMAP.md "
-                "Queue A item 6")
-        if prefix_cache:
-            raise NotImplementedError(
-                "prefix_cache is ROADMAP.md Queue A item 11")
-        if cfg.moe is not None:
-            raise NotImplementedError(
-                "MoE stacks on the paged step are ROADMAP.md Queue A item 6")
-        if set(cfg.layer_kinds()) != {ATTN} or cfg.is_encoder_decoder:
-            raise ValueError("paged backend supports uniform dense-GQA "
-                             "stacks")
+        if backend not in ("slots", "paged"):
+            raise ValueError(f"backend must be 'slots' or 'paged', got "
+                             f"{backend!r}")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.sched = scheduler
@@ -85,7 +87,34 @@ class ServingEngine:
         # debug/test probe: retain each request's first-token logits row
         self.keep_first_logits = keep_first_logits
         self.cm = cost_model or CostModel(cfg)
+        if chunked is None:
+            chunked = supports_chunked_prefill(cfg)
+        elif chunked:
+            assert supports_chunked_prefill(cfg), \
+                f"{cfg.name}: no incremental-prefill support (see " \
+                "models.supports_chunked_prefill)"
+        self.chunked = chunked
+        if kv_quant:
+            # int8 KV pages (DESIGN.md §16) live in the paged pools and
+            # are dequantized inside the kernel; the slots backend keeps
+            # its own fp caches
+            assert backend == "paged" and self.chunked, \
+                "kv_quant requires the paged backend + chunked prefill"
+        if prefix_cache:
+            # shared-prefix radix KV cache (DESIGN.md §9): only the paged
+            # backend can point several block tables at one physical page,
+            # and only chunked prefill can resume from a cached offset
+            assert backend == "paged" and self.chunked, \
+                "prefix_cache requires the paged backend + chunked prefill"
+            raise NotImplementedError(
+                "prefix_cache is ROADMAP.md Queue A item 11")
+        check_ported(cfg)
+        if backend == "paged":
+            kinds = {k for k, _, _ in model_stages(cfg)}
+            assert kinds == {ATTN} and not cfg.is_encoder_decoder, \
+                "paged backend supports uniform dense-GQA stacks"
         self.kv_quant = kv_quant
+        self.backend = backend
         self.core = BatchCore(
             scheduler, self.cm,
             BatchConfig(max_batch=max_slots,
@@ -98,12 +127,15 @@ class ServingEngine:
                         prefill_chunk=prefill_chunk_tokens,
                         target_iter_time=target_iter_time,
                         slo_budget=slo_budget,
-                        adaptive_batching=True,
-                        stall_free=True,
-                        # page-rounded KV accounting (DESIGN.md §10):
-                        # budget respected => pool never physically
-                        # exhausts
-                        kv_page_size=page_size),
+                        # stall-free chunked prefill + adaptive batching
+                        # when the model layer supports cache continuation
+                        adaptive_batching=chunked,
+                        stall_free=chunked,
+                        # page-rounded KV accounting on the paged backend
+                        # (DESIGN.md §10): budget respected => pool never
+                        # physically exhausts
+                        kv_page_size=page_size if backend == "paged"
+                        else 1),
             observer=observer, admission=admission)
         self.kv_budget = self.core.kv_budget
         self.sample_temp = sample_temp
@@ -114,30 +146,39 @@ class ServingEngine:
                 cfg, torch.Generator(device=self.device).manual_seed(seed + 1),
                 self.device)
         self.params = params
-        n_pages = -(-self.kv_budget // page_size)
-        self.pool = PagePool(n_pages, page_size)
-        # the device pools carry one extra sacrificial page at index
-        # n_pages, invisible to the allocator: the ragged launch pads its
-        # row count to a power of two and every padding row writes to
-        # (and attends over) this scratch page, never a live request's
-        self._scratch_page = n_pages
         self.k_scales = self.v_scales = None
-        if kv_quant:
-            (self.k_pools, self.v_pools, self.k_scales,
-             self.v_scales) = make_pools(
-                cfg.n_layers, n_pages + 1, page_size, cfg.n_kv_heads,
-                cfg.resolved_head_dim(), quantized=True, device=self.device)
+        if backend == "paged":
+            n_pages = -(-self.kv_budget // page_size)
+            self.pool = PagePool(n_pages, page_size)
+            # the device pools carry one extra sacrificial page at index
+            # n_pages, invisible to the allocator: the ragged launch pads
+            # its row count to a power of two and every padding row writes
+            # to (and attends over) this scratch page, never a live
+            # request's
+            self._scratch_page = n_pages
+            if kv_quant:
+                (self.k_pools, self.v_pools, self.k_scales,
+                 self.v_scales) = make_pools(
+                    cfg.n_layers, n_pages + 1, page_size, cfg.n_kv_heads,
+                    cfg.resolved_head_dim(), quantized=True,
+                    device=self.device)
+            else:
+                self.k_pools, self.v_pools = make_pools(
+                    cfg.n_layers, n_pages + 1, page_size, cfg.n_kv_heads,
+                    cfg.resolved_head_dim(), dtype_of(cfg),
+                    device=self.device)
         else:
-            self.k_pools, self.v_pools = make_pools(
-                cfg.n_layers, n_pages + 1, page_size, cfg.n_kv_heads,
-                cfg.resolved_head_dim(), dtype_of(cfg), device=self.device)
+            # inactive slots decode garbage into their own rows, which the
+            # next admission to the slot overwrites
+            self.cache = init_cache(cfg, max_slots, max_len,
+                                    device=self.device)
         self.slots: List[Optional[Request]] = [None] * max_slots
         self.running = self.core.running    # alias: core owns the batch
         self.reserved = self.core.reserved  # alias: core owns KV accounting
         self.t_model = 0.0            # modeled target-hardware clock
-        # wall clock of each iteration's model step and its copy back,
-        # without the host's scheduling work: (seconds, chunk rows,
-        # decode rows)
+        # wall clock of each iteration's model step (prefill and decode)
+        # and its copy back, without the host's scheduling work:
+        # (seconds, prefill rows, decode rows)
         self.iter_log: List[Tuple[float, int, int]] = []
         self.finished: List[Request] = []
         self.iterations = 0
@@ -195,21 +236,59 @@ class ServingEngine:
         """Admission bookkeeping only — no model work happens here.  The
         prompt runs later through the shared chunk plan."""
         req._slot = slot
+        req._pcache = None            # slots backend: partial prefill cache
         req._pos = 0
         self.slots[slot] = req
         self.running.append(req)
 
     def _drop_backend_state(self, req: Request):
-        """Preemption (DESIGN.md §10): free the victim's pool pages and
-        vacate its slot.  The recompute path rebuilds everything at
-        re-admission."""
-        self.pool.release_request(req.rid)
+        """Preemption (DESIGN.md §10): free the victim's physical KV (pool
+        pages on the paged backend, the partial prefill cache on the slots
+        backend) and vacate its slot.  The recompute path rebuilds
+        everything at re-admission."""
+        if self.backend == "paged":
+            self.pool.release_request(req.rid)
+        req._pcache = None
         slot = getattr(req, "_slot", None)
         if slot is not None and self.slots[slot] is req:
             self.slots[slot] = None
         req._slot = None
 
-    def _run_mixed_paged(self, plan, decoding: List[Request]):
+    # -- prefill ------------------------------------------------------------------
+    def _tokens(self, req: Request, start: int, stop: int):
+        return torch.from_numpy(np.asarray(
+            req.prompt_tokens[None, start:stop], np.int64)).to(self.device)
+
+    def _prefill_whole(self, req: Request):
+        """One-shot prompt prefill (stacks without incremental prefill, or
+        ``chunked=False``): one kernel launch per layer."""
+        logits, req._pcache = prefill(
+            self.params, {"tokens": self._tokens(req, 0, req.prompt_len)},
+            self.cfg, self.max_len)
+        return logits[0]
+
+    def _prefill_chunk_slots(self, req: Request, start: int, chunk: int):
+        if req._pcache is None:
+            req._pcache = init_cache(self.cfg, 1, self.max_len,
+                                     device=self.device)
+        logits, req._pcache = prefill_chunk(
+            self.params, self._tokens(req, start, start + chunk), self.cfg,
+            req._pcache)
+        return logits[0]
+
+    def _run_prefill(self, req: Request, start: int, chunk: int):
+        """Execute one planned chunk; returns the last-token logits row as
+        f32 numpy (meaningful only when this chunk completes the prompt).
+        Chunked paged prefill does not come through here: it rides the
+        fused ragged launch (``_run_mixed_paged``)."""
+        if not self.chunked:
+            assert start == 0 and chunk == req.prompt_len
+            row = self._prefill_whole(req)
+        else:
+            row = self._prefill_chunk_slots(req, start, chunk)
+        return row.float().cpu().numpy()    # waits for the device
+
+    def _run_mixed_paged(self, plan, decoding: List[Request], log=True):
         """The fused mixed iteration (DESIGN.md §16): every planned
         prefill-chunk token and every decode row of this iteration goes
         down in ONE ``_paged_decode_step`` call, a ragged launch where row
@@ -270,19 +349,59 @@ class ServingEngine:
             self.k_pools, self.v_pools, self.k_scales, self.v_scales,
             self.cfg, self.pool.page_size, dev(read))
         logits = logits.cpu().numpy()     # waits for the device
-        self.iter_log.append((time.perf_counter() - t0, n_chunk_rows,
-                              len(decoding)))
+        if log:
+            self.iter_log.append((time.perf_counter() - t0, n_chunk_rows,
+                                  len(decoding)))
         n_first = len(last_row)
         first_rows = {rid: logits[j] for j, rid in enumerate(last_row)}
         rows = {r.rid: logits[n_first + i] for i, r in enumerate(decoding)}
         return first_rows, rows
 
     def _install_prefill(self, req: Request, row):
-        """Prompt fully prefilled: make the request decodable."""
+        """Prompt fully prefilled: make the request decodable.  A
+        whole-prompt cache is scattered into the request's pages (paged)
+        or copied into its slot (slots), after this iteration's decode, so
+        the full-width decode step never clobbers a partial prefill."""
+        slot = req._slot
+        if self.backend == "paged":
+            if not self.chunked:
+                self.pool.alloc(req.rid, req.prompt_len + 1)
+                sc = req._pcache["stages"]["stage_0"]
+                pages = self.pool.owned[req.rid]
+                ps = self.pool.page_size
+                scatter_prefill(self.k_pools, sc["k"][:, 0], pages, ps,
+                                n_tokens=req.prompt_len)
+                scatter_prefill(self.v_pools, sc["v"][:, 0], pages, ps,
+                                n_tokens=req.prompt_len)
+        else:
+            for key, stage in self.cache["stages"].items():
+                for name, dst in stage.items():
+                    dst[:, slot] = req._pcache["stages"][key][name][:, 0]
+            self.cache["pos"][slot] = req.prompt_len
+        req._pcache = None
         req._next_token = int(np.argmax(row))
         if self.keep_first_logits:
             req._first_row = np.asarray(row, np.float32)
         req._pos = req.prompt_len
+
+    # -- decode -------------------------------------------------------------------
+    def _decode_slots(self, tokens_np):
+        logits, self.cache = decode_step(
+            self.params, torch.from_numpy(tokens_np).to(self.device),
+            self.cache, self.cfg)
+        return logits
+
+    def _decode(self, decoding: List[Request]):
+        """Batched one-token decode; returns {rid: logits row (np)}."""
+        if not decoding:
+            return {}
+        if self.backend == "paged":
+            return self._run_mixed_paged([], decoding, log=False)[1]
+        tokens = np.zeros(self.max_slots, np.int64)
+        for r in decoding:
+            tokens[r._slot] = r._next_token
+        logits = self._decode_slots(tokens).float().cpu().numpy()
+        return {r.rid: logits[r._slot] for r in decoding}
 
     def _sample(self, row) -> int:
         if self.sample_temp > 0:
@@ -320,13 +439,28 @@ class ServingEngine:
             self._drop_backend_state(req)
             self.running.remove(req)
 
-        # 2+3. chunked prefill + batched decode of every request that was
-        #    DECODING at iteration start, in ONE ragged launch
+        # 2+3. prefill + batched decode of every request that was DECODING
+        #    at iteration start.  On the chunked paged backend both go
+        #    down in ONE ragged launch (DESIGN.md §16).
         plan = self.core.plan_prefill(self.running)
         decoding = [r for r in self.running if r.state == DECODING]
-        first_rows, rows = self._run_mixed_paged(plan, decoding)
-        done_prefill = [(req, first_rows[req.rid]) for req, _ in plan
-                        if req.prefill_done >= req.prompt_len]
+        if self.backend == "paged" and self.chunked:
+            first_rows, rows = self._run_mixed_paged(plan, decoding)
+            done_prefill = [(req, first_rows[req.rid]) for req, _ in plan
+                            if req.prefill_done >= req.prompt_len]
+        else:
+            t0 = time.perf_counter()
+            done_prefill = []
+            for req, chunk in plan:
+                row = self._run_prefill(req, req.prefill_done - chunk,
+                                        chunk)
+                if req.prefill_done >= req.prompt_len:
+                    done_prefill.append((req, row))
+            rows = self._decode(decoding)
+            if plan or decoding:
+                self.iter_log.append((time.perf_counter() - t0,
+                                      sum(c for _, c in plan),
+                                      len(decoding)))
 
         # 4. modeled clock advance (timing rule shared with the simulator)
         ctxs = [r.prompt_len + r.generated for r in decoding]
@@ -348,7 +482,8 @@ class ServingEngine:
 
         def post_complete(req):
             self.finished.append(req)
-            self.pool.free_request(req.rid)
+            if self.backend == "paged":
+                self.pool.free_request(req.rid)
             self.slots[req._slot] = None
 
         self.core.execute_iteration(

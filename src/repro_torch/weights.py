@@ -3,7 +3,9 @@
 The parameter tree keeps the reference layout (``repro/models/model.py``):
 ``embed.{table,head}``, ``final_norm.scale`` and
 ``stages.stage_0.{ln1,attn.{wq,wk,wv,wo},ln2,ffn.{w_in,w_gate,w_out}}``
-with a leading layer axis on every stage leaf.
+for dense attention, ``stages.stage_0.{ln1,attn.{in_proj,conv_w,conv_b,
+A_log,dt_bias,D,norm,out_proj}}`` for Mamba-2, with a leading layer axis
+on every stage leaf.
 
 - ``init_params`` draws a model on the device with the reference's
   distributions (truncated-normal fan-in dense weights, normal x 0.02
@@ -18,9 +20,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ATTN, ModelConfig
+from repro_torch.configs.base import MAMBA2, ModelConfig
 from repro_torch.models.attention import gqa_init
 from repro_torch.models.layers import dense_init, dtype_of, embed_init
+from repro_torch.models.model import check_ported, model_stages
+from repro_torch.models.ssm import mamba2_init
 
 
 def resolve_device(device) -> torch.device:
@@ -54,23 +58,17 @@ def params_from_numpy(tree, device):
 
 def init_params(cfg: ModelConfig, generator: torch.Generator = None,
                 device=None):
-    """A freshly drawn dense-attention decoder on ``device`` (``cuda`` by
-    default), from ``generator`` (seed 0 on the device when omitted).
-    Layers are drawn one at a time into the stacked leaves, so the f32
-    temporaries stay one layer large."""
+    """A freshly drawn decoder on ``device`` (``cuda`` by default), from
+    ``generator`` (seed 0 on the device when omitted): dense-attention
+    (``ATTN``) and Mamba-2 (``MAMBA2``) stages.  Layers are drawn one at a
+    time into the stacked leaves, so the f32 temporaries stay one layer
+    large."""
     device = resolve_device(device)
-    if set(cfg.layer_kinds()) != {ATTN} or cfg.moe is not None \
-            or cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.name}: only dense-attention stacks are ported "
-            "(ROADMAP.md Queue A item 6)")
+    check_ported(cfg)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     dt = dtype_of(cfg)
-    d, L, hd = cfg.d_model, cfg.n_layers, cfg.resolved_head_dim()
-
-    def ones(*shape):
-        return torch.ones(shape, dtype=dt, device=device)
+    d, hd = cfg.d_model, cfg.resolved_head_dim()
 
     embed = {"table": embed_init((cfg.vocab_size, d), dt, generator, device)}
     if not cfg.tie_embeddings:
@@ -78,22 +76,42 @@ def init_params(cfg: ModelConfig, generator: torch.Generator = None,
     ffn_shapes = {"w_in": (d, cfg.d_ff), "w_out": (cfg.d_ff, d)}
     if cfg.act == "silu":
         ffn_shapes["w_gate"] = (d, cfg.d_ff)
-    attn, ffn = None, None
-    for i in range(L):
-        a = gqa_init(d, cfg.n_heads, cfg.n_kv_heads, hd, dt, generator,
-                     device)
-        f = {k: dense_init(s, dt, generator, device)
-             for k, s in ffn_shapes.items()}
-        if attn is None:
-            attn = {k: torch.empty((L, *v.shape), dtype=dt, device=device)
-                    for k, v in a.items()}
-            ffn = {k: torch.empty((L, *v.shape), dtype=dt, device=device)
-                   for k, v in f.items()}
-        for k, v in a.items():
-            attn[k][i] = v
-        for k, v in f.items():
-            ffn[k][i] = v
-    stage = {"ln1": {"scale": ones(L, d)}, "attn": attn,
-             "ln2": {"scale": ones(L, d)}, "ffn": ffn}
-    return {"embed": embed, "final_norm": {"scale": ones(d)},
-            "stages": {"stage_0": stage}}
+
+    def draw(kind):
+        """One layer of ``kind``: {"ln1", "attn"[, "ln2", "ffn"]}."""
+        ones = torch.ones((d,), dtype=dt, device=device)
+        if kind == MAMBA2:
+            return {"ln1": {"scale": ones},
+                    "attn": mamba2_init(cfg, dt, generator, device)}
+        return {"ln1": {"scale": ones},
+                "attn": gqa_init(d, cfg.n_heads, cfg.n_kv_heads, hd, dt,
+                                 generator, device),
+                "ln2": {"scale": ones.clone()},
+                "ffn": {k: dense_init(s, dt, generator, device)
+                        for k, s in ffn_shapes.items()}}
+
+    def put(dst, src, i):
+        for k, v in src.items():
+            if isinstance(v, dict):
+                put(dst[k], v, i)
+            else:
+                dst[k][i] = v
+
+    def alloc(layer, count):
+        return {k: alloc(v, count) if isinstance(v, dict) else
+                torch.empty((count, *v.shape), dtype=v.dtype, device=device)
+                for k, v in layer.items()}
+
+    stages = {}
+    for si, (kind, _moe, count) in enumerate(model_stages(cfg)):
+        stage = None
+        for i in range(count):
+            layer = draw(kind)
+            if stage is None:
+                stage = alloc(layer, count)
+            put(stage, layer, i)
+        stages[f"stage_{si}"] = stage
+    return {"embed": embed,
+            "final_norm": {"scale": torch.ones((d,), dtype=dt,
+                                               device=device)},
+            "stages": stages}

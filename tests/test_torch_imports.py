@@ -39,13 +39,18 @@ def test_port_imports_without_jax_or_repro():
 
 
 def test_serve_launcher_on_cpu(capsys):
+    """Both backends: Llama-2 on paged pools, Mamba-2 on slots (whole-
+    prompt prefill through the SSD scan's plain version)."""
     from repro_torch.launch import serve
-    serve.main(["--device", "cpu", "--scheduler", "fcfs", "--duration",
-                "1.5"])
-    out = capsys.readouterr().out
-    assert "device=cpu" in out
-    done, total = out.split("finished ")[1].split(" requests")[0].split("/")
-    assert done == total and int(total) > 0
+    for args in (["--backend", "paged"],
+                 ["--backend", "slots", "--arch", "mamba2-2.7b"]):
+        serve.main(["--device", "cpu", "--scheduler", "fcfs", "--duration",
+                    "1.5", *args])
+        out = capsys.readouterr().out
+        assert "device=cpu" in out and f"backend={args[1]}" in out
+        done, total = out.split("finished ")[1].split(
+            " requests")[0].split("/")
+        assert done == total and int(total) > 0
 
 
 def test_serve_launcher_defaults_to_cuda(monkeypatch):

@@ -1,12 +1,13 @@
-"""The port's CUDA paged-attention kernels against their plain versions,
-on the card.  Imports only torch and numpy, so it runs where JAX is not
+"""The port's CUDA kernels (paged attention, flash attention, the SSD
+scan) against their plain versions, on the card.  Imports only torch and numpy, so it runs where JAX is not
 installed:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_kernels_cuda.py
 
 Without a GPU every test skips (the CUDA kernels have no CPU mode; their
 plain versions are held to the Pallas kernels in
-``tests/test_torch_paged_attention.py``)."""
+``tests/test_torch_paged_attention.py``, ``test_torch_flash_attention.py``
+and ``test_torch_ssd_scan.py``)."""
 import sys
 
 import numpy as np
@@ -92,3 +93,106 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
                                   .transpose(0, 1), kp, vp, bt, cl, **kw)
     with pytest.raises(ValueError, match="pools"):
         pa.paged_attention_kernel(q, kp, vp.half(), bt, cl, **kw)
+
+
+# ---------------------------------------------------------------------------
+# flash attention and the SSD scan
+# ---------------------------------------------------------------------------
+import repro_torch.kernels.flash_attention  # noqa: E402,F401
+import repro_torch.kernels.ssd_scan  # noqa: E402,F401
+
+fa = sys.modules["repro_torch.kernels.flash_attention"]
+ss = sys.modules["repro_torch.kernels.ssd_scan"]
+
+# kernel vs plain version on the same inputs, |d| <= atol + rtol |plain|:
+# both compute in f32 and round once, so bf16 outputs may differ by one
+# bf16 step and f32 outputs by summation order only
+FLASH_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2 ** -7, 1e-5)}
+SSD_TOL = {torch.float32: (0.0, 5e-4), torch.bfloat16: (2 ** -7, 1e-4)}
+
+
+def within(out, plain, tol):
+    rtol, atol = tol
+    d = (out.float() - plain.float()).abs()
+    return bool((d <= atol + rtol * plain.float().abs()).all()), \
+        d.max().item()
+
+
+@pytest.mark.parametrize("S,Hq,Hkv,D,causal,window", [
+    (128, 8, 2, 64, True, 0),
+    (160, 8, 8, 32, True, 0),
+    (96, 4, 1, 64, True, 48),
+    (96, 4, 4, 32, False, 0),
+    (100, 4, 2, 16, True, 0),               # ragged
+    (200, 4, 4, 128, True, 0),
+    (130, 2, 2, 128, False, 70),            # windowed, not causal
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain(cuda, S, Hq, Hkv, D, causal, window,
+                                    dtype):
+    rng = np.random.default_rng(S + D)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, S, h, D))
+                                .astype(np.float32)).to(cuda, dtype)
+               for h in (Hq, Hkv, Hkv))
+    before = fa.LAUNCHES["flash_attention"]
+    out = fa.flash_attention_kernel(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    plain = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    assert out.dtype == dtype and out.shape == plain.shape
+    ok, err = within(out, plain, FLASH_TOL[dtype])
+    assert ok, err
+
+
+@pytest.mark.parametrize("S,H,P,G,N,chunk", [
+    (96, 4, 32, 2, 16, 32),
+    (100, 2, 16, 1, 8, 32),      # ragged
+    (64, 8, 64, 2, 32, 16),
+    (300, 4, 64, 1, 128, 128),   # Mamba-2-2.7B's head and state dims
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_ssd_kernel_matches_plain(cuda, S, H, P, G, N, chunk, dtype,
+                                  with_state):
+    rng = np.random.default_rng(S + P)
+    x = torch.from_numpy(rng.standard_normal((2, S, H, P)).astype(
+        np.float32)).to(cuda, dtype)
+    la = -torch.from_numpy(np.abs(rng.standard_normal((2, S, H))).astype(
+        np.float32) * 0.1).to(cuda)
+    Bm, Cm = (torch.from_numpy(rng.standard_normal((2, S, G, N)).astype(
+        np.float32) * 0.3).to(cuda, dtype) for _ in range(2))
+    init = None
+    if with_state:
+        init = torch.from_numpy(rng.standard_normal((2, H, P, N)).astype(
+            np.float32)).to(cuda)
+    before = ss.LAUNCHES["ssd_scan"]
+    y, st = ss.ssd_scan_kernel(x, la, Bm, Cm, chunk=chunk,
+                               initial_state=init)
+    torch.cuda.synchronize()
+    assert ss.LAUNCHES["ssd_scan"] == before + 1
+    py, pst = ss.ssd_scan_plain(x, la, Bm, Cm, chunk=chunk,
+                                initial_state=init)
+    assert y.dtype == dtype and st.dtype == torch.float32
+    ok, err = within(y, py, SSD_TOL[dtype])
+    assert ok, err
+    ok, err = within(st, pst, (1e-5, 5e-4))
+    assert ok, err
+
+
+def test_unsupported_dtype_raises_and_runs_no_plain_version(cuda,
+                                                            monkeypatch):
+    """A CUDA tensor the kernels do not take is refused: the wrapper never
+    hands it to the plain version."""
+    def boom(*a, **k):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(fa, "flash_attention_plain", boom)
+    monkeypatch.setattr(ss, "ssd_scan_plain", boom)
+    q = torch.zeros((1, 16, 2, 32), device=cuda, dtype=torch.float16)
+    with pytest.raises(ValueError, match="dtype"):
+        fa.flash_attention_kernel(q, q, q)
+    x = torch.zeros((1, 16, 2, 16), device=cuda, dtype=torch.float16)
+    la = torch.zeros((1, 16, 2), device=cuda)
+    bc = torch.zeros((1, 16, 1, 8), device=cuda, dtype=torch.float16)
+    with pytest.raises(ValueError, match="dtype"):
+        ss.ssd_scan_kernel(x, la, bc, bc, chunk=16)

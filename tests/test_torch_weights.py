@@ -25,9 +25,10 @@ def flat(tree, prefix=""):
     return {prefix[:-1]: tree}
 
 
+@pytest.mark.parametrize("arch", ["llama2-7b", "mamba2-2.7b"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_bridge_is_exact(dtype):
-    cfg = dataclasses.replace(SMOKE_FACTORIES["llama2-7b"](), dtype=dtype)
+def test_bridge_is_exact(dtype, arch):
+    cfg = dataclasses.replace(SMOKE_FACTORIES[arch](), dtype=dtype)
     np_tree = jax.tree.map(np.asarray, jax_init_params(jax.random.key(3),
                                                        cfg))
     t_tree = params_from_numpy(np_tree, "cpu")
@@ -36,8 +37,12 @@ def test_bridge_is_exact(dtype):
     tdt = getattr(torch, dtype)
     udt = np.uint16 if dtype == "bfloat16" else np.uint32
     for k in want:
-        assert got[k].dtype == tdt, k
         assert tuple(got[k].shape) == want[k].shape, k
+        if want[k].dtype == np.float32:       # Mamba-2's A_log, dt_bias, D
+            assert got[k].dtype == torch.float32, k
+            np.testing.assert_array_equal(got[k].numpy(), want[k], err_msg=k)
+            continue
+        assert got[k].dtype == tdt, k
         bits = got[k].view(torch.int16 if dtype == "bfloat16"
                            else torch.int32).numpy().view(udt)
         np.testing.assert_array_equal(bits, want[k].view(udt), err_msg=k)
@@ -50,16 +55,25 @@ def test_bridge_carries_expert_params():
         np.testing.assert_array_equal(t_tree[k].numpy(), v)
 
 
-def test_init_params_matches_reference_layout():
-    cfg = SMOKE_FACTORIES["llama2-7b"]()
+@pytest.mark.parametrize("arch", ["llama2-7b", "mamba2-2.7b"])
+def test_init_params_matches_reference_layout(arch):
+    cfg = SMOKE_FACTORIES[arch]()
     want = flat(jax.tree.map(np.asarray,
                              jax_init_params(jax.random.key(0), cfg)))
-    got = flat(init_params(TORCH_SMOKE["llama2-7b"](),
+    got = flat(init_params(TORCH_SMOKE[arch](),
                            torch.Generator().manual_seed(0), "cpu"))
     assert want.keys() == got.keys()
     for k in want:
         assert tuple(got[k].shape) == want[k].shape, k
         assert got[k].dtype == torch.float32, k
+        if k.endswith(("A_log", "D", "conv_b")):   # deterministic leaves
+            np.testing.assert_allclose(got[k].numpy(), want[k], rtol=1e-6,
+                                       err_msg=k)
+            continue
+        if k.endswith("dt_bias"):   # a few draws: the range, not the std
+            # inverse softplus of [1e-3, 1e-1] is [-6.9073, -2.2522]
+            assert -6.91 < got[k].min() and got[k].max() < -2.25, k
+            continue
         # same scale per leaf: norms are ones, weights have matching std
         np.testing.assert_allclose(got[k].float().std().item(),
                                    want[k].std(), rtol=0.2, atol=1e-6,
@@ -74,3 +88,17 @@ def test_entry_points_default_to_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         init_params(TORCH_SMOKE["llama2-7b"]())
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_mamba2_bf16_keeps_f32_leaves_and_draws_dt_bias():
+    """In a bf16 Mamba-2 the SSM parameters A_log, dt_bias and D stay f32,
+    as in the reference, and softplus(dt_bias) lies in [1e-3, 1e-1]."""
+    cfg = dataclasses.replace(TORCH_SMOKE["mamba2-2.7b"](), dtype="bfloat16")
+    attn = init_params(cfg, torch.Generator().manual_seed(1),
+                       "cpu")["stages"]["stage_0"]["attn"]
+    for name in ("A_log", "dt_bias", "D"):
+        assert attn[name].dtype == torch.float32, name
+    for name in ("in_proj", "conv_w", "conv_b", "out_proj"):
+        assert attn[name].dtype == torch.bfloat16, name
+    dt = torch.nn.functional.softplus(attn["dt_bias"])
+    assert dt.min() >= 1e-3 * (1 - 1e-5) and dt.max() <= 0.1 * (1 + 1e-5)
