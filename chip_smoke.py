@@ -5,7 +5,8 @@ The quickest proof that the port builds and serves on an NVIDIA H100:
 
 1. device and build: the card's name and power limit (nvidia-smi), and
    the CUDA kernels built from ``src/repro_torch/csrc`` with nvcc (one
-   nvcc per source, all started together), with ptxas' registers;
+   nvcc per source, all started together), with ptxas' registers per
+   kernel and the dynamic shared memory of the tensor-core tiles;
 2. kernels against their plain PyTorch versions on the card, at the
    serving path's shapes:
    - paged attention, serial and split-K, bf16 and int8 pools (Hq = Hkv
@@ -36,11 +37,16 @@ The quickest proof that the port builds and serves on an NVIDIA H100:
         and prompt), max_len 1280; plus prefill + one decode step against
         prefill of the longer prompt;
    plus a check of run A's first-token logits against a dense forward,
-   and a ``torch.profiler`` window of the configurations of runs A, D and
-   E (device busy share, kernel launches and device time by kernel per
-   iteration);
-4. a ``kernels`` JSON line, the nvidia-smi line, and last the result line
-   ``{"ok": true, "device": {...}}``.
+   and ``torch.profiler`` windows (device busy share, kernel launches and
+   device time by kernel per iteration): decode-heavy windows of the
+   configurations of runs A, D and E, and prefill-heavy windows of A
+   (iterations that carry 512-row chunks) and D (an iteration of eight
+   whole-prompt prefills);
+   runs A, B and D must go through the tensor-core (``mma``) variants of
+   their kernels and launch no ``fma`` variant;
+4. a ``kernels`` JSON line (launches per variant beside the totals), the
+   nvidia-smi line, and last the result line ``{"ok": true, "device":
+   {...}}``.
 
 Any failed check exits non-zero; no phase catches an error and goes on.
 Without a CUDA device it exits 2 before printing any result.  TF32 is
@@ -82,6 +88,7 @@ SSD_F32_TOL = (0.0, 5e-4)
 INT8_NOISE_REL_STD = 0.15
 DENSE_REL_TOL = 5e-2               # served vs dense-forward first-token logits
 MAX_LEN_SLOTS = 1280               # runs D and E: prompts <= 1024, outputs <= 128
+SLEEP_CYCLES = 2_000_000           # ~1 ms at the H100's 1.98 GHz boost clock
 
 
 def fail(msg: str):
@@ -116,12 +123,9 @@ def main() -> int:
     # 1. build ---------------------------------------------------------------
     t0 = time.perf_counter()
     built = _build.build_all()
-    regs = {name: sorted({line.split("Used")[1].split(",")[0].strip()
-                          for line in _build.build_log(name).splitlines()
-                          if "Used" in line and "registers" in line})
-            for name in built}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "libraries": built, "ptxas_registers": regs})
+          "libraries": built, "ptxas_registers": ptxas_registers(_build, built),
+          "tile_smem_bytes": tile_smem_bytes()})
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     kernel_rows = kernel_phase(torch, flush)
@@ -137,17 +141,73 @@ def main() -> int:
     return 0
 
 
+def ptxas_registers(_build, built):
+    """{library: {kernel: registers}} from ptxas' ``-v`` lines (entry
+    names cut to the kernel's own name and its template arguments)."""
+    out = {}
+    for name in built:
+        kernel, regs = None, {}
+        for line in _build.build_log(name).splitlines():
+            if "Compiling entry function" in line:
+                kernel = line.split("'")[1]
+            elif "Used" in line and "registers" in line and kernel:
+                n = int(line.split("Used")[1].split("registers")[0])
+                regs[demangled(kernel)] = n
+        out[name] = regs
+    return out
+
+
+def demangled(sym):
+    """A short readable name for a mangled kernel symbol: the kernel's
+    identifier and its template arguments (``Li128E`` -> 128, ``Lb1E`` ->
+    true, ``13__nv_bfloat16`` -> bf16; ``S1_`` repeats an earlier type)."""
+    import re
+    ident = max(re.findall(r"\d+([a-z_]+kernel)", sym) or [sym], key=len)
+    m = re.search(r"kernelI(.*?)EEv", sym)
+    if not m:
+        return ident
+    args = m.group(1) + "E"
+    args = re.sub(r"Li(\d+)E", r"\1,", args)
+    args = args.replace("Lb0E", "false,").replace("Lb1E", "true,")
+    args = args.replace("13__nv_bfloat16", "bf16,")
+    return f"{ident}<{args.rstrip('E,')}>"
+
+
+def tile_smem_bytes():
+    """Dynamic shared memory of one block of each tensor-core kernel at
+    the serving head dim (128), from the libraries' own size functions."""
+    import importlib
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    pa = importlib.import_module("repro_torch.kernels.paged_attention")
+    out = {"flash_attention:mma": fa._lib().flash_attention_mma_smem_bytes(
+        128, 128)}
+    for quant, pools in ((0, "bf16"), (1, "int8")):
+        for thin, walk in ((0, "tensor-core walk"), (1, "one-row walk")):
+            out[f"paged_attention:mma/{pools}/{walk}"] = \
+                pa._lib().paged_attention_mma_smem_bytes(128, 128, quant, thin)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # 2. kernels against their plain versions
 # ---------------------------------------------------------------------------
-def time_ms(torch, fn, reps, flush):
+def time_ms(torch, fn, reps, flush, *, queued=True):
     """Median of CUDA-event times of ``reps`` calls, each after the L2
-    cache (50 MB) was overwritten, as a layer's pools are cold."""
+    cache (50 MB) was overwritten, as a layer's pools are cold.
+
+    ``queued``: the card first sleeps ~1 ms, so the host has enqueued
+    the call's launches before its start event fires and the time is the
+    device's alone.  Without it (the earlier method, kept for comparison
+    as the ``*_unqueued`` keys) the start event fires as soon as the flush
+    ends, and a call whose host work (argument checks, allocations, the
+    launches) outlasts the flush counts that host time too."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         flush.zero_()
+        if queued:
+            torch.cuda._sleep(SLEEP_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -332,6 +392,14 @@ def kernel_phase(torch, flush):
             line["splitk_ms"] = time_ms(
                 torch, lambda: paged_attention_splitk_kernel(
                     *args, pages_per_split=pps, **kw), 20, flush)
+            # the earlier method (host enqueue time counted), for comparison
+            line["serial_ms_unqueued"] = time_ms(
+                torch, lambda: paged_attention_kernel(*args, **kw), 20, flush,
+                queued=False)
+            line["splitk_ms_unqueued"] = time_ms(
+                torch, lambda: paged_attention_splitk_kernel(
+                    *args, pages_per_split=pps, **kw), 20, flush,
+                queued=False)
             line["plain_ms"] = time_ms(
                 torch, lambda: paged_attention_plain(*args, **kw), 3, flush)
             line["splitk_plain_ms"] = time_ms(
@@ -350,12 +418,47 @@ def kernel_phase(torch, flush):
                 row = rows[kname]
                 row["max_abs_err"] = max(row["max_abs_err"], err)
                 if main_case[kname] == (name, pools):
+                    fn = paged_attention_kernel if kname == "paged_attention" \
+                        else paged_attention_splitk_kernel
+                    row["ms_by_kernel"] = device_ms_by_kernel(
+                        torch, lambda: fn(*args, **kw), flush)
                     row.update(ms=line[ms], plain_ms=line[plain],
+                               ms_unqueued=line[f"{ms[:-3]}_ms_unqueued"],
                                bound_ms=line["bound_ms"],
                                bound_by=line["bound_by"],
                                library_ms=line["library_ms"],
                                shape=f"{name}/{pools}")
     return rows
+
+
+def port_kernel_name(key):
+    """A profiler key of one of the port's kernels, cut to its name and
+    template arguments (``paged_attention_mma_kernel<128, false, true>``)."""
+    name = key.split("(anonymous namespace)::", 1)[-1]
+    if ">(" in name:
+        return name.split(">(", 1)[0] + ">"
+    return name.split("(", 1)[0]
+
+
+def device_ms_by_kernel(torch, fn, flush, reps=5):
+    """Device ms per call of each kernel that ``fn`` launches (the plan,
+    the walks and the combine of a paged call), from ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    out = defaultdict(float)
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        if us and any(n in e.key for n in ("paged_attention", "paged_plan")):
+            out[port_kernel_name(e.key)] += us / 1e3 / reps
+    return dict(out)
 
 
 def kernel_modules():
@@ -445,6 +548,10 @@ def flash_phase(torch, flush):
                 "max_abs_err": err, "tol_ratio": ratio,
                 "ms": time_ms(torch, lambda: fa.flash_attention_kernel(
                     q, k, v, causal=causal, window=window), 20, flush),
+                "ms_unqueued": time_ms(
+                    torch, lambda: fa.flash_attention_kernel(
+                        q, k, v, causal=causal, window=window), 20, flush,
+                    queued=False),
                 "plain_ms": time_ms(torch, lambda: fa.flash_attention_plain(
                     q, k, v, causal=causal, window=window), 3, flush),
                 "library_ms": time_ms(torch, library, 10, flush)}
@@ -454,6 +561,7 @@ def flash_phase(torch, flush):
         row["max_abs_err"] = max(row["max_abs_err"], err)
         if (name, dt) == ("S1024_causal", "bfloat16"):
             row.update(ms=line["ms"], plain_ms=line["plain_ms"],
+                       ms_unqueued=line["ms_unqueued"],
                        bound_ms=line["bound_ms"], bound_by=line["bound_by"],
                        library_ms=line["library_ms"],
                        shape=f"{name}/{dt}")
@@ -670,6 +778,9 @@ def engine_phase(torch, kernel_rows):
         # is the model step and its copy back alone
         it = np.diff([t0] + spy.stamps)
         step = np.array([s for s, _, _ in eng.iter_log])
+        # the model steps that ran prompt tokens (run A: 512-row chunks and
+        # decode rows in one launch; run D: whole prompts)
+        pre = np.array([(s, n) for s, n, _ in eng.iter_log if n > 0])
         prompt_tokens = sum(r.prompt_len for r in done)
         output_tokens = sum(r.generated for r in done)
         ttft = np.array([r.ttft() for r in done])
@@ -686,6 +797,10 @@ def engine_phase(torch, kernel_rows):
               "output_tok_per_s_wall": output_tokens / wall,
               "model_step_ms_median": float(np.median(step) * 1e3),
               "model_step_ms_p90": float(np.percentile(step, 90) * 1e3),
+              "prefill_steps": len(pre),
+              "prefill_step_ms_median": float(np.median(pre[:, 0]) * 1e3),
+              "prefill_step_ms_max": float(pre[:, 0].max() * 1e3),
+              "prefill_rows_per_step_mean": float(pre[:, 1].mean()),
               "ttft_model_s_p50": float(np.percentile(ttft, 50)),
               "ttft_model_s_p90": float(np.percentile(ttft, 90)),
               "service": {k: round(v, 1) for k, v in sched.service.items()},
@@ -698,35 +813,42 @@ def engine_phase(torch, kernel_rows):
         torch.cuda.empty_cache()
         return tokens, firsts, launches
 
-    paged = {"paged_attention": False, "paged_attention_splitk": False,
-             "flash_attention": False, "ssd_scan": False}
+    # every kernel and variant must stay unlaunched unless a run expects
+    # it: runs A, B, C (bf16 queries over bf16 or int8 pages) and D (bf16
+    # prefill) go through the tensor-core ("mma") variants
+    paged = {name: False for name in launch_counts()}
+    splitk_mma = {"paged_attention_splitk": True,
+                  "paged_attention_splitk:mma": True}
     llama = setup("llama2-7b")
     tok_a, first_a, la = serve("A", llama, 512, False,
-                               dict(paged, paged_attention_splitk=True),
-                               backend="paged")
-    tok_b, _, lb = serve("B", llama, 512, False,
-                         dict(paged, paged_attention_splitk=True),
+                               dict(paged, **splitk_mma), backend="paged")
+    tok_b, _, lb = serve("B", llama, 512, False, dict(paged, **splitk_mma),
                          backend="paged", kv_quant=True)
     _, _, lc = serve("C", llama, 64, True,
-                     dict(paged, paged_attention=True), backend="paged")
+                     dict(paged, paged_attention=True,
+                          **{"paged_attention:mma": True}), backend="paged")
     # reported, not asserted: int8 pages may flip a near-tie argmax
     agree = np.mean([tok_a[rid] == tok_b[rid] for rid in tok_a])
     emit({"phase": "engine", "greedy_agreement_fp_vs_int8": float(agree)})
     _, first_d, ld = serve("D", llama, MAX_LEN_SLOTS, False,
-                           dict(paged, flash_attention="per_layer_prefill"),
+                           dict(paged, flash_attention="per_layer_prefill",
+                                **{"flash_attention:mma": "per_layer_prefill"}),
                            backend="slots", chunked=False)
     first_token_check(first_d, first_a)
     dense_check(torch, llama[1], llama[0], first_a)
 
-    def profiled(run, model, max_len, **engine_kw):
+    def profiled(run, model, max_len, window="decode", **engine_kw):
         cfg, params, cm, mope = model
         profile_window(torch, run, ServingEngine(
             cfg, make_scheduler("equinox", predictor=copy.deepcopy(mope)),
             params=params, max_len=max_len, cost_model=cm, seed=SEED,
-            device="cuda", **engine_kw), requests(False))
+            device="cuda", **engine_kw), requests(False), window)
 
     profiled("A", llama, 512, backend="paged")
+    profiled("A", llama, 512, "prefill", backend="paged")
     profiled("D", llama, MAX_LEN_SLOTS, backend="slots", chunked=False)
+    profiled("D", llama, MAX_LEN_SLOTS, "prefill", backend="slots",
+             chunked=False)
     del llama
     torch.cuda.empty_cache()
 
@@ -736,10 +858,16 @@ def engine_phase(torch, kernel_rows):
                      backend="slots")
     decode_consistency(torch, mamba[1], mamba[0])
     profiled("E", mamba, MAX_LEN_SLOTS, backend="slots")
-    for name in ("paged_attention", "paged_attention_splitk"):
-        kernel_rows[name]["launches"] = la[name] + lb[name] + lc[name]
-    kernel_rows["flash_attention"]["launches"] = ld["flash_attention"]
-    kernel_rows["ssd_scan"]["launches"] = le["ssd_scan"]
+    main_runs = {"paged_attention": (la, lb, lc),
+                 "paged_attention_splitk": (la, lb, lc),
+                 "flash_attention": (ld,), "ssd_scan": (le,)}
+    for name, runs in main_runs.items():
+        row = kernel_rows[name]
+        row["launches"] = sum(r[name] for r in runs)
+        variants = {k.split(":")[1]: sum(r[k] for r in runs)
+                    for k in runs[0] if k.startswith(f"{name}:")}
+        if variants:
+            row["launches_by_variant"] = variants
 
 
 def first_token_check(firsts, ref):
@@ -789,32 +917,50 @@ def decode_consistency(torch, params, cfg, n=300):
           f"(relative), argmax equal: {same}")
 
 
-def profile_window(torch, run, eng, reqs, warm=14, steps=10):
+def profile_window(torch, run, eng, reqs, window="decode"):
     """Where an iteration's time goes (the configuration of ``run``): all
-    requests arrive at once, ``warm`` iterations run the prompts in, then
-    ``steps`` iterations are timed on the host clock and ``steps`` more
-    under ``torch.profiler`` for device time by kernel.  Device busy
-    share = device time per iteration / wall time per iteration."""
+    requests arrive at once.
+
+    ``decode``: 14 iterations run the prompts in, then 10 iterations are
+    timed on the host clock and 10 more under ``torch.profiler`` for
+    device time by kernel.  ``prefill``: iterations that carry prompt
+    tokens, profiled, their host time read under the profiler: run A's
+    iterations 2-4 (the first runs unprofiled; the two requests admitted
+    first have 1726 prompt tokens, so these carry 512, 512 and 190 prompt
+    rows beside the decode rows); run D's first iteration, the whole
+    prompts of the eight requests it admits (later iterations decode until
+    a request finishes).  Device busy share = device time per iteration / wall time
+    per iteration."""
     from torch.profiler import ProfilerActivity, profile
 
+    warm, steps = {"decode": (14, 10), "prefill": (1, 3) if run == "A"
+                   else (0, 1)}[window]
     for r in reqs:
         r.arrival = 0.0
         eng.submit(r)
     for _ in range(warm):
         eng.step()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
     rows = 0
-    for _ in range(steps):
-        rows += len(eng.running)
-        eng.step()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    if window == "decode":
+        t0 = time.perf_counter()
         for _ in range(steps):
+            rows += len(eng.running)
             eng.step()
         torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    n_log = len(eng.iter_log)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            if window == "prefill":
+                rows += len(eng.running)
+            eng.step()
+        torch.cuda.synchronize()
+        if window == "prefill":
+            wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    logged = eng.iter_log[n_log:]
     events = [e for e in prof.key_averages()
               if getattr(e, "device_type", None) is not None
               and str(e.device_type).endswith("CUDA")]
@@ -825,16 +971,34 @@ def profile_window(torch, run, eng, reqs, warm=14, steps=10):
 
     device_ms = sum(dev_us(e) for e in events) / 1e3 / steps
     top = sorted(events, key=dev_us, reverse=True)[:8]
-    emit({"phase": "profile", "run": run, "iterations": steps,
-          "rows_per_iteration": rows / steps,
-          "wall_ms_per_iteration": wall_ms,
-          "device_ms_per_iteration": device_ms,
-          "device_busy_share": device_ms / wall_ms,
-          "kernel_launches_per_iteration":
-              sum(e.count for e in events) / steps,
-          "top_device_kernels": [
-              {"name": e.key[:80], "ms_per_iteration": dev_us(e) / 1e3 / steps,
-               "calls_per_iteration": e.count / steps} for e in top]})
+    ours = defaultdict(lambda: [0.0, 0.0])        # the port's own kernels
+    for e in events:
+        if any(n in e.key for n in ("paged_attention", "paged_plan",
+                                    "flash_attention", "ssd_scan")):
+            name = port_kernel_name(e.key)
+            ours[name][0] += dev_us(e) / 1e3 / steps
+            ours[name][1] += e.count / steps
+    line = {"phase": "profile", "run": run, "window": window,
+            "iterations": steps, "rows_per_iteration": rows / steps,
+            "wall_ms_per_iteration": wall_ms,
+            "device_ms_per_iteration": device_ms,
+            "device_busy_share": device_ms / wall_ms,
+            "kernel_launches_per_iteration":
+                sum(e.count for e in events) / steps,
+            "port_kernels_ms_per_iteration": {
+                k: v[0] for k, v in sorted(ours.items())},
+            "port_kernel_launches_per_iteration": {
+                k: v[1] for k, v in sorted(ours.items())},
+            "top_device_kernels": [
+                {"name": e.key[:80],
+                 "ms_per_iteration": dev_us(e) / 1e3 / steps,
+                 "calls_per_iteration": e.count / steps} for e in top]}
+    if window == "prefill":
+        line["prompt_rows_per_iteration"] = [n for _, n, _ in logged]
+        line["model_step_ms_profiled"] = [s * 1e3 for s, _, _ in logged]
+        check(sum(n for _, n, _ in logged) > 0,
+              f"run {run}: the prefill window ran no prompt tokens")
+    emit(line)
 
 
 def _leaves(tree):

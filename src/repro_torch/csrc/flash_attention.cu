@@ -10,20 +10,31 @@
 // *set* to NEG_INF = -1e30, which is finite.  The mask is kpos < S, plus
 // kpos <= qpos when causal, plus kpos > qpos - window when window > 0.
 // The online softmax keeps (m, l, acc) in f32 and the output is
-// acc / max(l, 1e-30), rounded once to q's type.  f32 inputs are computed
-// with f32 FMAs throughout (no TF32), so the f32 path holds 1e-5.
+// acc / max(l, 1e-30), rounded once to q's type.
 //
 // Bound: at the serving shape (S up to 1024, D = 128) the work is
 // 4 * S^2/2 * D operations per head against 4 * S * D bytes, hundreds of
-// operations per byte: bound by operations.  This first version runs them
-// on the f32 FMA units, not the tensor cores: one thread block per
-// (q tile of 64 rows, query head, batch row), 256 threads, each thread a
-// 4 x 4 tile of scores and a 4 x 8 tile of the output; Q, K and V tiles in
-// shared memory as f32 (the P tile reuses the K buffer), plain loads, no
-// pipelining.  wgmma, TMA and warp specialisation are later work.
+// operations per byte: bound by operations, so the products belong on the
+// tensor cores.  Two kernels, chosen by the input type:
 //
-// The TPU kernel runs every kv tile, fully masked ones included.  This
-// kernel walks only the kv tiles that hold a valid key for some row of the
+//   - bf16 (flash_attention_mma_kernel, the serving path): one block per
+//     (q tile of 64 rows, query head, batch row), 4 warps of 16 rows each,
+//     three blocks per SM (registers capped at 168: the third block hides
+//     more of the mma and ex2 latency than the few spilled bytes cost).
+//     K/V tiles of 64 keys in bf16 are double-buffered in shared memory
+//     with cp.async, so the next tile loads while this one computes; each
+//     warp runs the shared tensor-core tile routine (attention_tile.cuh:
+//     mma.sync m16n8k16 for Q.K^T and for P.V, P as hi + lo bf16 in
+//     registers, the online softmax in registers).  A warp skips the tiles
+//     that hold no visible key for any of its rows, and computes only the
+//     key columns below its last row's causal limit.
+//   - f32 (flash_attention_fma_kernel): the f32 FMA units, no tensor cores
+//     (TF32 would miss the 1e-5 f32 tolerance): 256 threads, each a 4 x 4
+//     tile of scores and a 4 x 8 tile of the output; Q, K and V tiles in
+//     shared memory (the P tile reuses the K buffer), plain loads.
+//
+// The TPU kernel runs every kv tile, fully masked ones included.  These
+// kernels walk only the kv tiles that hold a valid key for some row of the
 // block (below the diagonal, inside the band).  Skipping changes nothing:
 // a row's own diagonal key is always valid and lies in a walked tile, so
 // the first valid score sets corr = exp(-1e30 - m) = 0 and wipes whatever
@@ -36,6 +47,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "attention_tile.cuh"
 
 namespace {
 
@@ -57,24 +70,8 @@ __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
-  __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
-  uint2 u;
-  u.x = *reinterpret_cast<uint32_t*>(&a);
-  u.y = *reinterpret_cast<uint32_t*>(&b);
-  *reinterpret_cast<uint2*>(p) = u;
 }
 
 struct Shape {
@@ -101,7 +98,7 @@ __device__ __forceinline__ void load_tile(float* __restrict__ dst, int stride,
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+flash_attention_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out, Shape P) {
   extern __shared__ float4 smem_raw[];
   float* q_s = reinterpret_cast<float*>(smem_raw);
@@ -249,20 +246,158 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* out, const Shape& P,
-           cudaStream_t stream) {
+int launch_fma(const void* q, const void* k, const void* v, void* out, const Shape& P,
+               cudaStream_t stream) {
   static bool configured = false;          // opt in to > 48 KiB once per type
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_attention_fma_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(kSmemBytes));
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
   const dim3 grid((P.S + kBQ - 1) / kBQ, P.Hq, P.B);
-  flash_attention_kernel<T><<<grid, kThreads, kSmemBytes, stream>>>(
+  flash_attention_fma_kernel<T><<<grid, kThreads, kSmemBytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(out), P);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// bf16: tensor cores (attention_tile.cuh)
+// ---------------------------------------------------------------------------
+namespace at = attn_tile;
+using bf16 = __nv_bfloat16;
+
+constexpr int kStages = 2;        // K/V tiles in flight per block
+constexpr int kMinBlocks = 3;     // blocks per SM: caps registers at 168
+
+template <int DP>
+constexpr size_t mma_smem_bytes() {
+  return sizeof(bf16) * kStages * 2 /* K, V */ * at::Dims<DP>::kTileElems;
+}
+
+template <int DP>
+__global__ void __launch_bounds__(at::kThreads, kMinBlocks)
+flash_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                           const bf16* __restrict__ v, bf16* __restrict__ out, Shape P) {
+  using Dm = at::Dims<DP>;
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  bf16* tiles = reinterpret_cast<bf16*>(mma_smem);   // [stage][K, V][64][kStride]
+
+  const int qt = gridDim.x - 1 - blockIdx.x;          // longest causal rows first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = h / P.G;
+  const int q0 = qt * at::kRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int w0 = q0 + warp * 16;                      // the warp's first row
+  const int row[2] = {w0 + (lane >> 2), w0 + (lane >> 2) + 8};
+
+  at::RowState<DP> st;
+  const bf16* qrow[2];
+  int lo[2], hi[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    qrow[r] = row[r] < P.S
+                  ? q + ((static_cast<int64_t>(b) * P.S + row[r]) * P.Hq + h) * P.D
+                  : nullptr;
+    lo[r] = P.window > 0 ? max(0, row[r] - P.window + 1) : 0;
+    hi[r] = P.causal ? min(P.S, row[r] + 1) : P.S;
+  }
+  at::init_rows(st, qrow[0], qrow[1], P.D, lane);
+
+  // kv tiles that hold a valid key for some row of this block
+  int kv_lo = 0, kv_hi = P.S;
+  if (P.causal) kv_hi = min(P.S, q0 + at::kRows);
+  if (P.window > 0) kv_lo = max(0, q0 - P.window + 1);
+  const int t_begin = kv_lo / at::kKeys;
+  const int t_end = (kv_hi + at::kKeys - 1) / at::kKeys;
+  // the warp's last visible key + 1, over its rows
+  const int w_hi = P.causal ? min(P.S, w0 + 16) : P.S;
+
+  const int64_t k_row = static_cast<int64_t>(P.Hkv) * P.D;    // elements per position
+  const int64_t v_row = static_cast<int64_t>(P.Hkv) * P.Dv;
+  const bf16* k_base = k + (static_cast<int64_t>(b) * P.S * P.Hkv + hk) * P.D;
+  const bf16* v_base = v + (static_cast<int64_t>(b) * P.S * P.Hkv + hk) * P.Dv;
+
+  // K and V rows [kv0, kv0 + 64) into stage `buf`; rows past S and columns
+  // past D (Dv) are zero-filled
+  auto load_step = [&](int kv0, int buf) {
+    bf16* k_s = tiles + (2 * buf) * Dm::kTileElems;
+    bf16* v_s = k_s + Dm::kTileElems;
+    for (int idx = threadIdx.x; idx < 2 * at::kKeys * Dm::kChunks; idx += at::kThreads) {
+      const bool is_v = idx >= at::kKeys * Dm::kChunks;
+      const int rem = is_v ? idx - at::kKeys * Dm::kChunks : idx;
+      const int r = rem / Dm::kChunks, c = rem % Dm::kChunks;
+      const int s = kv0 + r;
+      const int width = is_v ? P.Dv : P.D;
+      const bool ok = s < P.S && c * 8 < width;
+      const bf16* src = is_v ? v_base : k_base;
+      if (ok) src += s * (is_v ? v_row : k_row) + c * 8;
+      at::cp_async16((is_v ? v_s : k_s) + r * Dm::kStride + c * 8, src, ok);
+    }
+  };
+
+  // a kStages-deep ring: tile i + kStages - 1 loads while tile i computes
+  // (one commit group per tile, empty past the end, so the wait is fixed)
+  const int n_tiles = t_end - t_begin;
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < n_tiles) load_step((t_begin + i) * at::kKeys, i);
+    at::cp_async_commit();
+  }
+  for (int i = 0; i < n_tiles; ++i) {
+    const int ahead = i + kStages - 1;
+    if (ahead < n_tiles) load_step((t_begin + ahead) * at::kKeys, ahead % kStages);
+    at::cp_async_commit();
+    at::cp_async_wait<kStages - 1>();
+    __syncthreads();
+    const int kv0 = (t_begin + i) * at::kKeys;
+    bool work = w0 < P.S;
+    if (P.causal) work = work && kv0 < w_hi;
+    if (P.window > 0) work = work && kv0 + at::kKeys > w0 - P.window + 1;
+    if (work) {
+      const int nj = min(8, (w_hi - kv0 + 7) / 8);
+      const bf16* k_s = tiles + (2 * (i % kStages)) * Dm::kTileElems;
+      at::tile_step<DP, false, false>(st, k_s, k_s + Dm::kTileElems, nullptr, nullptr, kv0,
+                                      nj, lo, hi, P.sm_scale, lane);
+    }
+    __syncthreads();                       // before this stage is loaded again
+  }
+
+  const int t4 = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row[r] >= P.S) continue;
+    const float lc = fmaxf(st.l[r], 1e-30f);
+    bf16* dst = out + ((static_cast<int64_t>(b) * P.S + row[r]) * P.Hq + h) * P.Dv;
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n) {
+      const int dv = n * 8 + 2 * t4;
+      if (dv < P.Dv)
+        *reinterpret_cast<__nv_bfloat162*>(dst + dv) =
+            __floats2bfloat162_rn(st.acc[n][2 * r] / lc, st.acc[n][2 * r + 1] / lc);
+    }
+  }
+}
+
+template <int DP>
+int launch_mma(const void* q, const void* k, const void* v, void* out, const Shape& P,
+               cudaStream_t stream) {
+  constexpr size_t smem = mma_smem_bytes<DP>();
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_attention_mma_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  const dim3 grid((P.S + at::kRows - 1) / at::kRows, P.Hq, P.B);
+  flash_attention_mma_kernel<DP><<<grid, at::kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(out), P);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -270,17 +405,35 @@ int launch(const void* q, const void* k, const void* v, void* out, const Shape& 
 
 extern "C" {
 
-// q, k, v, out contiguous; dtype 0 = f32, 1 = bf16 (all four alike).
+// Shared memory the bf16 kernel's block takes for these head dims, bytes.
+size_t flash_attention_mma_smem_bytes(int D, int Dv) {
+  switch (at::tile_width(D, Dv)) {
+    case 32: return mma_smem_bytes<32>();
+    case 64: return mma_smem_bytes<64>();
+    default: return mma_smem_bytes<128>();
+  }
+}
+
+// q, k, v, out contiguous; dtype 0 = f32 (FMA kernel; D, Dv multiples of
+// 4), 1 = bf16 (tensor-core kernel; D, Dv multiples of 8, 16-byte aligned
+// rows); all four alike.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* out, int B,
                         int S, int Hq, int Hkv, int D, int Dv, int causal, int window,
                         int dtype, float sm_scale, void* stream) {
-  if (B < 1 || S < 1 || Hkv < 1 || Hq % Hkv != 0 || D % 4 || Dv % 4 || D < 4 ||
-      Dv < 4 || D > kMaxD || Dv > kMaxD || window < 0)
+  const int step = dtype == 1 ? 8 : 4;
+  if (B < 1 || S < 1 || Hkv < 1 || Hq % Hkv != 0 || D % step || Dv % step || D < step ||
+      Dv < step || D > kMaxD || Dv > kMaxD || window < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Shape P{B, S, Hq, Hkv, Hq / Hkv, D, Dv, causal, window, sm_scale};
   const auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(q, k, v, out, P, st);
-  if (dtype == 1) return launch<__nv_bfloat16>(q, k, v, out, P, st);
+  if (dtype == 0) return launch_fma<float>(q, k, v, out, P, st);
+  if (dtype == 1) {
+    switch (at::tile_width(D, Dv)) {
+      case 32: return launch_mma<32>(q, k, v, out, P, st);
+      case 64: return launch_mma<64>(q, k, v, out, P, st);
+      default: return launch_mma<128>(q, k, v, out, P, st);
+    }
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

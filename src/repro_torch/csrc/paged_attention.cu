@@ -1,9 +1,9 @@
 // Paged decode attention over a paged KV pool, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels in src/repro/kernels/paged_attention.py:
-//   - paged_attention_serial_kernel  <- paged_attention_pallas (_paged_kernel,
+//   - the serial kernel <- paged_attention_pallas (_paged_kernel,
 //     _flash_step): one online-softmax chain over every page of a row;
-//   - paged_attention_split_kernel + paged_attention_combine_kernel
+//   - the split-K kernel + paged_attention_combine_kernel
 //     <- paged_attention_splitk_pallas (_splitk_kernel and the jnp combine):
 //     flash decoding, private (acc, m, l) partials per split of
 //     `pages_per_split` pages, merged by m = max_s m_s and exp(m_s - m).
@@ -15,26 +15,42 @@
 //   head h / G (G = Hq / Hkv).  sm_scale = D^-0.5.  NEG_INF = -1e30 is
 //   finite, the probabilities are multiplied by the mask and l is clamped
 //   at 1e-30, so a row with ctx 0 returns exact zeros.  int8 pools carry
-//   bf16 per-(slot, head) scales; each K/V element is dequantized right
-//   after it is loaded.
+//   bf16 per-(slot, head) scales.
 //
 // Bound: device-memory bytes.  Every K/V element a row reads is used for
 // 2 * G multiply-adds, far below the H100's ~295 operations per byte, so
-// the time floor is the K/V pages read over 3.35 TB/s.
+// the time floor is the K/V pages read over 3.35 TB/s, counted once per
+// table row: the rows of one prefill chunk share their table row.
 //
-// This first version is simple on purpose: one thread block per (query
-// row, kv head[, split]), scores as FMA dot products (one warp per token,
-// lanes over D), the online-softmax state in shared memory, plain global
-// loads.  No wgmma, TMA or cp.async pipelining.  Llama-2-7B is MHA (G = 1),
-// so a tensor-core product would need rows that share a table row (the
-// rows of one prefill chunk) packed into one tile: later work.
+// Two variants, chosen by dtype (the wrapper picks; both always built):
 //
-// Both kernels compute every score through the one __device__ routine
-// `token_score`, with explicit round-to-nearest FMA and multiply
-// intrinsics, so the split-K kernel's m equals the serial kernel's m bit
-// for bit (max is exact).  A block walks only the pages its ctx reaches:
-// for a fully masked page p = 0 and m is unchanged, so stopping early
-// gives the same result bit for bit.
+//   - bf16 queries over bf16 or int8 pages (paged_attention_mma, the
+//     serving path).  A plan kernel cuts the launch into M tiles of
+//     consecutive rows that share a table row (the rows of a prefill chunk;
+//     at most 64 (row, query head) pairs) on the device, with no host
+//     sync, and lists the (tile, split) work.  A tile of more than one
+//     pair runs on the tensor cores (attention_tile.cuh), so each page is
+//     loaded once per tile, not once per row: 4 warps of 16 pairs, the
+//     pages of a step (64 slots) copied with 16-byte cp.async, three steps
+//     in flight, and consecutive splits of a tile walked by one block when
+//     the launch has work enough for the card.  A tile of one pair (a
+//     decode row of an MHA stack) keeps a block per (row, head, split)
+//     and takes a one-row FMA step over the same landed pages, many
+//     blocks per SM: its gain is vectorised copies and pages in
+//     flight, not the tensor cores.  int8 pages are widened to bf16
+//     exactly (|x| <= 127); the K scale multiplies the f32 score after the
+//     product, the V scale is folded into P.  The serial kernel is the same
+//     walk over one split that spans the table, so serial and split-K
+//     compute every score alike and their m agree bit for bit (max is
+//     exact).
+//   - f32 queries or f32 pools (the FMA kernels): one block per (query
+//     row, kv head[, split]), scores as FMA dot products (one warp per
+//     token, lanes over D) through the one routine `token_score`, the
+//     online-softmax state in shared memory, plain loads; f32 holds 1e-5.
+//
+// Both walk only the pages a row's (tile's) ctx reaches: for a fully
+// masked page p = 0 and m is unchanged, so stopping early gives the same
+// result bit for bit.
 //
 // Plain C interface (loaded with ctypes); every function launches on the
 // caller's stream, allocates nothing and returns cudaGetLastError().
@@ -43,7 +59,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <type_traits>
+
+#include "attention_tile.cuh"
 
 namespace {
 
@@ -253,35 +272,65 @@ paged_attention_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k
   }
 }
 
-// One block per (row, query head): m = max_s m_s, partials rescaled by
-// exp(m_s - m), one division.  Splits beyond ctx carry (NEG_INF, 0, 0)
-// and vanish; a fully masked row keeps l = 0 and the clamp gives zeros.
+// One warp per (row, query head), four per block: m = max_s m_s,
+// partials rescaled by exp(m_s - m), one division.  Lane s holds split s
+// (and s + 32, ...) for the max and the sum; each lane owns 4 output
+// columns of every 128.
+//
+// Only the splits that start below ctx are read: a split at or past ctx
+// is (NEG_INF, 0, 0), whose terms are exact zeros (exp(-1e30 - m) = 0),
+// so leaving it out changes no bit; the tensor-core kernels do not write
+// such splits at all.  A row with ctx 0 reads none and gets m = NEG_INF,
+// l = 0 and exact zeros.
 template <typename TQ, bool STATS>
 __global__ void __launch_bounds__(kThreads)
 paged_attention_combine_kernel(const float* __restrict__ acc_p, const float* __restrict__ m_p,
-                               const float* __restrict__ l_p, int n_splits,
-                               TQ* __restrict__ out, float* __restrict__ m_out,
-                               float* __restrict__ l_out, Problem P) {
-  const int b = blockIdx.x, hq = blockIdx.y;
+                               const float* __restrict__ l_p,
+                               const int* __restrict__ ctx_lens, int n_splits,
+                               int split_len, TQ* __restrict__ out,
+                               float* __restrict__ m_out, float* __restrict__ l_out,
+                               Problem P) {
+  const int lane = threadIdx.x & 31;
+  const int64_t pair = static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  if (pair >= static_cast<int64_t>(P.B) * P.Hq) return;
+  const int b = static_cast<int>(pair / P.Hq), hq = static_cast<int>(pair % P.Hq);
   const int h = hq / P.G, g = hq % P.G;
   const int64_t base = (static_cast<int64_t>(b) * P.Hkv + h) * n_splits;
+  const int ctx = min(max(ctx_lens[b], 0), n_splits * split_len);
+  const int n_valid = (ctx + split_len - 1) / split_len;
   float m = kNegInf;
-  for (int s = 0; s < n_splits; ++s) m = fmaxf(m, m_p[(base + s) * P.G + g]);
+  for (int s = lane; s < n_valid; s += 32) m = fmaxf(m, m_p[(base + s) * P.G + g]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
   float l = 0.f;
-  for (int s = 0; s < n_splits; ++s)
+  for (int s = lane; s < n_valid; s += 32)
     l = __fmaf_rn(l_p[(base + s) * P.G + g], expf(m_p[(base + s) * P.G + g] - m), l);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) l += __shfl_xor_sync(0xffffffffu, l, off);
   const float inv_l = 1.f / fmaxf(l, 1e-30f);
   const int64_t o = (static_cast<int64_t>(b) * P.Hq + hq) * P.Dv;
-  for (int dv = threadIdx.x; dv < P.Dv; dv += blockDim.x) {
-    float a = 0.f;
-    for (int s = 0; s < n_splits; ++s)
-      a = __fmaf_rn(acc_p[((base + s) * P.G + g) * P.Dv + dv],
-                    expf(m_p[(base + s) * P.G + g] - m), a);
-    out[o + dv] = from_f<TQ>(a * inv_l);
+  for (int dv0 = 4 * lane; dv0 < P.Dv; dv0 += 128) {   // 4 columns a lane
+    float a[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int s0 = 0; s0 < n_valid; s0 += 32) {
+      const int s = s0 + lane;
+      const float alpha = s < n_valid ? expf(m_p[(base + s) * P.G + g] - m) : 0.f;
+      const int n = min(32, n_valid - s0);
+#pragma unroll 4
+      for (int k = 0; k < n; ++k) {          // independent loads: unrolled, in flight together
+        const float al = __shfl_sync(0xffffffffu, alpha, k);
+        const float* src = acc_p + ((base + s0 + k) * P.G + g) * P.Dv + dv0;
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (dv0 + e < P.Dv) a[e] = __fmaf_rn(src[e], al, a[e]);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (dv0 + e < P.Dv) out[o + dv0 + e] = from_f<TQ>(a[e] * inv_l);
   }
-  if (STATS && threadIdx.x == 0) {
-    m_out[static_cast<int64_t>(b) * P.Hq + hq] = m;
-    l_out[static_cast<int64_t>(b) * P.Hq + hq] = l;
+  if (STATS && lane == 0) {
+    m_out[pair] = m;
+    l_out[pair] = l;
   }
 }
 
@@ -315,6 +364,22 @@ void launch_serial(const Args& a, void* out, float* m_out, float* l_out, const P
         l_out, P);
 }
 
+template <typename TQ>
+void launch_combine(const float* acc_p, const float* m_p, const float* l_p,
+                    const int* ctx_lens, int n_splits, int split_len, void* out,
+                    float* m_out, float* l_out, const Problem& P, cudaStream_t st) {
+  const int64_t pairs = static_cast<int64_t>(P.B) * P.Hq;
+  const dim3 grid(static_cast<unsigned>((pairs + kWarps - 1) / kWarps));
+  if (m_out != nullptr)
+    paged_attention_combine_kernel<TQ, true><<<grid, kThreads, 0, st>>>(
+        acc_p, m_p, l_p, ctx_lens, n_splits, split_len, static_cast<TQ*>(out), m_out, l_out,
+        P);
+  else
+    paged_attention_combine_kernel<TQ, false><<<grid, kThreads, 0, st>>>(
+        acc_p, m_p, l_p, ctx_lens, n_splits, split_len, static_cast<TQ*>(out), m_out, l_out,
+        P);
+}
+
 template <typename TQ, typename TKV, bool QUANT>
 void launch_splitk(const Args& a, int pages_per_split, int n_splits, float* acc_p, float* m_p,
                    float* l_p, void* out, float* m_out, float* l_out, const Problem& P,
@@ -325,35 +390,29 @@ void launch_splitk(const Args& a, int pages_per_split, int n_splits, float* acc_
       static_cast<const TKV*>(a.v_pool), static_cast<const __nv_bfloat16*>(a.k_scale),
       static_cast<const __nv_bfloat16*>(a.v_scale), a.tables, a.row_map, a.ctx_lens,
       pages_per_split, acc_p, m_p, l_p, P);
-  if (m_out != nullptr)
-    paged_attention_combine_kernel<TQ, true><<<dim3(P.B, P.Hq), kThreads, 0, st>>>(
-        acc_p, m_p, l_p, n_splits, static_cast<TQ*>(out), m_out, l_out, P);
-  else
-    paged_attention_combine_kernel<TQ, false><<<dim3(P.B, P.Hq), kThreads, 0, st>>>(
-        acc_p, m_p, l_p, n_splits, static_cast<TQ*>(out), m_out, l_out, P);
+  launch_combine<TQ>(acc_p, m_p, l_p, a.ctx_lens, n_splits, pages_per_split * P.page, out,
+                     m_out, l_out, P, st);
 }
 
 // Expand the runtime (q dtype, kv dtype, quant) triple into a template
-// instantiation.  Returns false for a combination the kernels do not take.
+// instantiation of the FMA kernels: f32 queries over every pool type, and
+// bf16 queries over f32 pools (bf16 queries over bf16 or int8 pools take
+// the tensor-core path).  Returns false for a combination they do not take.
 template <typename F>
 bool dispatch(int q_dtype, int kv_dtype, int quant, F&& f) {
-  auto with_kv = [&](auto q_tag) {
-    using TQ = decltype(q_tag);
-    auto with_quant = [&](auto kv_tag) {
-      using TKV = decltype(kv_tag);
-      if (quant)
-        f(TQ{}, TKV{}, std::true_type{});
-      else
-        f(TQ{}, TKV{}, std::false_type{});
-      return true;
-    };
-    if (kv_dtype == kF32) return with_quant(float{});
-    if (kv_dtype == kBF16) return with_quant(__nv_bfloat16{});
-    if (kv_dtype == kI8) return with_quant(int8_t{});
-    return false;
+  auto with_quant = [&](auto q_tag, auto kv_tag) {
+    if (quant)
+      f(q_tag, kv_tag, std::true_type{});
+    else
+      f(q_tag, kv_tag, std::false_type{});
+    return true;
   };
-  if (q_dtype == kF32) return with_kv(float{});
-  if (q_dtype == kBF16) return with_kv(__nv_bfloat16{});
+  if (q_dtype == kF32) {
+    if (kv_dtype == kF32) return with_quant(float{}, float{});
+    if (kv_dtype == kBF16) return with_quant(float{}, __nv_bfloat16{});
+    if (kv_dtype == kI8) return with_quant(float{}, int8_t{});
+  }
+  if (q_dtype == kBF16 && kv_dtype == kF32) return with_quant(__nv_bfloat16{}, float{});
   return false;
 }
 
@@ -372,6 +431,551 @@ Problem make_problem(int B, int Hq, int Hkv, int D, int Dv, int page, int T, int
   P.n_pool = n_pool;
   P.sm_scale = sm_scale;
   return P;
+}
+
+// ---------------------------------------------------------------------------
+// bf16 queries over bf16 or int8 pages: the tensor-core path
+// ---------------------------------------------------------------------------
+namespace at = attn_tile;
+using bf16 = __nv_bfloat16;
+
+// Where a walk goes.  Split-K: splits of `pps` pages over n_pages =
+// n_splits * pps (pages past W read page 0, the Pallas kernel's padding,
+// and ctx masks them).  Serial (`direct`): one split of pps = n_pages = W
+// pages, written straight to the output.
+struct Walk {
+  int pps, n_splits, n_pages;
+  int cap_rows;   // rows per M tile: kRows / G, so a tile's (row, head) pairs fill 64
+  int direct;
+};
+
+// The plan, written on the device by paged_plan_kernel (no host sync):
+// M tiles of consecutive rows that share a table row, at most cap_rows
+// each, and two lists of work units, each a run of consecutive splits of
+// one tile that hold a visible key: wide units (tiles of more than one
+// (row, query head) pair: the tensor cores) and thin units (tiles of one
+// pair, decode rows of an MHA stack: one FMA row).
+struct Plan {
+  int* tile_row0;     // [B] first row of each tile
+  int* tile_nrows;    // [B]
+  int* tile_maxctx;   // [B] largest ctx of the tile's rows, clamped to [0, n_pages * page]
+  int* units[2];      // [wide, thin], each [B * n_splits]: tile * n_splits + first split
+  int* n_units;       // [2]
+  int* group;         // [1] splits per wide unit (a thin unit is one split)
+};
+
+Plan carve_plan(int* ws, int B, int n_splits) {
+  int* wide = ws + 3 * B;
+  int* thin = wide + static_cast<int64_t>(B) * n_splits;
+  int* tail = thin + static_cast<int64_t>(B) * n_splits;
+  return Plan{ws, ws + B, ws + 2 * B, {wide, thin}, tail, tail + 2};
+}
+
+// A row leads a tile where its table row differs from the previous row's,
+// or at every cap_rows-th row of the launch: a local rule, so each thread
+// finds its tiles without a scan.  The rows of one prefill chunk (the
+// engine lowers them together, sharing row_map) fill whole tiles; decode
+// rows (each its own table row) are tiles of one row, so they keep their
+// own block per (row, head, split).  A tile whose rows all have ctx 0 (the
+// padding rows) yields no split-K unit and loads no page.
+//
+// Wide items (tile, split) are grouped into units of `group` consecutive
+// splits, so one block walks a run of pages pipelined and writes each
+// split's partials as it ends; `group` is the largest that still leaves
+// `target` (unit, head) pairs for the wide kernel's blocks.
+constexpr int kPlanRows = 2048;   // launches up to this many rows plan from shared memory
+
+__global__ void __launch_bounds__(1024)
+paged_plan_kernel(const int* __restrict__ row_map, const int* __restrict__ ctx_lens, Walk Wk,
+                  int B, int G, int page, int Hkv, int target, Plan plan) {
+  __shared__ int warp_sums[32];
+  // per row: whether it leads a tile, its clamped ctx and (leaders) its
+  // tile's rows and largest ctx, packed; the walks over a tile's rows stay
+  // on chip
+  __shared__ int ctx_s[kPlanRows], ext_s[kPlanRows];
+  __shared__ bool lead_s[kPlanRows];
+  const int cap_tok = Wk.n_pages * page;
+  const int split_len = Wk.pps * page;
+  const bool staged = B <= kPlanRows && cap_tok < (1 << 24);   // (maxctx << 7) fits
+  auto ctx_global = [&](int r) { return min(max(ctx_lens[r], 0), cap_tok); };
+  auto leader_global = [&](int r) {
+    return r == 0 || row_map[r] != row_map[r - 1] || r % Wk.cap_rows == 0;
+  };
+  if (staged)
+    for (int r = threadIdx.x; r < B; r += blockDim.x) {
+      ctx_s[r] = ctx_global(r);
+      lead_s[r] = leader_global(r);
+    }
+  __syncthreads();
+  auto ctx_of = [&](int r) { return staged ? ctx_s[r] : ctx_global(r); };
+  auto leader = [&](int r) { return staged ? lead_s[r] : leader_global(r); };
+  // the tile led by r: n rows (<= 64) and their largest ctx
+  auto extent = [&](int r, bool first, int& n, int& maxctx) {
+    if (staged && !first) {
+      n = ext_s[r] & 127;
+      maxctx = ext_s[r] >> 7;
+      return;
+    }
+    n = 1;
+    maxctx = ctx_of(r);
+    while (r + n < B && !leader(r + n)) maxctx = max(maxctx, ctx_of(r + n++));
+    if (staged) ext_s[r] = (maxctx << 7) | n;   // read back by this thread only
+  };
+  auto n_splits_of = [&](int maxctx) {
+    return Wk.direct ? 1 : (maxctx + split_len - 1) / split_len;
+  };
+  const int per = (B + blockDim.x - 1) / blockDim.x;
+  const int r0 = min(B, static_cast<int>(threadIdx.x) * per), r1 = min(B, r0 + per);
+  int n_t = 0, n_wide = 0, n_thin = 0;
+  for (int r = r0; r < r1; ++r) {
+    if (!leader(r)) continue;
+    int n, maxctx;
+    extent(r, true, n, maxctx);
+    ++n_t;
+    (n * G == 1 ? n_thin : n_wide) += n_splits_of(maxctx);
+  }
+  int total_t, total_wide, total_thin;
+  int t = at::block_exclusive_scan(n_t, &total_t, warp_sums);
+  at::block_exclusive_scan(n_wide, &total_wide, warp_sums);
+  int v = at::block_exclusive_scan(n_thin, &total_thin, warp_sums);
+  const int group =
+      Wk.direct ? 1
+                : max(1, min(Wk.n_splits, static_cast<int>(static_cast<int64_t>(total_wide) *
+                                                           Hkv / max(target, 1))));
+  int n_u = 0;
+  for (int r = r0; r < r1; ++r) {
+    if (!leader(r)) continue;
+    int n, maxctx;
+    extent(r, false, n, maxctx);
+    if (n * G > 1) n_u += (n_splits_of(maxctx) + group - 1) / group;
+  }
+  int total_u;
+  int u = at::block_exclusive_scan(n_u, &total_u, warp_sums);
+  for (int r = r0; r < r1; ++r) {
+    if (!leader(r)) continue;
+    int n, maxctx;
+    extent(r, false, n, maxctx);
+    plan.tile_row0[t] = r;
+    plan.tile_nrows[t] = n;
+    plan.tile_maxctx[t] = maxctx;
+    const int k = n_splits_of(maxctx);
+    if (n * G > 1)
+      for (int s = 0; s < k; s += group) plan.units[0][u++] = t * Wk.n_splits + s;
+    else
+      for (int s = 0; s < k; ++s) plan.units[1][v++] = t * Wk.n_splits + s;
+    ++t;
+  }
+  if (threadIdx.x == 0) {
+    plan.n_units[0] = total_u;
+    plan.n_units[1] = total_thin;
+    *plan.group = group;
+  }
+}
+
+// Page steps in flight per block: the wide kernel keeps a ring of three
+// (two ahead of the one that computes); the thin kernel loads one step at
+// a time and keeps many blocks on each SM instead.
+template <bool THIN>
+constexpr int kStagesOf = THIN ? 1 : 3;
+
+// Shared memory of one block, bytes.  bf16 pages land straight in the K/V
+// tiles; int8 pages land in int8 staging with their per-slot scales as f32
+// (the wide kernel widens them into one bf16 tile for ldmatrix; the thin
+// kernel reads them as they are).  The thin kernel adds its query row and
+// scores (f32).
+template <int DP, bool QUANT, bool THIN>
+constexpr size_t mma_smem_bytes() {
+  constexpr size_t tile = sizeof(bf16) * at::Dims<DP>::kTileElems;
+  constexpr size_t land = QUANT ? 2 * at::kKeys * (DP + sizeof(float)) : 2 * tile;
+  return (QUANT && !THIN ? 2 * tile : 0) + kStagesOf<THIN> * land +
+         (THIN ? sizeof(float) * (DP + at::kKeys) : 0);
+}
+
+__device__ __forceinline__ void load8(const bf16* p, float f[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 x = __bfloat1622float2(h[e]);
+    f[2 * e] = x.x;
+    f[2 * e + 1] = x.y;
+  }
+}
+
+__device__ __forceinline__ void load8(const int8_t* p, float f[8]) {
+  const int2 u = *reinterpret_cast<const int2*>(p);
+  const int8_t* b = reinterpret_cast<const int8_t*>(&u);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) f[e] = static_cast<float>(b[e]);
+}
+
+// One online-softmax step of a thin tile (one query row) over a landed
+// step of n_keys slots at positions key0 + [0, n_keys), visible below hi.
+// Scores: two threads per key, each an FMA chain over half of D in a fixed
+// order, then their sum; every warp takes the softmax of the 64 scores
+// alike, so (m, l) live in every thread; thread t holds output column t.
+// f32 throughout (bf16 and int8 values are exact in f32), so no hi/lo.
+template <int DP, bool QUANT, typename TKV>
+__device__ __forceinline__ void thin_step(const TKV* K, const TKV* V, const float* ks,
+                                          const float* vs, const float* q_s, float* s_s,
+                                          int key0, int n_keys, int hi, float sm_scale,
+                                          float& m, float& l, float& acc) {
+  constexpr int LS = QUANT ? DP : at::Dims<DP>::kStride;   // landed row stride
+  constexpr float kLog2e = 1.4426950408889634f;
+  const int key = threadIdx.x >> 1, half = threadIdx.x & 1, lane = threadIdx.x & 31;
+  float dot = 0.f;
+  if (key < n_keys) {
+    const TKV* kr = K + key * LS + half * (DP / 2);
+    const float* qh = q_s + half * (DP / 2);
+#pragma unroll
+    for (int c = 0; c < DP / 2; c += 8) {
+      float f[8];
+      load8(kr + c, f);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) dot = __fmaf_rn(qh[c + e], f[e], dot);
+    }
+  }
+  dot = __fadd_rn(dot, __shfl_xor_sync(0xffffffffu, dot, 1));   // a + b == b + a
+  if (half == 0) {
+    float sc = dot;
+    if (QUANT) sc = __fmul_rn(sc, ks[key]);
+    sc = __fmul_rn(sc, sm_scale);
+    s_s[key] = key0 + key < hi ? sc : at::kNegInf;
+  }
+  __syncthreads();
+  const float a = s_s[lane], b = s_s[lane + 32];
+  float mx = fmaxf(a, b);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+  const float m_new = fmaxf(m, mx);
+  const float corr = at::ex2(__fmul_rn(m - m_new, kLog2e));
+  float pa = key0 + lane < hi ? at::ex2(__fmul_rn(a - m_new, kLog2e)) : 0.f;
+  float pb = key0 + lane + 32 < hi ? at::ex2(__fmul_rn(b - m_new, kLog2e)) : 0.f;
+  float sum = pa + pb;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  l = __fmaf_rn(l, corr, sum);
+  m = m_new;
+  if (QUANT) {
+    pa = __fmul_rn(pa, vs[lane]);
+    pb = __fmul_rn(pb, vs[lane + 32]);
+  }
+  acc *= corr;
+  const TKV* vc = V + min(static_cast<int>(threadIdx.x), DP - 1);
+  for (int k = 0; k < n_keys; ++k) {
+    const float pk = __shfl_sync(0xffffffffu, k < 32 ? pa : pb, k & 31);
+    acc = __fmaf_rn(pk, to_f(vc[k * LS]), acc);
+  }
+}
+
+// One block of 4 warps walks (unit, kv head) pairs, as many blocks as the
+// card holds at once, each striding over its list of units.  A step is
+// kKeys slots (64 / page whole pages), copied with 16-byte cp.async for
+// all of the step's pages at once (the wide kernel two steps ahead of the
+// one that computes, across split boundaries).  In the wide kernel each
+// warp holds 16 of the tile's (row, query head) pairs and runs the shared
+// tile routine with each pair's own range [0, min(ctx, split end)); the
+// thin kernel runs thin_step over the whole block.  At the end of a split
+// the block writes that split's partials (or, serial, the output) and
+// starts the next split afresh.  Slots at or past the tile's largest ctx
+// are zero-filled, never read.
+template <int DP, bool QUANT, bool THIN>
+__global__ void __launch_bounds__(at::kThreads)
+paged_attention_mma_kernel(const bf16* __restrict__ q, const void* __restrict__ k_pool,
+                           const void* __restrict__ v_pool,
+                           const bf16* __restrict__ k_scale, const bf16* __restrict__ v_scale,
+                           const int* __restrict__ tables, const int* __restrict__ row_map,
+                           const int* __restrict__ ctx_lens, Plan plan, Walk Wk,
+                           float* __restrict__ acc_p, float* __restrict__ m_p,
+                           float* __restrict__ l_p, bf16* __restrict__ out,
+                           float* __restrict__ m_out, float* __restrict__ l_out, Problem P) {
+  using Dm = at::Dims<DP>;
+  using TKV = typename std::conditional<QUANT, int8_t, bf16>::type;
+  constexpr int kStages = kStagesOf<THIN>;
+  constexpr bool kWiden = QUANT && !THIN;            // int8 -> one bf16 tile for ldmatrix
+  constexpr int kElemsPerChunk = 16 / sizeof(TKV);
+  constexpr int kChunks = DP / kElemsPerChunk;       // per landed slot row
+  constexpr int kLandStride = QUANT ? DP : Dm::kStride;   // landed row stride, elements
+  constexpr int kLandTile = at::kKeys * kLandStride;
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  bf16* tiles = reinterpret_cast<bf16*>(mma_smem);
+  TKV* landing = reinterpret_cast<TKV*>(tiles + (kWiden ? 2 * Dm::kTileElems : 0));
+  float* scales = reinterpret_cast<float*>(landing + kStages * 2 * kLandTile);
+  float* q_s = scales + (QUANT ? kStages * 2 * at::kKeys : 0);   // thin: [DP]
+  float* s_s = q_s + DP;                                           // thin: [kKeys]
+  const TKV* kp = static_cast<const TKV*>(k_pool);
+  const TKV* vp = static_cast<const TKV*>(v_pool);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t4 = lane & 3;
+  const int cap_tok = Wk.n_pages * P.page;
+  const int split_len = Wk.pps * P.page;
+  const int step_pages = at::kKeys / P.page;
+  const int steps_per_split = (Wk.pps + step_pages - 1) / step_pages;
+  const int n_pairs = plan.n_units[THIN] * P.Hkv;
+  const int group = THIN ? 1 : *plan.group;
+  const int* units = plan.units[THIN];
+
+  for (int pair = blockIdx.x; pair < n_pairs; pair += gridDim.x) {
+    const int unit = units[pair / P.Hkv], h = pair % P.Hkv;
+    const int tile = unit / Wk.n_splits, s0 = unit % Wk.n_splits;
+    const int row0 = plan.tile_row0[tile], n_entries = plan.tile_nrows[tile] * P.G;
+    const int maxctx = plan.tile_maxctx[tile];
+    const int trow = table_row(row_map, row0, P);
+    const int pages_ctx = min(Wk.n_pages, (maxctx + P.page - 1) / P.page);
+    const int n_split_total = Wk.direct ? 1 : (maxctx + split_len - 1) / split_len;
+    const int s_last = min(s0 + group, n_split_total) - 1;
+    // every split of the unit but the tile's last is whole (pps pages)
+    const int last_steps =
+        (min((s_last + 1) * Wk.pps, pages_ctx) - s_last * Wk.pps + step_pages - 1) / step_pages;
+    const int n_steps = (s_last - s0) * steps_per_split + max(last_steps, 0);
+
+    // the wide kernel: this lane's two (row, query head) pairs, entries g
+    // and g + 8 of the warp; the thin kernel: the one pair, in every thread
+    int row[2], hq[2], ctx[2];
+    const bf16* qrow[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int e = THIN ? 0 : warp * 16 + (lane >> 2) + 8 * r;
+      const bool ok = e < n_entries && (!THIN || r == 0);
+      row[r] = row0 + (ok ? e / P.G : 0);
+      hq[r] = h * P.G + (ok ? e % P.G : 0);
+      ctx[r] = ok ? min(max(ctx_lens[row[r]], 0), cap_tok) : 0;
+      qrow[r] = ok ? q + (static_cast<int64_t>(row[r]) * P.Hq + hq[r]) * P.D : nullptr;
+    }
+    const bool warp_live = warp * 16 < n_entries;
+    at::RowState<DP> st;
+    float m1 = at::kNegInf, l1 = 0.f, acc1 = 0.f;     // the thin kernel's state
+    if constexpr (THIN) {
+      if (threadIdx.x < DP)
+        q_s[threadIdx.x] = threadIdx.x < P.D ? __bfloat162float(qrow[0][threadIdx.x]) : 0.f;
+    } else {
+      at::init_rows(st, qrow[0], qrow[1], P.D, lane);
+    }
+
+    // first page of step `i` and the page where it stops
+    auto step_pages_of = [&](int i, int& jb, int& je) {
+      const int s = s0 + i / steps_per_split;
+      jb = s * Wk.pps + (i % steps_per_split) * step_pages;
+      je = min(min(jb + step_pages, (s + 1) * Wk.pps), pages_ctx);
+    };
+    // the slots of step `i` into landing stage `buf` (no commit)
+    auto load_step = [&](int i, int buf) {
+      int jb, je;
+      step_pages_of(i, jb, je);
+      const int key0 = jb * P.page;
+      const int n_slots = min((je - jb) * P.page, maxctx - key0);
+      TKV* dst0 = landing + buf * 2 * kLandTile;
+      for (int idx = threadIdx.x; idx < 2 * at::kKeys * kChunks; idx += at::kThreads) {
+        const bool is_v = idx >= at::kKeys * kChunks;
+        const int rem = is_v ? idx - at::kKeys * kChunks : idx;
+        const int slot_i = rem / kChunks, c = rem % kChunks;
+        const int width = is_v ? P.Dv : P.D;
+        const bool ok = slot_i < n_slots && c * kElemsPerChunk < width;
+        const TKV* src = is_v ? vp : kp;
+        if (ok) {
+          const int64_t slot =
+              static_cast<int64_t>(table_page(tables, trow, jb + slot_i / P.page, P)) *
+                  P.page + slot_i % P.page;
+          src += (slot * P.Hkv + h) * width + c * kElemsPerChunk;
+        }
+        at::cp_async16(dst0 + (is_v ? kLandTile : 0) + slot_i * kLandStride +
+                           c * kElemsPerChunk,
+                       src, ok);
+      }
+      if (QUANT && threadIdx.x < 2 * at::kKeys) {
+        const bool is_v = threadIdx.x >= at::kKeys;
+        const int slot_i = threadIdx.x & (at::kKeys - 1);
+        float sc = 0.f;
+        if (slot_i < n_slots) {
+          const int64_t slot =
+              static_cast<int64_t>(table_page(tables, trow, jb + slot_i / P.page, P)) *
+                  P.page + slot_i % P.page;
+          sc = __bfloat162float((is_v ? v_scale : k_scale)[slot * P.Hkv + h]);
+        }
+        scales[buf * 2 * at::kKeys + threadIdx.x] = sc;
+      }
+    };
+    // the finished state of split `s`: partials, or (serial) the output;
+    // then a fresh state for the next split
+    auto flush = [&](int s) {
+      if constexpr (THIN) {
+        const int dv = threadIdx.x;
+        if (Wk.direct) {
+          const int64_t head = static_cast<int64_t>(row[0]) * P.Hq + hq[0];
+          if (dv < P.Dv) out[head * P.Dv + dv] = __float2bfloat16_rn(acc1 / fmaxf(l1, 1e-30f));
+          if (m_out != nullptr && dv == 0) {
+            m_out[head] = m1;
+            l_out[head] = l1;
+          }
+        } else if (ctx[0] > s * split_len) {
+          const int64_t part = (static_cast<int64_t>(row[0]) * P.Hkv + h) * Wk.n_splits + s;
+          if (dv < P.Dv) acc_p[part * P.Dv + dv] = acc1;
+          if (dv == 0) {
+            m_p[part] = m1;
+            l_p[part] = l1;
+          }
+        }
+        m1 = at::kNegInf;
+        l1 = acc1 = 0.f;
+      } else {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          if (qrow[r] == nullptr) continue;
+          if (Wk.direct) {
+            const int64_t head = static_cast<int64_t>(row[r]) * P.Hq + hq[r];
+            const float lc = fmaxf(st.l[r], 1e-30f);
+#pragma unroll
+            for (int n = 0; n < DP / 8; ++n) {
+              const int dv = n * 8 + 2 * t4;
+              if (dv < P.Dv)
+                *reinterpret_cast<__nv_bfloat162*>(out + head * P.Dv + dv) =
+                    __floats2bfloat162_rn(st.acc[n][2 * r] / lc, st.acc[n][2 * r + 1] / lc);
+            }
+            if (m_out != nullptr && t4 == 0) {
+              m_out[head] = st.m[r];
+              l_out[head] = st.l[r];
+            }
+          } else if (ctx[r] > s * split_len) {   // the combine reads exactly these splits
+            const int64_t part =
+                ((static_cast<int64_t>(row[r]) * P.Hkv + h) * Wk.n_splits + s) * P.G +
+                (hq[r] - h * P.G);
+#pragma unroll
+            for (int n = 0; n < DP / 8; ++n) {
+              const int dv = n * 8 + 2 * t4;
+              if (dv < P.Dv)
+                *reinterpret_cast<float2*>(acc_p + part * P.Dv + dv) =
+                    make_float2(st.acc[n][2 * r], st.acc[n][2 * r + 1]);
+            }
+            if (t4 == 0) {
+              m_p[part] = st.m[r];
+              l_p[part] = st.l[r];
+            }
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) st.acc[n][e] = 0.f;
+        st.m[0] = st.m[1] = at::kNegInf;
+        st.l[0] = st.l[1] = 0.f;
+      }
+    };
+
+    if (n_steps == 0) flush(s0);             // serial rows with ctx 0: zeros
+#pragma unroll
+    for (int i = 0; i < kStages - 1; ++i) {
+      if (i < n_steps) load_step(i, i);
+      at::cp_async_commit();
+    }
+    for (int i = 0; i < n_steps; ++i) {
+      const int ahead = i + kStages - 1;
+      if (ahead < n_steps) load_step(ahead, ahead % kStages);
+      at::cp_async_commit();
+      at::cp_async_wait<kStages - 1>();
+      __syncthreads();
+      const int buf = i % kStages;
+      const TKV* land = landing + buf * 2 * kLandTile;
+      const float* ks = scales + buf * 2 * at::kKeys;
+      if constexpr (kWiden) {
+        // widen the landed int8 rows to bf16 (exact: |x| <= 127); pad
+        // columns D..DP of the landing rows were zero-filled
+        const int8_t* src = reinterpret_cast<const int8_t*>(land);
+        for (int idx = threadIdx.x; idx < 2 * at::kKeys * (DP / 8); idx += at::kThreads) {
+          const int r = idx / (DP / 8), c = idx % (DP / 8);    // r in [0, 128): K rows, V rows
+          const int2 raw = *reinterpret_cast<const int2*>(src + r * DP + c * 8);
+          const int8_t* b8 = reinterpret_cast<const int8_t*>(&raw);
+          uint4 o;
+          uint32_t* o32 = reinterpret_cast<uint32_t*>(&o);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            o32[e] = at::as_u32(__floats2bfloat162_rn(static_cast<float>(b8[2 * e]),
+                                                      static_cast<float>(b8[2 * e + 1])));
+          *reinterpret_cast<uint4*>(tiles + r * Dm::kStride + c * 8) = o;
+        }
+        __syncthreads();
+      }
+      const int s = s0 + i / steps_per_split;
+      int jb, je;
+      step_pages_of(i, jb, je);
+      const int key0 = jb * P.page;
+      const int key_end = min(je * P.page, maxctx);
+      const int split_end = min((s + 1) * Wk.pps, Wk.n_pages) * P.page;
+      if constexpr (THIN) {
+        thin_step<DP, QUANT>(land, land + kLandTile, ks, ks + at::kKeys, q_s, s_s, key0,
+                             key_end - key0, min(ctx[0], split_end), P.sm_scale, m1, l1, acc1);
+      } else if (warp_live) {
+        const bf16* k_s = kWiden ? tiles : reinterpret_cast<const bf16*>(land);
+        const int lo[2] = {0, 0};
+        const int hi[2] = {min(ctx[0], split_end), min(ctx[1], split_end)};
+        at::tile_step<DP, true, QUANT>(st, k_s, k_s + Dm::kTileElems, ks, ks + at::kKeys, key0,
+                                       min(8, (key_end - key0 + 7) / 8), lo, hi, P.sm_scale,
+                                       lane);
+      }
+      if (i + 1 == n_steps || (i + 1) % steps_per_split == 0) flush(s);
+      __syncthreads();                     // before this stage is loaded again
+    }
+  }
+}
+
+// Blocks of one walk kernel the card holds at once (asked once per
+// instantiation; 0 if the query failed).
+template <int DP, bool QUANT, bool THIN>
+int walk_blocks() {
+  static int blocks = 0;
+  if (blocks == 0) {
+    auto kernel = paged_attention_mma_kernel<DP, QUANT, THIN>;
+    constexpr size_t smem = mma_smem_bytes<DP, QUANT, THIN>();
+    int dev = 0, n_sm = 0, per_sm = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem)) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, at::kThreads, smem) !=
+            cudaSuccess)
+      return 0;
+    blocks = per_sm * n_sm;
+  }
+  return blocks;
+}
+
+template <int DP, bool QUANT, bool THIN>
+int launch_walk(const Args& a, const Plan& plan, const Walk& Wk, float* acc_p, float* m_p,
+                float* l_p, void* out, float* m_out, float* l_out, const Problem& P,
+                cudaStream_t st) {
+  const int blocks = walk_blocks<DP, QUANT, THIN>();
+  if (blocks < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int64_t most = static_cast<int64_t>(P.B) * Wk.n_splits * P.Hkv;
+  const int grid = static_cast<int>(std::max<int64_t>(1, std::min<int64_t>(most, blocks)));
+  paged_attention_mma_kernel<DP, QUANT, THIN>
+      <<<grid, at::kThreads, mma_smem_bytes<DP, QUANT, THIN>(), st>>>(
+          static_cast<const bf16*>(a.q), a.k_pool, a.v_pool,
+          static_cast<const bf16*>(a.k_scale), static_cast<const bf16*>(a.v_scale), a.tables,
+          a.row_map, a.ctx_lens, plan, Wk, acc_p, m_p, l_p, static_cast<bf16*>(out), m_out,
+          l_out, P);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// plan, the wide (tensor-core) walk, the thin (one-row) walk, and for
+// split-K the combine: four launches, none of which waits for the host
+template <int DP, bool QUANT>
+int launch_mma(const Args& a, int* workspace, const Walk& Wk, float* acc_p, float* m_p,
+               float* l_p, void* out, float* m_out, float* l_out, const Problem& P,
+               cudaStream_t st) {
+  const int wide_blocks = walk_blocks<DP, QUANT, false>();
+  if (wide_blocks < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const Plan plan = carve_plan(workspace, P.B, Wk.n_splits);
+  paged_plan_kernel<<<1, 1024, 0, st>>>(a.row_map, a.ctx_lens, Wk, P.B, P.G, P.page, P.Hkv,
+                                        4 * wide_blocks, plan);
+  int err = static_cast<int>(cudaGetLastError());
+  if (err == 0)
+    err = launch_walk<DP, QUANT, false>(a, plan, Wk, acc_p, m_p, l_p, out, m_out, l_out, P, st);
+  if (err == 0)
+    err = launch_walk<DP, QUANT, true>(a, plan, Wk, acc_p, m_p, l_p, out, m_out, l_out, P, st);
+  if (err != 0) return err;
+  if (!Wk.direct)
+    launch_combine<bf16>(acc_p, m_p, l_p, a.ctx_lens, Wk.n_splits, Wk.pps * P.page, out,
+                         m_out, l_out, P, st);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -416,6 +1020,64 @@ int paged_attention_splitk(const void* q, const void* k_pool, const void* v_pool
   });
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The tensor-core path: bf16 q over bf16 (kv_dtype 1) or int8 (2) pools.
+// direct = 1: the serial kernel (one split over the whole table, out and
+// optional m, l written directly); direct = 0: split-K partials of
+// pages_per_split pages and the combine.  `workspace`: 3 * B + 2 * B *
+// n_splits + 3 int32 (n_splits = 1 when direct).  Head dims up to 128,
+// multiples of 8 (bf16) or 16 (int8); G <= 64; page <= 64.
+int paged_attention_mma(const void* q, const void* k_pool, const void* v_pool,
+                        const void* k_scale, const void* v_scale, const int* tables,
+                        const int* row_map, const int* ctx_lens, int* workspace,
+                        int pages_per_split, int n_splits, int direct, float* acc_p,
+                        float* m_p, float* l_p, void* out, float* m_out, float* l_out, int B,
+                        int Hq, int Hkv, int D, int Dv, int page, int T, int W, int n_pool,
+                        float sm_scale, int kv_dtype, void* stream) {
+  const Problem P = make_problem(B, Hq, Hkv, D, Dv, page, T, W, n_pool, sm_scale);
+  const int step = kv_dtype == kI8 ? 16 : 8;
+  if ((kv_dtype != kBF16 && kv_dtype != kI8) || B < 1 || Hkv < 1 || Hq % Hkv != 0 ||
+      P.G > at::kRows || D % step || Dv % step || D < step || Dv < step || D > 128 ||
+      Dv > 128 || page < 1 || page > at::kKeys || W < 1 || T < 1 || n_pool < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Walk Wk;
+  Wk.direct = direct != 0;
+  Wk.pps = Wk.direct ? W : pages_per_split;
+  Wk.n_splits = Wk.direct ? 1 : n_splits;
+  Wk.n_pages = Wk.direct ? W : n_splits * pages_per_split;
+  Wk.cap_rows = at::kRows / P.G;
+  if (Wk.pps < 1 || Wk.n_splits < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{q, k_pool, v_pool, k_scale, v_scale, tables, row_map, ctx_lens};
+  const auto st = static_cast<cudaStream_t>(stream);
+  const bool quant = kv_dtype == kI8;
+  switch (at::tile_width(D, Dv) * 2 + quant) {
+    case 64: return launch_mma<32, false>(a, workspace, Wk, acc_p, m_p, l_p, out, m_out, l_out, P, st);
+    case 65: return launch_mma<32, true>(a, workspace, Wk, acc_p, m_p, l_p, out, m_out, l_out, P, st);
+    case 128: return launch_mma<64, false>(a, workspace, Wk, acc_p, m_p, l_p, out, m_out, l_out, P, st);
+    case 129: return launch_mma<64, true>(a, workspace, Wk, acc_p, m_p, l_p, out, m_out, l_out, P, st);
+    case 256: return launch_mma<128, false>(a, workspace, Wk, acc_p, m_p, l_p, out, m_out, l_out, P, st);
+    default: return launch_mma<128, true>(a, workspace, Wk, acc_p, m_p, l_p, out, m_out, l_out, P, st);
+  }
+}
+
+// Shared memory of one block of the wide (thin = 0) or thin (1) walk for
+// these head dims, bytes.
+size_t paged_attention_mma_smem_bytes(int D, int Dv, int quant, int thin) {
+  switch (at::tile_width(D, Dv) * 4 + (quant != 0) * 2 + (thin != 0)) {
+    case 128: return mma_smem_bytes<32, false, false>();
+    case 129: return mma_smem_bytes<32, false, true>();
+    case 130: return mma_smem_bytes<32, true, false>();
+    case 131: return mma_smem_bytes<32, true, true>();
+    case 256: return mma_smem_bytes<64, false, false>();
+    case 257: return mma_smem_bytes<64, false, true>();
+    case 258: return mma_smem_bytes<64, true, false>();
+    case 259: return mma_smem_bytes<64, true, true>();
+    case 512: return mma_smem_bytes<128, false, false>();
+    case 513: return mma_smem_bytes<128, false, true>();
+    case 514: return mma_smem_bytes<128, true, false>();
+    default: return mma_smem_bytes<128, true, true>();
+  }
 }
 
 }  // extern "C"

@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
-Every ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface, under ``build/kernels/`` at the
+Every ``csrc/<name>.cu`` (with the headers it includes from ``csrc/``)
+is compiled by ``nvcc`` for ``sm_90a`` into a shared library with a plain
+C interface, under ``build/kernels/`` at the
 repository root (listed in ``.gitignore``).  The library's file name
 carries a hash of its source and flags, so an edited source is rebuilt
 and a stale library is never loaded.  Nothing is built when a module is
@@ -45,9 +46,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """The library's path; its name hashes the source, every header of
+    ``csrc/`` (``attention_tile.cuh`` is shared) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -85,11 +90,16 @@ def build_all() -> Dict[str, float]:
     names = sorted(p.stem for p in CSRC.glob("*.cu"))
     t0 = time.perf_counter()
     started = {n: _start(n) for n in names}
-    times = {}
-    for n in names:
+    times, errors = {}, []
+    for n in names:                # wait for every nvcc, even after a failure
         if started[n] is not None:
-            _finish(n, started[n])
+            try:
+                _finish(n, started[n])
+            except RuntimeError as e:
+                errors.append(e)
         times[n] = 0.0 if started[n] is None else time.perf_counter() - t0
+    if errors:
+        raise errors[0]
     return times
 
 

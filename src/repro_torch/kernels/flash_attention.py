@@ -3,7 +3,10 @@
 Port of ``repro/kernels/flash_attention.py``.  One kernel, written by
 hand in CUDA C++ for Hopper (``csrc/flash_attention.cu``), replaces
 ``flash_attention_pallas``; beside it is a plain PyTorch version of the
-same function.
+same function.  The kernel has two variants, chosen by dtype (both always
+built): ``mma`` for bf16, on the tensor cores with cp.async-fed K/V tiles
+(``csrc/attention_tile.cuh``), and ``fma`` for f32, on the f32 FMA units
+(TF32 would miss the f32 tolerance of 1e-5).
 
 Inputs, as in the reference (prefill: Sq == Skv):
     q   (B, S, Hq, D)   f32 or bf16
@@ -20,8 +23,9 @@ once to q's dtype.
 
 A wrapper runs the plain version only when its tensors lie on the CPU
 (the tests).  On CUDA tensors it launches the kernel or raises; there is
-no fallback.  ``LAUNCHES`` counts kernel launches, so a run can show that
-the prefill path went through the kernel.
+no fallback.  ``LAUNCHES`` counts kernel launches, in all and per variant
+(``flash_attention:mma``), so a run can show that the prefill path went
+through the kernel.
 """
 from __future__ import annotations
 
@@ -37,7 +41,9 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # largest head dims the CUDA kernel's register tiles hold
 MAX_HEAD_DIM = 128
 
-LAUNCHES: Dict[str, int] = {"flash_attention": 0}
+VARIANTS = {torch.bfloat16: "mma", torch.float32: "fma"}
+LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention:mma": 0,
+                            "flash_attention:fma": 0}
 
 
 def reset_launch_counts() -> None:
@@ -124,6 +130,8 @@ def _lib() -> ctypes.CDLL:
         lib.flash_attention_fwd.argtypes = [_P] * 4 + [_I] * 9 \
             + [ctypes.c_float, _P]
         lib.flash_attention_fwd.restype = _I
+        lib.flash_attention_mma_smem_bytes.argtypes = [_I, _I]
+        lib.flash_attention_mma_smem_bytes.restype = ctypes.c_size_t
     return lib
 
 
@@ -132,9 +140,9 @@ def _check_cuda(q, k, v):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"flash attention: {name} must be contiguous")
-        if t.data_ptr() % (4 * t.element_size()):
+        if t.data_ptr() % 16:
             raise ValueError(f"flash attention: {name} must start on a "
-                             "4-element boundary (vector loads)")
+                             "16-byte boundary (vector loads, cp.async)")
         if t.dtype not in _DTYPE_CODE:
             raise ValueError(f"flash attention: {name} dtype {t.dtype} not "
                              "in (float32, bfloat16)")
@@ -143,10 +151,12 @@ def _check_cuda(q, k, v):
                          f"{v.dtype} must share one dtype")
     B, S, Hq, D = q.shape
     Dv = v.shape[-1]
+    step = 8 if q.dtype == torch.bfloat16 else 4      # one 16-byte vector
     for name, d in (("D", D), ("Dv", Dv)):
-        if d % 4 or not 4 <= d <= MAX_HEAD_DIM:
+        if d % step or not step <= d <= MAX_HEAD_DIM:
             raise ValueError(f"flash attention: head dim {name}={d} must be "
-                             f"a multiple of 4 in [4, {MAX_HEAD_DIM}]")
+                             f"a multiple of {step} in [{step}, "
+                             f"{MAX_HEAD_DIM}] for {q.dtype}")
     if B < 1 or S < 1:
         raise ValueError(f"flash attention: empty launch (B={B}, S={S})")
     if B > 65535 or Hq > 65535:
@@ -166,9 +176,11 @@ def _flash_cuda(q, k, v, causal, window):
             B, S, Hq, Hkv, D, Dv, int(causal), int(window),
             _DTYPE_CODE[q.dtype], D ** -0.5, stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention_fwd: CUDA error {rc} "
+        raise RuntimeError(f"flash_attention_fwd ({VARIANTS[q.dtype]}): "
+                           f"CUDA error {rc} "
                            f"({torch.cuda.get_device_name(q.device)})")
     LAUNCHES["flash_attention"] += 1
+    LAUNCHES[f"flash_attention:{VARIANTS[q.dtype]}"] += 1
     return out
 
 
@@ -178,9 +190,9 @@ def _flash_cuda(q, k, v, causal, window):
 def flash_attention_kernel(q, k, v, *, causal=True, window=0, block_q=128,
                            block_kv=128):
     """Prefill attention.  CPU tensors run ``flash_attention_plain``;
-    CUDA tensors the kernel, whose own tiles are 64 x 64 (block sizes only
-    reorder f32 sums, so ``block_q``/``block_kv`` steer the plain version
-    alone)."""
+    CUDA tensors the kernel (``mma`` for bf16, ``fma`` for f32), whose own
+    tiles are 64 x 64 (block sizes only reorder f32 sums, so
+    ``block_q``/``block_kv`` steer the plain version alone)."""
     _validate(q, k, v, window, block_q, block_kv)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,

@@ -11,6 +11,22 @@ plain PyTorch version of the same function beside it:
   ``pages_per_split`` pages private (acc, m, l) partials and combines
   them with ``m = max_s m_s`` and ``exp(m_s - m)``.
 
+Each comes in two variants, chosen by dtype (both always built):
+
+- ``mma``: bf16 queries over bf16 or int8 pools.  Consecutive rows that
+  share a table row (the rows of one prefill chunk) form one M tile on the
+  tensor cores (``csrc/attention_tile.cuh``), so each page is loaded once
+  per tile, not once per row; a tile of one (row, query head) pair (a
+  decode row of an MHA stack) takes a one-row FMA step over the same
+  cp.async-landed pages instead.  The tiles are formed on the device by a
+  plan kernel, with no host sync: plan, tensor-core walk, one-row walk
+  and (split-K) combine are four launches where the ``fma`` variant has
+  two (serial: three where it has one).  The serial kernel is the same
+  walk over one split that spans the table, so both compute every score
+  alike and their ``m`` agree bit for bit;
+- ``fma``: f32 queries or f32 pools, on the f32 FMA units, so f32 holds
+  1e-5.
+
 Inputs, as in the reference:
     q            (B, Hq, D)        one token per query row (f32 or bf16)
     k_pool/v_pool(P, page, Hkv, D) paged KV pools (f32, bf16 or int8)
@@ -43,7 +59,11 @@ _PLAIN_ROW_BLOCK = 16
 _MAX_SMEM = 48 * 1024
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
-LAUNCHES: Dict[str, int] = {"paged_attention": 0, "paged_attention_splitk": 0}
+VARIANTS = ("mma", "fma")
+# launches per wrapper, and per wrapper and variant ("paged_attention:mma")
+LAUNCHES: Dict[str, int] = {
+    f"{name}{tag}": 0 for name in ("paged_attention", "paged_attention_splitk")
+    for tag in ("",) + tuple(f":{v}" for v in VARIANTS)}
 
 
 def reset_launch_counts() -> None:
@@ -185,6 +205,8 @@ _SERIAL_ARGS = [_P] * 8 + [_P, _P, _P] + [_I] * 9 + [ctypes.c_float] \
     + [_I] * 3 + [_P]
 _SPLITK_ARGS = [_P] * 8 + [_I, _I, _P, _P, _P, _P, _P, _P] + [_I] * 9 \
     + [ctypes.c_float] + [_I] * 3 + [_P]
+_MMA_ARGS = [_P] * 9 + [_I] * 3 + [_P] * 6 + [_I] * 9 + [ctypes.c_float, _I,
+                                                        _P]
 
 
 def _lib() -> ctypes.CDLL:
@@ -196,7 +218,20 @@ def _lib() -> ctypes.CDLL:
         lib.paged_attention_splitk.restype = _I
         lib.paged_attention_smem_bytes.argtypes = [_I] * 5
         lib.paged_attention_smem_bytes.restype = ctypes.c_size_t
+        lib.paged_attention_mma.argtypes = _MMA_ARGS
+        lib.paged_attention_mma.restype = _I
+        lib.paged_attention_mma_smem_bytes.argtypes = [_I] * 4
+        lib.paged_attention_mma_smem_bytes.restype = ctypes.c_size_t
     return lib
+
+
+def variant(q, k_pool) -> str:
+    """The kernel variant a CUDA launch takes: ``mma`` (tensor cores) for
+    bf16 queries over bf16 or int8 pools, else ``fma``."""
+    if q.dtype == torch.bfloat16 and k_pool.dtype in (torch.bfloat16,
+                                                      torch.int8):
+        return "mma"
+    return "fma"
 
 
 def _check_cuda(q, k_pool, v_pool, block_tables, ctx_lens, row_map, k_scale,
@@ -243,8 +278,29 @@ def _check_cuda(q, k_pool, v_pool, block_tables, ctx_lens, row_map, k_scale,
                                  f"{tuple(t.shape)}")
     if Hkv > 65535 or Hq > 65535:
         raise ValueError("paged attention: more than 65535 heads")
-    smem = _lib().paged_attention_smem_bytes(Hq, Hkv, D, v_pool.shape[-1],
-                                             page)
+    Dv = v_pool.shape[-1]
+    if variant(q, k_pool) == "mma":
+        step = 16 if k_pool.dtype == torch.int8 else 8
+        for name, d in (("D", D), ("Dv", Dv)):
+            if d % step or not step <= d <= 128:
+                raise ValueError(f"paged attention: head dim {name}={d} "
+                                 f"must be a multiple of {step} in "
+                                 f"[{step}, 128] for {k_pool.dtype} pools")
+        if k_pool.dtype == torch.int8 and k_scale is None:
+            raise ValueError("paged attention: int8 pools need k_scale and "
+                             "v_scale")
+        if Hq // Hkv > 64 or page > 64:
+            raise ValueError(f"paged attention: G={Hq // Hkv} query heads "
+                             f"per kv head and page={page} must be <= 64")
+        for name in ("k_pool", "v_pool"):
+            if named[name].data_ptr() % 16:
+                raise ValueError(f"paged attention: {name} must start on "
+                                 "a 16-byte boundary (cp.async)")
+        if q.data_ptr() % 4:
+            raise ValueError("paged attention: q must start on a 4-byte "
+                             "boundary")
+        return
+    smem = _lib().paged_attention_smem_bytes(Hq, Hkv, D, Dv, page)
     if smem > _MAX_SMEM:
         raise ValueError(f"paged attention: shapes need {smem} B of shared "
                          f"memory per block, above {_MAX_SMEM}")
@@ -275,6 +331,30 @@ def _raise_on(rc: int, name: str):
                            f"({torch.cuda.get_device_name()})")
 
 
+def _mma(q, k_pool, v_pool, block_tables, ctx_lens, row_map, k_scale,
+         v_scale, pages_per_split, n_splits, direct, partials, out, m, l):
+    """Launch the tensor-core walk (and, split-K, its combine)."""
+    B = q.shape[0]
+    workspace = torch.empty(3 * B + 2 * B * n_splits + 3, dtype=torch.int32,
+                            device=q.device)
+    acc_p, m_p, l_p = partials
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        return _lib().paged_attention_mma(
+            *_common_args(q, k_pool, v_pool, block_tables, ctx_lens, row_map,
+                          k_scale, v_scale),
+            workspace.data_ptr(), pages_per_split, n_splits, int(direct),
+            _ptr(acc_p), _ptr(m_p), _ptr(l_p), out.data_ptr(), _ptr(m),
+            _ptr(l), *_shape_args(q, k_pool, v_pool, block_tables,
+                                  k_scale)[:10],
+            _DTYPE_CODE[k_pool.dtype], stream)
+
+
+def _count(name: str, var: str):
+    LAUNCHES[name] += 1
+    LAUNCHES[f"{name}:{var}"] += 1
+
+
 def _serial_cuda(q, k_pool, v_pool, block_tables, ctx_lens, row_map,
                  k_scale, v_scale, return_stats):
     _check_cuda(q, k_pool, v_pool, block_tables, ctx_lens, row_map, k_scale,
@@ -286,15 +366,22 @@ def _serial_cuda(q, k_pool, v_pool, block_tables, ctx_lens, row_map,
     if return_stats:
         m = torch.empty((B, Hq), dtype=torch.float32, device=q.device)
         l = torch.empty((B, Hq), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _lib().paged_attention_serial(
-            *_common_args(q, k_pool, v_pool, block_tables, ctx_lens, row_map,
-                          k_scale, v_scale),
-            out.data_ptr(), _ptr(m), _ptr(l),
-            *_shape_args(q, k_pool, v_pool, block_tables, k_scale), stream)
-    _raise_on(rc, "paged_attention_serial")
-    LAUNCHES["paged_attention"] += 1
+    var = variant(q, k_pool)
+    if var == "mma":
+        rc = _mma(q, k_pool, v_pool, block_tables, ctx_lens, row_map,
+                  k_scale, v_scale, block_tables.shape[1], 1, True,
+                  (None, None, None), out, m, l)
+    else:
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = _lib().paged_attention_serial(
+                *_common_args(q, k_pool, v_pool, block_tables, ctx_lens,
+                              row_map, k_scale, v_scale),
+                out.data_ptr(), _ptr(m), _ptr(l),
+                *_shape_args(q, k_pool, v_pool, block_tables, k_scale),
+                stream)
+    _raise_on(rc, f"paged_attention_serial ({var})")
+    _count("paged_attention", var)
     return (out, m, l) if return_stats else out
 
 
@@ -317,16 +404,23 @@ def _splitk_cuda(q, k_pool, v_pool, block_tables, ctx_lens, row_map,
     if return_stats:
         m = torch.empty((B, Hq), **f32)
         l = torch.empty((B, Hq), **f32)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _lib().paged_attention_splitk(
-            *_common_args(q, k_pool, v_pool, block_tables, ctx_lens, row_map,
-                          k_scale, v_scale),
-            pages_per_split, n_splits, acc_p.data_ptr(), m_p.data_ptr(),
-            l_p.data_ptr(), out.data_ptr(), _ptr(m), _ptr(l),
-            *_shape_args(q, k_pool, v_pool, block_tables, k_scale), stream)
-    _raise_on(rc, "paged_attention_splitk")
-    LAUNCHES["paged_attention_splitk"] += 1
+    var = variant(q, k_pool)
+    if var == "mma":
+        rc = _mma(q, k_pool, v_pool, block_tables, ctx_lens, row_map,
+                  k_scale, v_scale, pages_per_split, n_splits, False,
+                  (acc_p, m_p, l_p), out, m, l)
+    else:
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = _lib().paged_attention_splitk(
+                *_common_args(q, k_pool, v_pool, block_tables, ctx_lens,
+                              row_map, k_scale, v_scale),
+                pages_per_split, n_splits, acc_p.data_ptr(), m_p.data_ptr(),
+                l_p.data_ptr(), out.data_ptr(), _ptr(m), _ptr(l),
+                *_shape_args(q, k_pool, v_pool, block_tables, k_scale),
+                stream)
+    _raise_on(rc, f"paged_attention_splitk ({var})")
+    _count("paged_attention_splitk", var)
     return (out, m, l) if return_stats else out
 
 

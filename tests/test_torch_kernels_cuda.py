@@ -196,3 +196,109 @@ def test_unsupported_dtype_raises_and_runs_no_plain_version(cuda,
     bc = torch.zeros((1, 16, 1, 8), device=cuda, dtype=torch.float16)
     with pytest.raises(ValueError, match="dtype"):
         ss.ssd_scan_kernel(x, la, bc, bc, chunk=16)
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core variants (bf16 queries): ragged mixed launches as the
+# paged engine lowers them, and flash attention off the 64-row grid
+# ---------------------------------------------------------------------------
+BF16_TOL = (2 ** -7, 1e-5)
+
+
+def mixed_launch(device, segments, pools, *, Hq=4, Hkv=4, D=128, page=16,
+                 W=24, seed=20):
+    """A ragged launch built from ``segments``: ("chunk", start, length)
+    rows of one prefill chunk at positions start .. start + length - 1,
+    each attending its causal prefix (ctx = position + 1) over one table
+    row; ("decode", ctx) one row over a table row of its own; ("pad", n)
+    n rows with ctx 0 over a spare table row."""
+    rng = np.random.default_rng(seed)
+    ctx, rmap, n_tab = [], [], 0
+    for seg in segments:
+        if seg[0] == "chunk":
+            _, start, length = seg
+            ctx += list(range(start + 1, start + length + 1))
+            rmap += [n_tab] * length
+        elif seg[0] == "decode":
+            ctx.append(seg[1])
+            rmap.append(n_tab)
+        else:
+            ctx += [0] * seg[1]
+            rmap += [n_tab] * seg[1]
+        n_tab += 1
+    assert max(ctx) <= W * page
+    n_pool = n_tab * W + 1
+    q = rng.standard_normal((len(ctx), Hq, D)).astype(np.float32)
+    kp = rng.standard_normal((n_pool, page, Hkv, D)).astype(np.float32)
+    vp = rng.standard_normal((n_pool, page, Hkv, D)).astype(np.float32)
+    bt = rng.permutation(n_pool)[:n_tab * W].reshape(n_tab, W)
+    q, kp, vp = (torch.from_numpy(a).to(device, torch.bfloat16)
+                 for a in (q, kp, vp))
+    bt, cl, rm = (torch.tensor(a, dtype=torch.int32, device=device)
+                  for a in (bt, ctx, rmap))
+    ks = vs = None
+    if pools == "int8":
+        (kp, ks), (vp, vs) = quantize_kv(kp), quantize_kv(vp)
+    return (q, kp, vp, bt, cl), dict(row_map=rm, k_scale=ks, v_scale=vs)
+
+
+MIXED = {
+    # a later chunk of a prompt: ctx starts at 81, not 1
+    "chunk_start_gt0": ([("chunk", 80, 100), ("decode", 200)], {}),
+    # two chunks over two table rows, side by side, then decode rows
+    "two_chunks": ([("chunk", 0, 70), ("chunk", 33, 90), ("decode", 5),
+                    ("decode", 384)], {}),
+    # 150 chunk rows from launch row 10 cross the 64-row tiles at 64, 128
+    "crosses_tiles": ([("decode", 17), ("chunk", 200, 150)], {}),
+    # padding rows with ctx 0 after the chunk and decode rows, GQA G = 4
+    "padding_gqa": ([("chunk", 16, 40), ("decode", 33), ("pad", 23)],
+                    dict(Hq=8, Hkv=2, D=64)),
+}
+
+
+@pytest.mark.parametrize("pools", ["bfloat16", "int8"])
+@pytest.mark.parametrize("case", sorted(MIXED))
+def test_mma_mixed_launch_matches_plain(cuda, case, pools):
+    """Serial and split-K on the tensor cores against their plain versions
+    at one bf16 step, m bitwise equal between the two, ctx-0 rows exact
+    zeros; each launch counted under the ``mma`` variant."""
+    segments, shape = MIXED[case]
+    args, kw = mixed_launch(cuda, segments, pools, **shape)
+    before = dict(pa.LAUNCHES)
+    o_s, m_s, l_s = pa.paged_attention_kernel(*args, return_stats=True, **kw)
+    o_k, m_k, l_k = pa.paged_attention_splitk_kernel(
+        *args, pages_per_split=4, return_stats=True, **kw)
+    torch.cuda.synchronize()
+    for name in ("paged_attention", "paged_attention_splitk"):
+        assert pa.LAUNCHES[f"{name}:mma"] == before[f"{name}:mma"] + 1
+        assert pa.LAUNCHES[f"{name}:fma"] == before[f"{name}:fma"]
+    p_s = pa.paged_attention_plain(*args, **kw)
+    p_k = pa.paged_attention_splitk_plain(*args, pages_per_split=4, **kw)
+    for out, plain in ((o_s, p_s), (o_k, p_k)):
+        ok, err = within(out, plain, BF16_TOL)
+        assert ok, err
+    assert torch.equal(m_s, m_k)
+    torch.testing.assert_close(l_s, l_k, atol=0, rtol=1e-5)
+    zero = args[4] == 0
+    assert (o_s[zero] == 0).all() and (o_k[zero] == 0).all()
+    assert (m_s[zero] == -1e30).all() and (l_s[zero] == 0).all()
+
+
+@pytest.mark.parametrize("S,Hkv,window", [
+    (1000, 4, 0),        # ragged: the last q and kv tiles are partial
+    (777, 2, 130),       # ragged, windowed, GQA G = 4
+    (300, 8, 64),        # the window spans exactly one kv tile
+])
+def test_mma_flash_ragged_and_windowed(cuda, S, Hkv, window):
+    rng = np.random.default_rng(S)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, S, h, 128))
+                                .astype(np.float32)).to(cuda, torch.bfloat16)
+               for h in (8, Hkv, Hkv))
+    before = dict(fa.LAUNCHES)
+    out = fa.flash_attention_kernel(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention:mma"] == \
+        before["flash_attention:mma"] + 1
+    plain = fa.flash_attention_plain(q, k, v, causal=True, window=window)
+    ok, err = within(out, plain, FLASH_TOL[torch.bfloat16])
+    assert ok, err
