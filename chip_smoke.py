@@ -5,8 +5,8 @@ The quickest proof that the port builds and serves on an NVIDIA H100:
 
 1. device and build: the card's name and power limit (nvidia-smi), and
    the CUDA kernels built from ``src/repro_torch/csrc`` with nvcc (one
-   nvcc per source, all started together), with ptxas' registers per
-   kernel and the dynamic shared memory of the tensor-core tiles;
+   nvcc per source, all started together), with ptxas' registers and
+   the dynamic shared memory of the tensor-core tiles;
 2. kernels against their plain PyTorch versions on the card, at the
    serving path's shapes:
    - paged attention, serial and split-K, bf16 and int8 pools (Hq = Hkv
@@ -57,6 +57,7 @@ switched off for matmuls and cuDNN, so f32 products are full f32.
 from __future__ import annotations
 
 import copy
+import gc
 import json
 import pathlib
 import statistics
@@ -88,7 +89,6 @@ SSD_F32_TOL = (0.0, 5e-4)
 INT8_NOISE_REL_STD = 0.15
 DENSE_REL_TOL = 5e-2               # served vs dense-forward first-token logits
 MAX_LEN_SLOTS = 1280               # runs D and E: prompts <= 1024, outputs <= 128
-SLEEP_CYCLES = 2_000_000           # ~1 ms at the H100's 1.98 GHz boost clock
 
 
 def fail(msg: str):
@@ -123,8 +123,12 @@ def main() -> int:
     # 1. build ---------------------------------------------------------------
     t0 = time.perf_counter()
     built = _build.build_all()
+    regs = {name: sorted({line.split("Used")[1].split(",")[0].strip()
+                          for line in _build.build_log(name).splitlines()
+                          if "Used" in line and "registers" in line})
+            for name in built}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "libraries": built, "ptxas_registers": ptxas_registers(_build, built),
+          "libraries": built, "ptxas_registers": regs,
           "tile_smem_bytes": tile_smem_bytes()})
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
@@ -139,38 +143,6 @@ def main() -> int:
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
-
-
-def ptxas_registers(_build, built):
-    """{library: {kernel: registers}} from ptxas' ``-v`` lines (entry
-    names cut to the kernel's own name and its template arguments)."""
-    out = {}
-    for name in built:
-        kernel, regs = None, {}
-        for line in _build.build_log(name).splitlines():
-            if "Compiling entry function" in line:
-                kernel = line.split("'")[1]
-            elif "Used" in line and "registers" in line and kernel:
-                n = int(line.split("Used")[1].split("registers")[0])
-                regs[demangled(kernel)] = n
-        out[name] = regs
-    return out
-
-
-def demangled(sym):
-    """A short readable name for a mangled kernel symbol: the kernel's
-    identifier and its template arguments (``Li128E`` -> 128, ``Lb1E`` ->
-    true, ``13__nv_bfloat16`` -> bf16; ``S1_`` repeats an earlier type)."""
-    import re
-    ident = max(re.findall(r"\d+([a-z_]+kernel)", sym) or [sym], key=len)
-    m = re.search(r"kernelI(.*?)EEv", sym)
-    if not m:
-        return ident
-    args = m.group(1) + "E"
-    args = re.sub(r"Li(\d+)E", r"\1,", args)
-    args = args.replace("Lb0E", "false,").replace("Lb1E", "true,")
-    args = args.replace("13__nv_bfloat16", "bf16,")
-    return f"{ident}<{args.rstrip('E,')}>"
 
 
 def tile_smem_bytes():
@@ -191,23 +163,14 @@ def tile_smem_bytes():
 # ---------------------------------------------------------------------------
 # 2. kernels against their plain versions
 # ---------------------------------------------------------------------------
-def time_ms(torch, fn, reps, flush, *, queued=True):
+def time_ms(torch, fn, reps, flush):
     """Median of CUDA-event times of ``reps`` calls, each after the L2
-    cache (50 MB) was overwritten, as a layer's pools are cold.
-
-    ``queued``: the card first sleeps ~1 ms, so the host has enqueued
-    the call's launches before its start event fires and the time is the
-    device's alone.  Without it (the earlier method, kept for comparison
-    as the ``*_unqueued`` keys) the start event fires as soon as the flush
-    ends, and a call whose host work (argument checks, allocations, the
-    launches) outlasts the flush counts that host time too."""
+    cache (50 MB) was overwritten, as a layer's pools are cold."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         flush.zero_()
-        if queued:
-            torch.cuda._sleep(SLEEP_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -392,14 +355,6 @@ def kernel_phase(torch, flush):
             line["splitk_ms"] = time_ms(
                 torch, lambda: paged_attention_splitk_kernel(
                     *args, pages_per_split=pps, **kw), 20, flush)
-            # the earlier method (host enqueue time counted), for comparison
-            line["serial_ms_unqueued"] = time_ms(
-                torch, lambda: paged_attention_kernel(*args, **kw), 20, flush,
-                queued=False)
-            line["splitk_ms_unqueued"] = time_ms(
-                torch, lambda: paged_attention_splitk_kernel(
-                    *args, pages_per_split=pps, **kw), 20, flush,
-                queued=False)
             line["plain_ms"] = time_ms(
                 torch, lambda: paged_attention_plain(*args, **kw), 3, flush)
             line["splitk_plain_ms"] = time_ms(
@@ -423,21 +378,11 @@ def kernel_phase(torch, flush):
                     row["ms_by_kernel"] = device_ms_by_kernel(
                         torch, lambda: fn(*args, **kw), flush)
                     row.update(ms=line[ms], plain_ms=line[plain],
-                               ms_unqueued=line[f"{ms[:-3]}_ms_unqueued"],
                                bound_ms=line["bound_ms"],
                                bound_by=line["bound_by"],
                                library_ms=line["library_ms"],
                                shape=f"{name}/{pools}")
     return rows
-
-
-def port_kernel_name(key):
-    """A profiler key of one of the port's kernels, cut to its name and
-    template arguments (``paged_attention_mma_kernel<128, false, true>``)."""
-    name = key.split("(anonymous namespace)::", 1)[-1]
-    if ">(" in name:
-        return name.split(">(", 1)[0] + ">"
-    return name.split("(", 1)[0]
 
 
 def device_ms_by_kernel(torch, fn, flush, reps=5):
@@ -457,7 +402,7 @@ def device_ms_by_kernel(torch, fn, flush, reps=5):
         us = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0.0))
         if us and any(n in e.key for n in ("paged_attention", "paged_plan")):
-            out[port_kernel_name(e.key)] += us / 1e3 / reps
+            out[e.key[:80]] += us / 1e3 / reps
     return dict(out)
 
 
@@ -548,10 +493,6 @@ def flash_phase(torch, flush):
                 "max_abs_err": err, "tol_ratio": ratio,
                 "ms": time_ms(torch, lambda: fa.flash_attention_kernel(
                     q, k, v, causal=causal, window=window), 20, flush),
-                "ms_unqueued": time_ms(
-                    torch, lambda: fa.flash_attention_kernel(
-                        q, k, v, causal=causal, window=window), 20, flush,
-                    queued=False),
                 "plain_ms": time_ms(torch, lambda: fa.flash_attention_plain(
                     q, k, v, causal=causal, window=window), 3, flush),
                 "library_ms": time_ms(torch, library, 10, flush)}
@@ -561,7 +502,6 @@ def flash_phase(torch, flush):
         row["max_abs_err"] = max(row["max_abs_err"], err)
         if (name, dt) == ("S1024_causal", "bfloat16"):
             row.update(ms=line["ms"], plain_ms=line["plain_ms"],
-                       ms_unqueued=line["ms_unqueued"],
                        bound_ms=line["bound_ms"], bound_by=line["bound_by"],
                        library_ms=line["library_ms"],
                        shape=f"{name}/{dt}")
@@ -655,21 +595,12 @@ def ssd_phase(torch, flush):
 # ---------------------------------------------------------------------------
 # 3. the engine at full width
 # ---------------------------------------------------------------------------
-def engine_phase(torch, kernel_rows):
-    from repro_torch.configs import get_config
-    from repro_torch.core import Request, jain, make_scheduler
-    from repro_torch.predictor import MoPE
-    from repro_torch.serving.costmodel import H100_SXM, CostModel
-    from repro_torch.serving.engine import ServingEngine
+def token_spy():
+    """An observer of every produced token, per request, in production
+    order, and of the host clock at the end of every iteration."""
     from repro_torch.serving.telemetry import Observer
-    from repro_torch.weights import init_params
-    from repro_torch.workloads import corpus
-    from repro_torch.workloads.traces import sample_prompt
 
     class TokenSpy(Observer):
-        """Every produced token, per request, in production order, and
-        the host clock at the end of every iteration."""
-
         def __init__(self):
             self.tokens = defaultdict(list)
             self.stamps = []
@@ -680,138 +611,171 @@ def engine_phase(torch, kernel_rows):
             for r in produced:
                 self.tokens[r.rid].append(int(r._next_token))
 
-    def setup(arch):
-        """(cfg, weights drawn on the card from SEED, cost model, MoPE)."""
-        cfg = get_config(arch)
-        t0 = time.perf_counter()
-        params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
-            SEED), "cuda")
-        torch.cuda.synchronize()
-        t_init = time.perf_counter() - t0
-        n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
-        cm = CostModel(cfg, H100_SXM)
-        t0 = time.perf_counter()
-        mope = MoPE(cm, corpus(4000, seed=SEED), epochs=20, seed=SEED)
-        emit({"phase": "engine_setup", "model": cfg.name,
-              "n_layers": cfg.n_layers, "d_model": cfg.d_model,
-              "dtype": cfg.dtype, "weight_gib": n_bytes / 2 ** 30,
-              "init_s": t_init, "mope_train_s": time.perf_counter() - t0})
-        return cfg, params, cm, mope
+    return TokenSpy()
 
-    def requests(short):
-        rng = np.random.default_rng(SEED + short)
-        out = []
-        for i in range(12):
-            kw = sample_prompt(rng)[0]
-            if short:
-                plen = int(rng.integers(16, 40))
-                olen = int(rng.integers(8, 64 - plen))
-            else:
-                plen = int(rng.integers(64, 1025))
-                olen = int(rng.integers(16, 129))
-            out.append(Request(rid=i, client=f"client{i % 3}",
-                               arrival=0.02 * i, prompt_len=plen,
-                               output_len=olen, keywords=kw))
-        return out
 
-    def serve(run, model, max_len, short, expect, **engine_kw):
-        """One run on a fresh engine; ``expect`` maps each kernel to
-        whether the run must launch it (or an exact count)."""
-        cfg, params, cm, mope = model
-        spy = TokenSpy()
-        sched = make_scheduler("equinox", predictor=copy.deepcopy(mope))
-        eng = ServingEngine(cfg, sched, params=params, max_len=max_len,
-                            cost_model=cm, seed=SEED, observer=spy,
-                            keep_first_logits=True, device="cuda",
-                            **engine_kw)
-        finite = []
-        sample = eng._sample
-        prefills = [0]
-        whole = eng._prefill_whole
+def setup(torch, arch):
+    """(cfg, weights drawn on the card from SEED, cost model, MoPE)."""
+    from repro_torch.configs import get_config
+    from repro_torch.predictor import MoPE
+    from repro_torch.serving.costmodel import H100_SXM, CostModel
+    from repro_torch.weights import init_params
+    from repro_torch.workloads import corpus
 
-        def checked_sample(row):             # every decode row's logits
-            finite.append(bool(np.isfinite(row).all()))
-            return sample(row)
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED), "cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    cm = CostModel(cfg, H100_SXM)
+    t0 = time.perf_counter()
+    mope = MoPE(cm, corpus(4000, seed=SEED), epochs=20, seed=SEED)
+    emit({"phase": "engine_setup", "model": cfg.name,
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "dtype": cfg.dtype, "weight_gib": n_bytes / 2 ** 30,
+          "init_s": t_init, "mope_train_s": time.perf_counter() - t0})
+    return cfg, params, cm, mope
 
-        def counted_prefill(req):            # every whole-prompt prefill
-            prefills[0] += 1
-            return whole(req)
 
-        eng._sample = checked_sample
-        eng._prefill_whole = counted_prefill
-        reqs = requests(short)
-        if eng.backend == "slots":
-            # slot caches do not wrap for full attention: a write past
-            # max_len would be dropped
-            check(all(r.prompt_len + r.output_len + 1 <= max_len
-                      for r in reqs), f"run {run}: a request outgrows "
-                  f"max_len {max_len}")
-        torch.cuda.reset_peak_memory_stats()
-        reset_launch_counts()
-        t0 = time.perf_counter()
-        done = eng.run(reqs)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = launch_counts()
-        check(len(done) == len(reqs), f"run {run}: {len(done)}/{len(reqs)} "
-              "finished")
-        for r in done:
-            check(r.generated == r.output_len, f"run {run}: rid {r.rid} "
-                  f"generated {r.generated} of {r.output_len}")
-            check(np.isfinite(r._first_row).all(), f"run {run}: rid {r.rid} "
-                  "first-token logits not finite")
-            check(len(spy.tokens[r.rid]) >= r.output_len,
-                  f"run {run}: rid {r.rid} token log short")
-        check(all(finite), f"run {run}: non-finite decode logits")
-        for name, want in expect.items():
-            got = launches[name]
-            if want == "per_layer_prefill":
-                want_n = cfg.n_layers * prefills[0]
-                check(prefills[0] > 0 and got == want_n,
-                      f"run {run}: {name} launched {got} times, not "
-                      f"{cfg.n_layers} layers x {prefills[0]} prefills")
-            else:
-                check(got > 0 if want else got == 0,
-                      f"run {run}: {name} launched {got} times")
-        # whole iterations on the host clock (admission, planning, the
-        # model step, sampling, bookkeeping); the step span of iter_log
-        # is the model step and its copy back alone
-        it = np.diff([t0] + spy.stamps)
-        step = np.array([s for s, _, _ in eng.iter_log])
-        # the model steps that ran prompt tokens (run A: 512-row chunks and
-        # decode rows in one launch; run D: whole prompts)
-        pre = np.array([(s, n) for s, n, _ in eng.iter_log if n > 0])
-        prompt_tokens = sum(r.prompt_len for r in done)
-        output_tokens = sum(r.generated for r in done)
-        ttft = np.array([r.ttft() for r in done])
-        emit({"phase": "engine", "run": run, "model": cfg.name,
-              "backend": eng.backend, "chunked": eng.chunked,
-              "max_len": max_len, "kv_quant": eng.kv_quant,
-              "requests": len(done), "prefill_calls_whole": prefills[0],
-              "prompt_tokens": prompt_tokens, "output_tokens": output_tokens,
-              "iterations": eng.iterations, "wall_s": wall,
-              "iter_ms_mean": wall / eng.iterations * 1e3,
-              "iter_ms_median": float(np.median(it) * 1e3),
-              "iter_ms_p90": float(np.percentile(it, 90) * 1e3),
-              "prefill_tok_per_s_wall": prompt_tokens / wall,
-              "output_tok_per_s_wall": output_tokens / wall,
-              "model_step_ms_median": float(np.median(step) * 1e3),
-              "model_step_ms_p90": float(np.percentile(step, 90) * 1e3),
-              "prefill_steps": len(pre),
-              "prefill_step_ms_median": float(np.median(pre[:, 0]) * 1e3),
-              "prefill_step_ms_max": float(pre[:, 0].max() * 1e3),
-              "prefill_rows_per_step_mean": float(pre[:, 1].mean()),
-              "ttft_model_s_p50": float(np.percentile(ttft, 50)),
-              "ttft_model_s_p90": float(np.percentile(ttft, 90)),
-              "service": {k: round(v, 1) for k, v in sched.service.items()},
-              "jain": jain(list(sched.service.values())),
-              "preemptions": eng.n_preemptions, "launches": launches,
-              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
-        tokens = {r.rid: spy.tokens[r.rid] for r in done}
-        firsts = {r.rid: (r.prompt_tokens, r._first_row) for r in done}
-        del eng
-        torch.cuda.empty_cache()
-        return tokens, firsts, launches
+def requests(short):
+    """The 12 requests of every run (``short``: run C's, which fit
+    max_len 64), from SEED."""
+    from repro_torch.core import Request
+    from repro_torch.workloads.traces import sample_prompt
+
+    rng = np.random.default_rng(SEED + short)
+    out = []
+    for i in range(12):
+        kw = sample_prompt(rng)[0]
+        if short:
+            plen = int(rng.integers(16, 40))
+            olen = int(rng.integers(8, 64 - plen))
+        else:
+            plen = int(rng.integers(64, 1025))
+            olen = int(rng.integers(16, 129))
+        out.append(Request(rid=i, client=f"client{i % 3}",
+                           arrival=0.02 * i, prompt_len=plen,
+                           output_len=olen, keywords=kw))
+    return out
+
+
+def serve(torch, run, model, max_len, short, expect, **engine_kw):
+    """One run on a fresh engine; ``expect`` maps each kernel to
+    whether the run must launch it (or an exact count).  Returns the
+    tokens, the first-token logits, the launch counts and the engine
+    line."""
+    from repro_torch.core import jain, make_scheduler
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg, params, cm, mope = model
+    spy = token_spy()
+    sched = make_scheduler("equinox", predictor=copy.deepcopy(mope))
+    eng = ServingEngine(cfg, sched, params=params, max_len=max_len,
+                        cost_model=cm, seed=SEED, observer=spy,
+                        keep_first_logits=True, device="cuda",
+                        **engine_kw)
+    finite = []
+    sample = eng._sample
+    prefills = [0]
+    whole = eng._prefill_whole
+
+    def checked_sample(row):             # every decode row's logits
+        finite.append(bool(np.isfinite(row).all()))
+        return sample(row)
+
+    def counted_prefill(req):            # every whole-prompt prefill
+        prefills[0] += 1
+        return whole(req)
+
+    eng._sample = checked_sample
+    eng._prefill_whole = counted_prefill
+    reqs = requests(short)
+    if eng.backend == "slots":
+        # slot caches do not wrap for full attention: a write past
+        # max_len would be dropped
+        check(all(r.prompt_len + r.output_len + 1 <= max_len
+                  for r in reqs), f"run {run}: a request outgrows "
+              f"max_len {max_len}")
+    torch.cuda.reset_peak_memory_stats()
+    start_gib = torch.cuda.memory_allocated() / 2 ** 30
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    done = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    check(len(done) == len(reqs), f"run {run}: {len(done)}/{len(reqs)} "
+          "finished")
+    for r in done:
+        check(r.generated == r.output_len, f"run {run}: rid {r.rid} "
+              f"generated {r.generated} of {r.output_len}")
+        check(np.isfinite(r._first_row).all(), f"run {run}: rid {r.rid} "
+              "first-token logits not finite")
+        check(len(spy.tokens[r.rid]) >= r.output_len,
+              f"run {run}: rid {r.rid} token log short")
+    check(all(finite), f"run {run}: non-finite decode logits")
+    for name, want in expect.items():
+        got = launches[name]
+        if want == "per_layer_prefill":
+            want_n = cfg.n_layers * prefills[0]
+            check(prefills[0] > 0 and got == want_n,
+                  f"run {run}: {name} launched {got} times, not "
+                  f"{cfg.n_layers} layers x {prefills[0]} prefills")
+        else:
+            check(got > 0 if want else got == 0,
+                  f"run {run}: {name} launched {got} times")
+    # whole iterations on the host clock (admission, planning, the
+    # model step, sampling, bookkeeping); the step span of iter_log
+    # is the model step and its copy back alone
+    it = np.diff([t0] + spy.stamps)
+    step = np.array([s for s, _, _ in eng.iter_log])
+    # the model steps that ran prompt tokens (run A: 512-row chunks and
+    # decode rows in one launch; run D: whole prompts)
+    pre = np.array([(s, n) for s, n, _ in eng.iter_log if n > 0])
+    prompt_tokens = sum(r.prompt_len for r in done)
+    output_tokens = sum(r.generated for r in done)
+    ttft = np.array([r.ttft() for r in done])
+    line = {"phase": "engine", "run": run, "model": cfg.name,
+            "backend": eng.backend, "chunked": eng.chunked,
+            "max_len": max_len, "kv_quant": eng.kv_quant,
+            "requests": len(done), "prefill_calls_whole": prefills[0],
+            "prompt_tokens": prompt_tokens, "output_tokens": output_tokens,
+            "iterations": eng.iterations, "wall_s": wall,
+            "iter_ms_mean": wall / eng.iterations * 1e3,
+            "iter_ms_median": float(np.median(it) * 1e3),
+            "iter_ms_p90": float(np.percentile(it, 90) * 1e3),
+            "prefill_tok_per_s_wall": prompt_tokens / wall,
+            "output_tok_per_s_wall": output_tokens / wall,
+            "model_step_ms_median": float(np.median(step) * 1e3),
+            "model_step_ms_p90": float(np.percentile(step, 90) * 1e3),
+            "prefill_steps": len(pre),
+            "prefill_step_ms_median": float(np.median(pre[:, 0]) * 1e3),
+            "prefill_step_ms_max": float(pre[:, 0].max() * 1e3),
+            "prefill_rows_per_step_mean": float(pre[:, 1].mean()),
+            "ttft_model_s_p50": float(np.percentile(ttft, 50)),
+            "ttft_model_s_p90": float(np.percentile(ttft, 90)),
+            "service": {k: round(v, 1) for k, v in sched.service.items()},
+            "jain": jain(list(sched.service.values())),
+            "preemptions": eng.n_preemptions, "launches": launches,
+            "start_mem_gib": start_gib,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    emit(line)
+    tokens = {r.rid: spy.tokens[r.rid] for r in done}
+    firsts = {r.rid: (r.prompt_tokens, r._first_row) for r in done}
+    # the hooks above tie the engine into a cycle: free its pools and
+    # caches now, not at some later collection inside the next run
+    del eng, checked_sample, counted_prefill
+    gc.collect()
+    torch.cuda.empty_cache()
+    return tokens, firsts, launches, line
+
+
+def engine_phase(torch, kernel_rows):
+    from repro_torch.core import make_scheduler
+    from repro_torch.serving.engine import ServingEngine
+
 
     # every kernel and variant must stay unlaunched unless a run expects
     # it: runs A, B, C (bf16 queries over bf16 or int8 pages) and D (bf16
@@ -819,21 +783,24 @@ def engine_phase(torch, kernel_rows):
     paged = {name: False for name in launch_counts()}
     splitk_mma = {"paged_attention_splitk": True,
                   "paged_attention_splitk:mma": True}
-    llama = setup("llama2-7b")
-    tok_a, first_a, la = serve("A", llama, 512, False,
-                               dict(paged, **splitk_mma), backend="paged")
-    tok_b, _, lb = serve("B", llama, 512, False, dict(paged, **splitk_mma),
-                         backend="paged", kv_quant=True)
-    _, _, lc = serve("C", llama, 64, True,
-                     dict(paged, paged_attention=True,
-                          **{"paged_attention:mma": True}), backend="paged")
+    llama = setup(torch, "llama2-7b")
+    tok_a, first_a, la, _ = serve(torch, "A", llama, 512, False,
+                                  dict(paged, **splitk_mma), backend="paged")
+    tok_b, _, lb, _ = serve(torch, "B", llama, 512, False,
+                            dict(paged, **splitk_mma), backend="paged",
+                            kv_quant=True)
+    _, _, lc, _ = serve(torch, "C", llama, 64, True,
+                        dict(paged, paged_attention=True,
+                             **{"paged_attention:mma": True}),
+                        backend="paged")
     # reported, not asserted: int8 pages may flip a near-tie argmax
     agree = np.mean([tok_a[rid] == tok_b[rid] for rid in tok_a])
     emit({"phase": "engine", "greedy_agreement_fp_vs_int8": float(agree)})
-    _, first_d, ld = serve("D", llama, MAX_LEN_SLOTS, False,
-                           dict(paged, flash_attention="per_layer_prefill",
-                                **{"flash_attention:mma": "per_layer_prefill"}),
-                           backend="slots", chunked=False)
+    _, first_d, ld, _ = serve(
+        torch, "D", llama, MAX_LEN_SLOTS, False,
+        dict(paged, flash_attention="per_layer_prefill",
+             **{"flash_attention:mma": "per_layer_prefill"}),
+        backend="slots", chunked=False)
     first_token_check(first_d, first_a)
     dense_check(torch, llama[1], llama[0], first_a)
 
@@ -852,10 +819,10 @@ def engine_phase(torch, kernel_rows):
     del llama
     torch.cuda.empty_cache()
 
-    mamba = setup("mamba2-2.7b")
-    _, _, le = serve("E", mamba, MAX_LEN_SLOTS, False,
-                     dict(paged, ssd_scan="per_layer_prefill"),
-                     backend="slots")
+    mamba = setup(torch, "mamba2-2.7b")
+    _, _, le, _ = serve(torch, "E", mamba, MAX_LEN_SLOTS, False,
+                        dict(paged, ssd_scan="per_layer_prefill"),
+                        backend="slots")
     decode_consistency(torch, mamba[1], mamba[0])
     profiled("E", mamba, MAX_LEN_SLOTS, backend="slots")
     main_runs = {"paged_attention": (la, lb, lc),
@@ -975,7 +942,7 @@ def profile_window(torch, run, eng, reqs, window="decode"):
     for e in events:
         if any(n in e.key for n in ("paged_attention", "paged_plan",
                                     "flash_attention", "ssd_scan")):
-            name = port_kernel_name(e.key)
+            name = e.key[:80]
             ours[name][0] += dev_us(e) / 1e3 / steps
             ours[name][1] += e.count / steps
     line = {"phase": "profile", "run": run, "window": window,
@@ -999,6 +966,7 @@ def profile_window(torch, run, eng, reqs, window="decode"):
         check(sum(n for _, n, _ in logged) > 0,
               f"run {run}: the prefill window ran no prompt tokens")
     emit(line)
+    return line
 
 
 def _leaves(tree):

@@ -483,91 +483,107 @@ Plan carve_plan(int* ws, int B, int n_splits) {
 // splits, so one block walks a run of pages pipelined and writes each
 // split's partials as it ends; `group` is the largest that still leaves
 // `target` (unit, head) pairs for the wide kernel's blocks.
-constexpr int kPlanRows = 2048;   // launches up to this many rows plan from shared memory
+//
+// The rows are planned a block of rows at a time, staged in shared memory:
+// each row's clamped ctx and whether it leads a tile, then each leader's
+// tile extent (rows, largest ctx).  A block of rows is a whole number of
+// cap_rows, so no tile crosses one.  The first pass counts the wide
+// tiles' splits (for `group`), the second writes the tiles and units in row
+// order; a launch of one block of rows (every launch of the engine) is
+// staged once.
+constexpr int kPlanRows = 2048;
+constexpr int kPlanThreads = 1024;
 
-__global__ void __launch_bounds__(1024)
+__global__ void __launch_bounds__(kPlanThreads)
 paged_plan_kernel(const int* __restrict__ row_map, const int* __restrict__ ctx_lens, Walk Wk,
                   int B, int G, int page, int Hkv, int target, Plan plan) {
   __shared__ int warp_sums[32];
-  // per row: whether it leads a tile, its clamped ctx and (leaders) its
-  // tile's rows and largest ctx, packed; the walks over a tile's rows stay
-  // on chip
-  __shared__ int ctx_s[kPlanRows], ext_s[kPlanRows];
-  __shared__ bool lead_s[kPlanRows];
+  __shared__ int ctx_s[kPlanRows], maxctx_s[kPlanRows];
+  __shared__ unsigned char n_s[kPlanRows];   // leaders: the tile's rows (<= 64); others 0
   const int cap_tok = Wk.n_pages * page;
   const int split_len = Wk.pps * page;
-  const bool staged = B <= kPlanRows && cap_tok < (1 << 24);   // (maxctx << 7) fits
-  auto ctx_global = [&](int r) { return min(max(ctx_lens[r], 0), cap_tok); };
-  auto leader_global = [&](int r) {
-    return r == 0 || row_map[r] != row_map[r - 1] || r % Wk.cap_rows == 0;
-  };
-  if (staged)
-    for (int r = threadIdx.x; r < B; r += blockDim.x) {
-      ctx_s[r] = ctx_global(r);
-      lead_s[r] = leader_global(r);
-    }
-  __syncthreads();
-  auto ctx_of = [&](int r) { return staged ? ctx_s[r] : ctx_global(r); };
-  auto leader = [&](int r) { return staged ? lead_s[r] : leader_global(r); };
-  // the tile led by r: n rows (<= 64) and their largest ctx
-  auto extent = [&](int r, bool first, int& n, int& maxctx) {
-    if (staged && !first) {
-      n = ext_s[r] & 127;
-      maxctx = ext_s[r] >> 7;
-      return;
-    }
-    n = 1;
-    maxctx = ctx_of(r);
-    while (r + n < B && !leader(r + n)) maxctx = max(maxctx, ctx_of(r + n++));
-    if (staged) ext_s[r] = (maxctx << 7) | n;   // read back by this thread only
-  };
+  const int block_rows = kPlanRows / Wk.cap_rows * Wk.cap_rows;
+  const int per = (block_rows + kPlanThreads - 1) / kPlanThreads;   // rows per thread
   auto n_splits_of = [&](int maxctx) {
     return Wk.direct ? 1 : (maxctx + split_len - 1) / split_len;
   };
-  const int per = (B + blockDim.x - 1) / blockDim.x;
-  const int r0 = min(B, static_cast<int>(threadIdx.x) * per), r1 = min(B, r0 + per);
-  int n_t = 0, n_wide = 0, n_thin = 0;
-  for (int r = r0; r < r1; ++r) {
-    if (!leader(r)) continue;
-    int n, maxctx;
-    extent(r, true, n, maxctx);
-    ++n_t;
-    (n * G == 1 ? n_thin : n_wide) += n_splits_of(maxctx);
+  auto stage = [&](int b0, int b1) {
+    __syncthreads();                          // the previous block's readers are done
+    for (int r = b0 + threadIdx.x; r < b1; r += kPlanThreads) {
+      ctx_s[r - b0] = min(max(ctx_lens[r], 0), cap_tok);
+      n_s[r - b0] = r % Wk.cap_rows == 0 || row_map[r] != row_map[r - 1];   // b0 % cap_rows == 0
+    }
+    __syncthreads();
+    for (int r = threadIdx.x; r < b1 - b0; r += kPlanThreads) {
+      if (!n_s[r]) continue;
+      int n = 1, maxctx = ctx_s[r];
+      while (r + n < b1 - b0 && !n_s[r + n]) maxctx = max(maxctx, ctx_s[r + n++]);
+      maxctx_s[r] = maxctx;
+      n_s[r] = n;                             // stays nonzero: other leaders' walks unchanged
+    }
+    __syncthreads();
+  };
+  // this thread's rows of the staged block [b0, b1): [r0, r1), offsets
+  auto my_rows = [&](int b0, int b1, int& r0, int& r1) {
+    r0 = min(b1 - b0, static_cast<int>(threadIdx.x) * per);
+    r1 = min(b1 - b0, r0 + per);
+  };
+
+  int total_wide = 0;                         // splits of the wide tiles
+  for (int b0 = 0; b0 < B; b0 += block_rows) {
+    const int b1 = min(B, b0 + block_rows);
+    stage(b0, b1);
+    int r0, r1, n_wide = 0;
+    my_rows(b0, b1, r0, r1);
+    for (int r = r0; r < r1; ++r)
+      if (n_s[r] * G > 1) n_wide += n_splits_of(maxctx_s[r]);
+    int sum;
+    at::block_exclusive_scan(n_wide, &sum, warp_sums);
+    total_wide += sum;
   }
-  int total_t, total_wide, total_thin;
-  int t = at::block_exclusive_scan(n_t, &total_t, warp_sums);
-  at::block_exclusive_scan(n_wide, &total_wide, warp_sums);
-  int v = at::block_exclusive_scan(n_thin, &total_thin, warp_sums);
   const int group =
       Wk.direct ? 1
                 : max(1, min(Wk.n_splits, static_cast<int>(static_cast<int64_t>(total_wide) *
                                                            Hkv / max(target, 1))));
-  int n_u = 0;
-  for (int r = r0; r < r1; ++r) {
-    if (!leader(r)) continue;
-    int n, maxctx;
-    extent(r, false, n, maxctx);
-    if (n * G > 1) n_u += (n_splits_of(maxctx) + group - 1) / group;
-  }
-  int total_u;
-  int u = at::block_exclusive_scan(n_u, &total_u, warp_sums);
-  for (int r = r0; r < r1; ++r) {
-    if (!leader(r)) continue;
-    int n, maxctx;
-    extent(r, false, n, maxctx);
-    plan.tile_row0[t] = r;
-    plan.tile_nrows[t] = n;
-    plan.tile_maxctx[t] = maxctx;
-    const int k = n_splits_of(maxctx);
-    if (n * G > 1)
-      for (int s = 0; s < k; s += group) plan.units[0][u++] = t * Wk.n_splits + s;
-    else
-      for (int s = 0; s < k; ++s) plan.units[1][v++] = t * Wk.n_splits + s;
-    ++t;
+  int t_base = 0, u_base = 0, v_base = 0;
+  for (int b0 = 0; b0 < B; b0 += block_rows) {
+    const int b1 = min(B, b0 + block_rows);
+    if (B > block_rows) stage(b0, b1);
+    int r0, r1, n_t = 0, n_u = 0, n_thin = 0;
+    my_rows(b0, b1, r0, r1);
+    for (int r = r0; r < r1; ++r) {
+      if (!n_s[r]) continue;
+      ++n_t;
+      const int k = n_splits_of(maxctx_s[r]);
+      if (n_s[r] * G > 1)
+        n_u += (k + group - 1) / group;
+      else
+        n_thin += k;
+    }
+    int sum_t, sum_u, sum_v;
+    int t = t_base + at::block_exclusive_scan(n_t, &sum_t, warp_sums);
+    int u = u_base + at::block_exclusive_scan(n_u, &sum_u, warp_sums);
+    int v = v_base + at::block_exclusive_scan(n_thin, &sum_v, warp_sums);
+    for (int r = r0; r < r1; ++r) {
+      if (!n_s[r]) continue;
+      const int n = n_s[r], maxctx = maxctx_s[r];
+      plan.tile_row0[t] = b0 + r;
+      plan.tile_nrows[t] = n;
+      plan.tile_maxctx[t] = maxctx;
+      const int k = n_splits_of(maxctx);
+      if (n * G > 1)
+        for (int s = 0; s < k; s += group) plan.units[0][u++] = t * Wk.n_splits + s;
+      else
+        for (int s = 0; s < k; ++s) plan.units[1][v++] = t * Wk.n_splits + s;
+      ++t;
+    }
+    t_base += sum_t;
+    u_base += sum_u;
+    v_base += sum_v;
   }
   if (threadIdx.x == 0) {
-    plan.n_units[0] = total_u;
-    plan.n_units[1] = total_thin;
+    plan.n_units[0] = u_base;
+    plan.n_units[1] = v_base;
     *plan.group = group;
   }
 }
@@ -955,8 +971,9 @@ int launch_walk(const Args& a, const Plan& plan, const Walk& Wk, float* acc_p, f
   return static_cast<int>(cudaGetLastError());
 }
 
-// plan, the wide (tensor-core) walk, the thin (one-row) walk, and for
-// split-K the combine: four launches, none of which waits for the host
+// plan, the wide (tensor-core) walk, the thin (one-row) walk (only where
+// G = 1: a tile of one (row, head) pair needs it), and for split-K the
+// combine: at most four launches, none of which waits for the host
 template <int DP, bool QUANT>
 int launch_mma(const Args& a, int* workspace, const Walk& Wk, float* acc_p, float* m_p,
                float* l_p, void* out, float* m_out, float* l_out, const Problem& P,
@@ -964,12 +981,12 @@ int launch_mma(const Args& a, int* workspace, const Walk& Wk, float* acc_p, floa
   const int wide_blocks = walk_blocks<DP, QUANT, false>();
   if (wide_blocks < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   const Plan plan = carve_plan(workspace, P.B, Wk.n_splits);
-  paged_plan_kernel<<<1, 1024, 0, st>>>(a.row_map, a.ctx_lens, Wk, P.B, P.G, P.page, P.Hkv,
+  paged_plan_kernel<<<1, kPlanThreads, 0, st>>>(a.row_map, a.ctx_lens, Wk, P.B, P.G, P.page, P.Hkv,
                                         4 * wide_blocks, plan);
   int err = static_cast<int>(cudaGetLastError());
   if (err == 0)
     err = launch_walk<DP, QUANT, false>(a, plan, Wk, acc_p, m_p, l_p, out, m_out, l_out, P, st);
-  if (err == 0)
+  if (err == 0 && P.G == 1)
     err = launch_walk<DP, QUANT, true>(a, plan, Wk, acc_p, m_p, l_p, out, m_out, l_out, P, st);
   if (err != 0) return err;
   if (!Wk.direct)

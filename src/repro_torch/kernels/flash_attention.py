@@ -57,21 +57,21 @@ def _validate(q, k, v, window, block_q, block_kv):
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     B, S, Hq, D = q.shape
-    if k.shape[:2] != (B, S) or v.shape[:3] != k.shape[:3] \
-            or k.shape[3] != D:
+    Bk, Sk, Hkv, Dk = k.shape
+    Bv, Sv, Hv, _ = v.shape
+    if (Bk, Sk, Dk) != (B, S, D) or (Bv, Sv, Hv) != (Bk, Sk, Hkv):
         raise ValueError(f"flash attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} do not agree "
                          "(prefill needs Sq == Skv)")
-    if k.shape[2] == 0 or Hq % k.shape[2] != 0:
+    if Hkv == 0 or Hq % Hkv != 0:
         raise ValueError(f"flash attention: Hq={Hq} query heads do not "
-                         f"group evenly over Hkv={k.shape[2]} kv heads")
+                         f"group evenly over Hkv={Hkv} kv heads")
     if window < 0 or block_q <= 0 or block_kv <= 0:
         raise ValueError(f"flash attention: window={window}, block_q="
                          f"{block_q}, block_kv={block_kv}")
-    devices = {t.device for t in (q, k, v)}
-    if len(devices) != 1:
+    if k.device != q.device or v.device != q.device:
         raise ValueError(f"flash attention: tensors on mixed devices "
-                         f"{sorted(map(str, devices))}")
+                         f"{sorted({str(t.device) for t in (q, k, v)})}")
 
 
 # ---------------------------------------------------------------------------

@@ -20,10 +20,11 @@ Each comes in two variants, chosen by dtype (both always built):
   decode row of an MHA stack) takes a one-row FMA step over the same
   cp.async-landed pages instead.  The tiles are formed on the device by a
   plan kernel, with no host sync: plan, tensor-core walk, one-row walk
-  and (split-K) combine are four launches where the ``fma`` variant has
-  two (serial: three where it has one).  The serial kernel is the same
-  walk over one split that spans the table, so both compute every score
-  alike and their ``m`` agree bit for bit;
+  (MHA stacks only: G = 1) and (split-K) combine are at most four
+  launches where the ``fma`` variant has two (serial: three where it has
+  one).  The serial kernel is the same walk over one split that spans the
+  table, so both compute every score alike and their ``m`` agree bit for
+  bit;
 - ``fma``: f32 queries or f32 pools, on the f32 FMA units, so f32 holds
   1e-5.
 
@@ -92,9 +93,10 @@ def _validate(q, k_pool, block_tables, row_map, k_scale, v_scale):
     if (k_scale is None) != (v_scale is None):
         raise ValueError("paged attention: k_scale and v_scale must be "
                          "passed together (int8 pools) or not at all")
-    devices = {t.device.type for t in (q, k_pool, block_tables, row_map,
-                                       k_scale, v_scale) if t is not None}
-    if len(devices) != 1:
+    others = [t for t in (k_pool, block_tables, row_map, k_scale, v_scale)
+              if t is not None]
+    if any(t.device != q.device for t in others):
+        devices = {str(t.device) for t in [q] + others}
         raise ValueError(f"paged attention: tensors on mixed devices "
                          f"{sorted(devices)}")
 
@@ -260,7 +262,8 @@ def _check_cuda(q, k_pool, v_pool, block_tables, ctx_lens, row_map, k_scale,
             raise ValueError(f"paged attention: {name} must be int32")
     B, Hq, D = q.shape
     P, page, Hkv, Dk = k_pool.shape
-    if Dk != D or v_pool.shape[:3] != k_pool.shape[:3] or v_pool.ndim != 4:
+    if v_pool.ndim != 4 or Dk != D or v_pool.shape[0] != P \
+            or v_pool.shape[1] != page or v_pool.shape[2] != Hkv:
         raise ValueError(f"paged attention: q {tuple(q.shape)}, k_pool "
                          f"{tuple(k_pool.shape)}, v_pool "
                          f"{tuple(v_pool.shape)} do not agree")
@@ -278,7 +281,7 @@ def _check_cuda(q, k_pool, v_pool, block_tables, ctx_lens, row_map, k_scale,
                                  f"{tuple(t.shape)}")
     if Hkv > 65535 or Hq > 65535:
         raise ValueError("paged attention: more than 65535 heads")
-    Dv = v_pool.shape[-1]
+    Dv = v_pool.shape[3]
     if variant(q, k_pool) == "mma":
         step = 16 if k_pool.dtype == torch.int8 else 8
         for name, d in (("D", D), ("Dv", Dv)):
@@ -332,21 +335,27 @@ def _raise_on(rc: int, name: str):
 
 
 def _mma(q, k_pool, v_pool, block_tables, ctx_lens, row_map, k_scale,
-         v_scale, pages_per_split, n_splits, direct, partials, out, m, l):
-    """Launch the tensor-core walk (and, split-K, its combine)."""
-    B = q.shape[0]
-    workspace = torch.empty(3 * B + 2 * B * n_splits + 3, dtype=torch.int32,
-                            device=q.device)
-    acc_p, m_p, l_p = partials
+         v_scale, pages_per_split, n_splits, direct, out, m, l):
+    """Launch the plan, the walks and (split-K) the combine.  Their
+    scratch, the plan's int32 workspace and (split-K) the f32 partials
+    acc (B, Hkv, S, G, Dv), m and l (B, Hkv, S, G), is one allocation."""
+    B, Hq, _ = q.shape
+    n_ws = -(-(3 * B + 2 * B * n_splits + 3) // 4) * 4   # partials 16-byte aligned
+    n_ml = 0 if direct else B * Hq * n_splits
+    n_acc = n_ml * v_pool.shape[3]
+    scratch = torch.empty(n_ws + n_acc + 2 * n_ml, dtype=torch.int32,
+                          device=q.device)
+    ws = scratch.data_ptr()
+    parts = [None] * 3 if direct else [ws + 4 * n_ws, ws + 4 * (n_ws + n_acc),
+                                       ws + 4 * (n_ws + n_acc + n_ml)]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         return _lib().paged_attention_mma(
             *_common_args(q, k_pool, v_pool, block_tables, ctx_lens, row_map,
                           k_scale, v_scale),
-            workspace.data_ptr(), pages_per_split, n_splits, int(direct),
-            _ptr(acc_p), _ptr(m_p), _ptr(l_p), out.data_ptr(), _ptr(m),
-            _ptr(l), *_shape_args(q, k_pool, v_pool, block_tables,
-                                  k_scale)[:10],
+            ws, pages_per_split, n_splits, int(direct), *parts,
+            out.data_ptr(), _ptr(m), _ptr(l),
+            *_shape_args(q, k_pool, v_pool, block_tables, k_scale)[:10],
             _DTYPE_CODE[k_pool.dtype], stream)
 
 
@@ -369,8 +378,7 @@ def _serial_cuda(q, k_pool, v_pool, block_tables, ctx_lens, row_map,
     var = variant(q, k_pool)
     if var == "mma":
         rc = _mma(q, k_pool, v_pool, block_tables, ctx_lens, row_map,
-                  k_scale, v_scale, block_tables.shape[1], 1, True,
-                  (None, None, None), out, m, l)
+                  k_scale, v_scale, block_tables.shape[1], 1, True, out, m, l)
     else:
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream().cuda_stream
@@ -396,9 +404,6 @@ def _splitk_cuda(q, k_pool, v_pool, block_tables, ctx_lens, row_map,
     if n_splits > 65535:
         raise ValueError(f"paged attention: {n_splits} splits > 65535")
     f32 = dict(dtype=torch.float32, device=q.device)
-    acc_p = torch.empty((B, Hkv, n_splits, G, Dv), **f32)
-    m_p = torch.empty((B, Hkv, n_splits, G), **f32)
-    l_p = torch.empty((B, Hkv, n_splits, G), **f32)
     out = torch.empty((B, Hq, Dv), dtype=q.dtype, device=q.device)
     m = l = None
     if return_stats:
@@ -407,9 +412,12 @@ def _splitk_cuda(q, k_pool, v_pool, block_tables, ctx_lens, row_map,
     var = variant(q, k_pool)
     if var == "mma":
         rc = _mma(q, k_pool, v_pool, block_tables, ctx_lens, row_map,
-                  k_scale, v_scale, pages_per_split, n_splits, False,
-                  (acc_p, m_p, l_p), out, m, l)
+                  k_scale, v_scale, pages_per_split, n_splits, False, out, m,
+                  l)
     else:
+        acc_p = torch.empty((B, Hkv, n_splits, G, Dv), **f32)
+        m_p = torch.empty((B, Hkv, n_splits, G), **f32)
+        l_p = torch.empty((B, Hkv, n_splits, G), **f32)
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream().cuda_stream
             rc = _lib().paged_attention_splitk(

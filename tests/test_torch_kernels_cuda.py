@@ -253,6 +253,10 @@ MIXED = {
     # padding rows with ctx 0 after the chunk and decode rows, GQA G = 4
     "padding_gqa": ([("chunk", 16, 40), ("decode", 33), ("pad", 23)],
                     dict(Hq=8, Hkv=2, D=64)),
+    # 2132 rows: the plan kernel stages its 2048-row blocks twice, and
+    # the block boundary (launch row 2048) falls inside the chunk
+    "over_plan_rows": ([("decode", 100), ("chunk", 0, 2100), ("decode", 900),
+                        ("pad", 31)], dict(W=140)),
 }
 
 

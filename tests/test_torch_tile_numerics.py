@@ -2,6 +2,10 @@
 emulated in torch on the CPU, against the plain versions the CUDA kernels
 are held to.
 
+This file documents the numerics of the design: no code of the kernels
+runs here.  The ``cuda``-marked tests of ``test_torch_kernels_cuda.py``
+and ``chip_smoke.py`` hold the kernels themselves to their plain versions.
+
 The kernels take bf16 operands into ``mma.sync`` with f32 accumulation:
 Q.K^T products are exact, so the scores differ from the plain f32 version
 only in the order of their sums.  P (f32) has to go into the P.V product
@@ -13,7 +17,10 @@ on the draw that first showed it, 98.5x on this file's inputs
 ``lo = bf16(P - hi)``, both multiplied into one f32 accumulator, P keeps
 16 significant bits and every output is within the bound.  For int8 pages
 the per-slot K scale multiplies the f32 score after the product and the
-V scale is folded into P before the split, as the kernel does.
+V scale is folded into P before the split, as the kernel does.  The paged
+kernels send a tile of one (row, query head) pair, a decode row of an MHA
+stack, through a one-row walk on the f32 FMA units instead: there P.V
+takes P in f32, with no split.
 """
 import importlib
 
@@ -101,12 +108,25 @@ def test_p_in_bf16_alone_misses():
     assert ratio > 10
 
 
+def one_pair_rows(row_map, G, tile_pairs=64):
+    """The rows the paged kernels walk one at a time on the FMA units:
+    tiles of one (row, query head) pair.  A row leads a tile where its
+    table row differs from the previous row's or at every (64 / G)-th row
+    (the plan kernel's rule); a tile runs to the next leader."""
+    cap = tile_pairs // G
+    r = row_map.tolist()
+    lead = [i % cap == 0 or r[i] != r[i - 1] for i in range(len(r))] + [True]
+    return torch.tensor([G == 1 and lead[i] and lead[i + 1]
+                         for i in range(len(r))])
+
+
 def emulate_paged_splitk(q, k_pool, v_pool, tables, ctx, row_map, k_scale,
                          v_scale, pps):
-    """The split-K tensor-core path's arithmetic: per split of ``pps``
-    pages, S = Q.K^T (int8 K widened exactly, its scale on the f32 score),
+    """The split-K path's arithmetic: per split of ``pps`` pages,
+    S = Q.K^T (int8 K widened exactly, its scale on the f32 score),
     p = exp(s - m) times the mask, V's scale folded into p, P.V as
-    hi + lo; then the combine of the plain version."""
+    hi + lo on the tensor cores (or, rows of one-pair tiles, in f32 on the
+    FMA units); then the combine of the plain version."""
     B, Hq, D = q.shape
     page, Hkv = k_pool.shape[1], k_pool.shape[2]
     G = Hq // Hkv
@@ -136,6 +156,8 @@ def emulate_paged_splitk(q, k_pool, v_pool, tables, ctx, row_map, k_scale,
     lo = (p - hi).to(torch.bfloat16).float()
     acc = (torch.einsum("bshgn,bsnhd->bshgd", hi, v)
            + torch.einsum("bshgn,bsnhd->bshgd", lo, v))
+    thin = one_pair_rows(row_map, G)[:, None, None, None, None]
+    acc = torch.where(thin, torch.einsum("bshgn,bsnhd->bshgd", p, v), acc)
     mm = m.amax(1, keepdim=True)
     alpha = torch.exp(m - mm)
     l = (l * alpha).sum(1)
@@ -147,7 +169,8 @@ def emulate_paged_splitk(q, k_pool, v_pool, tables, ctx, row_map, k_scale,
 @pytest.mark.parametrize("pools", ["bfloat16", "int8"])
 def test_paged_mixed_tile_roundings_within_bound(pools):
     """A mixed launch as the paged engine lowers it: a prefill chunk from
-    position 40 over table row 0, 8 decode rows, padding rows (ctx 0)."""
+    position 40 over table row 0 (tiles of 64, 64 and 22 rows), 8 decode
+    rows (one-pair tiles: Hq = Hkv), padding rows (ctx 0)."""
     rng = np.random.default_rng(1)
     H, D, page, W, chunk = 4, 128, 16, 16, 150
     dec = rng.integers(1, page * W + 1, 8).tolist()
@@ -166,6 +189,8 @@ def test_paged_mixed_tile_roundings_within_bound(pools):
         (kp, ks), (vp, vs) = quantize_kv(kp), quantize_kv(vp)
     ctx_t = torch.tensor(ctx, dtype=torch.int32)
     rmap_t = torch.tensor(rmap, dtype=torch.int32)
+    assert one_pair_rows(rmap_t, 1).nonzero().flatten().tolist() \
+        == list(range(chunk, chunk + 8))
     out = emulate_paged_splitk(q, kp, vp, tables, ctx_t, rmap_t, ks, vs, 4)
     plain = pa.paged_attention_splitk_plain(
         q, kp, vp, tables, ctx_t, pages_per_split=4, row_map=rmap_t,
