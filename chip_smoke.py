@@ -6,7 +6,8 @@ The quickest proof that the port builds and serves on an NVIDIA H100:
 1. device and build: the card's name and power limit (nvidia-smi), and
    the CUDA kernels built from ``src/repro_torch/csrc`` with nvcc (one
    nvcc per source, all started together), with ptxas' registers and
-   the dynamic shared memory of the tensor-core tiles;
+   the dynamic shared memory of the tensor-core tiles, and the SSD
+   kernel's registers, shared memory and blocks per SM;
 2. kernels against their plain PyTorch versions on the card, at the
    serving path's shapes:
    - paged attention, serial and split-K, bf16 and int8 pools (Hq = Hkv
@@ -18,7 +19,9 @@ The quickest proof that the port builds and serves on an NVIDIA H100:
      1000 causal in bf16 and f32, one windowed case (window 256) and one
      GQA case (Hkv = 8);
    - the SSD scan at Mamba-2-2.7B's shape (H = 80, P = 64, G = 1, N =
-     128, chunk 128): S = 128, 1024 and 1000 with bf16 and f32 x.
+     128, chunk 128): S = 128, 1024 and 1000 with bf16 and f32 x, S = 4096
+     with bf16 x (2560 blocks, 32 chunks chained per head), and S = 1000
+     bf16 from an initial state.
    Each case prints one JSON line with errors and times (kernel, plain
    version, a library yardstick where one exists, the bound);
 3. the engine at full width, a dozen requests from three clients under
@@ -40,10 +43,10 @@ The quickest proof that the port builds and serves on an NVIDIA H100:
    and ``torch.profiler`` windows (device busy share, kernel launches and
    device time by kernel per iteration): decode-heavy windows of the
    configurations of runs A, D and E, and prefill-heavy windows of A
-   (iterations that carry 512-row chunks) and D (an iteration of eight
-   whole-prompt prefills);
-   runs A, B and D must go through the tensor-core (``mma``) variants of
-   their kernels and launch no ``fma`` variant;
+   (iterations that carry 512-row chunks), D and E (the first iteration:
+   the whole prompts of the requests it admits);
+   runs A, B, D and E must go through the tensor-core (``mma``) variants
+   of their kernels and launch no ``fma`` variant;
 4. a ``kernels`` JSON line (launches per variant beside the totals), the
    nvidia-smi line, and last the result line ``{"ok": true, "device":
    {...}}``.
@@ -58,6 +61,7 @@ from __future__ import annotations
 
 import copy
 import gc
+import importlib
 import json
 import pathlib
 import statistics
@@ -129,7 +133,9 @@ def main() -> int:
             for name in built}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": built, "ptxas_registers": regs,
-          "tile_smem_bytes": tile_smem_bytes()})
+          "tile_smem_bytes": tile_smem_bytes(),
+          "ssd_scan:mma": importlib.import_module(
+              "repro_torch.kernels.ssd_scan").mma_attrs()})
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     kernel_rows = kernel_phase(torch, flush)
@@ -148,7 +154,6 @@ def main() -> int:
 def tile_smem_bytes():
     """Dynamic shared memory of one block of each tensor-core kernel at
     the serving head dim (128), from the libraries' own size functions."""
-    import importlib
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
     pa = importlib.import_module("repro_torch.kernels.paged_attention")
     out = {"flash_attention:mma": fa._lib().flash_attention_mma_smem_bytes(
@@ -385,9 +390,11 @@ def kernel_phase(torch, flush):
     return rows
 
 
-def device_ms_by_kernel(torch, fn, flush, reps=5):
-    """Device ms per call of each kernel that ``fn`` launches (the plan,
-    the walks and the combine of a paged call), from ``torch.profiler``."""
+def device_ms_by_kernel(torch, fn, flush, reps=5,
+                        names=("paged_attention", "paged_plan")):
+    """Device ms per call of each kernel that ``fn`` launches whose name
+    holds one of ``names`` (the plan, the walks and the combine of a paged
+    call), from ``torch.profiler``."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -401,7 +408,7 @@ def device_ms_by_kernel(torch, fn, flush, reps=5):
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0.0))
-        if us and any(n in e.key for n in ("paged_attention", "paged_plan")):
+        if us and any(n in e.key for n in names):
             out[e.key[:80]] += us / 1e3 / reps
     return dict(out)
 
@@ -409,7 +416,6 @@ def device_ms_by_kernel(torch, fn, flush, reps=5):
 def kernel_modules():
     """The three kernel modules (by module: the package exports functions
     of the same names)."""
-    import importlib
     return [importlib.import_module(f"repro_torch.kernels.{m}")
             for m in ("paged_attention", "flash_attention", "ssd_scan")]
 
@@ -447,7 +453,6 @@ def flash_phase(torch, flush):
     """The flash-attention kernel against its plain version at the
     whole-prompt prefill shapes of Llama-2-7B (B = 1, 32 heads, D = 128);
     library yardstick: ``scaled_dot_product_attention``, timed here only."""
-    import importlib
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
     F = torch.nn.functional
     dev = torch.device("cuda")
@@ -529,7 +534,6 @@ def ssd_bound(S, H, P, N, chunk, dtype):
 def ssd_phase(torch, flush):
     """The SSD-scan kernel against its plain version at Mamba-2-2.7B's
     whole-prompt prefill shape; no single PyTorch call computes it."""
-    import importlib
     ss = importlib.import_module("repro_torch.kernels.ssd_scan")
     dev = torch.device("cuda")
     H, P, N, chunk = 80, 64, 128, 128
@@ -543,52 +547,65 @@ def ssd_phase(torch, flush):
     # 128, as in tests/test_torch_kernels_cuda.py: at unit-scale B and C
     # they reach 11, and f32 cancellation alone moves outputs near zero
     # past the 1e-4 absolute tolerance on either side)
-    for ci, S in enumerate((128, 1024, 1000)):
-        for dt in ("bfloat16", "float32"):
-            g = torch.Generator(device=dev).manual_seed(SEED + 200 + ci)
-            dtype = getattr(torch, dt)
-            x = torch.randn(1, S, H, P, generator=g, device=dev).to(dtype)
-            step = torch.exp(torch.rand(1, S, H, generator=g, device=dev)
-                             * np.log(100.0) + np.log(1e-3))
-            la = -step * torch.arange(1, H + 1, device=dev)
-            Bm = (0.3 * torch.randn(1, S, 1, N, generator=g,
-                                    device=dev)).to(dtype)
-            Cm = (0.3 * torch.randn(1, S, 1, N, generator=g,
-                                    device=dev)).to(dtype)
-            tol = SSD_BF16_TOL if dt == "bfloat16" else SSD_F32_TOL
-            y, st = ss.ssd_scan_kernel(x, la, Bm, Cm, chunk=chunk)
-            torch.cuda.synchronize()
-            py, pst = ss.ssd_scan_plain(x, la, Bm, Cm, chunk=chunk)
-            err, ratio = tol_ratio(y, py, tol)
-            st_err, st_ratio = tol_ratio(st, pst, SSD_F32_TOL)
-            check(ratio <= 1 and st_ratio <= 1,
-                  f"ssd S{S}/{dt}: kernel vs plain outside tolerance {tol}: "
-                  f"y error {err} (ratio {ratio}), state error {st_err} "
-                  f"(ratio {st_ratio})")
-            check(bool(torch.isfinite(y.float()).all()
-                       and torch.isfinite(st).all()),
-                  f"ssd S{S}/{dt}: non-finite output")
-            line = {"phase": "kernels", "kernel": "ssd_scan", "case": f"S{S}",
-                    "dtype": dt, "S": S, "H": H, "P": P, "G": 1, "N": N,
-                    "chunk": chunk, "rtol": tol[0], "atol": tol[1],
-                    "max_abs_err": err, "tol_ratio": ratio,
-                    "state_max_abs_err": st_err,
-                    "state_tol_ratio": st_ratio,
-                    "ms": time_ms(torch, lambda: ss.ssd_scan_kernel(
-                        x, la, Bm, Cm, chunk=chunk), 20, flush),
-                    "plain_ms": time_ms(torch, lambda: ss.ssd_scan_plain(
-                        x, la, Bm, Cm, chunk=chunk), 3, flush),
-                    "library_ms": None,
-                    "grid_blocks": H, "sms": torch.cuda.get_device_properties(
-                        dev).multi_processor_count}
-            line["bound_ms"], line["bound_by"] = ssd_bound(S, H, P, N, chunk,
-                                                           dt)
-            emit(line)
-            row["max_abs_err"] = max(row["max_abs_err"], err)
-            if (S, dt) == (1024, "bfloat16"):
-                row.update(ms=line["ms"], plain_ms=line["plain_ms"],
-                           bound_ms=line["bound_ms"],
-                           bound_by=line["bound_by"], shape=f"S{S}/{dt}")
+    cases = [(f"S{S}", ci, S, dt, False) for ci, S in enumerate((128, 1024, 1000))
+             for dt in ("bfloat16", "float32")]
+    cases += [("S4096", 3, 4096, "bfloat16", False),
+              ("S1000_init", 4, 1000, "bfloat16", True)]
+    for name, ci, S, dt, with_init in cases:
+        g = torch.Generator(device=dev).manual_seed(SEED + 200 + ci)
+        dtype = getattr(torch, dt)
+        x = torch.randn(1, S, H, P, generator=g, device=dev).to(dtype)
+        step = torch.exp(torch.rand(1, S, H, generator=g, device=dev)
+                         * np.log(100.0) + np.log(1e-3))
+        la = -step * torch.arange(1, H + 1, device=dev)
+        Bm = (0.3 * torch.randn(1, S, 1, N, generator=g,
+                                device=dev)).to(dtype)
+        Cm = (0.3 * torch.randn(1, S, 1, N, generator=g,
+                                device=dev)).to(dtype)
+        init = torch.randn(1, H, P, N, generator=g, device=dev) \
+            if with_init else None
+        tol = SSD_BF16_TOL if dt == "bfloat16" else SSD_F32_TOL
+
+        def kernel():
+            return ss.ssd_scan_kernel(x, la, Bm, Cm, chunk=chunk,
+                                      initial_state=init)
+
+        y, st = kernel()
+        torch.cuda.synchronize()
+        py, pst = ss.ssd_scan_plain(x, la, Bm, Cm, chunk=chunk,
+                                    initial_state=init)
+        err, ratio = tol_ratio(y, py, tol)
+        st_err, st_ratio = tol_ratio(st, pst, SSD_F32_TOL)
+        check(ratio <= 1 and st_ratio <= 1,
+              f"ssd {name}/{dt}: kernel vs plain outside tolerance {tol}: "
+              f"y error {err} (ratio {ratio}), state error {st_err} "
+              f"(ratio {st_ratio})")
+        check(bool(torch.isfinite(y.float()).all()
+                   and torch.isfinite(st).all()),
+              f"ssd {name}/{dt}: non-finite output")
+        line = {"phase": "kernels", "kernel": "ssd_scan", "case": name,
+                "dtype": dt, "variant": ss.VARIANTS[dtype], "S": S, "H": H,
+                "P": P, "G": 1, "N": N, "chunk": chunk,
+                "initial_state": with_init, "rtol": tol[0], "atol": tol[1],
+                "max_abs_err": err, "tol_ratio": ratio,
+                "state_max_abs_err": st_err, "state_tol_ratio": st_ratio,
+                "ms": time_ms(torch, kernel, 20, flush),
+                "ms_by_kernel": device_ms_by_kernel(
+                    torch, kernel, flush, names=("ssd_scan",)),
+                "plain_ms": time_ms(torch, lambda: ss.ssd_scan_plain(
+                    x, la, Bm, Cm, chunk=chunk, initial_state=init), 3,
+                    flush),
+                "library_ms": None,
+                "grid_blocks": ss.grid_blocks(x, chunk),
+                "sms": torch.cuda.get_device_properties(
+                    dev).multi_processor_count}
+        line["bound_ms"], line["bound_by"] = ssd_bound(S, H, P, N, chunk, dt)
+        emit(line)
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        if (name, dt) == ("S1024", "bfloat16"):
+            row.update(ms=line["ms"], ms_by_kernel=line["ms_by_kernel"],
+                       plain_ms=line["plain_ms"], bound_ms=line["bound_ms"],
+                       bound_by=line["bound_by"], shape=f"{name}/{dt}")
     return {"ssd_scan": row}
 
 
@@ -778,8 +795,9 @@ def engine_phase(torch, kernel_rows):
 
 
     # every kernel and variant must stay unlaunched unless a run expects
-    # it: runs A, B, C (bf16 queries over bf16 or int8 pages) and D (bf16
-    # prefill) go through the tensor-core ("mma") variants
+    # it: runs A, B, C (bf16 queries over bf16 or int8 pages), D (bf16
+    # prefill) and E (bf16 SSD scan) go through the tensor-core ("mma")
+    # variants
     paged = {name: False for name in launch_counts()}
     splitk_mma = {"paged_attention_splitk": True,
                   "paged_attention_splitk:mma": True}
@@ -821,10 +839,12 @@ def engine_phase(torch, kernel_rows):
 
     mamba = setup(torch, "mamba2-2.7b")
     _, _, le, _ = serve(torch, "E", mamba, MAX_LEN_SLOTS, False,
-                        dict(paged, ssd_scan="per_layer_prefill"),
+                        dict(paged, ssd_scan="per_layer_prefill",
+                             **{"ssd_scan:mma": "per_layer_prefill"}),
                         backend="slots")
     decode_consistency(torch, mamba[1], mamba[0])
     profiled("E", mamba, MAX_LEN_SLOTS, backend="slots")
+    profiled("E", mamba, MAX_LEN_SLOTS, "prefill", backend="slots")
     main_runs = {"paged_attention": (la, lb, lc),
                  "paged_attention_splitk": (la, lb, lc),
                  "flash_attention": (ld,), "ssd_scan": (le,)}
@@ -894,8 +914,8 @@ def profile_window(torch, run, eng, reqs, window="decode"):
     tokens, profiled, their host time read under the profiler: run A's
     iterations 2-4 (the first runs unprofiled; the two requests admitted
     first have 1726 prompt tokens, so these carry 512, 512 and 190 prompt
-    rows beside the decode rows); run D's first iteration, the whole
-    prompts of the eight requests it admits (later iterations decode until
+    rows beside the decode rows); the first iteration of runs D and E, the
+    whole prompts of the requests it admits (later iterations decode until
     a request finishes).  Device busy share = device time per iteration / wall time
     per iteration."""
     from torch.profiler import ProfilerActivity, profile

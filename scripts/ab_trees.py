@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Interleaved comparison of two trees of the PyTorch port on one card.
 
-    python3 scripts/ab_trees.py --base DIR [--pairs 3]
+    python3 scripts/ab_trees.py --base DIR [--pairs 3] [--runs A,C,D,E]
 
 DIR holds another tree of the repository, unpacked (``git archive
 <commit> | tar -x -C DIR``, inside a directory that .gitignore lists);
@@ -15,15 +15,19 @@ kernels and measures:
 - kernel ms as ``chip_smoke.py`` times them (median of CUDA-event times,
   each call after an L2 flush; where the wrapper's host work outlasts
   the flush, it counts too): flash S1024 causal, split-K
-  mixed512+8_w32 and decode8_w32 (run A's launches) and serial
-  mixed48+8_w4 (run C's), bf16;
+  mixed512+8_w32 and decode8_w32 (run A's launches), serial
+  mixed48+8_w4 (run C's) and the SSD scan at S1024 (Mamba-2-2.7B's
+  heads, run E's launches), bf16; for the SSD scan also its device ms
+  from the profiler;
 - each wrapper's host µs per call: 50 calls enqueued behind a device
   sleep that outlasts them, so that no call waits for the card;
-- runs A, C and D of ``chip_smoke.py`` (full-width Llama-2-7B, random
-  weights from seed 0) on fresh engines: iterations, iteration and
-  model-step times on the host clock, tokens per second, memory;
-- run A's decode profile window: host ms, device ms and kernel launches
-  per iteration.
+- the runs of ``chip_smoke.py`` named by ``--runs`` (A, C, D: full-width
+  Llama-2-7B; E: full-width Mamba-2-2.7B; random weights from seed 0) on
+  fresh engines: iterations, iteration and model-step times on the host
+  clock, tokens per second, memory;
+- run A's decode profile window and run E's prefill window (its first
+  iteration, whole prompts): host ms, device ms, kernel launches and the
+  SSD scan's device ms per iteration.
 
 Each process's output goes to ``chiprun_out/ab/``; its result is one
 JSON line.  The last line holds the medians over repetitions per tree.
@@ -35,6 +39,7 @@ import argparse
 import copy
 import importlib
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -77,6 +82,15 @@ def kernel_calls(torch, cs):
     q, k, v = (randn(1, 1024, 32, 128) for _ in range(3))
     calls = {"flash_S1024_causal": lambda: fa.flash_attention_kernel(
         q, k, v, causal=True)}
+    # the SSD scan at chip_smoke's S1024 inputs (80 heads, P 64, N 128)
+    ss = importlib.import_module("repro_torch.kernels.ssd_scan")
+    x = randn(1, 1024, 80, 64)
+    step = torch.exp(torch.rand(1, 1024, 80, generator=g, device="cuda")
+                     * math.log(100.0) + math.log(1e-3))
+    la = -step * torch.arange(1, 81, device="cuda")
+    Bm, Cm = (0.3 * randn(1, 1024, 1, 128) for _ in range(2))
+    calls["ssd_S1024_bf16"] = lambda: ss.ssd_scan_kernel(x, la, Bm, Cm,
+                                                         chunk=128)
     for name, ctx_l, rmap_l, n_tab, W in cs.kernel_cases():
         if name not in PAGED_CASES:
             continue
@@ -100,7 +114,7 @@ def kernel_calls(torch, cs):
     return calls
 
 
-def one(tree: pathlib.Path, tag: str) -> dict:
+def one(tree: pathlib.Path, tag: str, runs) -> dict:
     """Every measurement of one process, on the tree at ``tree``."""
     import torch
     sys.path.insert(0, str(tree / "src"))
@@ -119,29 +133,56 @@ def one(tree: pathlib.Path, tag: str) -> dict:
     for name, fn in kernel_calls(torch, cs).items():
         res["kernels"][name] = {"ms": cs.time_ms(torch, fn, 20, flush),
                                 "host_us": host_us(torch, fn)}
+        if name.startswith("ssd"):
+            res["kernels"][name]["device_ms"] = sum(
+                cs.device_ms_by_kernel(torch, fn, flush,
+                                       names=("ssd_scan",)).values())
     del flush
-    llama = cs.setup(torch, "llama2-7b")
-    runs = {"A": (512, False, dict(backend="paged")),
-            "C": (64, True, dict(backend="paged")),
-            "D": (cs.MAX_LEN_SLOTS, False, dict(backend="slots",
-                                                  chunked=False))}
     keys = ("iterations", "wall_s", "iter_ms_median", "iter_ms_p90",
             "model_step_ms_median", "prefill_step_ms_median",
-            "prefill_tok_per_s_wall", "output_tok_per_s_wall",
-            "start_mem_gib", "peak_mem_gib")
-    for run, (max_len, short, kw) in runs.items():
-        *_, line = cs.serve(torch, run, llama, max_len, short, {}, **kw)
-        res[run] = {k: line[k] for k in keys}
-    cfg, params, cm, mope = llama
-    eng = ServingEngine(
-        cfg, make_scheduler("equinox", predictor=copy.deepcopy(mope)),
-        params=params, max_len=512, cost_model=cm, seed=cs.SEED,
-        device="cuda", backend="paged")
-    line = cs.profile_window(torch, "A", eng, cs.requests(False))
-    res["A_decode_window"] = {
-        k: line[k] for k in ("wall_ms_per_iteration",
-                             "device_ms_per_iteration",
-                             "kernel_launches_per_iteration")}
+            "prefill_step_ms_max", "prefill_tok_per_s_wall",
+            "output_tok_per_s_wall", "start_mem_gib", "peak_mem_gib")
+    window_keys = ("wall_ms_per_iteration", "device_ms_per_iteration",
+                   "kernel_launches_per_iteration")
+
+    def engine(model, max_len, **kw):
+        cfg, params, cm, mope = model
+        return ServingEngine(
+            cfg, make_scheduler("equinox", predictor=copy.deepcopy(mope)),
+            params=params, max_len=max_len, cost_model=cm, seed=cs.SEED,
+            device="cuda", **kw)
+
+    llama_runs = {"A": (512, False, dict(backend="paged")),
+                  "C": (64, True, dict(backend="paged")),
+                  "D": (cs.MAX_LEN_SLOTS, False, dict(backend="slots",
+                                                        chunked=False))}
+    if any(r in runs for r in llama_runs):
+        llama = cs.setup(torch, "llama2-7b")
+        for run, (max_len, short, kw) in llama_runs.items():
+            if run in runs:
+                *_, line = cs.serve(torch, run, llama, max_len, short, {},
+                                    **kw)
+                res[run] = {k: line[k] for k in keys}
+        if "A" in runs:
+            line = cs.profile_window(torch, "A", engine(
+                llama, 512, backend="paged"), cs.requests(False))
+            res["A_decode_window"] = {k: line[k] for k in window_keys}
+        del llama
+        torch.cuda.empty_cache()
+    if "E" in runs:
+        mamba = cs.setup(torch, "mamba2-2.7b")
+        *_, line = cs.serve(torch, "E", mamba, cs.MAX_LEN_SLOTS, False, {},
+                            backend="slots")
+        res["E"] = {k: line[k] for k in keys}
+        line = cs.profile_window(torch, "E", engine(
+            mamba, cs.MAX_LEN_SLOTS, backend="slots"), cs.requests(False),
+            "prefill")
+        res["E_prefill_window"] = {k: line[k] for k in window_keys}
+        res["E_prefill_window"]["ssd_ms_per_iteration"] = sum(
+            v for k, v in line["port_kernels_ms_per_iteration"].items()
+            if "ssd_scan" in k)
+        res["E_prefill_window"]["model_step_ms_profiled"] = \
+            line["model_step_ms_profiled"][0]
     return res
 
 
@@ -164,6 +205,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--base", type=pathlib.Path)
     ap.add_argument("--pairs", type=int, default=3)
+    ap.add_argument("--runs", default="A,C,D,E",
+                    help="engine runs to measure, of A, C, D, E")
     ap.add_argument("--one", type=pathlib.Path, help=argparse.SUPPRESS)
     ap.add_argument("--tag", help=argparse.SUPPRESS)
     a = ap.parse_args()
@@ -171,8 +214,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("ab_trees: no CUDA device; nothing was run", file=sys.stderr)
         return 2
+    runs = set(a.runs.split(",")) - {""}
+    if not runs <= {"A", "C", "D", "E"}:
+        print(f"ab_trees: unknown runs {sorted(runs)}", file=sys.stderr)
+        return 2
     if a.one is not None:
-        print(json.dumps(one(a.one.resolve(), a.tag)), flush=True)
+        print(json.dumps(one(a.one.resolve(), a.tag, runs)), flush=True)
         return 0
     if a.base is None or not (a.base / "src" / "repro_torch").is_dir():
         print("ab_trees: --base must name an unpacked tree of the repo",
@@ -184,7 +231,8 @@ def main() -> int:
     for i in range(a.pairs):
         for tag in ("base", "change") if i % 2 == 0 else ("change", "base"):
             p = subprocess.run([sys.executable, __file__, "--one",
-                                str(trees[tag]), "--tag", tag],
+                                str(trees[tag]), "--tag", tag,
+                                "--runs", a.runs],
                                capture_output=True, text=True)
             log = OUT / f"{len(results):02d}_{tag}.log"
             log.write_text(p.stdout + p.stderr)

@@ -3,7 +3,12 @@
 Port of ``repro/kernels/ssd_scan.py``.  One kernel, written by hand in
 CUDA C++ for Hopper (``csrc/ssd_scan.cu``), replaces ``ssd_scan_pallas``;
 beside it is a plain PyTorch version of the same function, the chunked
-dual form of ``repro/models/ssm.py::ssd_chunked``.
+dual form of ``repro/models/ssm.py::ssd_chunked``.  The kernel has two
+variants, chosen by dtype (both always built): ``mma`` for bf16, one
+block per (chunk, head, batch row) on the tensor cores with the state
+handed from chunk to chunk inside the launch, and ``fma`` for f32, one
+block per (head, batch row) walking its chunks on the f32 FMA units
+(TF32 would miss the f32 tolerance).
 
 Inputs, as in the reference:
     x   (B, S, H, P)   f32 or bf16
@@ -23,7 +28,8 @@ leaves the state unchanged.
 
 A wrapper runs the plain version only when its tensors lie on the CPU
 (the tests).  On CUDA tensors it launches the kernel or raises; there is
-no fallback.  ``LAUNCHES`` counts kernel launches.
+no fallback.  ``LAUNCHES`` counts kernel launches, in all and per variant
+(``ssd_scan:mma``).
 """
 from __future__ import annotations
 
@@ -39,7 +45,9 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # what the CUDA kernel's shared-memory tiles hold
 MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE = 128, 64, 128
 
-LAUNCHES: Dict[str, int] = {"ssd_scan": 0}
+VARIANTS = {torch.bfloat16: "mma", torch.float32: "fma"}
+LAUNCHES: Dict[str, int] = {"ssd_scan": 0, "ssd_scan:mma": 0,
+                            "ssd_scan:fma": 0}
 
 
 def reset_launch_counts() -> None:
@@ -48,17 +56,16 @@ def reset_launch_counts() -> None:
 
 
 def _validate(x, la, Bm, Cm, chunk, initial_state):
-    if x.ndim != 4 or la.ndim != 3 or Bm.ndim != 4 or Cm.ndim != 4:
+    xs, ls, bs, cs = x.shape, la.shape, Bm.shape, Cm.shape
+    if len(xs) != 4 or len(ls) != 3 or len(bs) != 4 or len(cs) != 4:
         raise ValueError(f"ssd scan: x (B,S,H,P), la (B,S,H), Bm/Cm "
-                         f"(B,S,G,N); got {tuple(x.shape)}, {tuple(la.shape)}, "
-                         f"{tuple(Bm.shape)}, {tuple(Cm.shape)}")
-    Bsz, S, H, P = x.shape
-    G, N = Bm.shape[2], Bm.shape[3]
-    if la.shape != (Bsz, S, H) or Bm.shape[:2] != (Bsz, S) \
-            or Cm.shape != Bm.shape:
-        raise ValueError(f"ssd scan: x {tuple(x.shape)}, la "
-                         f"{tuple(la.shape)}, Bm {tuple(Bm.shape)}, Cm "
-                         f"{tuple(Cm.shape)} do not agree")
+                         f"(B,S,G,N); got {tuple(xs)}, {tuple(ls)}, "
+                         f"{tuple(bs)}, {tuple(cs)}")
+    Bsz, S, H, P = xs
+    _, _, G, N = bs
+    if ls != (Bsz, S, H) or bs[0] != Bsz or bs[1] != S or cs != bs:
+        raise ValueError(f"ssd scan: x {tuple(xs)}, la {tuple(ls)}, Bm "
+                         f"{tuple(bs)}, Cm {tuple(cs)} do not agree")
     if G == 0 or H % G:
         raise ValueError(f"ssd scan: H={H} heads do not group evenly over "
                          f"G={G} groups")
@@ -69,9 +76,11 @@ def _validate(x, la, Bm, Cm, chunk, initial_state):
         raise ValueError(f"ssd scan: initial_state must be "
                          f"{(Bsz, H, P, N)}, got "
                          f"{tuple(initial_state.shape)}")
-    devices = {t.device for t in (x, la, Bm, Cm, initial_state)
-               if t is not None}
-    if len(devices) != 1:
+    dev = x.device
+    if la.device != dev or Bm.device != dev or Cm.device != dev or (
+            initial_state is not None and initial_state.device != dev):
+        devices = {t.device for t in (x, la, Bm, Cm, initial_state)
+                   if t is not None}
         raise ValueError(f"ssd scan: tensors on mixed devices "
                          f"{sorted(map(str, devices))}")
 
@@ -138,14 +147,84 @@ def _lib() -> ctypes.CDLL:
     if lib.ssd_scan_fwd.argtypes is None:
         lib.ssd_scan_fwd.argtypes = [_P] * 7 + [_I] * 8 + [_P]
         lib.ssd_scan_fwd.restype = _I
+        lib.ssd_scan_mma_fwd.argtypes = [_P] * 8 + [
+            ctypes.c_longlong, ctypes.c_uint, ctypes.c_uint] + [_I] * 7 + [_P]
+        lib.ssd_scan_mma_fwd.restype = _I
+        lib.ssd_scan_mma_attrs.argtypes = [ctypes.POINTER(_I)]
+        lib.ssd_scan_mma_attrs.restype = _I
     return lib
+
+
+def mma_attrs() -> Dict[str, int]:
+    """The ``mma`` kernel's registers per thread, dynamic shared memory per
+    block, resident blocks per SM and spill bytes per thread, as the
+    driver reports them for the current card."""
+    out = (_I * 4)()
+    rc = _lib().ssd_scan_mma_attrs(out)
+    if rc != 0:
+        raise RuntimeError(f"ssd_scan_mma_attrs: CUDA error {rc}")
+    return dict(zip(("registers", "smem_bytes", "blocks_per_sm",
+                     "spill_bytes"), out))
+
+
+def grid_blocks(x, chunk) -> int:
+    """Blocks of the launch the wrapper makes for ``x`` (B, S, H, P): one
+    per (chunk, head, batch row) for bf16, one per (head, batch row) for
+    f32."""
+    Bsz, S, H, _ = x.shape
+    chunks = -(-S // chunk) if x.dtype == torch.bfloat16 else 1
+    return chunks * H * Bsz
+
+
+class _Workspace:
+    """The ``mma`` variant's workspace for one (device, stream), zeroed
+    once and reused: int32 words [0, 64) hold the ticket, then one flag
+    per (b, h), then from ``slots_at`` the two f32 state slots per (b, h).
+    A call takes tickets [ticket, ticket + grid) and sequence numbers from
+    ``seq`` (chunk c publishes seq + c + 1); both only grow, so a flag an
+    earlier call left is never taken for this call's and nothing is
+    cleared per call."""
+
+    FLAGS_AT = 64
+    SEQ_LIMIT = 1 << 30
+
+    def __init__(self, device, bh, slot_floats):
+        self.bh, self.slot_floats = bh, slot_floats
+        self.slots_at = self.FLAGS_AT + -(-bh // 16) * 16   # 64-byte aligned
+        self.buf = torch.zeros(self.slots_at + slot_floats,
+                               dtype=torch.int32, device=device)
+        self.ticket = self.seq = 0
+
+    def fits(self, bh, slot_floats, n_chunks):
+        return bh <= self.bh and slot_floats <= self.slot_floats \
+            and self.seq + n_chunks < self.SEQ_LIMIT
+
+    def take(self, n_blocks, n_chunks):
+        """(ticket, seq) for one call, advanced past it."""
+        ticket, seq = self.ticket, self.seq
+        self.ticket = (ticket + n_blocks) & 0xFFFFFFFF
+        self.seq = seq + n_chunks
+        return ticket, seq
+
+
+_workspaces: Dict[tuple, _Workspace] = {}
+
+
+def _workspace(key, bh, slot_floats, n_chunks) -> _Workspace:
+    """The workspace of ``key`` (device, stream); a larger call, or a
+    sequence about to wrap, takes a fresh zeroed one."""
+    ws = _workspaces.get(key)
+    if ws is None or not ws.fits(bh, slot_floats, n_chunks):
+        old = (0, 0) if ws is None else (ws.bh, ws.slot_floats)
+        ws = _workspaces[key] = _Workspace(
+            key[0], max(bh, old[0]), max(slot_floats, old[1]))
+    return ws
 
 
 def _check_cuda(x, la, Bm, Cm, chunk, initial_state):
     """Refuse anything the CUDA kernel does not take."""
-    named = {"x": x, "la": la, "Bm": Bm, "Cm": Cm,
-             "initial_state": initial_state}
-    for name, t in named.items():
+    for name, t in (("x", x), ("la", la), ("Bm", Bm), ("Cm", Cm),
+                    ("initial_state", initial_state)):
         if t is None:
             continue
         if not t.is_contiguous():
@@ -182,19 +261,33 @@ def _ssd_cuda(x, la, Bm, Cm, chunk, initial_state):
     _check_cuda(x, la, Bm, Cm, chunk, initial_state)
     Bsz, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
+    variant = VARIANTS[x.dtype]
     y = torch.empty_like(x)
     state = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+    init = None if initial_state is None else initial_state.data_ptr()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _lib().ssd_scan_fwd(
-            x.data_ptr(), la.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-            None if initial_state is None else initial_state.data_ptr(),
-            y.data_ptr(), state.data_ptr(),
-            Bsz, S, H, P, G, N, chunk, _DTYPE_CODE[x.dtype], stream)
+        if variant == "mma":
+            n_chunks = -(-S // chunk)
+            key = (x.device, stream)
+            ws = _workspace(key, Bsz * H, 2 * Bsz * H * P * N, n_chunks)
+            ticket, seq = ws.take(n_chunks * Bsz * H, n_chunks)
+            rc = _lib().ssd_scan_mma_fwd(
+                x.data_ptr(), la.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+                init, y.data_ptr(), state.data_ptr(), ws.buf.data_ptr(),
+                ws.slots_at, ticket, seq, Bsz, S, H, P, G, N, chunk, stream)
+            if rc != 0:                  # its ticket and flags are unknown
+                _workspaces.pop(key, None)
+        else:
+            rc = _lib().ssd_scan_fwd(
+                x.data_ptr(), la.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+                init, y.data_ptr(), state.data_ptr(),
+                Bsz, S, H, P, G, N, chunk, _DTYPE_CODE[x.dtype], stream)
     if rc != 0:
-        raise RuntimeError(f"ssd_scan_fwd: CUDA error {rc} "
+        raise RuntimeError(f"ssd_scan ({variant}): CUDA error {rc} "
                            f"({torch.cuda.get_device_name(x.device)})")
     LAUNCHES["ssd_scan"] += 1
+    LAUNCHES[f"ssd_scan:{variant}"] += 1
     return y, state
 
 
@@ -203,7 +296,8 @@ def _ssd_cuda(x, la, Bm, Cm, chunk, initial_state):
 # ---------------------------------------------------------------------------
 def ssd_scan_kernel(x, la, Bm, Cm, *, chunk=128, initial_state=None):
     """Chunked SSD scan.  CPU tensors run ``ssd_scan_plain``; CUDA tensors
-    the kernel.  Returns (y, final_state)."""
+    the kernel (``mma`` for bf16, ``fma`` for f32).  Returns (y,
+    final_state)."""
     _validate(x, la, Bm, Cm, chunk, initial_state)
     if x.device.type == "cpu":
         return ssd_scan_plain(x, la, Bm, Cm, chunk=chunk,

@@ -124,8 +124,10 @@ def _gates(params, cfg, xbc_conv, dt_raw, lead):
     return xh, Bm, Cm, dt, la
 
 
-def mamba2_prefill(params, x, cfg):
-    """x: (B, S, d).  Returns (y, cache dict with conv_state + ssm_state)."""
+def mamba2_prefill(params, x, cfg, initial=None):
+    """x: (B, S, d); ``initial``: a cache dict whose ``ssm_state`` (B, H, P,
+    N) f32 the scan starts from (zeros without it).  Returns (y, cache
+    dict with conv_state + ssm_state)."""
     s = cfg.ssm
     d_in, _, _ = mamba2_dims(cfg)
     Bsz, S, _ = x.shape
@@ -134,8 +136,9 @@ def mamba2_prefill(params, x, cfg):
     xbc_conv = F.silu(causal_conv(xbc, params["conv_w"], params["conv_b"]))
     xh, Bm, Cm, dt, la = _gates(params, cfg, xbc_conv, dt_raw, (Bsz, S))
     x_in = (xh * dt[..., None].to(xh.dtype)).contiguous()
+    init_state = None if initial is None else initial["ssm_state"]
     y, final_state = ssd_chunked(x_in, la.contiguous(), Bm.contiguous(),
-                                 Cm.contiguous(), s.chunk_size)
+                                 Cm.contiguous(), s.chunk_size, init_state)
     y = y + (params["D"][:, None] * xh.float()).to(y.dtype)
     y = y.reshape(Bsz, S, d_in)
     y = rmsnorm(params["norm"], y * F.silu(z), cfg.norm_eps)

@@ -165,11 +165,14 @@ def test_ssd_kernel_matches_plain(cuda, S, H, P, G, N, chunk, dtype,
     if with_state:
         init = torch.from_numpy(rng.standard_normal((2, H, P, N)).astype(
             np.float32)).to(cuda)
-    before = ss.LAUNCHES["ssd_scan"]
+    before = dict(ss.LAUNCHES)
     y, st = ss.ssd_scan_kernel(x, la, Bm, Cm, chunk=chunk,
                                initial_state=init)
     torch.cuda.synchronize()
-    assert ss.LAUNCHES["ssd_scan"] == before + 1
+    assert ss.LAUNCHES["ssd_scan"] == before["ssd_scan"] + 1
+    variant = ss.VARIANTS[dtype]                 # bf16: mma, f32: fma
+    assert ss.LAUNCHES[f"ssd_scan:{variant}"] == \
+        before[f"ssd_scan:{variant}"] + 1
     py, pst = ss.ssd_scan_plain(x, la, Bm, Cm, chunk=chunk,
                                 initial_state=init)
     assert y.dtype == dtype and st.dtype == torch.float32
@@ -306,3 +309,81 @@ def test_mma_flash_ragged_and_windowed(cuda, S, Hkv, window):
     plain = fa.flash_attention_plain(q, k, v, causal=True, window=window)
     ok, err = within(out, plain, FLASH_TOL[torch.bfloat16])
     assert ok, err
+
+
+# ---------------------------------------------------------------------------
+# the SSD scan on the tensor cores (bf16 x): chunks in parallel, the state
+# handed from chunk to chunk inside the launch
+# ---------------------------------------------------------------------------
+def ssd_inputs(device, Bsz, S, H, P, G, N, with_state, seed):
+    """bf16 x, B and C, f32 decays as the model makes them (la = -dt A, dt
+    log-uniform on [1e-3, 1e-1], A from 1 to H) and an optional f32
+    initial state."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((Bsz, S, H, P))
+    dt = np.exp(rng.random((Bsz, S, H)) * np.log(100.0) + np.log(1e-3))
+    la = -dt * np.arange(1, H + 1)
+    Bm, Cm = (0.3 * rng.standard_normal((Bsz, S, G, N)) for _ in range(2))
+    init = rng.standard_normal((Bsz, H, P, N)) if with_state else None
+    x, Bm, Cm = (torch.from_numpy(a.astype(np.float32)).to(
+        device, torch.bfloat16) for a in (x, Bm, Cm))
+    la = torch.from_numpy(la.astype(np.float32)).to(device)
+    if init is not None:
+        init = torch.from_numpy(init.astype(np.float32)).to(device)
+    return x, la, Bm, Cm, init
+
+
+MMA_SSD = {
+    # Mamba-2-2.7B's heads: 10 and 32 chunks chained per head
+    "S1280_H80": (1, 1280, 80, 64, 1, 128, 128),
+    "S4096_H80": (1, 4096, 80, 64, 1, 128, 128),
+    # ragged, and a chunk below 128 that is not a multiple of 16
+    "ragged_chunk50": (2, 1001, 8, 64, 1, 128, 50),
+    # G > 1; P and N not multiples of 8 (8-byte copies); chunk 40
+    "groups_narrow": (2, 257, 6, 12, 3, 20, 40),
+    # one chunk shorter than a 16-row tile
+    "short": (1, 7, 4, 32, 2, 16, 128),
+}
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("case", sorted(MMA_SSD))
+def test_mma_ssd_matches_plain(cuda, case, with_state):
+    Bsz, S, H, P, G, N, chunk = MMA_SSD[case]
+    x, la, Bm, Cm, init = ssd_inputs(cuda, Bsz, S, H, P, G, N, with_state,
+                                     seed=S + P)
+    before = dict(ss.LAUNCHES)
+    y, st = ss.ssd_scan_kernel(x, la, Bm, Cm, chunk=chunk,
+                               initial_state=init)
+    torch.cuda.synchronize()
+    assert ss.LAUNCHES["ssd_scan:mma"] == before["ssd_scan:mma"] + 1
+    assert ss.LAUNCHES["ssd_scan:fma"] == before["ssd_scan:fma"]
+    py, pst = ss.ssd_scan_plain(x, la, Bm, Cm, chunk=chunk,
+                                initial_state=init)
+    assert y.dtype == torch.bfloat16 and st.dtype == torch.float32
+    assert torch.isfinite(y.float()).all() and torch.isfinite(st).all()
+    ok, err = within(y, py, SSD_TOL[torch.bfloat16])
+    assert ok, err
+    ok, err = within(st, pst, (0.0, 5e-4))
+    assert ok, err
+
+
+def test_mma_ssd_back_to_back_calls(cuda):
+    """Calls queued without a sync in between, of growing and shrinking
+    (batch x heads), share the one workspace: each takes fresh tickets and
+    sequence numbers, so no call reads a flag or a slot of another."""
+    shapes = [(1, 600, 8, 64, 1, 128, 64), (3, 900, 16, 64, 1, 128, 128),
+              (1, 300, 4, 32, 2, 64, 32), (3, 900, 16, 64, 1, 128, 128)]
+    calls = [ssd_inputs(cuda, *shape[:6], with_state=i % 2 == 1, seed=i)
+             for i, shape in enumerate(shapes)]
+    outs = [ss.ssd_scan_kernel(x, la, Bm, Cm, chunk=shape[6],
+                               initial_state=init)
+            for shape, (x, la, Bm, Cm, init) in zip(shapes, calls)]
+    torch.cuda.synchronize()
+    for shape, (x, la, Bm, Cm, init), (y, st) in zip(shapes, calls, outs):
+        py, pst = ss.ssd_scan_plain(x, la, Bm, Cm, chunk=shape[6],
+                                    initial_state=init)
+        ok, err = within(y, py, SSD_TOL[torch.bfloat16])
+        assert ok, (shape, err)
+        ok, err = within(st, pst, (0.0, 5e-4))
+        assert ok, (shape, err)

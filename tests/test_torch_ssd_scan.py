@@ -4,19 +4,27 @@ The plain version (what the port's wrapper runs on CPU tensors, and what
 the CUDA kernel is held to on the card) against ``ssd_scan_pallas`` in
 interpret mode and against ``repro.models.ssm.ssd_chunked``, with and
 without an initial state, on the grid of
-``tests/test_kernels.py::test_ssd_kernel``, within 5e-4."""
+``tests/test_kernels.py::test_ssd_kernel``, within 5e-4; and the port's
+``mamba2_prefill`` with and without an initial state against the
+reference's."""
 import importlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.configs import SMOKE_FACTORIES as J_SMOKE
 from repro.kernels.ops import ssd_scan as jax_ssd_pallas
+from repro.models.ssm import mamba2_init as jax_mamba2_init
+from repro.models.ssm import mamba2_prefill as jax_mamba2_prefill
 from repro.models.ssm import ssd_chunked as jax_ssd_chunked
 from repro.models.ssm import ssd_step as jax_ssd_step
+from repro_torch.configs import SMOKE_FACTORIES as T_SMOKE
 from repro_torch.kernels import ops
 from repro_torch.models import ssm as tssm
+from repro_torch.weights import params_from_numpy
 
 ss = importlib.import_module("repro_torch.kernels.ssd_scan")
 
@@ -100,3 +108,35 @@ def test_wrapper_validates_and_counts_nothing_on_cpu():
         ss.ssd_scan_kernel(*t, initial_state=torch.zeros(1))
     with pytest.raises(ValueError, match="no kernel"):
         ss.ssd_scan_kernel(*(a.to("meta") for a in t))
+
+
+@pytest.mark.parametrize("with_initial", [False, True])
+def test_mamba2_prefill_initial_state_matches_reference(with_initial):
+    """``mamba2_prefill(..., initial=cache)`` starts the scan from the
+    cache's ``ssm_state``, as the reference does: outputs within 1e-4 and
+    the cache (conv tail, final state) within 1e-5 on bridged weights of
+    the smoke config (chunk 16; 37 tokens, three chunks, the last
+    ragged)."""
+    jcfg, tcfg = J_SMOKE["mamba2-2.7b"](), T_SMOKE["mamba2-2.7b"]()
+    jp = jax_mamba2_init(jax.random.key(3), jcfg, jnp.float32)
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((2, 37, jcfg.d_model)).astype(np.float32)
+    jinit = tinit = None
+    if with_initial:
+        H = jp["A_log"].shape[0]
+        s0 = rng.standard_normal((2, H, jcfg.ssm.head_dim,
+                                  jcfg.ssm.d_state)).astype(np.float32)
+        jinit = {"ssm_state": jnp.asarray(s0)}
+        tinit = {"ssm_state": torch.from_numpy(s0)}
+    jy, jcache = jax_mamba2_prefill(jp, jnp.asarray(x), jcfg, jinit)
+    ty, tcache = tssm.mamba2_prefill(tp, torch.from_numpy(x), tcfg, tinit)
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), atol=1e-4,
+                               rtol=1e-4)
+    assert tcache.keys() == jcache.keys()
+    for name, want in jcache.items():
+        np.testing.assert_allclose(tcache[name].numpy(), np.asarray(want),
+                                   atol=1e-5, rtol=1e-5, err_msg=name)
+    if with_initial:                  # the state was not ignored
+        y0, _ = tssm.mamba2_prefill(tp, torch.from_numpy(x), tcfg)
+        assert (y0 - ty).abs().max().item() > 1e-3
