@@ -18,7 +18,11 @@ x o w and S_{c-1}.  Each goes in as two bf16 terms, ``hi = bf16(v)`` and
 ``lo = bf16(v - hi)``, into one f32 accumulator, which keeps 16
 significant bits; as one bf16 term each of them alone puts y or the state
 past the bounds ``chip_smoke.py`` holds the kernel to
-(``test_one_bf16_term_misses`` prints by how much).
+(``test_one_bf16_term_misses`` prints by how much).  Not emulated, as
+far below those roundings: the kernel's decays by ``ex2.approx``
+(relative error ~2**-22) and its compensated (hi + lo) la_cum, which
+makes the decay exponents more exact than the plain version's f32
+cumulative sum.
 
 Shapes: Mamba-2-2.7B's head (P = 64) and state (N = 128) dims and chunk
 128, four heads, S = 1024 (eight chunks); decays as the model makes them
