@@ -65,10 +65,12 @@
 //   sequence base, chunk c publishes base + c + 1, so a flag of an earlier
 //   call is never taken for a fresh one and no memset is launched per
 //   call.  Shared memory: 90,112 bytes of dynamic shared memory per
-//   block; 254 registers per thread; 2 blocks (8 warps) per SM.  What
-//   still holds it back (PERF.md): a block spends about a sixth of its
-//   time loading its 80 KB (B and C are read again for every head), and
-//   the mma.sync chains run far below the tensor cores' rate.
+//   block; 252 registers per thread (254 with 8-byte copies); 2 blocks
+//   (8 warps) per SM.  What still holds it back (PERF.md,
+//   scripts/ssd_phases.py): a block spends a fifth of its time getting
+//   its 80 KB (B and C are read again for every head) and a sixth in the
+//   hand-off's trips to L2, and its mma.sync products run far below the
+//   tensor cores' rate.
 //
 // * f32 x: ssd_scan_kernel, full f32 on the FMA units (TF32 would miss the
 //   f32 tolerance).  One thread block per (head, batch row), 256 threads,
