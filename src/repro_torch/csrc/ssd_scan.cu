@@ -556,20 +556,20 @@ ssd_scan_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ la,
         il = ol;
       }
     }
-    float bh = __shfl_up_sync(0xffffffffu, ih, 1);
-    float bl = __shfl_up_sync(0xffffffffu, il, 1);
-    if (lane == 0) bh = bl = 0.f;
+    float eh = __shfl_up_sync(0xffffffffu, ih, 1);   // exclusive prefix
+    float el = __shfl_up_sync(0xffffffffu, il, 1);
+    if (lane == 0) eh = el = 0.f;
     const float th = __shfl_sync(0xffffffffu, ih, 31);
     const float tl = __shfl_sync(0xffffffffu, il, 31);
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       const int i = lane * 4 + k;
-      float ch = bh, cl = bl;
-      dd_add(ch, cl, vh[k], vl[k]);
-      cum_s[i] = ch;
-      cuml_s[i] = cl;
-      ecum_s[i] = expf(ch + cl);
-      w_s[i] = expf((th - ch) + (tl - cl));
+      float sh = eh, sl = el;
+      dd_add(sh, sl, vh[k], vl[k]);
+      cum_s[i] = sh;
+      cuml_s[i] = sl;
+      ecum_s[i] = expf(sh + sl);
+      w_s[i] = expf((th - sh) + (tl - sl));
     }
   }
   attn_tile::cp_async_wait<0>();
