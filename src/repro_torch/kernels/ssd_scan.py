@@ -183,7 +183,8 @@ class _Workspace:
     A call takes tickets [ticket, ticket + grid) and sequence numbers from
     ``seq`` (chunk c publishes seq + c + 1); both only grow, so a flag an
     earlier call left is never taken for this call's and nothing is
-    cleared per call."""
+    cleared per call.  (A fresh allocation per call would hold arbitrary
+    bytes: its ticket and flags would need a memset launch.)"""
 
     FLAGS_AT = 64
     SEQ_LIMIT = 1 << 30
