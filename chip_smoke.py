@@ -15,9 +15,10 @@ The quickest proof that the port builds and serves on an NVIDIA H100:
      widths 32 and 256, and ragged mixed launches (a prefill chunk over
      one table row, 8 decode rows, padding rows with ctx 0); each case
      once more with f32 queries and f32 pools at a tight tolerance;
-   - flash attention (B = 1, Hq = Hkv = 32, D = 128): S = 128, 1024 and
-     1000 causal in bf16 and f32, one windowed case (window 256) and one
-     GQA case (Hkv = 8);
+   - flash attention (B = 1, Hq = 32, D = 128): S = 128, 1024 and 1000
+     causal in bf16 and f32 (Hkv = 32), one windowed case (window 256),
+     one GQA case (Hkv = 8), and Mixtral-8x7B's prefill shape (S = 6144,
+     Hkv = 8, window 4096) in bf16;
    - the SSD scan at Mamba-2-2.7B's shape (H = 80, P = 64, G = 1, N =
      128, chunk 128): S = 128, 1024 and 1000 with bf16 and f32 x, S = 4096
      with bf16 x (2560 blocks, 32 chunks chained per head), and S = 1000
@@ -39,14 +40,28 @@ The quickest proof that the port builds and serves on an NVIDIA H100:
         is whole-prompt prefill (the SSD-scan kernel, one launch per layer
         and prompt), max_len 1280; plus prefill + one decode step against
         prefill of the longer prompt;
+     F  DeepSeek-MoE-16B as registered (28 layers, d_model 2048, the first
+        layer dense, then 64 routed experts top-6 and 2 shared, bf16;
+        random weights from a seed) on the slots backend with
+        whole-prompt prefill (the flash kernel), max_len 1280, capacity
+        dispatch; its first-token logits against a plain forward of the
+        port, prefill + one decode step against the longer prefill (on
+        the dense MoE path: dispatch capacity follows the row count);
+     G  Mixtral-8x7B at full width, depth cut 32 -> 16 layers (the whole
+        model, 93.4 GB in bf16, exceeds the card), 8 experts top-2,
+        window 4096, slots with whole-prompt prefill, max_len 6400; two
+        of the 12 prompts are 4500-6000 tokens long, so flash masks by
+        the window and their ring slot caches wrap; the same two checks
+        at prompts past the window;
    plus a check of run A's first-token logits against a dense forward,
    and ``torch.profiler`` windows (device busy share, kernel launches and
    device time by kernel per iteration): decode-heavy windows of the
-   configurations of runs A, D and E, and prefill-heavy windows of A
-   (iterations that carry 512-row chunks), D and E (the first iteration:
-   the whole prompts of the requests it admits);
-   runs A, B, D and E must go through the tensor-core (``mma``) variants
-   of their kernels and launch no ``fma`` variant;
+   configurations of runs A, D, E and F, and prefill-heavy windows of A
+   (iterations that carry 512-row chunks), D, E and G (the first
+   iteration: the whole prompts of the requests it admits);
+   runs A, B, D, E, F and G must go through the tensor-core (``mma``)
+   variants of their kernels and launch no ``fma`` variant, and no
+   kernel a run does not expect;
 4. a ``kernels`` JSON line (launches per variant beside the totals), the
    nvidia-smi line, and last the result line ``{"ok": true, "device":
    {...}}``.
@@ -60,6 +75,7 @@ switched off for matmuls and cuDNN, so f32 products are full f32.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import gc
 import importlib
 import json
@@ -92,7 +108,13 @@ SSD_F32_TOL = (0.0, 5e-4)
 # number of elements, while the std does not)
 INT8_NOISE_REL_STD = 0.15
 DENSE_REL_TOL = 5e-2               # served vs dense-forward first-token logits
-MAX_LEN_SLOTS = 1280               # runs D and E: prompts <= 1024, outputs <= 128
+MAX_LEN_SLOTS = 1280               # runs D-F: prompts <= 1024, outputs <= 128
+# run G: Mixtral-8x7B's depth cut to 16 of its 32 layers (23.5 B of 46.7 B
+# parameters, 47 of 93.4 GB in bf16: the whole model exceeds the card's
+# 80 GB); fewer layers make the host's share of an iteration larger
+MIXTRAL_LAYERS = 16
+MAX_LEN_LONG = 6400                # run G: prompts <= 6000, outputs <= 128
+LONG_PROMPTS = (4500, 6001)        # run G: two prompts past the 4096 window
 
 
 def fail(msg: str):
@@ -451,8 +473,12 @@ def flash_bound(S, Hq, Hkv, D, causal, window, dtype):
 
 def flash_phase(torch, flush):
     """The flash-attention kernel against its plain version at the
-    whole-prompt prefill shapes of Llama-2-7B (B = 1, 32 heads, D = 128);
-    library yardstick: ``scaled_dot_product_attention``, timed here only."""
+    whole-prompt prefill shapes of Llama-2-7B (B = 1, 32 heads, D = 128)
+    and Mixtral-8x7B (8 kv heads, window 4096, a 6144-token prompt);
+    library yardstick: ``scaled_dot_product_attention`` (a windowed case
+    passes its mask as a boolean tensor), timed here only.  The kernels
+    line carries S1024 causal bf16; it and the Mixtral case add the
+    profiler's device time (``ms_by_kernel``)."""
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
     F = torch.nn.functional
     dev = torch.device("cuda")
@@ -463,7 +489,8 @@ def flash_phase(torch, flush):
     cases = [(f"S{S}_causal", S, 32, True, 0, dt)
              for S in (128, 1024, 1000) for dt in ("bfloat16", "float32")]
     cases += [("S1024_window256", 1024, 32, True, 256, "bfloat16"),
-              ("S1024_gqa8", 1024, 8, True, 0, "bfloat16")]
+              ("S1024_gqa8", 1024, 8, True, 0, "bfloat16"),
+              ("S6144_window4096_gqa8", 6144, 8, True, 4096, "bfloat16")]
     for ci, (name, S, Hkv, causal, window, dt) in enumerate(cases):
         g = torch.Generator(device=dev).manual_seed(SEED + 100 + ci)
         dtype = getattr(torch, dt)
@@ -503,10 +530,17 @@ def flash_phase(torch, flush):
                 "library_ms": time_ms(torch, library, 10, flush)}
         line["bound_ms"], line["bound_by"] = flash_bound(
             S, 32, Hkv, 128, causal, window, dt)
+        if name in ("S1024_causal", "S6144_window4096_gqa8") \
+                and dt == "bfloat16":
+            line["ms_by_kernel"] = device_ms_by_kernel(
+                torch, lambda: fa.flash_attention_kernel(
+                    q, k, v, causal=causal, window=window), flush,
+                names=("flash_attention",))
         emit(line)
         row["max_abs_err"] = max(row["max_abs_err"], err)
         if (name, dt) == ("S1024_causal", "bfloat16"):
-            row.update(ms=line["ms"], plain_ms=line["plain_ms"],
+            row.update(ms=line["ms"], ms_by_kernel=line["ms_by_kernel"],
+                       plain_ms=line["plain_ms"],
                        bound_ms=line["bound_ms"], bound_by=line["bound_by"],
                        library_ms=line["library_ms"],
                        shape=f"{name}/{dt}")
@@ -631,8 +665,22 @@ def token_spy():
     return TokenSpy()
 
 
-def setup(torch, arch):
-    """(cfg, weights drawn on the card from SEED, cost model, MoPE)."""
+def reduced_of(cfg):
+    """The cut of a run's configuration from the registered one, or None."""
+    from repro_torch.configs import get_config
+
+    full = get_config(cfg.name)
+    if full.n_layers == cfg.n_layers:
+        return None
+    return {"n_layers": [full.n_layers, cfg.n_layers],
+            "n_params": [full.n_params(), cfg.n_params()],
+            "why": "the whole model exceeds the card's memory; fewer layers "
+                   "make the host's share of an iteration larger"}
+
+
+def setup(torch, arch, n_layers=None):
+    """(cfg, weights drawn on the card from SEED, cost model, MoPE);
+    ``n_layers`` cuts the depth."""
     from repro_torch.configs import get_config
     from repro_torch.predictor import MoPE
     from repro_torch.serving.costmodel import H100_SXM, CostModel
@@ -640,6 +688,8 @@ def setup(torch, arch):
     from repro_torch.workloads import corpus
 
     cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
         SEED), "cuda")
@@ -649,16 +699,21 @@ def setup(torch, arch):
     cm = CostModel(cfg, H100_SXM)
     t0 = time.perf_counter()
     mope = MoPE(cm, corpus(4000, seed=SEED), epochs=20, seed=SEED)
-    emit({"phase": "engine_setup", "model": cfg.name,
-          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
-          "dtype": cfg.dtype, "weight_gib": n_bytes / 2 ** 30,
-          "init_s": t_init, "mope_train_s": time.perf_counter() - t0})
+    line = {"phase": "engine_setup", "model": cfg.name,
+            "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+            "dtype": cfg.dtype, "n_params": cfg.n_params(),
+            "weight_gib": n_bytes / 2 ** 30, "init_s": t_init,
+            "mope_train_s": time.perf_counter() - t0}
+    if reduced_of(cfg):
+        line["reduced"] = reduced_of(cfg)
+    emit(line)
     return cfg, params, cm, mope
 
 
-def requests(short):
+def requests(short, long_prompts=0):
     """The 12 requests of every run (``short``: run C's, which fit
-    max_len 64), from SEED."""
+    max_len 64), from SEED; ``long_prompts``: that many of the first
+    arrivals get prompts of LONG_PROMPTS tokens instead (run G)."""
     from repro_torch.core import Request
     from repro_torch.workloads.traces import sample_prompt
 
@@ -675,10 +730,14 @@ def requests(short):
         out.append(Request(rid=i, client=f"client{i % 3}",
                            arrival=0.02 * i, prompt_len=plen,
                            output_len=olen, keywords=kw))
+    rng = np.random.default_rng(SEED + 2)
+    for r in out[:long_prompts]:
+        r.prompt_len = int(rng.integers(*LONG_PROMPTS))
     return out
 
 
-def serve(torch, run, model, max_len, short, expect, **engine_kw):
+def serve(torch, run, model, max_len, short, expect, long_prompts=0,
+          **engine_kw):
     """One run on a fresh engine; ``expect`` maps each kernel to
     whether the run must launch it (or an exact count).  Returns the
     tokens, the first-token logits, the launch counts and the engine
@@ -708,7 +767,7 @@ def serve(torch, run, model, max_len, short, expect, **engine_kw):
 
     eng._sample = checked_sample
     eng._prefill_whole = counted_prefill
-    reqs = requests(short)
+    reqs = requests(short, long_prompts)
     if eng.backend == "slots":
         # slot caches do not wrap for full attention: a write past
         # max_len would be dropped
@@ -778,6 +837,8 @@ def serve(torch, run, model, max_len, short, expect, **engine_kw):
             "preemptions": eng.n_preemptions, "launches": launches,
             "start_mem_gib": start_gib,
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    if reduced_of(cfg):
+        line["reduced"] = reduced_of(cfg)
     emit(line)
     tokens = {r.rid: spy.tokens[r.rid] for r in done}
     firsts = {r.rid: (r.prompt_tokens, r._first_row) for r in done}
@@ -822,12 +883,14 @@ def engine_phase(torch, kernel_rows):
     first_token_check(first_d, first_a)
     dense_check(torch, llama[1], llama[0], first_a)
 
-    def profiled(run, model, max_len, window="decode", **engine_kw):
+    def profiled(run, model, max_len, window="decode", long_prompts=0,
+                 **engine_kw):
         cfg, params, cm, mope = model
-        profile_window(torch, run, ServingEngine(
+        return profile_window(torch, run, ServingEngine(
             cfg, make_scheduler("equinox", predictor=copy.deepcopy(mope)),
             params=params, max_len=max_len, cost_model=cm, seed=SEED,
-            device="cuda", **engine_kw), requests(False), window)
+            device="cuda", **engine_kw), requests(False, long_prompts),
+            window)
 
     profiled("A", llama, 512, backend="paged")
     profiled("A", llama, 512, "prefill", backend="paged")
@@ -845,9 +908,50 @@ def engine_phase(torch, kernel_rows):
     decode_consistency(torch, mamba[1], mamba[0])
     profiled("E", mamba, MAX_LEN_SLOTS, backend="slots")
     profiled("E", mamba, MAX_LEN_SLOTS, "prefill", backend="slots")
+    del mamba
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the MoE stacks: whole-prompt prefill through the flash kernel, and
+    # nothing else of the port (decode runs the slots step in torch)
+    flash_only = dict(paged, flash_attention="per_layer_prefill",
+                      **{"flash_attention:mma": "per_layer_prefill"})
+    deepseek = setup(torch, "deepseek-moe-16b")
+    _, first_f, lf, _ = serve(torch, "F", deepseek, MAX_LEN_SLOTS, False,
+                              flash_only, backend="slots", chunked=False)
+    # one prompt at a time: the plain forward's dispatch sees the same
+    # rows as the served prefill, so the same assignments drop
+    dense_check(torch, deepseek[1], deepseek[0], first_f)
+    # prefill and decode put different row counts through the dispatch,
+    # which then drops different assignments: compare on the dense path
+    decode_consistency(torch, deepseek[1], dataclasses.replace(
+        deepseek[0], moe_impl="dense"))
+    profiled("F", deepseek, MAX_LEN_SLOTS, backend="slots", chunked=False)
+    del deepseek
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    mixtral = setup(torch, "mixtral-8x7b", n_layers=MIXTRAL_LAYERS)
+    window = mixtral[0].window
+    _, first_g, lg, _ = serve(torch, "G", mixtral, MAX_LEN_LONG, False,
+                              flash_only, long_prompts=2, backend="slots")
+    long = sorted(rid for rid, (toks, _) in first_g.items()
+                  if len(toks) > window)
+    check(len(long) == 2, f"run G: {len(long)} prompts past the window "
+          f"{window}, not 2")
+    dense_check(torch, mixtral[1], mixtral[0], first_g, rids=long[:1])
+    decode_consistency(torch, mixtral[1], dataclasses.replace(
+        mixtral[0], moe_impl="dense"), n=window + 104)
+    line = profiled("G", mixtral, MAX_LEN_LONG, "prefill", long_prompts=2,
+                    backend="slots")
+    check(line["longest_prompt_prefilled"] > window, "run G: the prefill "
+          "window carried no prompt past the attention window")
+    del mixtral
+    gc.collect()
+    torch.cuda.empty_cache()
     main_runs = {"paged_attention": (la, lb, lc),
                  "paged_attention_splitk": (la, lb, lc),
-                 "flash_attention": (ld,), "ssd_scan": (le,)}
+                 "flash_attention": (ld, lf, lg), "ssd_scan": (le,)}
     for name, runs in main_runs.items():
         row = kernel_rows[name]
         row["launches"] = sum(r[name] for r in runs)
@@ -881,9 +985,11 @@ def first_token_check(firsts, ref):
 
 def decode_consistency(torch, params, cfg, n=300):
     """prefill of n tokens against prefill of the first n - 1 followed by
-    one decode step: holds the SSD-scan kernel's final state (and the
-    conv tail) against the ``ssd_step`` recurrence, as
-    tests/test_decode_consistency.py does on the CPU."""
+    one decode step, as tests/test_decode_consistency.py does on the CPU:
+    holds the SSD-scan kernel's final state (and the conv tail) against
+    the ``ssd_step`` recurrence (run E), the flash kernel's prefill
+    against decode over the slot cache (runs F and G; past the window,
+    G's ring cache wraps)."""
     from repro_torch.models.model import decode_step, prefill
 
     toks = torch.from_numpy(np.random.default_rng(SEED + 7).integers(
@@ -895,6 +1001,7 @@ def decode_consistency(torch, params, cfg, n=300):
     rel = float(np.abs(step - full).max() / np.abs(full).max())
     same = int(np.argmax(step)) == int(np.argmax(full))
     emit({"phase": "decode_consistency", "model": cfg.name, "prompt_len": n,
+          "moe_impl": cfg.moe_impl if cfg.moe else None,
           "max_rel_err": rel, "argmax_equal": same,
           "finite": bool(np.isfinite(step).all() and np.isfinite(full).all())})
     check(np.isfinite(step).all() and np.isfinite(full).all(),
@@ -980,7 +1087,12 @@ def profile_window(torch, run, eng, reqs, window="decode"):
                 {"name": e.key[:80],
                  "ms_per_iteration": dev_us(e) / 1e3 / steps,
                  "calls_per_iteration": e.count / steps} for e in top]}
+    if reduced_of(eng.cfg):
+        line["reduced"] = reduced_of(eng.cfg)
     if window == "prefill":
+        line["longest_prompt_prefilled"] = max(
+            r.prompt_len for r in eng.running + eng.finished
+            if r.prefill_done >= r.prompt_len)
         line["prompt_rows_per_iteration"] = [n for _, n, _ in logged]
         line["model_step_ms_profiled"] = [s * 1e3 for s, _, _ in logged]
         check(sum(n for _, n, _ in logged) > 0,
@@ -997,47 +1109,71 @@ def _leaves(tree):
         yield tree
 
 
-def dense_check(torch, params, cfg, firsts, n=3):
-    """The served first-token logits of ``n`` requests against a plain
-    dense causal forward of the same weights (no pools, no kernels)."""
-    from repro_torch.models.layers import apply_rope, embed, mlp, rmsnorm, unembed
+def plain_attention(torch, q, k, v, window, heads=8):
+    """Causal (and windowed) attention of one prompt, scores in f32,
+    ``heads`` query heads at a time.  q (S, Hq, D), k/v (S, Hkv, D)."""
+    S, H, hd = q.shape
+    G = H // k.shape[1]
+    k, v = (t.repeat_interleave(G, dim=1).float() for t in (k, v))
+    pos = torch.arange(S, device=q.device)
+    keep = pos[None] <= pos[:, None]
+    if window:
+        keep &= pos[None] > pos[:, None] - window
+    out = torch.empty((S, H, hd), device=q.device)
+    for h in range(0, H, heads):
+        s = torch.einsum("shd,thd->hst", q[:, h:h + heads].float(),
+                         k[:, h:h + heads]) * hd ** -0.5
+        p = torch.softmax(s.masked_fill(~keep, -1e30), -1)
+        out[:, h:h + heads] = torch.einsum("hst,thd->shd", p,
+                                           v[:, h:h + heads])
+    return out.to(q.dtype)
 
-    st = params["stages"]["stage_0"]
-    H, hd = cfg.n_heads, cfg.resolved_head_dim()
+
+def dense_check(torch, params, cfg, firsts, n=3, rids=None):
+    """The served first-token logits of ``n`` requests (or of ``rids``)
+    against a plain forward of the same weights, one prompt at a time:
+    attention without pools or kernels, the port's MLP and MoE FFN."""
+    from repro_torch.models.layers import apply_rope, embed, rmsnorm, unembed
+    from repro_torch.models.model import (_layer, _window_for, ffn_forward,
+                                          model_stages)
+
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim()
     worst = 0.0
     with torch.no_grad():
-        for rid in sorted(firsts)[:n]:
+        for rid in rids or sorted(firsts)[:n]:
             toks, served = firsts[rid]
             S = len(toks)
             x = embed(params["embed"], torch.as_tensor(toks, device="cuda"))
             pos = torch.arange(S, device="cuda")
-            causal = torch.ones(S, S, dtype=torch.bool, device="cuda").tril()
-            for i in range(cfg.n_layers):
-                h = rmsnorm({"scale": st["ln1"]["scale"][i]}, x, cfg.norm_eps)
-                q, k, v = (h @ st["attn"][w][i].reshape(cfg.d_model, -1)
-                           for w in ("wq", "wk", "wv"))
-                q = apply_rope(q.reshape(S, H, hd), pos, cfg.rope_theta)
-                k = apply_rope(k.reshape(S, H, hd), pos, cfg.rope_theta)
-                s = torch.einsum("shd,thd->hst", q.float(), k.float()) \
-                    * hd ** -0.5
-                p = torch.softmax(s.masked_fill(~causal, -1e30), -1)
-                o = torch.einsum("hst,thd->shd", p,
-                                 v.reshape(S, H, hd).float()).to(x.dtype)
-                x = x + o.reshape(S, -1) @ st["attn"]["wo"][i].reshape(
-                    H * hd, -1)
-                h2 = rmsnorm({"scale": st["ln2"]["scale"][i]}, x, cfg.norm_eps)
-                x = x + mlp({w: t[i] for w, t in st["ffn"].items()}, h2,
-                            cfg.act)
+            for si, (kind, moe_flag, count) in enumerate(model_stages(cfg)):
+                st = params["stages"][f"stage_{si}"]
+                window = _window_for(cfg, kind)
+                for i in range(count):
+                    h = rmsnorm({"scale": st["ln1"]["scale"][i]}, x,
+                                cfg.norm_eps)
+                    q, k, v = (h @ st["attn"][w][i].reshape(cfg.d_model, -1)
+                               for w in ("wq", "wk", "wv"))
+                    q = apply_rope(q.reshape(S, H, hd), pos, cfg.rope_theta)
+                    k = apply_rope(k.reshape(S, Hkv, hd), pos,
+                                   cfg.rope_theta)
+                    o = plain_attention(torch, q, k, v.reshape(S, Hkv, hd),
+                                        window)
+                    x = x + o.reshape(S, -1) @ st["attn"]["wo"][i].reshape(
+                        H * hd, -1)
+                    h2 = rmsnorm({"scale": st["ln2"]["scale"][i]}, x,
+                                 cfg.norm_eps)
+                    x = x + ffn_forward(_layer(st["ffn"], i), h2, cfg,
+                                        moe_flag)
             ref = unembed(params["embed"], rmsnorm(
                 params["final_norm"], x[-1:], cfg.norm_eps)).float()[0]
             ref = ref.cpu().numpy()
             rel = float(np.abs(served - ref).max() / np.abs(ref).max())
             worst = max(worst, rel)
-            emit({"phase": "dense_check", "rid": rid, "prompt_len": S,
-                  "max_rel_err": rel,
+            emit({"phase": "dense_check", "model": cfg.name, "rid": rid,
+                  "prompt_len": S, "max_rel_err": rel,
                   "argmax_equal": int(np.argmax(served)) == int(np.argmax(ref))})
-    check(worst < DENSE_REL_TOL, f"served first-token logits differ from "
-          f"the dense forward by {worst} (relative)")
+    check(worst < DENSE_REL_TOL, f"{cfg.name}: served first-token logits "
+          f"differ from the plain forward by {worst} (relative)")
 
 
 if __name__ == "__main__":

@@ -1,13 +1,15 @@
 """Model assembly: the decoder stacks the port serves, behind the
 reference's API.
 
-Port of ``repro/models/model.py`` for uniform stacks of dense GQA
-attention (``ATTN``, e.g. Llama-2-7B) and of Mamba-2 (``MAMBA2``).  The
-stack is grouped into *stages*, maximal runs of layers with identical
-(kind, is_moe) structure, each stage's per-layer parameters stacked on a
-leading axis; a stage runs as a Python loop over that axis (the
-reference's ``lax.scan``).  Other kinds and options raise
-``NotImplementedError`` naming the ``ROADMAP.md`` item that ports them.
+Port of ``repro/models/model.py`` for stacks of GQA attention, full
+(``ATTN``, e.g. Llama-2-7B) or sliding-window (``ATTN_LOCAL``, e.g.
+Mixtral-8x7B), with dense or MoE FFNs (``models/moe.py``: Mixtral-8x7B,
+DeepSeek-MoE-16B), and of Mamba-2 (``MAMBA2``).  The stack is grouped
+into *stages*, maximal runs of layers with identical (kind, is_moe)
+structure, each stage's per-layer parameters stacked on a leading axis;
+a stage runs as a Python loop over that axis (the reference's
+``lax.scan``).  Other kinds and options raise ``NotImplementedError``
+naming the ``ROADMAP.md`` item that ports them.
 
     prefill(params, batch, cfg, max_len)    -> (last_logits, cache)
     prefill_chunk(params, tokens, cfg, cache) -> (last_logits, cache)
@@ -26,12 +28,12 @@ import torch
 from repro_torch.configs.base import (ATTN, ATTN_LOCAL, ATTN_MLA, MAMBA2,
                                       RGLRU, ModelConfig)
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import dtype_of, embed, mlp, rmsnorm, unembed
 
 # what each stack feature still needs, by ROADMAP.md item
 _UNPORTED_KINDS = {
-    ATTN_LOCAL: "sliding-window attention (ROADMAP.md Queue A item 6b)",
     ATTN_MLA: "MLA attention (ROADMAP.md Queue A item 6c)",
     RGLRU: "RG-LRU blocks (ROADMAP.md Queue A item 6f)",
 }
@@ -39,14 +41,11 @@ _UNPORTED_KINDS = {
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a stack the port cannot run yet."""
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: MoE layers (ROADMAP.md "
-                                  "Queue A item 6d) are not ported")
     for kind in sorted(set(cfg.layer_kinds())):
         if kind in _UNPORTED_KINDS:
             raise NotImplementedError(
                 f"{cfg.name}: {_UNPORTED_KINDS[kind]} is not ported")
-        if kind not in (ATTN, MAMBA2):
+        if kind not in (ATTN, ATTN_LOCAL, MAMBA2):
             raise NotImplementedError(f"{cfg.name}: layer kind {kind!r} is "
                                       "not ported")
     if cfg.is_encoder_decoder:
@@ -101,12 +100,20 @@ def _stack(entries):
 # ---------------------------------------------------------------------------
 # Block forward (full sequence: prefill)
 # ---------------------------------------------------------------------------
-def _block_forward(lp, x, cfg, kind, positions, *, want_cache=False):
+def ffn_forward(params, h, cfg, moe_flag):
+    """One layer's FFN: the MoE FFN on MoE layers, the MLP elsewhere."""
+    if moe_flag:
+        return moe_mod.moe_ffn(params, h, cfg)[0]
+    return mlp(params, h, cfg.act)
+
+
+def _block_forward(lp, x, cfg, kind, moe_flag, positions, *,
+                   want_cache=False):
     """Returns (x, cache_entry_or_None)."""
     h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
     window = _window_for(cfg, kind)
     cache = None
-    if kind == ATTN:
+    if kind in (ATTN, ATTN_LOCAL):
         y, (k, v) = attn_mod.gqa_prefill(lp["attn"], h, positions, cfg,
                                          window=window)
         if want_cache:
@@ -120,7 +127,7 @@ def _block_forward(lp, x, cfg, kind, positions, *, want_cache=False):
     x = x + y
     if kind != MAMBA2:
         h2 = rmsnorm(lp["ln2"], x, cfg.norm_eps)
-        x = x + mlp(lp["ffn"], h2, cfg.act)
+        x = x + ffn_forward(lp["ffn"], h2, cfg, moe_flag)
     return x, cache
 
 
@@ -140,13 +147,13 @@ def _fit_cache_seq(arr, S_cache):
     return out
 
 
-def _run_stage(stage_params, x, cfg, kind, count, positions, *,
+def _run_stage(stage_params, x, cfg, kind, moe_flag, count, positions, *,
                want_cache=False):
     """The stage's layers in order; returns (x, stacked caches or None)."""
     caches = []
     for i in range(count):
         x, cache = _block_forward(_layer(stage_params, i), x, cfg, kind,
-                                  positions, want_cache=want_cache)
+                                  moe_flag, positions, want_cache=want_cache)
         caches.append(cache)
     return x, _stack(caches) if want_cache else None
 
@@ -164,9 +171,10 @@ def forward_hidden(params, batch, cfg, *, want_cache=False):
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
     caches = []
-    for i, (kind, _moe, count) in enumerate(model_stages(cfg)):
+    for i, (kind, moe_flag, count) in enumerate(model_stages(cfg)):
         x, cache = _run_stage(params["stages"][f"stage_{i}"], x, cfg, kind,
-                              count, positions, want_cache=want_cache)
+                              moe_flag, count, positions,
+                              want_cache=want_cache)
         caches.append(cache)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return x, caches
@@ -183,7 +191,7 @@ def _cache_seq_len(cfg, kind, max_len):
 def _stage_cache_zeros(cfg, kind, count, B, max_len, dt, device):
     hd = cfg.resolved_head_dim()
     S_c = _cache_seq_len(cfg, kind, max_len)
-    if kind == ATTN:
+    if kind in (ATTN, ATTN_LOCAL):
         shape = (count, B, S_c, cfg.n_kv_heads, hd)
         return {"k": torch.zeros(shape, dtype=dt, device=device),
                 "v": torch.zeros(shape, dtype=dt, device=device)}
@@ -226,7 +234,7 @@ def prefill(params, batch, cfg: ModelConfig, max_len: int):
         S_c = _cache_seq_len(cfg, kind, max_len)
         fitted = {}
         for name, arr in sc.items():
-            if kind == ATTN and name in ("k", "v"):
+            if kind in (ATTN, ATTN_LOCAL) and name in ("k", "v"):
                 # (L, B, S, ...) -> fit each layer's (B, S, ...) slice
                 L = arr.shape[0]
                 fit = _fit_cache_seq(arr.reshape(L * B, *arr.shape[2:]), S_c)
@@ -269,7 +277,7 @@ def prefill_chunk(params, tokens, cfg: ModelConfig, cache):
     start = int(cache["pos"][0])
     B, C = tokens.shape
     x = embed(params["embed"], tokens).to(dtype_of(cfg))
-    for i, (_kind, _moe, count) in enumerate(model_stages(cfg)):
+    for i, (_kind, moe_flag, count) in enumerate(model_stages(cfg)):
         sp = params["stages"][f"stage_{i}"]
         sc = cache["stages"][f"stage_{i}"]
         for li in range(count):
@@ -279,7 +287,7 @@ def prefill_chunk(params, tokens, cfg: ModelConfig, cache):
                                               sc["v"][li], start, cfg)
             x = x + y
             h2 = rmsnorm(lp["ln2"], x, cfg.norm_eps)
-            x = x + mlp(lp["ffn"], h2, cfg.act)
+            x = x + ffn_forward(lp["ffn"], h2, cfg, moe_flag)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = unembed(params["embed"], x[:, -1])
     return logits, {"pos": cache["pos"] + C, "stages": cache["stages"]}
@@ -288,10 +296,10 @@ def prefill_chunk(params, tokens, cfg: ModelConfig, cache):
 # ---------------------------------------------------------------------------
 # Decode: one token through every layer
 # ---------------------------------------------------------------------------
-def _block_decode(lp, x1, c, pos, cfg, kind):
+def _block_decode(lp, x1, c, pos, cfg, kind, moe_flag):
     h = rmsnorm(lp["ln1"], x1, cfg.norm_eps)
     window = _window_for(cfg, kind)
-    if kind == ATTN:
+    if kind in (ATTN, ATTN_LOCAL):
         y, (k, v) = attn_mod.gqa_decode(lp["attn"], h, c["k"], c["v"], pos,
                                         cfg, window=window)
         c = dict(c, k=k, v=v)
@@ -304,7 +312,7 @@ def _block_decode(lp, x1, c, pos, cfg, kind):
     x1 = x1 + y
     if kind != MAMBA2:
         h2 = rmsnorm(lp["ln2"], x1, cfg.norm_eps)
-        x1 = x1 + mlp(lp["ffn"], h2, cfg.act)
+        x1 = x1 + ffn_forward(lp["ffn"], h2, cfg, moe_flag)
     return x1, c
 
 
@@ -319,12 +327,13 @@ def decode_step(params, tokens, cache, cfg: ModelConfig):
     check_ported(cfg)
     pos = cache["pos"]
     x = embed(params["embed"], tokens)[:, None].to(dtype_of(cfg))
-    for i, (kind, _moe, count) in enumerate(model_stages(cfg)):
+    for i, (kind, moe_flag, count) in enumerate(model_stages(cfg)):
         sp = params["stages"][f"stage_{i}"]
         sc = cache["stages"][f"stage_{i}"]
         for li in range(count):
             c = _layer(sc, li)
-            x, c_new = _block_decode(_layer(sp, li), x, c, pos, cfg, kind)
+            x, c_new = _block_decode(_layer(sp, li), x, c, pos, cfg, kind,
+                                     moe_flag)
             for name, t in c_new.items():      # recurrent states are new
                 if t.data_ptr() != c[name].data_ptr():  # tensors: store
                     sc[name][li].copy_(t)

@@ -4,16 +4,19 @@ Port of ``repro/serving/engine.py``.  Two decode backends, as in the
 reference:
 
 - ``slots`` (the default): per-slot contiguous caches through
-  ``models.decode_step`` with per-request positions, for dense-attention
-  and Mamba-2 stacks.  Prompts run whole (``models.prefill``: the flash
+  ``models.decode_step`` with per-request positions, for attention stacks
+  (full or sliding-window, whose slot caches are rings; dense or MoE
+  FFNs) and Mamba-2 stacks.  Prompts run whole (``models.prefill``: the flash
   attention kernel or the SSD-scan kernel, one launch per layer) or, for
   stacks that ``supports_chunked_prefill``, in chunks
   (``models.prefill_chunk``);
 - ``paged``: paged KV pools on the device and the hand-written CUDA
   paged-attention kernels (``repro_torch.kernels``), the paper's Llama-2
-  testbed path.  With chunked prefill every iteration's prefill-chunk
-  rows and decode rows go down in one ragged ``_paged_decode_step`` call;
-  with whole-prompt prefill the prompt's cache is scattered into pages.
+  testbed path, for single-stage full-attention stacks (dense or MoE, as
+  the reference's paged step reads ``stage_0`` only).  With chunked
+  prefill every iteration's prefill-chunk rows and decode rows go down in
+  one ragged ``_paged_decode_step`` call; with whole-prompt prefill the
+  prompt's cache is scattered into pages.
 
 Timing uses a dual clock: wall-clock for real measurements
 (``iter_log``: each iteration's model step) and the analytic cost model for target-hardware metrics
@@ -43,10 +46,11 @@ from repro_torch.core.request import DECODING, Request
 from repro_torch.core.schedulers import SchedulerBase
 from repro_torch.kernels import paged_attention
 from repro_torch.models.attention import quantize_kv
-from repro_torch.models.layers import (apply_rope, dtype_of, embed, mlp,
-                                       rmsnorm, unembed)
-from repro_torch.models.model import (check_ported, decode_step, init_cache,
-                                      model_stages, prefill, prefill_chunk,
+from repro_torch.models.layers import (apply_rope, dtype_of, embed, rmsnorm,
+                                       unembed)
+from repro_torch.models.model import (_layer, check_ported, decode_step,
+                                      ffn_forward, init_cache, model_stages,
+                                      prefill, prefill_chunk,
                                       supports_chunked_prefill)
 from repro_torch.serving.batch_core import BatchConfig, BatchCore
 from repro_torch.serving.costmodel import CostModel
@@ -110,6 +114,14 @@ class ServingEngine:
                 "prefix_cache is ROADMAP.md Queue A item 11")
         check_ported(cfg)
         if backend == "paged":
+            if len(model_stages(cfg)) > 1:
+                # the reference fails such a stack later, in its scan
+                raise NotImplementedError(
+                    f"{cfg.name}: the paged backend serves single-stage "
+                    "stacks only: the JAX package's paged step reads "
+                    "stage_0 only, so a stack with dense first layers "
+                    "(DeepSeek-MoE-16B's first layer is dense) runs on "
+                    "backend='slots'")
             kinds = {k for k, _, _ in model_stages(cfg)}
             assert kinds == {ATTN} and not cfg.is_encoder_decoder, \
                 "paged backend supports uniform dense-GQA stacks"
@@ -548,8 +560,10 @@ def _paged_decode_step(params, tokens, ctx_lens, block_tables, row_map,
 
     int8 KV pages: when the pools are int8, ``k_scales``/``v_scales`` are
     the per-(slot, head) bf16 scale pools and new tokens are quantized
-    with ``quantize_kv`` before the write.  Returns f32 logits of the rows
-    ``out_rows`` only."""
+    with ``quantize_kv`` before the write.  MoE stacks run ``moe_ffn`` on
+    every layer over all R rows, padding rows included, so they compete
+    for dispatch capacity as in the reference.  Returns f32 logits of the
+    rows ``out_rows`` only."""
     R = tokens.shape[0]
     quant = k_pools.dtype == torch.int8
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim()
@@ -557,6 +571,7 @@ def _paged_decode_step(params, tokens, ctx_lens, block_tables, row_map,
     pos = ctx_lens
     stage = params["stages"]["stage_0"]
     attn, ffn = stage["attn"], stage["ffn"]
+    moe_flag = cfg.moe is not None
     my_table = block_tables[row_map.long()]                 # (R, W)
     page_idx = my_table[torch.arange(R, device=tokens.device),
                         (pos // page_size).long()].long()
@@ -585,6 +600,6 @@ def _paged_decode_step(params, tokens, ctx_lens, block_tables, row_map,
                               row_map=row_map, k_scale=ks, v_scale=vs)
         x = x + out.reshape(R, H * hd) @ attn["wo"][i].reshape(H * hd, -1)
         h2 = rmsnorm({"scale": stage["ln2"]["scale"][i]}, x, cfg.norm_eps)
-        x = x + mlp({k_: w[i] for k_, w in ffn.items()}, h2, cfg.act)
+        x = x + ffn_forward(_layer(ffn, i), h2, cfg, moe_flag)
     x = rmsnorm(params["final_norm"], x[out_rows.long()], cfg.norm_eps)
     return unembed(params["embed"], x).float()

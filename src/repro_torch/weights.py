@@ -3,9 +3,11 @@
 The parameter tree keeps the reference layout (``repro/models/model.py``):
 ``embed.{table,head}``, ``final_norm.scale`` and
 ``stages.stage_0.{ln1,attn.{wq,wk,wv,wo},ln2,ffn.{w_in,w_gate,w_out}}``
-for dense attention, ``stages.stage_0.{ln1,attn.{in_proj,conv_w,conv_b,
-A_log,dt_bias,D,norm,out_proj}}`` for Mamba-2, with a leading layer axis
-on every stage leaf.
+for attention (full or sliding-window) with a dense FFN,
+``ffn.{router,w_gate,w_in,w_out[,shared.{w_in,w_gate,w_out}]}`` on MoE
+layers (a stack with dense first layers has one stage per run),
+``stages.stage_0.{ln1,attn.{in_proj,conv_w,conv_b,A_log,dt_bias,D,norm,
+out_proj}}`` for Mamba-2, with a leading layer axis on every stage leaf.
 
 - ``init_params`` draws a model on the device with the reference's
   distributions (truncated-normal fan-in dense weights, normal x 0.02
@@ -24,6 +26,7 @@ from repro_torch.configs.base import MAMBA2, ModelConfig
 from repro_torch.models.attention import gqa_init
 from repro_torch.models.layers import dense_init, dtype_of, embed_init
 from repro_torch.models.model import check_ported, model_stages
+from repro_torch.models.moe import moe_init
 from repro_torch.models.ssm import mamba2_init
 
 
@@ -59,10 +62,10 @@ def params_from_numpy(tree, device):
 def init_params(cfg: ModelConfig, generator: torch.Generator = None,
                 device=None):
     """A freshly drawn decoder on ``device`` (``cuda`` by default), from
-    ``generator`` (seed 0 on the device when omitted): dense-attention
-    (``ATTN``) and Mamba-2 (``MAMBA2``) stages.  Layers are drawn one at a
-    time into the stacked leaves, so the f32 temporaries stay one layer
-    large."""
+    ``generator`` (seed 0 on the device when omitted): attention stages
+    (``ATTN``, ``ATTN_LOCAL``) with dense or MoE FFNs, and Mamba-2
+    (``MAMBA2``) stages.  Layers are drawn one at a time into the stacked
+    leaves, so the f32 temporaries stay one layer large."""
     device = resolve_device(device)
     check_ported(cfg)
     if generator is None:
@@ -77,7 +80,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator = None,
     if cfg.act == "silu":
         ffn_shapes["w_gate"] = (d, cfg.d_ff)
 
-    def draw(kind):
+    def draw(kind, moe_flag):
         """One layer of ``kind``: {"ln1", "attn"[, "ln2", "ffn"]}."""
         ones = torch.ones((d,), dtype=dt, device=device)
         if kind == MAMBA2:
@@ -87,8 +90,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator = None,
                 "attn": gqa_init(d, cfg.n_heads, cfg.n_kv_heads, hd, dt,
                                  generator, device),
                 "ln2": {"scale": ones.clone()},
-                "ffn": {k: dense_init(s, dt, generator, device)
-                        for k, s in ffn_shapes.items()}}
+                "ffn": moe_init(cfg, dt, generator, device) if moe_flag
+                else {k: dense_init(s, dt, generator, device)
+                      for k, s in ffn_shapes.items()}}
 
     def put(dst, src, i):
         for k, v in src.items():
@@ -103,10 +107,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator = None,
                 for k, v in layer.items()}
 
     stages = {}
-    for si, (kind, _moe, count) in enumerate(model_stages(cfg)):
+    for si, (kind, moe_flag, count) in enumerate(model_stages(cfg)):
         stage = None
         for i in range(count):
-            layer = draw(kind)
+            layer = draw(kind, moe_flag)
             if stage is None:
                 stage = alloc(layer, count)
             put(stage, layer, i)

@@ -2,7 +2,9 @@
 bridged smoke weights (f32, CPU): first-token logits, greedy tokens,
 admissions, chunk plans and modeled TTFT under ``fcfs`` and ``equinox``
 (Oracle predictor), on both sides of the split-K threshold, with fp and
-int8 KV pages."""
+int8 KV pages; the same for a single-stage full-attention MoE stack
+(the paged step's MoE branch); and the stacks the paged backend
+refuses."""
 import dataclasses
 
 import jax
@@ -19,7 +21,6 @@ from repro.serving.costmodel import CostModel as JCM
 from repro.serving.engine import ServingEngine as JEngine
 from repro.serving.telemetry import Observer as JObserver
 from repro_torch.configs import SMOKE_FACTORIES as T_SMOKE
-from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.core import Request as TRequest
 from repro_torch.core import make_scheduler as t_make_scheduler
 from repro_torch.kernels import ops
@@ -69,11 +70,12 @@ def mk_reqs(cls, n=5, seed=11):
             for i in range(n)]
 
 
-def serve(side, params, sched, max_len, kv_quant):
+def serve(side, params, sched, max_len, kv_quant, cfgs=(CFG, T_CFG)):
     jax_side = side == "jax"
+    j_cfg, t_cfg = cfgs
     spy = (JSpy if jax_side else TSpy)()
     if sched == "equinox":
-        pred = JOracle(JCM(CFG)) if jax_side else TOracle(TCM(T_CFG))
+        pred = JOracle(JCM(j_cfg)) if jax_side else TOracle(TCM(t_cfg))
         scheduler = (j_make_scheduler if jax_side else t_make_scheduler)(
             "equinox", predictor=pred)
     else:
@@ -83,9 +85,9 @@ def serve(side, params, sched, max_len, kv_quant):
               chunked=True, kv_quant=kv_quant, kv_budget_tokens=512,
               prefill_chunk_tokens=16, keep_first_logits=True, observer=spy)
     if jax_side:
-        eng = JEngine(CFG, scheduler, **kw)
+        eng = JEngine(j_cfg, scheduler, **kw)
     else:
-        eng = TEngine(T_CFG, scheduler, device="cpu", **kw)
+        eng = TEngine(t_cfg, scheduler, device="cpu", **kw)
     done = eng.run(mk_reqs(JRequest if jax_side else TRequest))
     return {r.rid: r for r in done}, spy, eng
 
@@ -137,27 +139,70 @@ def test_int8_greedy_tokens_match_fp(weights):
 
 @pytest.mark.parametrize("kw", [
     {"backend": "paged", "prefix_cache": True},
-    {"cfg": dict(attn_kind="attn_local", window=16)},
+    # a windowed stack serves on slots; the paged backend refuses it with
+    # the reference's assertion
+    {"backend": "paged", "cfg": dict(attn_kind="attn_local", window=16),
+     "raises": (AssertionError, "paged backend supports")},
     {"cfg": dict(kv_quant=True)},
 ])
 def test_options_outside_the_slice_raise(kw):
-    """Options and stacks not ported yet raise, naming the ROADMAP item
-    (the slots backend and whole-prompt prefill are ported and have their
-    own tests in tests/test_torch_engine_slots.py)."""
+    """Options and stacks not ported yet raise, naming the ROADMAP item,
+    and the paged backend refuses what the reference's paged step cannot
+    serve (the slots backend and whole-prompt prefill are ported and have
+    their own tests in tests/test_torch_engine_slots.py)."""
     kw = dict(kw)
     cfg = dataclasses.replace(T_CFG, **kw.pop("cfg", {}))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A"):
+    error, match = kw.pop("raises", (NotImplementedError,
+                                     "ROADMAP.md Queue A"))
+    with pytest.raises(error, match=match):
         TEngine(cfg, t_make_scheduler("fcfs"), device="cpu", **kw)
 
 
 def test_moe_stack_raises():
-    cfg = SMOKE_FACTORIES["mixtral-8x7b"]()
-    t_cfg = ModelConfig(**{f.name: getattr(cfg, f.name)
-                           for f in dataclasses.fields(ModelConfig)
-                           if f.name != "moe"},
-                        moe=MoEConfig(**dataclasses.asdict(cfg.moe)))
-    with pytest.raises(NotImplementedError, match="MoE"):
-        TEngine(t_cfg, t_make_scheduler("fcfs"), device="cpu")
+    """DeepSeek-MoE-16B's dense first layer makes two stages; the
+    reference's paged step reads ``stage_0`` only (it fails such a stack
+    in its scan), so the port refuses it on the paged backend at
+    construction and serves it on slots."""
+    t_cfg = T_SMOKE["deepseek-moe-16b"]()
+    with pytest.raises(NotImplementedError,
+                       match="stage_0 only.*DeepSeek-MoE-16B"):
+        TEngine(t_cfg, t_make_scheduler("fcfs"), backend="paged",
+                device="cpu")
+    assert TEngine(t_cfg, t_make_scheduler("fcfs"), max_slots=2,
+                   max_len=32, device="cpu").backend == "slots"
+
+
+MOE_CFG = dataclasses.replace(
+    SMOKE_FACTORIES["mixtral-8x7b"](), attn_kind="attn", window=0,
+    moe_impl="dispatch")
+T_MOE_CFG = dataclasses.replace(
+    T_SMOKE["mixtral-8x7b"](), attn_kind="attn", window=0,
+    moe_impl="dispatch")
+
+
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_moe_engine_matches_reference(kv_quant):
+    """The paged step's MoE branch on a single-stage full-attention MoE
+    stack (Mixtral's smoke config without its window): every layer runs
+    ``moe_ffn`` over all of the launch's rows, padding rows included."""
+    jp = init_params(jax.random.key(9), MOE_CFG)
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    cfgs = (MOE_CFG, T_MOE_CFG)
+    j_done, j_spy, _ = serve("jax", jp, "equinox", 64, kv_quant, cfgs)
+    t_done, t_spy, t_eng = serve("torch", tp, "equinox", 64, kv_quant,
+                                 cfgs)
+    assert t_eng.backend == "paged" and t_eng.chunked
+    assert len(t_done) == len(j_done) == 5
+    assert t_spy.order == j_spy.order              # admissions
+    assert t_spy.chunks == j_spy.chunks            # chunk plans
+    assert t_spy.tokens == j_spy.tokens            # greedy tokens
+    for rid, jr in j_done.items():
+        tr = t_done[rid]
+        assert tr.generated == jr.generated == jr.output_len
+        assert tr.ttft() == pytest.approx(jr.ttft(), abs=1e-9)
+        tol = 5e-3 if kv_quant else 1e-4
+        np.testing.assert_allclose(tr._first_row, jr._first_row, atol=tol,
+                                   rtol=tol)
 
 
 def test_engine_defaults_to_cuda(monkeypatch):

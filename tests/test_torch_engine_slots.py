@@ -2,8 +2,11 @@
 ``repro.serving.engine`` on bridged smoke weights (f32, CPU): greedy
 tokens, admission order, prefill plans and modeled TTFT for Llama-2 on
 ``backend="slots"`` (whole-prompt and chunked) and on ``backend="paged",
-chunked=False``, and for Mamba-2 on ``backend="slots"``; the engine's
-defaults resolve as the reference's do."""
+chunked=False``, for DeepSeek-MoE (whole-prompt and chunked) and Mixtral
+(whole-prompt, sliding-window ring caches) on ``backend="slots"`` under
+``moe_impl`` ``dense`` and ``dispatch``, and for Mamba-2 on
+``backend="slots"``; the engine's defaults resolve as the reference's
+do."""
 import dataclasses
 import importlib
 
@@ -60,11 +63,16 @@ JSpy, TSpy = spy_class(JObserver), spy_class(TObserver)
 
 
 def configs(arch):
-    jcfg = SMOKE_FACTORIES[arch]()
-    tcfg = T_SMOKE[arch]()
-    if arch == "llama2-7b":        # the flash kernel's plain version runs
+    """``arch`` or ``arch/moe_impl``."""
+    name, _, impl = arch.partition("/")
+    jcfg = SMOKE_FACTORIES[name]()
+    tcfg = T_SMOKE[name]()
+    if name != "mamba2-2.7b":      # the flash kernel's plain version runs
         jcfg = dataclasses.replace(jcfg, attn_impl="flash")
         tcfg = dataclasses.replace(tcfg, attn_impl="flash")
+    if impl:
+        jcfg = dataclasses.replace(jcfg, moe_impl=impl)
+        tcfg = dataclasses.replace(tcfg, moe_impl=impl)
     return jcfg, tcfg
 
 
@@ -112,6 +120,12 @@ def serve(side, arch, **kw):
     ("llama2-7b", dict(backend="slots", chunked=True), None),
     ("llama2-7b", dict(backend="paged", chunked=False), "flash"),
     ("mamba2-2.7b", dict(backend="slots"), "ssd"),
+    ("deepseek-moe-16b/dense", dict(backend="slots"), None),
+    ("deepseek-moe-16b/dispatch", dict(backend="slots"), None),
+    ("deepseek-moe-16b/dispatch", dict(backend="slots", chunked=False),
+     "flash"),
+    ("mixtral-8x7b/dense", dict(backend="slots"), "flash"),
+    ("mixtral-8x7b/dispatch", dict(backend="slots"), "flash"),
 ])
 def test_engine_matches_reference(arch, kw, kernel, monkeypatch):
     calls = []

@@ -1,9 +1,12 @@
 """The port's model assembly (``repro_torch.models.model``) against
 ``repro.models`` on bridged smoke weights (f32, CPU): ``prefill``,
 ``prefill_chunk`` and ``decode_step`` logits within 1e-4 and caches
-within 1e-5, for Llama-2 (with ``attn_impl="flash"``, so the flash
-kernel's plain version runs) and Mamba-2 (the SSD scan's plain version);
-decode consistency of the port on its own; and the stacks it refuses."""
+within 1e-5, for Llama-2, DeepSeek-MoE (a dense first layer, then MoE
+layers with shared experts) and Mixtral (MoE, sliding-window attention
+whose ring caches wrap) with ``attn_impl="flash"``, so the flash kernel's
+plain version runs, the MoE stacks under ``moe_impl`` ``dense`` and
+``dispatch``, and Mamba-2 (the SSD scan's plain version); decode
+consistency of the port on its own; and the stacks it refuses."""
 import dataclasses
 
 import jax
@@ -24,7 +27,9 @@ from repro_torch.models import model as tm
 from repro_torch.weights import init_params, params_from_numpy
 
 LOGIT_TOL, CACHE_TOL = 1e-4, 1e-5
-ARCHS = ["llama2-7b", "mamba2-2.7b"]
+MOE = ["deepseek-moe-16b/dense", "deepseek-moe-16b/dispatch",
+       "mixtral-8x7b/dense", "mixtral-8x7b/dispatch"]
+ARCHS = ["llama2-7b", "mamba2-2.7b"] + MOE
 
 
 def port_config(cfg):
@@ -39,9 +44,14 @@ def port_config(cfg):
 
 
 def configs(arch):
-    cfg = SMOKE_FACTORIES[arch]()
-    if arch == "llama2-7b":
+    """``arch`` or ``arch/moe_impl``; attention stacks take the flash
+    path."""
+    name, _, impl = arch.partition("/")
+    cfg = SMOKE_FACTORIES[name]()
+    if name != "mamba2-2.7b":
         cfg = dataclasses.replace(cfg, attn_impl="flash")
+    if impl:
+        cfg = dataclasses.replace(cfg, moe_impl=impl)
     return cfg, port_config(cfg)
 
 
@@ -106,9 +116,28 @@ def test_mixed_position_decode_matches_reference(model):
     assert_cache_close(tc, jc)
 
 
-@pytest.mark.parametrize("split", [[37], [16, 16, 5], [1, 30, 6]])
+SPLITS = [[37], [16, 16, 5], [1, 30, 6]]
+
+
+@pytest.mark.parametrize("split", SPLITS)
 def test_prefill_chunk_matches_reference(split):
-    jcfg, tcfg = configs("llama2-7b")
+    check_prefill_chunk("llama2-7b", split)
+
+
+@pytest.mark.parametrize("split", SPLITS)
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b/dense",
+                                  "deepseek-moe-16b/dispatch"])
+def test_moe_prefill_chunk_matches_reference(arch, split):
+    """DeepSeek-MoE chunks (a dense first stage, then MoE layers)."""
+    check_prefill_chunk(arch, split)
+
+
+def check_prefill_chunk(arch, split):
+    """Chunks cover the prompt.  Dispatch capacity follows the rows that
+    reach the layer, so a split prompt drops other assignments than the
+    whole one: the whole-prompt logits are compared only for the dense
+    path and for one chunk."""
+    jcfg, tcfg = configs(arch)
     jp = j_init_params(jax.random.key(6), jcfg)
     tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
     toks = tokens(jcfg, 1, sum(split), seed=4)
@@ -123,16 +152,27 @@ def test_prefill_chunk_matches_reference(split):
                                    atol=LOGIT_TOL, rtol=LOGIT_TOL)
         assert_cache_close(tc, jc)
         at += c
-    # chunks cover the prompt: the whole-prompt prefill's logits
-    wl, _ = tm.prefill(tp, {"tokens": torch.from_numpy(toks)}, tcfg, 64)
-    torch.testing.assert_close(tl, wl, atol=LOGIT_TOL, rtol=LOGIT_TOL)
+    if tcfg.moe_impl == "dense" or len(split) == 1:
+        wl, _ = tm.prefill(tp, {"tokens": torch.from_numpy(toks)}, tcfg,
+                           64)
+        torch.testing.assert_close(tl, wl, atol=LOGIT_TOL, rtol=LOGIT_TOL)
 
 
-@pytest.mark.parametrize("arch,S", [("llama2-7b", 17), ("mamba2-2.7b", 33)])
+@pytest.mark.parametrize("arch,S", [
+    ("llama2-7b", 17), ("mamba2-2.7b", 33),
+    ("deepseek-moe-16b/dense", 17), ("deepseek-moe-16b/dispatch", 17),
+    ("mixtral-8x7b/dense", 49), ("mixtral-8x7b/dispatch", 49)])
 def test_decode_matches_forward(arch, S):
     """Port only, in the style of tests/test_decode_consistency.py:
-    prefill(tokens[:-1]) then decode(tokens[-1]) equals prefill(tokens)."""
+    prefill(tokens[:-1]) then decode(tokens[-1]) equals prefill(tokens).
+    Mixtral's S = 49 wraps its ring caches (window 32).  Dispatch
+    capacity follows the rows that reach the layer, so prefill and decode
+    would drop different assignments: the dispatch cases run at a
+    capacity factor of E / top_k, where nothing drops."""
     _, cfg = configs(arch)
+    if cfg.moe_impl == "dispatch" and cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     toks = torch.from_numpy(tokens(cfg, 2, S, seed=8))
     full, _ = tm.prefill(params, {"tokens": toks}, cfg, S + 4)
@@ -153,9 +193,8 @@ def test_supports_chunked_prefill_matches_reference():
 
 
 @pytest.mark.parametrize("arch,item", [
-    ("mixtral-8x7b", "6d"), ("minicpm3-4b", "6c"),
-    ("recurrentgemma-2b", "6"), ("whisper-large-v3", "6e"),
-    ("internvl2-76b", "6g"), ("deepseek-moe-16b", "6d"),
+    ("minicpm3-4b", "6c"), ("recurrentgemma-2b", "6"),
+    ("whisper-large-v3", "6e"), ("internvl2-76b", "6g"),
 ])
 def test_unported_stacks_raise(arch, item):
     cfg = port_config(SMOKE_FACTORIES[arch]())

@@ -25,9 +25,24 @@ def flat(tree, prefix=""):
     return {prefix[:-1]: tree}
 
 
+MOE_ARCHS = ["deepseek-moe-16b", "mixtral-8x7b"]
+
+
 @pytest.mark.parametrize("arch", ["llama2-7b", "mamba2-2.7b"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_bridge_is_exact(dtype, arch):
+    check_bridge(dtype, arch)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_bridge_is_exact(dtype, arch):
+    """Expert stacks (E, d, f), the router, shared experts, and a dense
+    first stage beside the MoE stage."""
+    check_bridge(dtype, arch)
+
+
+def check_bridge(dtype, arch):
     cfg = dataclasses.replace(SMOKE_FACTORIES[arch](), dtype=dtype)
     np_tree = jax.tree.map(np.asarray, jax_init_params(jax.random.key(3),
                                                        cfg))
@@ -57,6 +72,20 @@ def test_bridge_carries_expert_params():
 
 @pytest.mark.parametrize("arch", ["llama2-7b", "mamba2-2.7b"])
 def test_init_params_matches_reference_layout(arch):
+    check_init_layout(arch)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_init_params_matches_reference_layout(arch):
+    """MoE layers draw ``moe_init``'s leaves with its fan-ins; DeepSeek's
+    dense first layer is a stage of its own."""
+    check_init_layout(arch)
+    stages = init_params(TORCH_SMOKE[arch](), torch.Generator().manual_seed(
+        0), "cpu")["stages"]
+    assert ("router" in stages["stage_0"]["ffn"]) == (arch == "mixtral-8x7b")
+
+
+def check_init_layout(arch):
     cfg = SMOKE_FACTORIES[arch]()
     want = flat(jax.tree.map(np.asarray,
                              jax_init_params(jax.random.key(0), cfg)))
