@@ -1134,8 +1134,8 @@ def dense_check(torch, params, cfg, firsts, n=3, rids=None):
     against a plain forward of the same weights, one prompt at a time:
     attention without pools or kernels, the port's MLP and MoE FFN."""
     from repro_torch.models.layers import apply_rope, embed, rmsnorm, unembed
-    from repro_torch.models.model import (_layer, _window_for, ffn_forward,
-                                          model_stages)
+    from repro_torch.models.model import (ffn_forward, layer_params,
+                                          model_stages, window_for)
 
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim()
     worst = 0.0
@@ -1147,7 +1147,7 @@ def dense_check(torch, params, cfg, firsts, n=3, rids=None):
             pos = torch.arange(S, device="cuda")
             for si, (kind, moe_flag, count) in enumerate(model_stages(cfg)):
                 st = params["stages"][f"stage_{si}"]
-                window = _window_for(cfg, kind)
+                window = window_for(cfg, kind)
                 for i in range(count):
                     h = rmsnorm({"scale": st["ln1"]["scale"][i]}, x,
                                 cfg.norm_eps)
@@ -1162,7 +1162,7 @@ def dense_check(torch, params, cfg, firsts, n=3, rids=None):
                         H * hd, -1)
                     h2 = rmsnorm({"scale": st["ln2"]["scale"][i]}, x,
                                  cfg.norm_eps)
-                    x = x + ffn_forward(_layer(st["ffn"], i), h2, cfg,
+                    x = x + ffn_forward(layer_params(st["ffn"], i), h2, cfg,
                                         moe_flag)
             ref = unembed(params["embed"], rmsnorm(
                 params["final_norm"], x[-1:], cfg.norm_eps)).float()[0]

@@ -79,16 +79,16 @@ def model_stages(cfg: ModelConfig):
     return [tuple(r) for r in runs]
 
 
-def _window_for(cfg, kind):
+def window_for(cfg, kind):
     if kind in (ATTN_LOCAL, ATTN_MLA):
         return cfg.window
     return 0
 
 
-def _layer(tree, i):
+def layer_params(tree, i):
     """Layer ``i`` of a stage's stacked parameter (or cache) tree."""
     if isinstance(tree, dict):
-        return {k: _layer(v, i) for k, v in tree.items()}
+        return {k: layer_params(v, i) for k, v in tree.items()}
     return tree[i]
 
 
@@ -111,7 +111,7 @@ def _block_forward(lp, x, cfg, kind, moe_flag, positions, *,
                    want_cache=False):
     """Returns (x, cache_entry_or_None)."""
     h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
-    window = _window_for(cfg, kind)
+    window = window_for(cfg, kind)
     cache = None
     if kind in (ATTN, ATTN_LOCAL):
         y, (k, v) = attn_mod.gqa_prefill(lp["attn"], h, positions, cfg,
@@ -152,8 +152,9 @@ def _run_stage(stage_params, x, cfg, kind, moe_flag, count, positions, *,
     """The stage's layers in order; returns (x, stacked caches or None)."""
     caches = []
     for i in range(count):
-        x, cache = _block_forward(_layer(stage_params, i), x, cfg, kind,
-                                  moe_flag, positions, want_cache=want_cache)
+        x, cache = _block_forward(layer_params(stage_params, i), x, cfg,
+                                  kind, moe_flag, positions,
+                                  want_cache=want_cache)
         caches.append(cache)
     return x, _stack(caches) if want_cache else None
 
@@ -184,7 +185,7 @@ def forward_hidden(params, batch, cfg, *, want_cache=False):
 # KV / state cache
 # ---------------------------------------------------------------------------
 def _cache_seq_len(cfg, kind, max_len):
-    w = _window_for(cfg, kind)
+    w = window_for(cfg, kind)
     return min(max_len, w) if w else max_len
 
 
@@ -281,7 +282,7 @@ def prefill_chunk(params, tokens, cfg: ModelConfig, cache):
         sp = params["stages"][f"stage_{i}"]
         sc = cache["stages"][f"stage_{i}"]
         for li in range(count):
-            lp = _layer(sp, li)
+            lp = layer_params(sp, li)
             hn = rmsnorm(lp["ln1"], x, cfg.norm_eps)
             y, _ = attn_mod.gqa_prefill_chunk(lp["attn"], hn, sc["k"][li],
                                               sc["v"][li], start, cfg)
@@ -298,7 +299,7 @@ def prefill_chunk(params, tokens, cfg: ModelConfig, cache):
 # ---------------------------------------------------------------------------
 def _block_decode(lp, x1, c, pos, cfg, kind, moe_flag):
     h = rmsnorm(lp["ln1"], x1, cfg.norm_eps)
-    window = _window_for(cfg, kind)
+    window = window_for(cfg, kind)
     if kind in (ATTN, ATTN_LOCAL):
         y, (k, v) = attn_mod.gqa_decode(lp["attn"], h, c["k"], c["v"], pos,
                                         cfg, window=window)
@@ -331,9 +332,9 @@ def decode_step(params, tokens, cache, cfg: ModelConfig):
         sp = params["stages"][f"stage_{i}"]
         sc = cache["stages"][f"stage_{i}"]
         for li in range(count):
-            c = _layer(sc, li)
-            x, c_new = _block_decode(_layer(sp, li), x, c, pos, cfg, kind,
-                                     moe_flag)
+            c = layer_params(sc, li)
+            x, c_new = _block_decode(layer_params(sp, li), x, c, pos, cfg,
+                                     kind, moe_flag)
             for name, t in c_new.items():      # recurrent states are new
                 if t.data_ptr() != c[name].data_ptr():  # tensors: store
                     sc[name][li].copy_(t)

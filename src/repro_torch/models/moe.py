@@ -10,8 +10,9 @@ Two implementations of the routed experts, as in the reference:
 - ``dispatch``: sort-based capacity dispatch.  Assignments are grouped by
   expert with a stable sort, the first ``capacity`` of each expert are
   gathered into an (E, C, d) buffer, the per-expert products run batched
-  (``torch.bmm``) and the gate-weighted results scatter back; assignments
-  past capacity are dropped.  ``capacity`` follows from the number of
+  (``torch.bmm``) and the gate-weighted results are summed back per
+  token in a fixed order, without atomics; assignments past capacity are
+  dropped.  ``capacity`` follows from the number of
   rows ``n`` that reach the layer, padding and idle rows included, so it
   needs no host sync.
 
@@ -129,10 +130,16 @@ def moe_dispatch(params, x, m, *, want_aux=False):
     gathered = xf_pad[buf_tok[:-1]].reshape(E, capacity, d)
     y = _expert_ffn(params["w_gate"], params["w_in"], params["w_out"],
                     gathered).reshape(E * capacity, d)
-    # combine: scatter-add back to the tokens, weighted by the gate
-    contrib = y[torch.where(keep, slot, 0)] * (sw * keep)[:, None]
-    out = torch.zeros((n, d), dtype=x.dtype, device=dev)
-    out.index_add_(0, st, contrib.to(x.dtype))
+    # combine, weighted by the gate: each token's k contributions summed
+    # in increasing expert order in x's dtype, the order of the
+    # reference's scatter-add over the expert-sorted assignments, with
+    # no atomics (dropped ones add exact zeros)
+    contrib = (y[torch.where(keep, slot, 0)] * (sw * keep)[:, None]).to(
+        x.dtype)
+    by_token = contrib[torch.argsort(st * E + se)].reshape(n, k, d)
+    out = by_token[:, 0]
+    for j in range(1, k):
+        out = out + by_token[:, j]
     return out.reshape(x.shape), _aux(probs, experts, m, want_aux)
 
 

@@ -48,9 +48,9 @@ from repro_torch.kernels import paged_attention
 from repro_torch.models.attention import quantize_kv
 from repro_torch.models.layers import (apply_rope, dtype_of, embed, rmsnorm,
                                        unembed)
-from repro_torch.models.model import (_layer, check_ported, decode_step,
-                                      ffn_forward, init_cache, model_stages,
-                                      prefill, prefill_chunk,
+from repro_torch.models.model import (check_ported, decode_step,
+                                      ffn_forward, init_cache, layer_params,
+                                      model_stages, prefill, prefill_chunk,
                                       supports_chunked_prefill)
 from repro_torch.serving.batch_core import BatchConfig, BatchCore
 from repro_torch.serving.costmodel import CostModel
@@ -600,6 +600,6 @@ def _paged_decode_step(params, tokens, ctx_lens, block_tables, row_map,
                               row_map=row_map, k_scale=ks, v_scale=vs)
         x = x + out.reshape(R, H * hd) @ attn["wo"][i].reshape(H * hd, -1)
         h2 = rmsnorm({"scale": stage["ln2"]["scale"][i]}, x, cfg.norm_eps)
-        x = x + ffn_forward(_layer(ffn, i), h2, cfg, moe_flag)
+        x = x + ffn_forward(layer_params(ffn, i), h2, cfg, moe_flag)
     x = rmsnorm(params["final_norm"], x[out_rows.long()], cfg.norm_eps)
     return unembed(params["embed"], x).float()

@@ -3,7 +3,9 @@
 routing (expert indices exactly, ties in ``jax.lax.top_k``'s order),
 the dense oracle, the capacity dispatch with and without drops, the
 chunked dispatch, the full FFN with shared experts, and the load-balance
-loss.  f32 outputs within 1e-5; bf16 within one bf16 step."""
+loss.  f32 outputs within 1e-5; bf16 within one bf16 step with SiLU
+rounded as the reference rounds it (bit-equal at top-6, drops included),
+and the bf16 FFN as it ships against the reference and an f32 witness."""
 import dataclasses
 
 import jax
@@ -189,3 +191,52 @@ def test_moe_ffn_bf16_within_one_step(impl, monkeypatch):
     ty, _ = tmoe.moe_ffn(tp, tx, tcfg)
     assert ty.dtype == torch.bfloat16
     close(ty, jy, BF16_STEP)
+
+
+@pytest.mark.parametrize("seed", [11, 12, 13, 14])
+@pytest.mark.parametrize("impl", ["dense", "dispatch"])
+def test_moe_ffn_bf16_as_shipped(impl, seed):
+    """The bf16 FFN as it ships (``F.silu`` rounds once), against the
+    reference and, as a second witness, against the reference's f32
+    result on the same bf16 values.  Its difference from the reference
+    is held to two bf16 steps of the output's scale (measured over these
+    cases: 0.65-1.30), and its RMS error against the f32 result to 1.05
+    times the reference's own (measured: 0.857-1.022): rounding once is
+    about as accurate as rounding each operation."""
+    jcfg, tcfg = configs("mixtral-8x7b")
+    jcfg = dataclasses.replace(jcfg, moe_impl=impl, dtype="bfloat16")
+    tcfg = dataclasses.replace(tcfg, moe_impl=impl, dtype="bfloat16")
+    jp, tp = weights(jcfg, jnp.bfloat16, seed=seed)
+    jx, tx = inputs(24, jcfg.d_model, seed=seed + 1, dtype=jnp.bfloat16)
+    jy, _ = jm.moe_ffn(jp, jx, jcfg)
+    ty, _ = tmoe.moe_ffn(tp, tx, tcfg)
+    assert ty.dtype == torch.bfloat16
+    want, got = np.asarray(jy, np.float32), ty.float().numpy()
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=2 * 2 ** -7 * np.abs(want).max())
+    f32 = np.asarray(jm.moe_ffn(
+        jax.tree.map(lambda a: a.astype(jnp.float32), jp),
+        jx.astype(jnp.float32),
+        dataclasses.replace(jcfg, dtype="float32"))[0])
+
+    def rms(a):
+        return float(np.sqrt(np.mean((a - f32) ** 2)))
+
+    assert rms(got) <= 1.05 * rms(want)
+
+
+@pytest.mark.parametrize("capacity_factor", [1.0, 3.0])
+def test_moe_dispatch_bf16_top6_combine(capacity_factor, monkeypatch):
+    """DeepSeek's top-6 routing in bf16, with drops (1.0) and without
+    (3.0): each token's six contributions are summed in increasing expert
+    order, the reference's order, so with SiLU rounded as the reference
+    rounds it the outputs are bit-equal."""
+    monkeypatch.setattr(torch.nn.functional, "silu", silu_rounded_per_op)
+    jcfg, tcfg = configs("deepseek-moe-16b", n_experts=16, top_k=6,
+                         capacity_factor=capacity_factor)
+    jp, tp = weights(jcfg, jnp.bfloat16, seed=11)
+    jx, tx = inputs(40, jcfg.d_model, seed=12, dtype=jnp.bfloat16)
+    jy, _ = jm.moe_dispatch(jp, jx, jcfg.moe)
+    ty, _ = tmoe.moe_dispatch(tp, tx, tcfg.moe)
+    np.testing.assert_array_equal(ty.float().numpy(),
+                                  np.asarray(jy, np.float32))
