@@ -13,18 +13,24 @@ The quickest proof that the port builds and serves on an NVIDIA H100:
    - paged attention, serial and split-K, bf16 and int8 pools (Hq = Hkv
      = 32, D = 128, page 16): decode batches of 8 and 64 rows at table
      widths 32 and 256, and ragged mixed launches (a prefill chunk over
-     one table row, 8 decode rows, padding rows with ctx 0); each case
-     once more with f32 queries and f32 pools at a tight tolerance;
+     one table row, 8 decode rows, padding rows with ctx 0); at
+     StarCoder2-7B's shape (Hq 36 over Hkv 4: G = 9) a decode batch of 8
+     rows and the 512-row mixed launch at width 32; each case once more
+     with f32 queries and f32 pools at a tight tolerance;
    - flash attention (B = 1, Hq = 32, D = 128): S = 128, 1024 and 1000
      causal in bf16 and f32 (Hkv = 32), one windowed case (window 256),
-     one GQA case (Hkv = 8), and Mixtral-8x7B's prefill shape (S = 6144,
-     Hkv = 8, window 4096) in bf16;
+     one GQA case (Hkv = 8), Mixtral-8x7B's prefill shape (S = 6144,
+     Hkv = 8, window 4096) in bf16, and Granite-3-2B's (S = 1024, Hkv =
+     8, D = 64) in bf16 and f32;
    - the SSD scan at Mamba-2-2.7B's shape (H = 80, P = 64, G = 1, N =
      128, chunk 128): S = 128, 1024 and 1000 with bf16 and f32 x, S = 4096
      with bf16 x (2560 blocks, 32 chunks chained per head), and S = 1000
      bf16 from an initial state.
    Each case prints one JSON line with errors and times (kernel, plain
-   version, a library yardstick where one exists, the bound);
+   version, a library yardstick where one exists, the bound); and the
+   slots backend's decode attention at run D's shape through the paged
+   kernels over the slot caches, against its f32 plain version, its
+   extra device memory asserted below one f32 copy of the caches;
 3. the engine at full width, a dozen requests from three clients under
    the Equinox scheduler with a MoPE predictor trained by the port:
      A  Llama-2-7B as registered (32 layers, d_model 4096, bf16; random
@@ -53,15 +59,34 @@ The quickest proof that the port builds and serves on an NVIDIA H100:
         of the 12 prompts are 4500-6000 tokens long, so flash masks by
         the window and their ring slot caches wrap; the same two checks
         at prompts past the window;
+     H  StarCoder2-7B as registered (32 layers, d_model 4608, 36 query
+        heads over 4 kv heads of 128, d_ff 18 432, GELU, vocab 49 152,
+        bf16; random weights from a seed), paged like run A: G = 9 takes
+        the split-K tensor-core walk for decode rows, never the one-row
+        walk (asserted on its decode window); its first tokens against
+        a plain forward,
+     I  H's weights on multi-turn conversations that share system
+        prompts, served cold and with the prefix cache: hits asserted,
+        warm first-token logits against cold ones,
+     J  a two-replica ``Cluster`` of paged Llama-2-7B engines over one
+        weight set, Equinox schedulers sharing their fairness state,
+        ``least_kv`` routing, a flight recorder per replica: the counter
+        replay of the replicas' events equals the live counters, and the
+        windowed Jain of the merged trace is printed;
+   runs D, F and G decode over their slot caches through the split-K
+   paged kernels (once per layer and decode step, asserted), and their
+   decode steps take less extra memory than an f32 copy of one layer's
+   caches;
    plus a check of run A's first-token logits against a dense forward,
    and ``torch.profiler`` windows (device busy share, kernel launches and
    device time by kernel per iteration): decode-heavy windows of the
-   configurations of runs A, D, E and F, and prefill-heavy windows of A
+   configurations of runs A, D, E, F, G and H, and prefill-heavy windows
+   of A
    (iterations that carry 512-row chunks), D, E and G (the first
    iteration: the whole prompts of the requests it admits);
-   runs A, B, D, E, F and G must go through the tensor-core (``mma``)
-   variants of their kernels and launch no ``fma`` variant, and no
-   kernel a run does not expect;
+   runs A, B and D-J must go through the tensor-core (``mma``) variants
+   of their kernels and launch no ``fma`` variant, and no kernel a run
+   does not expect;
 4. a ``kernels`` JSON line (launches per variant beside the totals), the
    nvidia-smi line, and last the result line ``{"ok": true, "device":
    {...}}``.
@@ -163,6 +188,7 @@ def main() -> int:
     kernel_rows = kernel_phase(torch, flush)
     kernel_rows.update(flash_phase(torch, flush))
     kernel_rows.update(ssd_phase(torch, flush))
+    slot_attention_phase(torch, flush)
     engine_phase(torch, kernel_rows)
 
     print(smi, flush=True)
@@ -261,8 +287,10 @@ def tol_ratio(out, plain, tol):
 
 
 def kernel_cases():
-    """(name, ctx list, row_map list, table rows, width) at the serving
-    path's shapes."""
+    """(name, ctx list, row_map list, table rows, width, Hq, Hkv) at the
+    serving path's shapes: Llama-2-7B's (MHA, 32 heads) and StarCoder2-7B's
+    (36 query heads over 4 kv heads: G = 9, so a decode row is one tile of
+    9 (row, head) pairs and a chunk's tiles hold 7 rows, 63 pairs)."""
     rng = np.random.default_rng(SEED)
     cases = []
     for w in (32, 256):
@@ -270,15 +298,25 @@ def kernel_cases():
             ctx = rng.integers(1, 16 * w + 1, b)
             ctx[0] = 16 * w                           # one full table
             cases.append((f"decode{b}_w{w}", ctx.tolist(), list(range(b)),
-                          b, w))
+                          b, w, 32, 32))
     for w, chunk, n_pad in ((32, 512, 1024), (4, 48, 64)):
-        # one prefill chunk from position 0 over table row 0, 8 decode rows
-        # on rows 1..8, padding rows with ctx 0 on the spare row 9
-        dec = rng.integers(1, 16 * w + 1, 8).tolist()
-        ctx = list(range(1, chunk + 1)) + dec + [0] * (n_pad - chunk - 8)
-        rmap = [0] * chunk + list(range(1, 9)) + [9] * (n_pad - chunk - 8)
-        cases.append((f"mixed{chunk}+8_w{w}", ctx, rmap, 16, w))
+        cases.append(mixed_case(rng, w, chunk, n_pad, 32, 32))
+    rng = np.random.default_rng(SEED + 16)
+    ctx = rng.integers(1, 16 * 32 + 1, 8)
+    ctx[0] = 16 * 32
+    cases.append(("gqa9_decode8_w32", ctx.tolist(), list(range(8)), 8, 32,
+                  36, 4))
+    cases.append(mixed_case(rng, 32, 512, 1024, 36, 4, prefix="gqa9_"))
     return cases
+
+
+def mixed_case(rng, w, chunk, n_pad, Hq, Hkv, prefix=""):
+    """One prefill chunk from position 0 over table row 0, 8 decode rows
+    on rows 1..8, padding rows with ctx 0 on the spare row 9."""
+    dec = rng.integers(1, 16 * w + 1, 8).tolist()
+    ctx = list(range(1, chunk + 1)) + dec + [0] * (n_pad - chunk - 8)
+    rmap = [0] * chunk + list(range(1, 9)) + [9] * (n_pad - chunk - 8)
+    return (f"{prefix}mixed{chunk}+8_w{w}", ctx, rmap, 16, w, Hq, Hkv)
 
 
 def kernel_phase(torch, flush):
@@ -288,7 +326,7 @@ def kernel_phase(torch, flush):
     from repro_torch.models.attention import quantize_kv
 
     dev = torch.device("cuda")
-    H, D, page, pps = 32, 128, 16, 4
+    D, page, pps = 128, 16, 4
     rows = {"paged_attention": {"name": "paged_attention", "route": "cuda",
                                 "source": "src/repro_torch/csrc/paged_attention.cu",
                                 "replaces": "src/repro/kernels/paged_attention.py:242",
@@ -302,13 +340,14 @@ def kernel_phase(torch, flush):
     # shapes runs A (split-K, width 32) and C (serial, width 4) launch
     main_case = {"paged_attention": ("mixed48+8_w4", "bf16"),
                  "paged_attention_splitk": ("mixed512+8_w32", "bf16")}
-    for ci, (name, ctx_l, rmap_l, n_tab, W) in enumerate(kernel_cases()):
+    for ci, (name, ctx_l, rmap_l, n_tab, W, Hq, Hkv) in enumerate(
+            kernel_cases()):
         g = torch.Generator(device=dev).manual_seed(SEED + ci)
         B = len(ctx_l)
         n_pool = n_tab * W + 1
-        q32 = torch.randn(B, H, D, generator=g, device=dev)
-        kp32 = torch.randn(n_pool, page, H, D, generator=g, device=dev)
-        vp32 = torch.randn(n_pool, page, H, D, generator=g, device=dev)
+        q32 = torch.randn(B, Hq, D, generator=g, device=dev)
+        kp32 = torch.randn(n_pool, page, Hkv, D, generator=g, device=dev)
+        vp32 = torch.randn(n_pool, page, Hkv, D, generator=g, device=dev)
         q, kp, vp = (t.to(torch.bfloat16) for t in (q32, kp32, vp32))
         perm = torch.randperm(n_pool, generator=torch.Generator().manual_seed(ci))
         tables = perm[:n_tab * W].reshape(n_tab, W).to(torch.int32).to(dev)
@@ -338,7 +377,8 @@ def kernel_phase(torch, flush):
             err_s, ratio_s = tol_ratio(o_s, p_s, tol)
             err_k, ratio_k = tol_ratio(o_k, p_k, tol)
             line = {"phase": "kernels", "case": name, "pools": pools,
-                    "rows": B, "width": W, "rtol": tol[0], "atol": tol[1],
+                    "rows": B, "width": W, "Hq": Hq, "Hkv": Hkv,
+                    "rtol": tol[0], "atol": tol[1],
                     "serial_err": err_s, "splitk_err": err_k,
                     "serial_tol_ratio": ratio_s, "splitk_tol_ratio": ratio_k,
                     "ctx0_rows": int(zero.sum()),
@@ -473,8 +513,9 @@ def flash_bound(S, Hq, Hkv, D, causal, window, dtype):
 
 def flash_phase(torch, flush):
     """The flash-attention kernel against its plain version at the
-    whole-prompt prefill shapes of Llama-2-7B (B = 1, 32 heads, D = 128)
-    and Mixtral-8x7B (8 kv heads, window 4096, a 6144-token prompt);
+    whole-prompt prefill shapes of Llama-2-7B (B = 1, 32 heads, D = 128),
+    Mixtral-8x7B (8 kv heads, window 4096, a 6144-token prompt) and
+    Granite-3-2B (8 kv heads of 64);
     library yardstick: ``scaled_dot_product_attention`` (a windowed case
     passes its mask as a boolean tensor), timed here only.  The kernels
     line carries S1024 causal bf16; it and the Mixtral case add the
@@ -486,17 +527,21 @@ def flash_phase(torch, flush):
            "source": "src/repro_torch/csrc/flash_attention.cu",
            "replaces": "src/repro/kernels/flash_attention.py:93",
            "max_abs_err": 0.0}
-    cases = [(f"S{S}_causal", S, 32, True, 0, dt)
+    cases = [(f"S{S}_causal", S, 32, 128, True, 0, dt)
              for S in (128, 1024, 1000) for dt in ("bfloat16", "float32")]
-    cases += [("S1024_window256", 1024, 32, True, 256, "bfloat16"),
-              ("S1024_gqa8", 1024, 8, True, 0, "bfloat16"),
-              ("S6144_window4096_gqa8", 6144, 8, True, 4096, "bfloat16")]
-    for ci, (name, S, Hkv, causal, window, dt) in enumerate(cases):
+    cases += [("S1024_window256", 1024, 32, 128, True, 256, "bfloat16"),
+              ("S1024_gqa8", 1024, 8, 128, True, 0, "bfloat16"),
+              ("S6144_window4096_gqa8", 6144, 8, 128, True, 4096,
+               "bfloat16")]
+    # Granite-3-2B's prefill shape: 32 query heads over 8 kv heads of 64
+    cases += [("S1024_gqa8_d64", 1024, 8, 64, True, 0, dt)
+              for dt in ("bfloat16", "float32")]
+    for ci, (name, S, Hkv, D, causal, window, dt) in enumerate(cases):
         g = torch.Generator(device=dev).manual_seed(SEED + 100 + ci)
         dtype = getattr(torch, dt)
-        q = torch.randn(1, S, 32, 128, generator=g, device=dev).to(dtype)
-        k = torch.randn(1, S, Hkv, 128, generator=g, device=dev).to(dtype)
-        v = torch.randn(1, S, Hkv, 128, generator=g, device=dev).to(dtype)
+        q = torch.randn(1, S, 32, D, generator=g, device=dev).to(dtype)
+        k = torch.randn(1, S, Hkv, D, generator=g, device=dev).to(dtype)
+        v = torch.randn(1, S, Hkv, D, generator=g, device=dev).to(dtype)
         tol = BF16_TOL if dt == "bfloat16" else F32_TOL
         out = fa.flash_attention_kernel(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
@@ -521,7 +566,7 @@ def flash_phase(torch, flush):
 
         line = {"phase": "kernels", "kernel": "flash_attention",
                 "case": name, "dtype": dt, "S": S, "Hq": 32, "Hkv": Hkv,
-                "D": 128, "window": window, "rtol": tol[0], "atol": tol[1],
+                "D": D, "window": window, "rtol": tol[0], "atol": tol[1],
                 "max_abs_err": err, "tol_ratio": ratio,
                 "ms": time_ms(torch, lambda: fa.flash_attention_kernel(
                     q, k, v, causal=causal, window=window), 20, flush),
@@ -529,7 +574,7 @@ def flash_phase(torch, flush):
                     q, k, v, causal=causal, window=window), 3, flush),
                 "library_ms": time_ms(torch, library, 10, flush)}
         line["bound_ms"], line["bound_by"] = flash_bound(
-            S, 32, Hkv, 128, causal, window, dt)
+            S, 32, Hkv, D, causal, window, dt)
         if name in ("S1024_causal", "S6144_window4096_gqa8") \
                 and dt == "bfloat16":
             line["ms_by_kernel"] = device_ms_by_kernel(
@@ -643,6 +688,76 @@ def ssd_phase(torch, flush):
     return {"ssd_scan": row}
 
 
+def slot_attention_phase(torch, flush):
+    """The slots backend's decode attention (``models.attention.
+    decode_attention``) at run D's decode shape (8 slots of 1280 tokens,
+    32 heads of 128, bf16 caches): the paged kernels over a view of the
+    caches as pages, held against its plain version (f32 products, the
+    softmax weights rounded to bf16 as the reference rounds them) within
+    that rounding's bound, 2**-7 relative + 2**-9 max|v| (the kernels keep
+    the weights in f32; tests/test_torch_slot_attention.py); its extra
+    peak memory must stay below one f32 copy of the two caches, which the
+    plain version makes.  Library yardstick: ``scaled_dot_product_attention``
+    with the validity mask."""
+    from repro_torch.models.attention import (decode_attention,
+                                              decode_attention_plain)
+
+    dev = torch.device("cuda")
+    B, S, H, D = 8, MAX_LEN_SLOTS, 32, 128
+    g = torch.Generator(device=dev).manual_seed(SEED + 300)
+    q = torch.randn(B, 1, H, D, generator=g, device=dev).bfloat16()
+    k = torch.randn(B, S, H, D, generator=g, device=dev).bfloat16()
+    v = torch.randn(B, S, H, D, generator=g, device=dev).bfloat16()
+    pos = torch.randint(0, S, (B,), generator=g, device=dev)
+    ctx = (pos + 1).clamp(max=S)
+    valid = torch.arange(S, device=dev)[None] < ctx[:, None]
+    f32_copy = 2 * k.numel() * 4
+
+    def with_peak(fn):
+        """fn's result and the device memory it took beyond the inputs."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated() - base
+
+    got, extra = with_peak(lambda: decode_attention(q, k, v, ctx))
+    plain, plain_extra = with_peak(
+        lambda: decode_attention_plain(q, k, v, valid))
+    tol = (2 ** -7, 2 ** -9 * v.float().abs().max().item())
+    err, ratio = tol_ratio(got, plain, tol)
+    check(ratio <= 1, f"slot decode attention vs plain outside the weight-"
+          f"rounding bound {tol}: max abs error {err}, ratio {ratio}")
+    check(bool(torch.isfinite(got.float()).all()),
+          "slot decode attention: non-finite output")
+    check(extra < f32_copy, f"slot decode attention took {extra} B of "
+          f"extra device memory, not below one f32 copy of the caches "
+          f"({f32_copy} B)")
+    F = torch.nn.functional
+
+    def library():
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=valid[:, None, None])
+
+    n_tok = int(ctx.sum())
+    line = {"phase": "slot_attention", "case": "decode8_S1280_mha",
+            "shape": [B, S, H, D], "dtype": "bfloat16",
+            "rtol": tol[0], "atol": tol[1], "max_abs_err": err,
+            "tol_ratio": ratio, "extra_peak_bytes": extra,
+            "plain_extra_peak_bytes": plain_extra,
+            "f32_copy_bytes": f32_copy,
+            "ms": time_ms(torch, lambda: decode_attention(q, k, v, ctx), 20,
+                          flush),
+            "plain_ms": time_ms(torch, lambda: decode_attention_plain(
+                q, k, v, valid), 5, flush),
+            "library_ms": time_ms(torch, library, 10, flush),
+            "bound_ms": (n_tok * H * D * 2 * 2 + 2 * q.numel() * 2)
+            / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    emit(line)
+
+
 # ---------------------------------------------------------------------------
 # 3. the engine at full width
 # ---------------------------------------------------------------------------
@@ -737,9 +852,12 @@ def requests(short, long_prompts=0):
 
 
 def serve(torch, run, model, max_len, short, expect, long_prompts=0,
-          **engine_kw):
+          reqs=None, **engine_kw):
     """One run on a fresh engine; ``expect`` maps each kernel to
-    whether the run must launch it (or an exact count).  Returns the
+    whether the run must launch it, or to an exact count: once per layer
+    and whole-prompt prefill (``per_layer_prefill``) or per layer and
+    slots decode step (``per_layer_decode``).  ``reqs``: the run's
+    requests, else ``requests(short, long_prompts)``.  Returns the
     tokens, the first-token logits, the launch counts and the engine
     line."""
     from repro_torch.core import jain, make_scheduler
@@ -754,8 +872,8 @@ def serve(torch, run, model, max_len, short, expect, long_prompts=0,
                         **engine_kw)
     finite = []
     sample = eng._sample
-    prefills = [0]
-    whole = eng._prefill_whole
+    prefills, decodes = [0], [0]
+    whole, slots_decode = eng._prefill_whole, eng._decode_slots
 
     def checked_sample(row):             # every decode row's logits
         finite.append(bool(np.isfinite(row).all()))
@@ -765,9 +883,14 @@ def serve(torch, run, model, max_len, short, expect, long_prompts=0,
         prefills[0] += 1
         return whole(req)
 
+    def counted_decode(tokens):          # every slots decode step
+        decodes[0] += 1
+        return slots_decode(tokens)
+
     eng._sample = checked_sample
     eng._prefill_whole = counted_prefill
-    reqs = requests(short, long_prompts)
+    eng._decode_slots = counted_decode
+    reqs = requests(short, long_prompts) if reqs is None else reqs
     if eng.backend == "slots":
         # slot caches do not wrap for full attention: a write past
         # max_len would be dropped
@@ -794,11 +917,11 @@ def serve(torch, run, model, max_len, short, expect, long_prompts=0,
     check(all(finite), f"run {run}: non-finite decode logits")
     for name, want in expect.items():
         got = launches[name]
-        if want == "per_layer_prefill":
-            want_n = cfg.n_layers * prefills[0]
-            check(prefills[0] > 0 and got == want_n,
+        if want in ("per_layer_prefill", "per_layer_decode"):
+            n = prefills[0] if want == "per_layer_prefill" else decodes[0]
+            check(n > 0 and got == cfg.n_layers * n,
                   f"run {run}: {name} launched {got} times, not "
-                  f"{cfg.n_layers} layers x {prefills[0]} prefills")
+                  f"{cfg.n_layers} layers x {n} ({want})")
         else:
             check(got > 0 if want else got == 0,
                   f"run {run}: {name} launched {got} times")
@@ -817,6 +940,7 @@ def serve(torch, run, model, max_len, short, expect, long_prompts=0,
             "backend": eng.backend, "chunked": eng.chunked,
             "max_len": max_len, "kv_quant": eng.kv_quant,
             "requests": len(done), "prefill_calls_whole": prefills[0],
+            "slots_decode_steps": decodes[0],
             "prompt_tokens": prompt_tokens, "output_tokens": output_tokens,
             "iterations": eng.iterations, "wall_s": wall,
             "iter_ms_mean": wall / eng.iterations * 1e3,
@@ -837,6 +961,11 @@ def serve(torch, run, model, max_len, short, expect, long_prompts=0,
             "preemptions": eng.n_preemptions, "launches": launches,
             "start_mem_gib": start_gib,
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    if eng.core.prefix_cache is not None:
+        st = eng.core.prefix_cache.stats
+        line["prefix_cache"] = {"lookups": st.lookups, "hits": st.hits,
+                                "hit_tokens": st.hit_tokens,
+                                "hit_rate": st.hit_rate()}
     if reduced_of(cfg):
         line["reduced"] = reduced_of(cfg)
     emit(line)
@@ -844,7 +973,7 @@ def serve(torch, run, model, max_len, short, expect, long_prompts=0,
     firsts = {r.rid: (r.prompt_tokens, r._first_row) for r in done}
     # the hooks above tie the engine into a cycle: free its pools and
     # caches now, not at some later collection inside the next run
-    del eng, checked_sample, counted_prefill
+    del eng, checked_sample, counted_prefill, counted_decode
     gc.collect()
     torch.cuda.empty_cache()
     return tokens, firsts, launches, line
@@ -856,32 +985,41 @@ def engine_phase(torch, kernel_rows):
 
 
     # every kernel and variant must stay unlaunched unless a run expects
-    # it: runs A, B, C (bf16 queries over bf16 or int8 pages), D (bf16
-    # prefill) and E (bf16 SSD scan) go through the tensor-core ("mma")
+    # it: runs A, B, C, H, I, J (bf16 queries over bf16 or int8 pages),
+    # D, F, G (bf16 prefill; slots decode over the caches viewed as
+    # pages) and E (bf16 SSD scan) go through the tensor-core ("mma")
     # variants
     paged = {name: False for name in launch_counts()}
     splitk_mma = {"paged_attention_splitk": True,
                   "paged_attention_splitk:mma": True}
+    # whole-prompt prefill through flash, decode over the slot caches
+    # through split-K paged attention: each once per layer and call
+    slots_attn = dict(
+        paged, flash_attention="per_layer_prefill",
+        paged_attention_splitk="per_layer_decode",
+        **{"flash_attention:mma": "per_layer_prefill",
+           "paged_attention_splitk:mma": "per_layer_decode"})
+    runs = {}                         # run -> its launch counts
     llama = setup(torch, "llama2-7b")
-    tok_a, first_a, la, _ = serve(torch, "A", llama, 512, False,
-                                  dict(paged, **splitk_mma), backend="paged")
-    tok_b, _, lb, _ = serve(torch, "B", llama, 512, False,
-                            dict(paged, **splitk_mma), backend="paged",
-                            kv_quant=True)
-    _, _, lc, _ = serve(torch, "C", llama, 64, True,
-                        dict(paged, paged_attention=True,
-                             **{"paged_attention:mma": True}),
-                        backend="paged")
+    tok_a, first_a, runs["A"], _ = serve(torch, "A", llama, 512, False,
+                                         dict(paged, **splitk_mma),
+                                         backend="paged")
+    tok_b, _, runs["B"], _ = serve(torch, "B", llama, 512, False,
+                                   dict(paged, **splitk_mma),
+                                   backend="paged", kv_quant=True)
+    _, _, runs["C"], _ = serve(torch, "C", llama, 64, True,
+                               dict(paged, paged_attention=True,
+                                    **{"paged_attention:mma": True}),
+                               backend="paged")
     # reported, not asserted: int8 pages may flip a near-tie argmax
     agree = np.mean([tok_a[rid] == tok_b[rid] for rid in tok_a])
     emit({"phase": "engine", "greedy_agreement_fp_vs_int8": float(agree)})
-    _, first_d, ld, _ = serve(
-        torch, "D", llama, MAX_LEN_SLOTS, False,
-        dict(paged, flash_attention="per_layer_prefill",
-             **{"flash_attention:mma": "per_layer_prefill"}),
-        backend="slots", chunked=False)
+    _, first_d, runs["D"], _ = serve(torch, "D", llama, MAX_LEN_SLOTS,
+                                     False, slots_attn, backend="slots",
+                                     chunked=False)
     first_token_check(first_d, first_a)
     dense_check(torch, llama[1], llama[0], first_a)
+    runs["J"] = cluster_run(torch, llama, dict(paged, **splitk_mma))
 
     def profiled(run, model, max_len, window="decode", long_prompts=0,
                  **engine_kw):
@@ -894,17 +1032,18 @@ def engine_phase(torch, kernel_rows):
 
     profiled("A", llama, 512, backend="paged")
     profiled("A", llama, 512, "prefill", backend="paged")
-    profiled("D", llama, MAX_LEN_SLOTS, backend="slots", chunked=False)
+    no_casts("D", profiled("D", llama, MAX_LEN_SLOTS, backend="slots",
+                           chunked=False))
     profiled("D", llama, MAX_LEN_SLOTS, "prefill", backend="slots",
              chunked=False)
     del llama
     torch.cuda.empty_cache()
 
     mamba = setup(torch, "mamba2-2.7b")
-    _, _, le, _ = serve(torch, "E", mamba, MAX_LEN_SLOTS, False,
-                        dict(paged, ssd_scan="per_layer_prefill",
-                             **{"ssd_scan:mma": "per_layer_prefill"}),
-                        backend="slots")
+    _, _, runs["E"], _ = serve(torch, "E", mamba, MAX_LEN_SLOTS, False,
+                               dict(paged, ssd_scan="per_layer_prefill",
+                                    **{"ssd_scan:mma": "per_layer_prefill"}),
+                               backend="slots")
     decode_consistency(torch, mamba[1], mamba[0])
     profiled("E", mamba, MAX_LEN_SLOTS, backend="slots")
     profiled("E", mamba, MAX_LEN_SLOTS, "prefill", backend="slots")
@@ -912,13 +1051,12 @@ def engine_phase(torch, kernel_rows):
     gc.collect()
     torch.cuda.empty_cache()
 
-    # the MoE stacks: whole-prompt prefill through the flash kernel, and
-    # nothing else of the port (decode runs the slots step in torch)
-    flash_only = dict(paged, flash_attention="per_layer_prefill",
-                      **{"flash_attention:mma": "per_layer_prefill"})
+    # the MoE stacks: whole-prompt prefill through the flash kernel,
+    # decode through the paged kernels over the slot caches
     deepseek = setup(torch, "deepseek-moe-16b")
-    _, first_f, lf, _ = serve(torch, "F", deepseek, MAX_LEN_SLOTS, False,
-                              flash_only, backend="slots", chunked=False)
+    _, first_f, runs["F"], _ = serve(torch, "F", deepseek, MAX_LEN_SLOTS,
+                                     False, slots_attn, backend="slots",
+                                     chunked=False)
     # one prompt at a time: the plain forward's dispatch sees the same
     # rows as the served prefill, so the same assignments drop
     dense_check(torch, deepseek[1], deepseek[0], first_f)
@@ -926,15 +1064,17 @@ def engine_phase(torch, kernel_rows):
     # which then drops different assignments: compare on the dense path
     decode_consistency(torch, deepseek[1], dataclasses.replace(
         deepseek[0], moe_impl="dense"))
-    profiled("F", deepseek, MAX_LEN_SLOTS, backend="slots", chunked=False)
+    no_casts("F", profiled("F", deepseek, MAX_LEN_SLOTS, backend="slots",
+                           chunked=False))
     del deepseek
     gc.collect()
     torch.cuda.empty_cache()
 
     mixtral = setup(torch, "mixtral-8x7b", n_layers=MIXTRAL_LAYERS)
     window = mixtral[0].window
-    _, first_g, lg, _ = serve(torch, "G", mixtral, MAX_LEN_LONG, False,
-                              flash_only, long_prompts=2, backend="slots")
+    _, first_g, runs["G"], _ = serve(torch, "G", mixtral, MAX_LEN_LONG,
+                                     False, slots_attn, long_prompts=2,
+                                     backend="slots")
     long = sorted(rid for rid, (toks, _) in first_g.items()
                   if len(toks) > window)
     check(len(long) == 2, f"run G: {len(long)} prompts past the window "
@@ -946,19 +1086,241 @@ def engine_phase(torch, kernel_rows):
                     backend="slots")
     check(line["longest_prompt_prefilled"] > window, "run G: the prefill "
           "window carried no prompt past the attention window")
+    no_casts("G", profiled("G", mixtral, MAX_LEN_LONG, long_prompts=2,
+                           backend="slots"))
     del mixtral
     gc.collect()
     torch.cuda.empty_cache()
-    main_runs = {"paged_attention": (la, lb, lc),
-                 "paged_attention_splitk": (la, lb, lc),
-                 "flash_attention": (ld, lf, lg), "ssd_scan": (le,)}
-    for name, runs in main_runs.items():
-        row = kernel_rows[name]
-        row["launches"] = sum(r[name] for r in runs)
-        variants = {k.split(":")[1]: sum(r[k] for r in runs)
-                    for k in runs[0] if k.startswith(f"{name}:")}
+
+    # StarCoder2-7B: G = 9 through the paged kernels at full width
+    starcoder = setup(torch, "starcoder2-7b")
+    _, first_h, runs["H"], _ = serve(torch, "H", starcoder, 512, False,
+                                     dict(paged, **splitk_mma),
+                                     backend="paged")
+    dense_check(torch, starcoder[1], starcoder[0], first_h)
+    line = profiled("H", starcoder, 512, backend="paged")
+    walks = " ".join(line["port_kernels_ms_per_iteration"])
+    check("paged_attention_mma_kernel<128, false, false>" in walks
+          and "paged_attention_mma_kernel<128, false, true>" not in walks,
+          f"run H: decode rows of a G = 9 stack must take the tensor-core "
+          f"walk and never the one-row walk; kernels: {walks}")
+    runs["I (cold)"], runs["I (warm)"] = prefix_cache_run(
+        torch, starcoder, dict(paged, **splitk_mma))
+    del starcoder
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    emit({"phase": "engine", "launches_by_run": runs})
+    for name, row in kernel_rows.items():
+        row["launches"] = sum(r[name] for r in runs.values())
+        variants = {k.split(":")[1]: sum(r[k] for r in runs.values())
+                    for k in runs["A"] if k.startswith(f"{name}:")}
         if variants:
             row["launches_by_variant"] = variants
+
+
+def no_casts(run, line):
+    """A slots decode window reads its caches in their dtype: the paged
+    kernels run in it, and a decode step's extra device memory stays
+    below an f32 copy of one layer's slot caches (the f32 casts that
+    the plain products made, layer after layer)."""
+    ours = " ".join(line["port_kernels_ms_per_iteration"])
+    check("paged_attention_mma_kernel" in ours, f"run {run}: the decode "
+          f"window launched no paged kernel: {ours}")
+    check(line["decode_step_extra_peak_bytes"]
+          < line["layer_cache_f32_copy_bytes"], f"run {run}: a decode step "
+          f"took {line['decode_step_extra_peak_bytes']} B beyond its "
+          f"caches, not below an f32 copy of one layer's "
+          f"({line['layer_cache_f32_copy_bytes']} B)")
+
+
+def prefix_cache_run(torch, model, expect):
+    """Run I: multi-turn conversations sharing system prompts (the
+    port's ``multiturn_sharegpt_like``: 3 clients, 2 conversations of 2-4
+    turns each, a pool of 2 system prompts of 64 tokens; prompts held to
+    448 tokens so they fit max_len 512, outputs cut to 32 tokens so the
+    run stays short), served cold and with the prefix cache on model's
+    weights.  Warm first-token logits against cold ones: asserted within
+    DENSE_REL_TOL of the largest logit (a warm prompt prefills only its
+    uncached suffix, in other chunks beside other rows, so its products
+    may take other cuBLAS algorithms); bitwise equality and greedy-token
+    agreement are reported.  Returns the two runs' launch counts."""
+    from repro_torch.workloads import multiturn_sharegpt_like
+
+    def trace():
+        reqs = multiturn_sharegpt_like(
+            n_clients=3, n_conversations=2, turns=(2, 5), system_pool=2,
+            system_len=64, think_time=2.0, max_prompt=448, seed=SEED)
+        for r in reqs:
+            r.output_len = min(r.output_len, 32)
+        return reqs
+
+    out = {}
+    for cache in (False, True):
+        tokens, firsts, launches, line = serve(
+            torch, "I", model, 512, False, expect, reqs=trace(),
+            backend="paged", prefix_cache=cache)
+        out[cache] = tokens, firsts, launches, line
+    st = out[True][3]["prefix_cache"]
+    check(st["hits"] > 0 and st["hit_tokens"] > 0,
+          f"run I: no prefix-cache hits: {st}")
+    worst, bitwise, argmax = 0.0, 0, 0
+    (cold_tok, cold_first), (warm_tok, warm_first) = (
+        out[c][:2] for c in (False, True))
+    for rid, (toks, cold) in cold_first.items():
+        warm = warm_first[rid][1]
+        rel = float(np.abs(warm - cold).max() / np.abs(cold).max())
+        worst = max(worst, rel)
+        bitwise += int(np.array_equal(warm, cold))
+        argmax += int(np.argmax(warm) == np.argmax(cold))
+    agree = np.mean([warm_tok[rid] == cold_tok[rid] for rid in cold_tok])
+    emit({"phase": "prefix_cache_check", "run": "I", "requests":
+          len(cold_first), "hits": st["hits"],
+          "hit_tokens": st["hit_tokens"], "hit_rate": st["hit_rate"],
+          "warm_vs_cold_max_rel_err": worst, "first_rows_bitwise_equal":
+          bitwise, "first_argmax_equal": argmax,
+          "greedy_token_agreement": float(agree)})
+    check(worst < DENSE_REL_TOL, f"run I: warm first-token logits differ "
+          f"from cold ones by {worst} (relative)")
+    return out[False][2], out[True][2]
+
+
+def cluster_run(torch, model, expect):
+    """Run J: a two-replica ``Cluster`` of paged engines on the one card,
+    both over one weight set, Equinox schedulers sharing their fairness
+    state (``share_fairness_state``), routing ``least_kv``, a
+    ``FlightRecorder`` on each replica.  The replicas' events, merged in
+    the order the cluster fired them (one more recorder that every
+    replica feeds), replay to the live counters exactly
+    (``replay_cluster``); the per-replica traces, merged on the modeled
+    clock (``merge_traces``), feed ``windowed_fairness``.  Returns the
+    run's launch counts."""
+    from repro_torch.core import make_scheduler
+    from repro_torch.serving.cluster import Cluster
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.telemetry import (FlightRecorder,
+                                               MultiObserver, merge_traces,
+                                               scheduler_counters,
+                                               windowed_fairness)
+
+    cfg, params, cm, mope = model
+    recs = [FlightRecorder(sample_every=4) for _ in range(2)]
+    order = FlightRecorder()
+    engines = [ServingEngine(
+        cfg, make_scheduler("equinox", predictor=copy.deepcopy(mope)),
+        params=params, max_len=512, cost_model=cm, seed=SEED + i,
+        observer=MultiObserver(recs[i], order), device="cuda",
+        backend="paged") for i in range(2)]
+    cluster = Cluster(engines, policy="least_kv")
+    reqs = requests(False)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = cluster.run(reqs, max_time=1e9)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    summary = res.summary()
+    check(summary["finished"] == len(reqs), f"run J: {summary['finished']}"
+          f"/{len(reqs)} finished")
+    check(all(n > 0 for n in summary["per_replica"]),
+          f"run J: a replica served nothing: {summary['per_replica']}")
+    check(engines[0].sched.ufc is engines[1].sched.ufc,
+          "run J: the replicas do not share their fairness state")
+    for name, want in expect.items():
+        check(launches[name] > 0 if want else launches[name] == 0,
+              f"run J: {name} launched {launches[name]} times")
+    live = scheduler_counters(engines[0].sched)
+    replayed = replay_cluster(order.trace(), [r.trace()["meta"]
+                                              for r in recs],
+                              cluster.routed_to)
+    check(replayed == live, "run J: the replay of the merged trace "
+          "differs from the live counters")
+    wf = windowed_fairness(merge_traces([r.trace() for r in recs]))
+    jains = wf["rolling_jain"]
+    emit({"phase": "cluster", "run": "J", "model": cfg.name, "replicas": 2,
+          "policy": "least_kv", "requests": len(reqs),
+          "finished_per_replica": summary["per_replica"],
+          "routed_per_replica": [sum(1 for i in res.routed_to.values()
+                                     if i == k) for k in range(2)],
+          "replay_equals_live": True, "counters": sorted(live),
+          "events": len(order.trace()["events"]),
+          "windowed_jain_min": wf["min_jain"],
+          "windowed_jain_median": float(np.median(jains)) if jains
+          else None, "windows": wf["n_windows"],
+          "max_discrepancy": wf["max_discrepancy"],
+          "jain": summary["jain"], "p50_ttft_model_s": summary["p50_ttft"],
+          "wall_s": wall, "launches": launches,
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+    del engines, cluster, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def replay_cluster(trace, metas, routed_to):
+    """``replay_counters`` for replicas that share their fairness state:
+    one scheduler per replica rebuilt from its trace's metadata (each keeps
+    its own queues and, for Equinox, its own latency average, as live),
+    the shared tables re-bound as the live cluster binds them, and every
+    event of ``trace`` (the cluster's firing order) driven into the
+    scheduler of the replica its request was routed to, as
+    ``replay_counters`` drives one.  The reference defines replay for one
+    replica; with shared tables the replicas' interleaving is part of the
+    result, so the timestamp merge of ``merge_traces`` cannot replay."""
+    from repro_torch.core.request import Request
+    from repro_torch.serving import telemetry
+    from repro_torch.serving.cluster import share_fairness_state
+
+    scheds = [telemetry._scheduler_from_meta(m) for m in metas]
+    share_fairness_state(scheds)
+    stubs = {}
+    for ev in trace["events"]:
+        et, t = ev["type"], ev["t"]
+        if et == "iteration":
+            for rid in ev.get("produced", ()):
+                stubs[rid].generated += 1
+                scheds[routed_to[rid]].on_token(stubs[rid], t, 1)
+            continue
+        if et not in ("arrival", "admit", "preempt", "requeue", "complete"):
+            continue
+        sched = scheds[routed_to[ev["rid"]]]
+        if et == "arrival":
+            r = Request(rid=ev["rid"], client=ev["client"],
+                        arrival=ev["arrival"], prompt_len=ev["prompt_len"],
+                        output_len=0, weight=ev["weight"],
+                        user=ev.get("user"), app=ev.get("app"),
+                        interaction_id=ev.get("interaction_id"),
+                        turn_index=ev.get("turn_index", 0))
+            stubs[r.rid] = r
+            sched.on_arrival(r, t)
+            continue
+        r = stubs[ev["rid"]]
+        if et == "admit":
+            try:
+                sched.queues[r.account].remove(r)
+            except ValueError:
+                pass                      # as replay_counters: never twice
+            r.cached_prefix = ev["cached_prefix"]
+            r.pred_output_len = ev["pred_output_len"]
+            r.pred_latency = ev["pred_latency"]
+            r.pred_tps = ev["pred_tps"]
+            r.pred_util = ev["pred_util"]
+            sched.on_admit(r, t)
+        elif et == "preempt":
+            sched.on_preempt(r, t)
+            r.generated = 0
+            r.cached_prefix = 0
+            sched.requeue_head(r)
+        elif et == "requeue":
+            sched.on_requeue(r, t)
+        else:
+            r.generated = ev["generated"]
+            r.output_len = ev["output_len"]
+            r.cached_prefix = ev["cached_prefix"]
+            sched.on_complete(r, t, latency=ev["latency"], tps=ev["tps"],
+                              util=ev["util"])
+    return telemetry.scheduler_counters(scheds[0])
 
 
 def first_token_check(firsts, ref):
@@ -1089,6 +1451,22 @@ def profile_window(torch, run, eng, reqs, window="decode"):
                  "calls_per_iteration": e.count / steps} for e in top]}
     if reduced_of(eng.cfg):
         line["reduced"] = reduced_of(eng.cfg)
+    if window == "decode" and eng.backend == "slots":
+        # one more decode step over every slot, alone: the device memory
+        # it takes beyond what is allocated (an f32 copy of a layer's
+        # slot caches, had the attention made one)
+        f32_copy = max((sum(t[0].numel() * 4 for name, t in st.items()
+                            if name in ("k", "v"))
+                        for st in eng.cache["stages"].values()), default=0)
+        if f32_copy:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            eng._decode_slots(np.zeros(eng.max_slots, np.int64))
+            torch.cuda.synchronize()
+            line["decode_step_extra_peak_bytes"] = \
+                torch.cuda.max_memory_allocated() - base
+            line["layer_cache_f32_copy_bytes"] = f32_copy
     if window == "prefill":
         line["longest_prompt_prefilled"] = max(
             r.prompt_len for r in eng.running + eng.finished

@@ -11,16 +11,23 @@ Two implementations share one math definition:
   version.  The reference's pure-JAX blockwise version and the Pallas
   kernel compute the same function; the port has this one.
 
-Decode-step attention (one token against a cache) is a plain product:
-scores are (B, H, 1, S), never quadratic.  Slot caches are written in
-place (the reference returns updated copies); a write past the cache's
-length is dropped, as the reference's masked select drops it.
+Attention over a slot cache (a decode step, or a prefill chunk against
+the prompt's cached prefix) keeps the cache in its dtype, as the
+reference does with ``preferred_element_type=f32``: on CUDA tensors it
+runs through the hand-written paged-attention kernels over a view of the
+cache as a pool of pages (``slot_cache_attention``); on CPU tensors the
+plain products below run, in f32.  Slot caches are written in place (the
+reference returns updated copies); a write past the cache's length is
+dropped, as the reference's masked select drops it.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 from repro_torch.kernels.flash_attention import flash_attention_kernel
+from repro_torch.kernels.ops import paged_attention
 from repro_torch.models.layers import apply_rope, dense_init
 
 NEG_INF = -1e30
@@ -125,9 +132,11 @@ def gqa_prefill_chunk(params, x, k_cache, v_cache, start: int, cfg):
     ``k_cache``/``v_cache`` (B, S_cache, Hkv, D).  Writes the chunk's K/V
     at [start, start+C) in place (clamped into the cache as the
     reference's ``dynamic_update_slice`` clamps) and attends each chunk
-    token causally over prefix + chunk, in f32."""
+    token causally over prefix + chunk: through the paged kernels
+    (``chunk_attention_paged``) on CUDA tensors, through
+    ``chunk_attention_plain`` on CPU tensors."""
     B, C, _ = x.shape
-    S_cache, Hkv = k_cache.shape[1], k_cache.shape[2]
+    S_cache = k_cache.shape[1]
     positions = (start + torch.arange(C, device=x.device))[None].expand(B, C)
     q = apply_rope(_project(x, params["wq"]), positions, cfg.rope_theta)
     k = apply_rope(_project(x, params["wk"]), positions, cfg.rope_theta)
@@ -135,17 +144,44 @@ def gqa_prefill_chunk(params, x, k_cache, v_cache, start: int, cfg):
     s0 = max(0, min(start, S_cache - C))
     k_cache[:, s0:s0 + C] = k.to(k_cache.dtype)
     v_cache[:, s0:s0 + C] = v.to(v_cache.dtype)
+    if x.device.type == "cpu":
+        out = chunk_attention_plain(q, k_cache, v_cache, positions)
+    else:
+        out = chunk_attention_paged(q, k_cache, v_cache, positions)
+    return _out_project(out.to(x.dtype), params["wo"]), (k_cache, v_cache)
+
+
+def chunk_attention_paged(q, k_cache, v_cache, positions):
+    """A prefill chunk's attention through ``slot_cache_attention``: q
+    (B, C, Hq, D) at ``positions`` (B, C); chunk token (b, c) attends
+    slots [0, positions[b, c] + 1) of cache row b, so the rows of one
+    chunk share a table row (the kernels' tensor-core tiles)."""
+    B, C = positions.shape
+    ctx = torch.clamp(positions + 1, max=k_cache.shape[1]).reshape(B * C)
+    rows = torch.arange(B, dtype=torch.int32,
+                        device=q.device).repeat_interleave(C)
+    out = slot_cache_attention(q.reshape(B * C, *q.shape[2:]), k_cache,
+                               v_cache, ctx, row_map=rows)
+    return out.reshape(B, C, -1, v_cache.shape[-1])
+
+
+def chunk_attention_plain(q, k_cache, v_cache, positions):
+    """Plain version of a prefill chunk's attention: q (B, C, Hq, D) at
+    ``positions`` (B, C) over caches (B, S_cache, Hkv, D), scores and
+    products in f32, the softmax weights rounded to the cache's dtype
+    before the product with V, as in the reference."""
+    B, C = positions.shape
+    S_cache, Hkv = k_cache.shape[1], k_cache.shape[2]
     qg = _group_heads(q, Hkv)                            # (B, C, Hkv, G, D)
     s = torch.einsum("bskgd,btkd->bkgst", qg.float(), k_cache.float()) \
         * q.shape[-1] ** -0.5
-    valid = torch.arange(S_cache, device=x.device)[None, None, :] \
+    valid = torch.arange(S_cache, device=q.device)[None, None, :] \
         <= positions[:, :, None]
     s = torch.where(valid[:, None, None], s, torch.full_like(s, NEG_INF))
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgst,btkd->bskgd", w.to(v_cache.dtype).float(),
                        v_cache.float())
-    out = out.reshape(B, C, -1, v_cache.shape[-1]).to(x.dtype)
-    return _out_project(out, params["wo"]), (k_cache, v_cache)
+    return out.reshape(B, C, -1, v_cache.shape[-1]).to(q.dtype)
 
 
 def gqa_decode(params, x, k_cache, v_cache, pos, cfg, *, window=0):
@@ -164,8 +200,7 @@ def gqa_decode(params, x, k_cache, v_cache, pos, cfg, *, window=0):
     slot = pos % S_cache if window else pos
     _cache_write(k_cache, k[:, 0], slot)
     _cache_write(v_cache, v[:, 0], slot)
-    valid = _decode_valid(S_cache, pos, window)
-    out = decode_attention(q, k_cache, v_cache, valid)
+    out = decode_attention(q, k_cache, v_cache, _decode_ctx(S_cache, pos))
     return _out_project(out, params["wo"]), (k_cache, v_cache)
 
 
@@ -202,20 +237,67 @@ def _cache_write(cache, token, slot):
     return cache
 
 
-def _decode_valid(S_cache, pos, window):
-    """(B, S_cache) validity mask for per-request positions."""
-    idx = torch.arange(S_cache, device=pos.device)[None, :]
-    if window:
-        return idx < torch.clamp(pos[:, None] + 1, max=S_cache)
-    return idx <= pos[:, None]
+def _decode_ctx(S_cache, pos):
+    """(B,) count of valid slots for per-request positions: the valid set
+    is the prefix [0, min(pos + 1, S_cache)).  The reference's masks are
+    this prefix: ``idx <= pos`` for full attention (every slot once the
+    sequence outgrows the cache, whose writes are dropped), and ``idx <
+    min(pos + 1, S_cache)`` for a ring cache (the whole ring once it
+    wraps: softmax does not depend on the order of the slots)."""
+    return torch.clamp(pos + 1, max=S_cache)
 
 
 DECODE_BLOCK_THRESHOLD = 8192      # blockwise path for long caches
 
 
-def decode_attention(q, k_cache, v_cache, valid):
-    """q: (B,1,Hq,D); caches: (B,S,Hkv,D); valid: (B, S) bool.  Scores and
-    products in f32 (the reference's ``preferred_element_type``); the
+def slot_cache_attention(q, k_cache, v_cache, ctx, row_map=None):
+    """Attention of query rows over contiguous slot caches, through the
+    paged-attention kernels (``kernels.ops.paged_attention``).
+
+    q (R, Hq, D); caches (B, S, Hkv, D), contiguous; row r attends
+    slots [0, ctx[r]) of cache row ``row_map[r]`` (int32; default r).
+    The caches are viewed, without a copy, as pools of B * S / page
+    pages of page = gcd(S, 16) slots, with an identity block table:
+    table row b holds pages [b * S / page, (b + 1) * S / page).  The
+    kernels read the caches in their dtype and accumulate in f32; unlike
+    the reference's product they keep the softmax weights in f32 (the
+    tensor-core walk as a bf16 hi + lo pair) instead of rounding them to
+    the cache's dtype, so outputs may differ from the plain version by
+    2**-9 max|v| beyond one step of the output's dtype.  Returns
+    (R, Hq, Dv) in q's dtype."""
+    B, S, Hkv, D = k_cache.shape
+    page = math.gcd(S, 16)
+    W = S // page
+    k_pool = k_cache.view(B * W, page, Hkv, D)
+    v_pool = v_cache.view(B * W, page, Hkv, v_cache.shape[-1])
+    tables = torch.arange(B * W, dtype=torch.int32,
+                          device=q.device).view(B, W)
+    return paged_attention(q.contiguous(), k_pool, v_pool, tables,
+                           ctx.to(torch.int32), row_map=row_map)
+
+
+def decode_attention(q, k_cache, v_cache, ctx):
+    """q: (B,1,Hq,D); caches: (B,S,Hkv,D); row b attends slots [0,
+    ctx[b]).  CUDA tensors go through ``decode_attention_paged`` (no copy
+    of the caches); CPU tensors through ``decode_attention_plain``."""
+    if q.device.type == "cpu":
+        valid = torch.arange(k_cache.shape[1], device=q.device)[None, :] \
+            < ctx[:, None]
+        return decode_attention_plain(q, k_cache, v_cache, valid)
+    return decode_attention_paged(q, k_cache, v_cache, ctx)
+
+
+def decode_attention_paged(q, k_cache, v_cache, ctx):
+    """``decode_attention`` through ``slot_cache_attention``: one row per
+    request, each its own table row."""
+    B, _, Hq, D = q.shape
+    out = slot_cache_attention(q.reshape(B, Hq, D), k_cache, v_cache, ctx)
+    return out.reshape(B, 1, Hq, -1)
+
+
+def decode_attention_plain(q, k_cache, v_cache, valid):
+    """Plain version of ``decode_attention``: valid (B, S) bool.  Scores
+    and products in f32 (the reference's ``preferred_element_type``); the
     softmax weights are rounded to the cache's dtype before the product
     with V, as in the reference.  Long caches stream through
     ``decode_attention_blocked``."""

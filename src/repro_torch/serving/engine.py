@@ -56,6 +56,7 @@ from repro_torch.serving.batch_core import BatchConfig, BatchCore
 from repro_torch.serving.costmodel import CostModel
 from repro_torch.serving.kv_cache import (PagePool, make_pools,
                                           scatter_prefill)
+from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.weights import init_params, resolve_device
 
 
@@ -110,8 +111,6 @@ class ServingEngine:
             # and only chunked prefill can resume from a cached offset
             assert backend == "paged" and self.chunked, \
                 "prefix_cache requires the paged backend + chunked prefill"
-            raise NotImplementedError(
-                "prefix_cache is ROADMAP.md Queue A item 11")
         check_ported(cfg)
         if backend == "paged":
             if len(model_stages(cfg)) > 1:
@@ -184,6 +183,12 @@ class ServingEngine:
             # next admission to the slot overwrites
             self.cache = init_cache(cfg, max_slots, max_len,
                                     device=self.device)
+        if prefix_cache:
+            # a request admitted on a hit adopts the cached pages into its
+            # block table and starts prefilling at the cached offset: its
+            # chunk rows attend over the adopted pages in the same ragged
+            # launch
+            self.core.prefix_cache = PrefixCache(self.pool)
         self.slots: List[Optional[Request]] = [None] * max_slots
         self.running = self.core.running    # alias: core owns the batch
         self.reserved = self.core.reserved  # alias: core owns KV accounting

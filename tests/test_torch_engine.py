@@ -2,7 +2,8 @@
 bridged smoke weights (f32, CPU): first-token logits, greedy tokens,
 admissions, chunk plans and modeled TTFT under ``fcfs`` and ``equinox``
 (Oracle predictor), on both sides of the split-K threshold, with fp and
-int8 KV pages; the same for a single-stage full-attention MoE stack
+int8 KV pages; the same for the dense GQA configs DeepSeek-7B,
+Granite-3-2B and StarCoder2-7B and a single-stage full-attention MoE stack
 (the paged step's MoE branch); and the stacks the paged backend
 refuses."""
 import dataclasses
@@ -138,12 +139,13 @@ def test_int8_greedy_tokens_match_fp(weights):
 
 
 @pytest.mark.parametrize("kw", [
-    {"backend": "paged", "prefix_cache": True},
     # a windowed stack serves on slots; the paged backend refuses it with
     # the reference's assertion
-    {"backend": "paged", "cfg": dict(attn_kind="attn_local", window=16),
-     "raises": (AssertionError, "paged backend supports")},
-    {"cfg": dict(kv_quant=True)},
+    pytest.param({"backend": "paged",
+                  "cfg": dict(attn_kind="attn_local", window=16),
+                  "raises": (AssertionError, "paged backend supports")},
+                 id="kw1"),
+    pytest.param({"cfg": dict(kv_quant=True)}, id="kw2"),
 ])
 def test_options_outside_the_slice_raise(kw):
     """Options and stacks not ported yet raise, naming the ROADMAP item,
@@ -203,6 +205,29 @@ def test_moe_engine_matches_reference(kv_quant):
         tol = 5e-3 if kv_quant else 1e-4
         np.testing.assert_allclose(tr._first_row, jr._first_row, atol=tol,
                                    rtol=tol)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-7b", "granite-3-2b",
+                                  "starcoder2-7b"])
+def test_dense_configs_match_reference(arch):
+    """The paged chunked engine on the three dense GQA configs: MHA with a
+    102 400-token vocabulary (DeepSeek-7B), tied embeddings and G = 4
+    (Granite-3-2B), the GELU MLP and G = 3 (StarCoder2-7B; G = 9 at full
+    width); split-K tables (max_len 256)."""
+    cfgs = (SMOKE_FACTORIES[arch](), T_SMOKE[arch]())
+    jp = init_params(jax.random.key(11), cfgs[0])
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    j_done, j_spy, _ = serve("jax", jp, "equinox", 256, False, cfgs)
+    t_done, t_spy, _ = serve("torch", tp, "equinox", 256, False, cfgs)
+    assert len(t_done) == len(j_done) == 5
+    assert t_spy.order == j_spy.order              # admissions
+    assert t_spy.chunks == j_spy.chunks            # chunk plans
+    assert t_spy.tokens == j_spy.tokens            # greedy tokens
+    for rid, jr in j_done.items():
+        tr = t_done[rid]
+        assert tr.ttft() == pytest.approx(jr.ttft(), abs=1e-9)
+        np.testing.assert_allclose(tr._first_row, jr._first_row, atol=1e-4,
+                                   rtol=1e-4)
 
 
 def test_engine_defaults_to_cuda(monkeypatch):

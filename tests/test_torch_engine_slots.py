@@ -4,7 +4,8 @@ tokens, admission order, prefill plans and modeled TTFT for Llama-2 on
 ``backend="slots"`` (whole-prompt and chunked) and on ``backend="paged",
 chunked=False``, for DeepSeek-MoE (whole-prompt and chunked) and Mixtral
 (whole-prompt, sliding-window ring caches) on ``backend="slots"`` under
-``moe_impl`` ``dense`` and ``dispatch``, and for Mamba-2 on
+``moe_impl`` ``dense`` and ``dispatch``, for the dense GQA stacks
+DeepSeek-7B, Granite-3-2B and StarCoder2-7B, and for Mamba-2 on
 ``backend="slots"``; the engine's defaults resolve as the reference's
 do."""
 import dataclasses
@@ -126,6 +127,9 @@ def serve(side, arch, **kw):
      "flash"),
     ("mixtral-8x7b/dense", dict(backend="slots"), "flash"),
     ("mixtral-8x7b/dispatch", dict(backend="slots"), "flash"),
+    ("deepseek-7b", dict(backend="slots", chunked=False), "flash"),
+    ("granite-3-2b", dict(backend="slots"), None),
+    ("starcoder2-7b", dict(backend="slots", chunked=False), "flash"),
 ])
 def test_engine_matches_reference(arch, kw, kernel, monkeypatch):
     calls = []

@@ -22,6 +22,9 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 for name in names:
     importlib.import_module(name)
+for name in ("repro_torch.serving.prefix_cache", "repro_torch.core.simulator",
+             "repro_torch.serving.cluster", "repro_torch.configs.starcoder2_7b"):
+    assert name in names, name
 assert not any(k == "jax" or k.startswith(("jax.", "repro."))
                for k, v in sys.modules.items() if v is not None)
 from repro_torch.kernels import _build
@@ -35,7 +38,7 @@ def test_port_imports_without_jax_or_repro():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env,
                          capture_output=True, text=True, timeout=240)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 25      # every module was found
+    assert int(out.stdout.split()[-1]) >= 50      # every module was found
 
 
 def test_serve_launcher_on_cpu(capsys):

@@ -387,3 +387,62 @@ def test_mma_ssd_back_to_back_calls(cuda):
         assert ok, (shape, err)
         ok, err = within(st, pst, (0.0, 5e-4))
         assert ok, (shape, err)
+
+
+# the slot caches' attention through the paged kernels (models/attention.py)
+SLOT_CASES = {"mha_S1280": (8, 1280, 32, 32), "gqa9_S512": (8, 512, 36, 4),
+              "gqa4_ring4096": (4, 4096, 32, 8)}
+
+
+@pytest.mark.parametrize("case", sorted(SLOT_CASES))
+def test_slot_decode_attention_takes_no_f32_copy(cuda, case):
+    """``decode_attention`` on bf16 slot caches: the paged kernels, no
+    full-cache f32 copy (the extra peak memory of the call stays below
+    one f32 copy of the caches; the plain version's exceeds it), values
+    within the bound of the reference's bf16 rounding of the softmax
+    weights (2**-7 relative + 2**-9 max|v|, tests/
+    test_torch_slot_attention.py)."""
+    from repro_torch.models import attention as A
+
+    B, S, Hq, Hkv = SLOT_CASES[case]
+    g = torch.Generator(device=cuda).manual_seed(S)
+    q = torch.randn(B, 1, Hq, 128, generator=g, device=cuda).bfloat16()
+    k = torch.randn(B, S, Hkv, 128, generator=g, device=cuda).bfloat16()
+    v = torch.randn(B, S, Hkv, 128, generator=g, device=cuda).bfloat16()
+    pos = torch.randint(0, S + 64, (B,), generator=g, device=cuda)
+    ctx = A._decode_ctx(S, pos)
+    f32_copy = 2 * k.numel() * 4
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = pa.LAUNCHES["paged_attention_splitk:mma"]
+    out = A.decode_attention(q, k, v, ctx)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    assert extra < f32_copy, (extra, f32_copy)
+    assert pa.LAUNCHES["paged_attention_splitk:mma"] == before + 1
+    valid = torch.arange(S, device=cuda)[None] < ctx[:, None]
+    torch.cuda.reset_peak_memory_stats()
+    plain = A.decode_attention_plain(q, k, v, valid)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base >= f32_copy
+    ok, err = within(out, plain, (2 ** -7, 2 ** -9 * float(
+        v.float().abs().max())))
+    assert ok, err
+
+
+def test_slot_chunk_attention_matches_plain(cuda):
+    """A 512-row prefill chunk of StarCoder2-7B's shape (G = 9) over a
+    slot cache, through the paged kernels' tensor-core tiles."""
+    from repro_torch.models import attention as A
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q = torch.randn(1, 512, 36, 128, generator=g, device=cuda).bfloat16()
+    k = torch.randn(1, 1280, 4, 128, generator=g, device=cuda).bfloat16()
+    v = torch.randn(1, 1280, 4, 128, generator=g, device=cuda).bfloat16()
+    positions = (300 + torch.arange(512, device=cuda))[None]
+    out = A.chunk_attention_paged(q, k, v, positions)
+    plain = A.chunk_attention_plain(q, k, v, positions)
+    ok, err = within(out, plain, (2 ** -7, 2 ** -9 * float(
+        v.float().abs().max())))
+    assert ok, err

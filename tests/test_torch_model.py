@@ -1,7 +1,9 @@
 """The port's model assembly (``repro_torch.models.model``) against
 ``repro.models`` on bridged smoke weights (f32, CPU): ``prefill``,
 ``prefill_chunk`` and ``decode_step`` logits within 1e-4 and caches
-within 1e-5, for Llama-2, DeepSeek-MoE (a dense first layer, then MoE
+within 1e-5, for Llama-2, the dense GQA stacks DeepSeek-7B (MHA, a
+102 400-token vocabulary), Granite-3-2B (tied embeddings) and
+StarCoder2-7B (GELU MLP, G = 3 at smoke size), DeepSeek-MoE (a dense first layer, then MoE
 layers with shared experts) and Mixtral (MoE, sliding-window attention
 whose ring caches wrap) with ``attn_impl="flash"``, so the flash kernel's
 plain version runs, the MoE stacks under ``moe_impl`` ``dense`` and
@@ -29,7 +31,8 @@ from repro_torch.weights import init_params, params_from_numpy
 LOGIT_TOL, CACHE_TOL = 1e-4, 1e-5
 MOE = ["deepseek-moe-16b/dense", "deepseek-moe-16b/dispatch",
        "mixtral-8x7b/dense", "mixtral-8x7b/dispatch"]
-ARCHS = ["llama2-7b", "mamba2-2.7b"] + MOE
+DENSE = ["deepseek-7b", "granite-3-2b", "starcoder2-7b"]
+ARCHS = ["llama2-7b", "mamba2-2.7b"] + DENSE + MOE
 
 
 def port_config(cfg):
