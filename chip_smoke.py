@@ -20,8 +20,10 @@ The quickest proof that the port builds and serves on an NVIDIA H100:
    - flash attention (B = 1, Hq = 32, D = 128): S = 128, 1024 and 1000
      causal in bf16 and f32 (Hkv = 32), one windowed case (window 256),
      one GQA case (Hkv = 8), Mixtral-8x7B's prefill shape (S = 6144,
-     Hkv = 8, window 4096) in bf16, and Granite-3-2B's (S = 1024, Hkv =
-     8, D = 64) in bf16 and f32;
+     Hkv = 8, window 4096) in bf16, Granite-3-2B's (S = 1024, Hkv =
+     8, D = 64) in bf16 and f32, and MiniCPM3-4B's MLA prefill (Hq = Hkv
+     = 40, D = 96 for q and k, Dv = 64 for v) at S = 1024 and 1000 in
+     bf16 and f32;
    - the SSD scan at Mamba-2-2.7B's shape (H = 80, P = 64, G = 1, N =
      128, chunk 128): S = 128, 1024 and 1000 with bf16 and f32 x, S = 4096
      with bf16 x (2560 blocks, 32 chunks chained per head), and S = 1000
@@ -30,7 +32,13 @@ The quickest proof that the port builds and serves on an NVIDIA H100:
    version, a library yardstick where one exists, the bound); and the
    slots backend's decode attention at run D's shape through the paged
    kernels over the slot caches, against its f32 plain version, its
-   extra device memory asserted below one f32 copy of the caches;
+   extra device memory asserted below one f32 copy of the caches; the
+   same over int8 caches with their scales (run L's), within one bf16
+   step of the kernels' plain version and within ``int8_route_bound`` of
+   the reference's route, its extra memory below one bf16 copy of the
+   caches; and MLA's absorbed latent decode at run K's shape (``torch.bmm``
+   with f32 outputs over the latent cache), against its plain version,
+   its extra memory below one f32 copy of the latent cache;
 3. the engine at full width, a dozen requests from three clients under
    the Equinox scheduler with a MoPE predictor trained by the port:
      A  Llama-2-7B as registered (32 layers, d_model 4096, bf16; random
@@ -73,18 +81,30 @@ The quickest proof that the port builds and serves on an NVIDIA H100:
         ``least_kv`` routing, a flight recorder per replica: the counter
         replay of the replicas' events equals the live counters, and the
         windowed Jain of the merged trace is printed;
-   runs D, F and G decode over their slot caches through the split-K
+     K  MiniCPM3-4B as registered (62 layers, d_model 2560, 40 heads,
+        multi-head latent attention: q_lora 768, kv_lora 256, 64 + 32 QK,
+        v 64; d_ff 6400, vocab 73 448, untied, bf16; random weights from
+        a seed) on the slots backend, whole-prompt prefill through the
+        flash kernel at D = 96 / Dv = 64 (once per layer and prompt, 744
+        launches), the absorbed latent decode through ``torch.bmm`` (no
+        paged launch); its first tokens against a plain forward, prefill
+        + one decode step against the longer prefill;
+     L  run D with int8 slot caches (``cfg.kv_quant``): the same weights
+        and requests, decode through split-K over int8 pools with their
+        scales (once per layer and decode step, counted per pool dtype);
+        its first-token logits against run D's (prefill reads no cache),
+        the greedy-token agreement with D reported;
+   runs D, F, G and L decode over their slot caches through the split-K
    paged kernels (once per layer and decode step, asserted), and their
-   decode steps take less extra memory than an f32 copy of one layer's
-   caches;
+   decode steps, and K's, take less extra memory than an f32 copy of one
+   layer's caches (K: of its latent cache);
    plus a check of run A's first-token logits against a dense forward,
    and ``torch.profiler`` windows (device busy share, kernel launches and
    device time by kernel per iteration): decode-heavy windows of the
-   configurations of runs A, D, E, F, G and H, and prefill-heavy windows
-   of A
-   (iterations that carry 512-row chunks), D, E and G (the first
+   configurations of runs A, D-H, K and L, and prefill-heavy windows of
+   A (iterations that carry 512-row chunks), D, E, G and K (the first
    iteration: the whole prompts of the requests it admits);
-   runs A, B and D-J must go through the tensor-core (``mma``) variants
+   runs A, B and D-L must go through the tensor-core (``mma``) variants
    of their kernels and launch no ``fma`` variant, and no kernel a run
    does not expect;
 4. a ``kernels`` JSON line (launches per variant beside the totals), the
@@ -188,7 +208,8 @@ def main() -> int:
     kernel_rows = kernel_phase(torch, flush)
     kernel_rows.update(flash_phase(torch, flush))
     kernel_rows.update(ssd_phase(torch, flush))
-    slot_attention_phase(torch, flush)
+    kernel_rows["paged_attention_splitk"]["slot_int8_decode"] = \
+        slot_attention_phase(torch, flush)
     engine_phase(torch, kernel_rows)
 
     print(smi, flush=True)
@@ -494,18 +515,20 @@ def reset_launch_counts():
         mod.reset_launch_counts()
 
 
-def flash_bound(S, Hq, Hkv, D, causal, window, dtype):
+def flash_bound(S, Hq, Hkv, D, causal, window, dtype, Dv=None):
     """(ms, bound_by): q, k, v read and out written once over HBM
     bandwidth, against the multiply-adds of the (q, k) pairs the mask
-    keeps (QK^T and PV, 2 operations each) over the peak for the type."""
+    keeps (QK^T over D and PV over Dv, 2 operations each) over the peak
+    for the type."""
+    Dv = D if Dv is None else Dv
     elem = {"bfloat16": 2, "float32": 4}[dtype]
-    n_bytes = S * (2 * Hq + 2 * Hkv) * D * elem
+    n_bytes = S * (Hq * (D + Dv) + Hkv * (D + Dv)) * elem
     pairs = 0
     for qpos in range(S):
         lo = max(0, qpos - window + 1) if window else 0
         hi = qpos + 1 if causal else S
         pairs += hi - lo
-    flops = 2 * pairs * 2 * D * Hq
+    flops = 2 * pairs * (D + Dv) * Hq
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -514,12 +537,17 @@ def flash_bound(S, Hq, Hkv, D, causal, window, dtype):
 def flash_phase(torch, flush):
     """The flash-attention kernel against its plain version at the
     whole-prompt prefill shapes of Llama-2-7B (B = 1, 32 heads, D = 128),
-    Mixtral-8x7B (8 kv heads, window 4096, a 6144-token prompt) and
-    Granite-3-2B (8 kv heads of 64);
+    Mixtral-8x7B (8 kv heads, window 4096, a 6144-token prompt),
+    Granite-3-2B (8 kv heads of 64) and MiniCPM3-4B's MLA prefill (40
+    heads, D = 96 for q and k, Dv = 64 for v: the bf16 tile is 128 wide,
+    so 96-127 of Q/K and 64-127 of V are zero-filled columns; the line's
+    ``padded_mma_share`` is the share of the tile's multiply-adds those
+    columns take);
     library yardstick: ``scaled_dot_product_attention`` (a windowed case
     passes its mask as a boolean tensor), timed here only.  The kernels
-    line carries S1024 causal bf16; it and the Mixtral case add the
-    profiler's device time (``ms_by_kernel``)."""
+    line carries S1024 causal bf16 and MiniCPM3's S1024 bf16
+    (``mla_shape``); S1024 and the Mixtral case add the profiler's device
+    time (``ms_by_kernel``)."""
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
     F = torch.nn.functional
     dev = torch.device("cuda")
@@ -527,27 +555,35 @@ def flash_phase(torch, flush):
            "source": "src/repro_torch/csrc/flash_attention.cu",
            "replaces": "src/repro/kernels/flash_attention.py:93",
            "max_abs_err": 0.0}
-    cases = [(f"S{S}_causal", S, 32, 128, True, 0, dt)
+    # (name, S, Hq, Hkv, D, Dv, causal, window, dtype)
+    cases = [(f"S{S}_causal", S, 32, 32, 128, 128, True, 0, dt)
              for S in (128, 1024, 1000) for dt in ("bfloat16", "float32")]
-    cases += [("S1024_window256", 1024, 32, 128, True, 256, "bfloat16"),
-              ("S1024_gqa8", 1024, 8, 128, True, 0, "bfloat16"),
-              ("S6144_window4096_gqa8", 6144, 8, 128, True, 4096,
+    cases += [("S1024_window256", 1024, 32, 32, 128, 128, True, 256,
+               "bfloat16"),
+              ("S1024_gqa8", 1024, 32, 8, 128, 128, True, 0, "bfloat16"),
+              ("S6144_window4096_gqa8", 6144, 32, 8, 128, 128, True, 4096,
                "bfloat16")]
     # Granite-3-2B's prefill shape: 32 query heads over 8 kv heads of 64
-    cases += [("S1024_gqa8_d64", 1024, 8, 64, True, 0, dt)
+    cases += [("S1024_gqa8_d64", 1024, 32, 8, 64, 64, True, 0, dt)
               for dt in ("bfloat16", "float32")]
-    for ci, (name, S, Hkv, D, causal, window, dt) in enumerate(cases):
+    # MiniCPM3-4B's MLA prefill: 40 heads, D = 96 (64 + 32), Dv = 64
+    cases += [(f"S{S}_mla_d96_dv64", S, 40, 40, 96, 64, True, 0, dt)
+              for S in (1024, 1000) for dt in ("bfloat16", "float32")]
+    for ci, (name, S, Hq, Hkv, D, Dv, causal, window, dt) in enumerate(
+            cases):
         g = torch.Generator(device=dev).manual_seed(SEED + 100 + ci)
         dtype = getattr(torch, dt)
-        q = torch.randn(1, S, 32, D, generator=g, device=dev).to(dtype)
+        q = torch.randn(1, S, Hq, D, generator=g, device=dev).to(dtype)
         k = torch.randn(1, S, Hkv, D, generator=g, device=dev).to(dtype)
-        v = torch.randn(1, S, Hkv, D, generator=g, device=dev).to(dtype)
+        v = torch.randn(1, S, Hkv, Dv, generator=g, device=dev).to(dtype)
         tol = BF16_TOL if dt == "bfloat16" else F32_TOL
         out = fa.flash_attention_kernel(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         plain = fa.flash_attention_plain(q, k, v, causal=causal,
                                          window=window)
         err, ratio = tol_ratio(out, plain, tol)
+        check(out.shape == plain.shape == (1, S, Hq, Dv),
+              f"flash {name}/{dt}: output shape {tuple(out.shape)}")
         check(ratio <= 1, f"flash {name}/{dt}: kernel vs plain outside "
               f"tolerance {tol}: max abs error {err}, ratio {ratio}")
         check(bool(torch.isfinite(out.float()).all()),
@@ -562,19 +598,23 @@ def flash_phase(torch, flush):
         def library():
             return F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask, is_causal=mask is None,
-                enable_gqa=Hkv != 32)
+                enable_gqa=Hkv != Hq)
 
         line = {"phase": "kernels", "kernel": "flash_attention",
-                "case": name, "dtype": dt, "S": S, "Hq": 32, "Hkv": Hkv,
-                "D": D, "window": window, "rtol": tol[0], "atol": tol[1],
-                "max_abs_err": err, "tol_ratio": ratio,
+                "case": name, "dtype": dt, "S": S, "Hq": Hq, "Hkv": Hkv,
+                "D": D, "Dv": Dv, "window": window, "rtol": tol[0],
+                "atol": tol[1], "max_abs_err": err, "tol_ratio": ratio,
                 "ms": time_ms(torch, lambda: fa.flash_attention_kernel(
                     q, k, v, causal=causal, window=window), 20, flush),
                 "plain_ms": time_ms(torch, lambda: fa.flash_attention_plain(
                     q, k, v, causal=causal, window=window), 3, flush),
                 "library_ms": time_ms(torch, library, 10, flush)}
         line["bound_ms"], line["bound_by"] = flash_bound(
-            S, 32, Hkv, D, causal, window, dt)
+            S, Hq, Hkv, D, causal, window, dt, Dv)
+        if dt == "bfloat16" and D != Dv:
+            width = 128 if max(D, Dv) > 64 else 64
+            line["tile_width"] = width
+            line["padded_mma_share"] = 1 - (D + Dv) / (2 * width)
         if name in ("S1024_causal", "S6144_window4096_gqa8") \
                 and dt == "bfloat16":
             line["ms_by_kernel"] = device_ms_by_kernel(
@@ -589,6 +629,10 @@ def flash_phase(torch, flush):
                        bound_ms=line["bound_ms"], bound_by=line["bound_by"],
                        library_ms=line["library_ms"],
                        shape=f"{name}/{dt}")
+        if (name, dt) == ("S1024_mla_d96_dv64", "bfloat16"):
+            row["mla_shape"] = {k: line[k] for k in (
+                "case", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "tol_ratio", "padded_mma_share")}
     return {"flash_attention": row}
 
 
@@ -690,7 +734,9 @@ def ssd_phase(torch, flush):
 
 def slot_attention_phase(torch, flush):
     """The slots backend's decode attention (``models.attention.
-    decode_attention``) at run D's decode shape (8 slots of 1280 tokens,
+    decode_attention``), then run L's (``slot_int8_case``) and run K's
+    (``mla_latent_case``); returns the int8 case's times for the split-K
+    kernel's line.  At run D's decode shape (8 slots of 1280 tokens,
     32 heads of 128, bf16 caches): the paged kernels over a view of the
     caches as pages, held against its plain version (f32 products, the
     softmax weights rounded to bf16 as the reference rounds them) within
@@ -712,19 +758,9 @@ def slot_attention_phase(torch, flush):
     ctx = (pos + 1).clamp(max=S)
     valid = torch.arange(S, device=dev)[None] < ctx[:, None]
     f32_copy = 2 * k.numel() * 4
-
-    def with_peak(fn):
-        """fn's result and the device memory it took beyond the inputs."""
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, torch.cuda.max_memory_allocated() - base
-
-    got, extra = with_peak(lambda: decode_attention(q, k, v, ctx))
+    got, extra = with_peak(torch, lambda: decode_attention(q, k, v, ctx))
     plain, plain_extra = with_peak(
-        lambda: decode_attention_plain(q, k, v, valid))
+        torch, lambda: decode_attention_plain(q, k, v, valid))
     tol = (2 ** -7, 2 ** -9 * v.float().abs().max().item())
     err, ratio = tol_ratio(got, plain, tol)
     check(ratio <= 1, f"slot decode attention vs plain outside the weight-"
@@ -756,6 +792,164 @@ def slot_attention_phase(torch, flush):
             "bound_ms": (n_tok * H * D * 2 * 2 + 2 * q.numel() * 2)
             / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
     emit(line)
+    int8 = slot_int8_case(torch, flush, q, k, v, ctx, valid)
+    mla_latent_case(torch, flush)
+    return int8
+
+
+def with_peak(torch, fn):
+    """fn's result and the device memory it took beyond the inputs."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+def slot_int8_case(torch, flush, q, k_fp, v_fp, ctx, valid):
+    """Run L's decode attention: the same shape over int8 slot caches
+    with their bf16 per-(slot, head) scales (``cfg.kv_quant``), through
+    the split-K kernel over int8 pools.  Held against the kernels' plain
+    version on the same view (f32 dequantization: one bf16 step) and
+    against the plain version of the slots route (the reference's:
+    each dequantized value and weight rounded to bf16) within
+    ``int8_route_bound``; the ratio to the bound without the scores' term
+    (2**-7 |ref| + 2 x 2**-9 max|v|) is reported.  Its extra memory must
+    stay below one bf16 copy of the caches (what dequantizing them
+    whole would take).  Library yardstick: the caches dequantized to bf16,
+    then masked SDPA."""
+    from repro_torch.kernels.paged_attention import (
+        LAUNCHES, paged_attention_splitk_plain)
+    from repro_torch.models.attention import (decode_attention,
+                                              decode_attention_plain,
+                                              dequantize_kv,
+                                              int8_route_bound, quantize_kv)
+
+    B, S, H, D = k_fp.shape
+    (k, ks), (v, vs) = quantize_kv(k_fp), quantize_kv(v_fp)
+    bf16_copy = 2 * k.numel() * 2
+    before = LAUNCHES["paged_attention_splitk/int8"]
+    got, extra = with_peak(torch, lambda: decode_attention(
+        q, k, v, ctx, k_scale=ks, v_scale=vs))
+    check(LAUNCHES["paged_attention_splitk/int8"] == before + 1,
+          "slot int8 decode attention: no split-K launch over int8 pools")
+    page = 16
+    tables = torch.arange(B * S // page, dtype=torch.int32,
+                          device=q.device).view(B, -1)
+    same = paged_attention_splitk_plain(
+        q[:, 0], k.view(-1, page, H, D), v.view(-1, page, H, D), tables,
+        ctx.to(torch.int32), k_scale=ks.view(-1, page, H),
+        v_scale=vs.view(-1, page, H))
+    err, ratio = tol_ratio(got[:, 0], same, BF16_TOL)
+    ref, plain_extra = with_peak(torch, lambda: decode_attention_plain(
+        q, k, v, valid, k_scale=ks, v_scale=vs))
+    bound = int8_route_bound(q, k, v, ks, vs, ctx)
+    ref_err, ref_ratio = tol_ratio(got, ref, bound)
+    vmax = (v.float().abs().amax(-1) * vs.float())[valid].max().item()
+    _, sketch_ratio = tol_ratio(got, ref, (2 ** -7, 2 * 2 ** -9 * vmax))
+    check(ratio <= 1, f"slot int8 decode attention vs the kernels' plain "
+          f"version outside {BF16_TOL}: max abs error {err}, ratio {ratio}")
+    check(ref_ratio <= 1, f"slot int8 decode attention vs the reference's "
+          f"route outside int8_route_bound {bound}: max abs error "
+          f"{ref_err}, ratio {ref_ratio}")
+    check(bool(torch.isfinite(got.float()).all()),
+          "slot int8 decode attention: non-finite output")
+    check(extra < bf16_copy, f"slot int8 decode attention took {extra} B "
+          f"of extra device memory, not below one bf16 copy of the caches "
+          f"({bf16_copy} B)")
+    F = torch.nn.functional
+
+    def library():
+        kd, vd = (dequantize_kv(c, sc, torch.bfloat16).transpose(1, 2)
+                  for c, sc in ((k, ks), (v, vs)))
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), kd, vd, attn_mask=valid[:, None, None])
+
+    n_tok = int(ctx.sum())
+    line = {"phase": "slot_attention", "case": "decode8_S1280_mha_int8",
+          "shape": [B, S, H, D], "dtype": "bfloat16/int8",
+          "rtol": BF16_TOL[0], "atol": BF16_TOL[1], "max_abs_err": err,
+          "tol_ratio": ratio, "ref_bound": list(bound),
+          "ref_max_abs_err": ref_err, "ref_bound_ratio": ref_ratio,
+          "ref_ratio_without_score_term": sketch_ratio,
+          "extra_peak_bytes": extra, "plain_extra_peak_bytes": plain_extra,
+          "bf16_copy_bytes": bf16_copy,
+          "ms": time_ms(torch, lambda: decode_attention(
+              q, k, v, ctx, k_scale=ks, v_scale=vs), 20, flush),
+          "plain_ms": time_ms(torch, lambda: decode_attention_plain(
+              q, k, v, valid, k_scale=ks, v_scale=vs), 5, flush),
+          "library_ms": time_ms(torch, library, 10, flush),
+          "bound_ms": (n_tok * H * (2 * D + 2 * 2) + 2 * q.numel() * 2)
+          / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    emit(line)
+    return {k: line[k] for k in ("case", "ms", "plain_ms", "library_ms",
+                                 "bound_ms", "bound_by", "tol_ratio",
+                                 "ref_bound_ratio")}
+
+
+def mla_latent_case(torch, flush):
+    """Run K's decode attention: MiniCPM3-4B's absorbed latent decode (8
+    slots of 1280, 40 heads, latent 256, rotary 32, bf16), its products
+    ``torch.bmm`` with f32 outputs over the caches in place
+    (``mla_decode_attention_bmm``), against its plain version (f32
+    products over f32 copies; both round the weights to bf16, so a
+    weight may round the other way: 2**-8 max|c|).  Its extra memory
+    must stay below one f32 copy of ``c``.  Library yardstick: masked
+    SDPA over [c, k_rope] as one kv head (a copy of the caches)."""
+    from repro_torch.models.attention import (mla_decode_attention,
+                                              mla_decode_attention_plain)
+
+    dev = torch.device("cuda")
+    B, S, H, r, dr = 8, MAX_LEN_SLOTS, 40, 256, 32
+    scale = 96 ** -0.5
+    g = torch.Generator(device=dev).manual_seed(SEED + 301)
+    q_lat = torch.randn(B, 1, H, r, generator=g, device=dev).bfloat16()
+    q_rope = torch.randn(B, 1, H, dr, generator=g, device=dev).bfloat16()
+    c = torch.randn(B, S, r, generator=g, device=dev).bfloat16()
+    kr = torch.randn(B, S, dr, generator=g, device=dev).bfloat16()
+    ctx = torch.randint(1, S + 1, (B,), generator=g, device=dev)
+    valid = torch.arange(S, device=dev)[None] < ctx[:, None]
+    f32_copy = c.numel() * 4
+    got, extra = with_peak(torch, lambda: mla_decode_attention(
+        q_lat, q_rope, c, kr, ctx, scale))
+    plain, plain_extra = with_peak(torch, lambda: mla_decode_attention_plain(
+        q_lat, q_rope, c, kr, ctx, scale))
+    tol = (1e-5, 2 ** -8 * c.float().abs().max().item())
+    err, ratio = tol_ratio(got, plain, tol)
+    check(ratio <= 1, f"MLA latent decode attention vs plain outside {tol}: "
+          f"max abs error {err}, ratio {ratio}")
+    check(bool(torch.isfinite(got).all()),
+          "MLA latent decode attention: non-finite output")
+    check(extra < f32_copy, f"MLA latent decode attention took {extra} B "
+          f"of extra device memory, not below one f32 copy of c "
+          f"({f32_copy} B)")
+    F = torch.nn.functional
+
+    def library():
+        qq = torch.cat([q_lat, q_rope], -1).transpose(1, 2)   # (B, H, 1, .)
+        kk = torch.cat([c, kr], -1)[:, None]                  # (B, 1, S, .)
+        return F.scaled_dot_product_attention(
+            qq, kk, c[:, None], attn_mask=valid[:, None, None], scale=scale,
+            enable_gqa=True)
+
+    n_tok = int(ctx.sum())
+    t_bytes = n_tok * (r + dr) * 2 / HBM_BYTES_PER_S * 1e3
+    t_ops = n_tok * H * 2 * (2 * r + dr) / PEAK_FLOPS["bfloat16"] * 1e3
+    emit({"phase": "slot_attention", "case": "mla_latent_decode8_S1280_h40",
+          "shape": [B, S, H, r, dr], "dtype": "bfloat16", "rtol": tol[0],
+          "atol": tol[1], "max_abs_err": err, "tol_ratio": ratio,
+          "extra_peak_bytes": extra, "plain_extra_peak_bytes": plain_extra,
+          "f32_copy_bytes": f32_copy,
+          "ms": time_ms(torch, lambda: mla_decode_attention(
+              q_lat, q_rope, c, kr, ctx, scale), 20, flush),
+          "plain_ms": time_ms(torch, lambda: mla_decode_attention_plain(
+              q_lat, q_rope, c, kr, ctx, scale), 5, flush),
+          "library_ms": time_ms(torch, library, 10, flush),
+          "bound_ms": max(t_bytes, t_ops),
+          "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+
+
 
 
 # ---------------------------------------------------------------------------
@@ -956,11 +1150,18 @@ def serve(torch, run, model, max_len, short, expect, long_prompts=0,
             "prefill_rows_per_step_mean": float(pre[:, 1].mean()),
             "ttft_model_s_p50": float(np.percentile(ttft, 50)),
             "ttft_model_s_p90": float(np.percentile(ttft, 90)),
+            "slot_kv_quant": cfg.kv_quant,
             "service": {k: round(v, 1) for k, v in sched.service.items()},
             "jain": jain(list(sched.service.values())),
             "preemptions": eng.n_preemptions, "launches": launches,
             "start_mem_gib": start_gib,
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    if eng.backend == "slots":
+        by_name = defaultdict(int)
+        for st in eng.cache["stages"].values():
+            for name, t in st.items():
+                by_name[name] += t.numel() * t.element_size()
+        line["slot_cache_bytes"] = dict(by_name)
     if eng.core.prefix_cache is not None:
         st = eng.core.prefix_cache.stats
         line["prefix_cache"] = {"lookups": st.lookups, "hits": st.hits,
@@ -989,7 +1190,7 @@ def engine_phase(torch, kernel_rows):
     # D, F, G (bf16 prefill; slots decode over the caches viewed as
     # pages) and E (bf16 SSD scan) go through the tensor-core ("mma")
     # variants
-    paged = {name: False for name in launch_counts()}
+    paged = {name: False for name in launch_counts() if "/" not in name}
     splitk_mma = {"paged_attention_splitk": True,
                   "paged_attention_splitk:mma": True}
     # whole-prompt prefill through flash, decode over the slot caches
@@ -1014,11 +1215,27 @@ def engine_phase(torch, kernel_rows):
     # reported, not asserted: int8 pages may flip a near-tie argmax
     agree = np.mean([tok_a[rid] == tok_b[rid] for rid in tok_a])
     emit({"phase": "engine", "greedy_agreement_fp_vs_int8": float(agree)})
-    _, first_d, runs["D"], _ = serve(torch, "D", llama, MAX_LEN_SLOTS,
-                                     False, slots_attn, backend="slots",
-                                     chunked=False)
-    first_token_check(first_d, first_a)
+    tok_d, first_d, runs["D"], _ = serve(
+        torch, "D", llama, MAX_LEN_SLOTS, False,
+        dict(slots_attn, **{"paged_attention_splitk/bf16": "per_layer_decode",
+                            "paged_attention_splitk/int8": False}),
+        backend="slots", chunked=False)
+    first_token_check(first_d, first_a, "D vs A")
     dense_check(torch, llama[1], llama[0], first_a)
+    # run L: D with int8 slot caches and their scales (cfg.kv_quant): the
+    # same weights, requests, cost model and predictor; decode through
+    # split-K over int8 pools
+    quant = (dataclasses.replace(llama[0], kv_quant=True),) + llama[1:]
+    tok_l, first_l, runs["L"], _ = serve(
+        torch, "L", quant, MAX_LEN_SLOTS, False,
+        dict(slots_attn, **{"paged_attention_splitk/int8": "per_layer_decode",
+                            "paged_attention_splitk/bf16": False}),
+        backend="slots", chunked=False)
+    # prefill does not read the caches: L's first tokens are D's
+    first_token_check(first_l, first_d, "L vs D")
+    # reported, not asserted: int8 caches may flip a near-tie argmax
+    emit({"phase": "engine", "greedy_agreement_D_vs_L": float(np.mean(
+        [tok_d[rid] == tok_l[rid] for rid in tok_d]))})
     runs["J"] = cluster_run(torch, llama, dict(paged, **splitk_mma))
 
     def profiled(run, model, max_len, window="decode", long_prompts=0,
@@ -1036,7 +1253,9 @@ def engine_phase(torch, kernel_rows):
                            chunked=False))
     profiled("D", llama, MAX_LEN_SLOTS, "prefill", backend="slots",
              chunked=False)
-    del llama
+    no_casts("L", profiled("L", quant, MAX_LEN_SLOTS, backend="slots",
+                           chunked=False))
+    del llama, quant
     torch.cuda.empty_cache()
 
     mamba = setup(torch, "mamba2-2.7b")
@@ -1110,23 +1329,51 @@ def engine_phase(torch, kernel_rows):
     gc.collect()
     torch.cuda.empty_cache()
 
-    emit({"phase": "engine", "launches_by_run": runs})
+    # MiniCPM3-4B: MLA, whole-prompt prefill through flash at D = 96 /
+    # Dv = 64, absorbed latent decode (torch.bmm, no paged kernel)
+    minicpm = setup(torch, "minicpm3-4b")
+    _, first_k, runs["K"], _ = serve(
+        torch, "K", minicpm, MAX_LEN_SLOTS, False,
+        dict(paged, flash_attention="per_layer_prefill",
+             **{"flash_attention:mma": "per_layer_prefill"}),
+        backend="slots", chunked=False)
+    n_flash = minicpm[0].n_layers * len(first_k)
+    check(runs["K"]["flash_attention:mma"] == n_flash,
+          f"run K: flash_attention:mma launched "
+          f"{runs['K']['flash_attention:mma']} times, not {n_flash}")
+    dense_check(torch, minicpm[1], minicpm[0], first_k)
+    decode_consistency(torch, minicpm[1], minicpm[0])
+    no_casts("K", profiled("K", minicpm, MAX_LEN_SLOTS, backend="slots",
+                           chunked=False), paged=False)
+    profiled("K", minicpm, MAX_LEN_SLOTS, "prefill", backend="slots",
+             chunked=False)
+    del minicpm
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    emit({"phase": "engine", "launches_by_run": {
+        run: {k: n for k, n in r.items() if n} for run, r in runs.items()}})
     for name, row in kernel_rows.items():
         row["launches"] = sum(r[name] for r in runs.values())
         variants = {k.split(":")[1]: sum(r[k] for r in runs.values())
                     for k in runs["A"] if k.startswith(f"{name}:")}
         if variants:
             row["launches_by_variant"] = variants
+        pools = {k.split("/")[1]: sum(r[k] for r in runs.values())
+                 for k in runs["A"] if k.startswith(f"{name}/")}
+        if pools:
+            row["launches_by_pools"] = pools
 
 
-def no_casts(run, line):
+def no_casts(run, line, paged=True):
     """A slots decode window reads its caches in their dtype: the paged
-    kernels run in it, and a decode step's extra device memory stays
-    below an f32 copy of one layer's slot caches (the f32 casts that
-    the plain products made, layer after layer)."""
+    kernels run in it (``paged``; MLA's latent decode runs none), and a
+    decode step's extra device memory stays below an f32 copy of one
+    layer's slot caches (the f32 casts that the plain products made,
+    layer after layer)."""
     ours = " ".join(line["port_kernels_ms_per_iteration"])
-    check("paged_attention_mma_kernel" in ours, f"run {run}: the decode "
-          f"window launched no paged kernel: {ours}")
+    check(not paged or "paged_attention_mma_kernel" in ours, f"run {run}: "
+          f"the decode window launched no paged kernel: {ours}")
     check(line["decode_step_extra_peak_bytes"]
           < line["layer_cache_f32_copy_bytes"], f"run {run}: a decode step "
           f"took {line['decode_step_extra_peak_bytes']} B beyond its "
@@ -1323,26 +1570,29 @@ def replay_cluster(trace, metas, routed_to):
     return telemetry.scheduler_counters(scheds[0])
 
 
-def first_token_check(firsts, ref):
-    """Run D's first-token logits (whole-prompt prefill through the flash
-    kernel) against run A's (chunked paged prefill through the paged
-    kernels) for the same prompts and weights: equal argmax, max
-    difference within DENSE_REL_TOL of the largest logit."""
-    worst, n_equal = 0.0, 0
+def first_token_check(firsts, ref, runs):
+    """One run's first-token logits against another's for the same
+    prompts and weights (``runs``: "D vs A": whole-prompt prefill through
+    the flash kernel against chunked paged prefill through the paged
+    kernels; "L vs D": int8 slot caches against bf16 ones, whose prefill
+    reads no cache): equal argmax, max difference within DENSE_REL_TOL
+    of the largest logit; rows equal bit for bit are counted."""
+    worst, n_equal, n_bitwise = 0.0, 0, 0
     for rid, (toks, row) in firsts.items():
         ref_toks, ref_row = ref[rid]
         check(np.array_equal(toks, ref_toks), f"rid {rid}: prompts differ "
-              "between runs A and D")
+              f"between runs {runs}")
         rel = float(np.abs(row - ref_row).max() / np.abs(ref_row).max())
         worst = max(worst, rel)
         n_equal += int(np.argmax(row)) == int(np.argmax(ref_row))
-    emit({"phase": "first_token_check", "runs": "D vs A",
+        n_bitwise += int(np.array_equal(row, ref_row))
+    emit({"phase": "first_token_check", "runs": runs,
           "requests": len(firsts), "argmax_equal": n_equal,
-          "max_rel_err": worst})
-    check(n_equal == len(firsts), f"run D: first-token argmax differs from "
-          f"run A's on {len(firsts) - n_equal} of {len(firsts)} requests")
-    check(worst < DENSE_REL_TOL, f"run D: first-token logits differ from "
-          f"run A's by {worst} (relative)")
+          "rows_bitwise_equal": n_bitwise, "max_rel_err": worst})
+    check(n_equal == len(firsts), f"runs {runs}: first-token argmax "
+          f"differs on {len(firsts) - n_equal} of {len(firsts)} requests")
+    check(worst < DENSE_REL_TOL, f"runs {runs}: first-token logits differ "
+          f"by {worst} (relative)")
 
 
 def decode_consistency(torch, params, cfg, n=300):
@@ -1449,14 +1699,25 @@ def profile_window(torch, run, eng, reqs, window="decode"):
                 {"name": e.key[:80],
                  "ms_per_iteration": dev_us(e) / 1e3 / steps,
                  "calls_per_iteration": e.count / steps} for e in top]}
+    # the device time of the kernels each batched product launched (MLA's
+    # latent decode, MoE's experts)
+    bmm = [e for e in prof.key_averages() if e.key == "aten::bmm"]
+    if bmm:
+        line["aten_bmm_device_ms_per_iteration"] = sum(
+            getattr(e, "device_time_total", getattr(e, "cuda_time_total",
+                                                    0.0)) for e in bmm) \
+            / 1e3 / steps
+        line["aten_bmm_calls_per_iteration"] = sum(e.count
+                                                   for e in bmm) / steps
     if reduced_of(eng.cfg):
         line["reduced"] = reduced_of(eng.cfg)
     if window == "decode" and eng.backend == "slots":
         # one more decode step over every slot, alone: the device memory
         # it takes beyond what is allocated (an f32 copy of a layer's
         # slot caches, had the attention made one)
+        # MLA: an f32 copy of one layer's latent cache c
         f32_copy = max((sum(t[0].numel() * 4 for name, t in st.items()
-                            if name in ("k", "v"))
+                            if name in (("c",) if "c" in st else ("k", "v")))
                         for st in eng.cache["stages"].values()), default=0)
         if f32_copy:
             torch.cuda.synchronize()
@@ -1489,7 +1750,8 @@ def _leaves(tree):
 
 def plain_attention(torch, q, k, v, window, heads=8):
     """Causal (and windowed) attention of one prompt, scores in f32,
-    ``heads`` query heads at a time.  q (S, Hq, D), k/v (S, Hkv, D)."""
+    ``heads`` query heads at a time.  q (S, Hq, D), k (S, Hkv, D), v (S,
+    Hkv, Dv)."""
     S, H, hd = q.shape
     G = H // k.shape[1]
     k, v = (t.repeat_interleave(G, dim=1).float() for t in (k, v))
@@ -1497,7 +1759,7 @@ def plain_attention(torch, q, k, v, window, heads=8):
     keep = pos[None] <= pos[:, None]
     if window:
         keep &= pos[None] > pos[:, None] - window
-    out = torch.empty((S, H, hd), device=q.device)
+    out = torch.empty((S, H, v.shape[-1]), device=q.device)
     for h in range(0, H, heads):
         s = torch.einsum("shd,thd->hst", q[:, h:h + heads].float(),
                          k[:, h:h + heads]) * hd ** -0.5
@@ -1507,10 +1769,30 @@ def plain_attention(torch, q, k, v, window, heads=8):
     return out.to(q.dtype)
 
 
+def mla_plain(torch, lp, h, pos, cfg, window):
+    """One MLA layer's attention output for one prompt h (S, d), expanded
+    as in prefill: the port's projections (``_mla_qkv``), attention by
+    ``plain_attention``."""
+    from repro_torch.models.attention import _mla_qkv
+
+    m, H = cfg.mla, cfg.n_heads
+    q_nope, q_rope, c, k_rope = _mla_qkv(lp, h[None], pos[None], cfg)
+    kv = (c[0] @ lp["wkv_b"].reshape(m.kv_lora_rank, -1)).reshape(
+        -1, H, m.qk_nope_head_dim + m.v_head_dim)
+    S = h.shape[0]
+    q = torch.cat([q_nope[0], q_rope[0]], -1)
+    k = torch.cat([kv[..., :m.qk_nope_head_dim], k_rope[0][:, None].expand(
+        S, H, m.qk_rope_head_dim)], -1)
+    o = plain_attention(torch, q, k, kv[..., m.qk_nope_head_dim:], window)
+    return o.reshape(S, -1) @ lp["wo"].reshape(H * m.v_head_dim, -1)
+
+
 def dense_check(torch, params, cfg, firsts, n=3, rids=None):
     """The served first-token logits of ``n`` requests (or of ``rids``)
     against a plain forward of the same weights, one prompt at a time:
-    attention without pools or kernels, the port's MLP and MoE FFN."""
+    attention without pools or kernels (MLA expanded, as in prefill), the
+    port's MLP and MoE FFN."""
+    from repro_torch.configs.base import ATTN_MLA
     from repro_torch.models.layers import apply_rope, embed, rmsnorm, unembed
     from repro_torch.models.model import (ffn_forward, layer_params,
                                           model_stages, window_for)
@@ -1529,15 +1811,20 @@ def dense_check(torch, params, cfg, firsts, n=3, rids=None):
                 for i in range(count):
                     h = rmsnorm({"scale": st["ln1"]["scale"][i]}, x,
                                 cfg.norm_eps)
-                    q, k, v = (h @ st["attn"][w][i].reshape(cfg.d_model, -1)
-                               for w in ("wq", "wk", "wv"))
-                    q = apply_rope(q.reshape(S, H, hd), pos, cfg.rope_theta)
-                    k = apply_rope(k.reshape(S, Hkv, hd), pos,
-                                   cfg.rope_theta)
-                    o = plain_attention(torch, q, k, v.reshape(S, Hkv, hd),
-                                        window)
-                    x = x + o.reshape(S, -1) @ st["attn"]["wo"][i].reshape(
-                        H * hd, -1)
+                    if kind == ATTN_MLA:
+                        x = x + mla_plain(torch, layer_params(st["attn"], i),
+                                          h, pos, cfg, window)
+                    else:
+                        q, k, v = (h @ st["attn"][w][i].reshape(
+                            cfg.d_model, -1) for w in ("wq", "wk", "wv"))
+                        q = apply_rope(q.reshape(S, H, hd), pos,
+                                       cfg.rope_theta)
+                        k = apply_rope(k.reshape(S, Hkv, hd), pos,
+                                       cfg.rope_theta)
+                        o = plain_attention(torch, q, k,
+                                            v.reshape(S, Hkv, hd), window)
+                        x = x + o.reshape(S, -1) @ st["attn"]["wo"][
+                            i].reshape(H * hd, -1)
                     h2 = rmsnorm({"scale": st["ln2"]["scale"][i]}, x,
                                  cfg.norm_eps)
                     x = x + ffn_forward(layer_params(st["ffn"], i), h2, cfg,

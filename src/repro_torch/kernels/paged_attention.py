@@ -41,8 +41,10 @@ probabilities are multiplied by the mask, and ``l`` is clamped at 1e-30.
 
 A wrapper runs the plain version only when its tensors lie on the CPU
 (the tests).  On CUDA tensors it launches the kernel or raises; there is
-no fallback.  ``LAUNCHES`` counts kernel launches per wrapper, so a run
-can show that the serving path went through the kernels.
+no fallback.  ``LAUNCHES`` counts kernel launches per wrapper, per
+wrapper and variant (``paged_attention_splitk:mma``) and per wrapper and
+pool dtype (``paged_attention_splitk/int8``), so a run can show that the
+serving path went through the kernels, and over which pools.
 """
 from __future__ import annotations
 
@@ -61,10 +63,13 @@ _MAX_SMEM = 48 * 1024
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 VARIANTS = ("mma", "fma")
-# launches per wrapper, and per wrapper and variant ("paged_attention:mma")
+POOLS = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "int8"}
+# launches per wrapper, per wrapper and variant ("paged_attention:mma")
+# and per wrapper and pool dtype ("paged_attention/int8")
 LAUNCHES: Dict[str, int] = {
     f"{name}{tag}": 0 for name in ("paged_attention", "paged_attention_splitk")
-    for tag in ("",) + tuple(f":{v}" for v in VARIANTS)}
+    for tag in ("",) + tuple(f":{v}" for v in VARIANTS)
+    + tuple(f"/{p}" for p in POOLS.values())}
 
 
 def reset_launch_counts() -> None:
@@ -359,9 +364,10 @@ def _mma(q, k_pool, v_pool, block_tables, ctx_lens, row_map, k_scale,
             _DTYPE_CODE[k_pool.dtype], stream)
 
 
-def _count(name: str, var: str):
+def _count(name: str, var: str, pools: torch.dtype):
     LAUNCHES[name] += 1
     LAUNCHES[f"{name}:{var}"] += 1
+    LAUNCHES[f"{name}/{POOLS[pools]}"] += 1
 
 
 def _serial_cuda(q, k_pool, v_pool, block_tables, ctx_lens, row_map,
@@ -389,7 +395,7 @@ def _serial_cuda(q, k_pool, v_pool, block_tables, ctx_lens, row_map,
                 *_shape_args(q, k_pool, v_pool, block_tables, k_scale),
                 stream)
     _raise_on(rc, f"paged_attention_serial ({var})")
-    _count("paged_attention", var)
+    _count("paged_attention", var, k_pool.dtype)
     return (out, m, l) if return_stats else out
 
 
@@ -428,7 +434,7 @@ def _splitk_cuda(q, k_pool, v_pool, block_tables, ctx_lens, row_map,
                 *_shape_args(q, k_pool, v_pool, block_tables, k_scale),
                 stream)
     _raise_on(rc, f"paged_attention_splitk ({var})")
-    _count("paged_attention_splitk", var)
+    _count("paged_attention_splitk", var, k_pool.dtype)
     return (out, m, l) if return_stats else out
 
 

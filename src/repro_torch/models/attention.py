@@ -1,6 +1,7 @@
-"""Attention: dense GQA (full or sliding-window masks), int8 KV quantization.
+"""Attention: dense GQA (full or sliding-window masks), MLA, int8 KV
+quantization.
 
-Port of ``repro/models/attention.py`` (GQA, not MLA or cross-attention).
+Port of ``repro/models/attention.py`` (GQA and MLA, not cross-attention).
 Two implementations share one math definition:
 
 - ``naive_attention`` materialises the scores; the smoke configs and the
@@ -15,10 +16,15 @@ Attention over a slot cache (a decode step, or a prefill chunk against
 the prompt's cached prefix) keeps the cache in its dtype, as the
 reference does with ``preferred_element_type=f32``: on CUDA tensors it
 runs through the hand-written paged-attention kernels over a view of the
-cache as a pool of pages (``slot_cache_attention``); on CPU tensors the
-plain products below run, in f32.  Slot caches are written in place (the
-reference returns updated copies); a write past the cache's length is
-dropped, as the reference's masked select drops it.
+cache as a pool of pages (``slot_cache_attention``; int8 caches with
+their bf16 scales too); on CPU tensors the plain products below run, in
+f32.  MLA decode attends in the latent space (``mla_decode``): its cache
+(the latent ``c`` and the shared rotary key) has no page layout the
+paged kernels take, so its products are ``torch.bmm`` calls with f32
+outputs over the cache in place on CUDA, f32 products on the CPU.  Slot
+caches are written in place (the reference returns updated copies); a
+write past the cache's length is dropped, as the reference's masked
+select drops it.
 """
 from __future__ import annotations
 
@@ -28,7 +34,7 @@ import torch
 
 from repro_torch.kernels.flash_attention import flash_attention_kernel
 from repro_torch.kernels.ops import paged_attention
-from repro_torch.models.layers import apply_rope, dense_init
+from repro_torch.models.layers import apply_rope, dense_init, rmsnorm
 
 NEG_INF = -1e30
 
@@ -184,24 +190,39 @@ def chunk_attention_plain(q, k_cache, v_cache, positions):
     return out.reshape(B, C, -1, v_cache.shape[-1]).to(q.dtype)
 
 
-def gqa_decode(params, x, k_cache, v_cache, pos, cfg, *, window=0):
-    """One-token decode over fp caches.  x: (B, 1, d); caches
-    (B, S_cache, Hkv, D), written in place; pos: (B,) int32 per-request
-    positions (continuous batching).
+def gqa_decode(params, x, k_cache, v_cache, pos, cfg, *, window=0,
+               k_scale=None, v_scale=None):
+    """One-token decode.  x: (B, 1, d); caches (B, S_cache, Hkv, D),
+    written in place; pos: (B,) int32 per-request positions (continuous
+    batching).
 
     Full attention: write at index ``pos[b]``; valid = idx <= pos[b].
     Windowed: circular write at ``pos[b] % S_cache``; valid = newest
-    ``window`` entries."""
+    ``window`` entries.  With ``cfg.kv_quant`` the caches are int8 with
+    per-(token, head) bf16 scales ``k_scale``/``v_scale`` (B, S_cache,
+    Hkv), written in place beside them."""
     S_cache = k_cache.shape[1]
     posv = pos[:, None]
     q = apply_rope(_project(x, params["wq"]), posv, cfg.rope_theta)
     k = apply_rope(_project(x, params["wk"]), posv, cfg.rope_theta)
     v = _project(x, params["wv"])
     slot = pos % S_cache if window else pos
-    _cache_write(k_cache, k[:, 0], slot)
-    _cache_write(v_cache, v[:, 0], slot)
-    out = decode_attention(q, k_cache, v_cache, _decode_ctx(S_cache, pos))
-    return _out_project(out, params["wo"]), (k_cache, v_cache)
+    quant = k_scale is not None
+    if quant:
+        kq, ks = quantize_kv(k[:, 0])
+        vq, vs = quantize_kv(v[:, 0])
+        for cache, new in ((k_cache, kq), (v_cache, vq), (k_scale, ks),
+                           (v_scale, vs)):
+            _cache_write(cache, new, slot)
+    else:
+        _cache_write(k_cache, k[:, 0], slot)
+        _cache_write(v_cache, v[:, 0], slot)
+    out = decode_attention(q, k_cache, v_cache, _decode_ctx(S_cache, pos),
+                           k_scale=k_scale, v_scale=v_scale)
+    y = _out_project(out, params["wo"])
+    if quant:
+        return y, (k_cache, v_cache, k_scale, v_scale)
+    return y, (k_cache, v_cache)
 
 
 # ---------------------------------------------------------------------------
@@ -225,7 +246,8 @@ def dequantize_kv(q, scale, dtype=torch.bfloat16):
 def _cache_write(cache, token, slot):
     """Write one token per request at per-request slots, in place.
 
-    cache (B, S, ...), token (B, ...), slot (B,).  A slot outside [0, S)
+    cache (B, S, ...), token (B, ...), slot (B,); a cache of int8 values
+    or of their (B, S, Hkv) scales alike.  A slot outside [0, S)
     writes nothing, as the reference's masked select writes nothing: the
     row's clamped slot gets its own value back.  No host sync."""
     B, S = cache.shape[:2]
@@ -250,7 +272,8 @@ def _decode_ctx(S_cache, pos):
 DECODE_BLOCK_THRESHOLD = 8192      # blockwise path for long caches
 
 
-def slot_cache_attention(q, k_cache, v_cache, ctx, row_map=None):
+def slot_cache_attention(q, k_cache, v_cache, ctx, row_map=None,
+                         k_scale=None, v_scale=None):
     """Attention of query rows over contiguous slot caches, through the
     paged-attention kernels (``kernels.ops.paged_attention``).
 
@@ -258,51 +281,94 @@ def slot_cache_attention(q, k_cache, v_cache, ctx, row_map=None):
     slots [0, ctx[r]) of cache row ``row_map[r]`` (int32; default r).
     The caches are viewed, without a copy, as pools of B * S / page
     pages of page = gcd(S, 16) slots, with an identity block table:
-    table row b holds pages [b * S / page, (b + 1) * S / page).  The
-    kernels read the caches in their dtype and accumulate in f32; unlike
-    the reference's product they keep the softmax weights in f32 (the
-    tensor-core walk as a bf16 hi + lo pair) instead of rounding them to
-    the cache's dtype, so outputs may differ from the plain version by
-    2**-9 max|v| beyond one step of the output's dtype.  Returns
-    (R, Hq, Dv) in q's dtype."""
+    table row b holds pages [b * S / page, (b + 1) * S / page).  int8
+    caches pass their (B, S, Hkv) bf16 scales, viewed as (B * S / page,
+    page, Hkv) by the same rule.  The kernels read the caches in their
+    dtype and accumulate in f32; unlike the reference's product they keep
+    the softmax weights in f32 (the tensor-core walk as a bf16 hi + lo
+    pair) instead of rounding them to the cache's dtype, so outputs may
+    differ from the plain version by 2**-9 max|v| beyond one step of the
+    output's dtype; int8 values are dequantized in f32, where the
+    reference rounds each to bf16 (``decode_attention_blocked``; the
+    bound is ``int8_route_bound``).  Returns (R, Hq, Dv) in q's dtype."""
     B, S, Hkv, D = k_cache.shape
     page = math.gcd(S, 16)
     W = S // page
     k_pool = k_cache.view(B * W, page, Hkv, D)
     v_pool = v_cache.view(B * W, page, Hkv, v_cache.shape[-1])
+    if k_scale is not None:
+        k_scale = k_scale.view(B * W, page, Hkv)
+        v_scale = v_scale.view(B * W, page, Hkv)
     tables = torch.arange(B * W, dtype=torch.int32,
                           device=q.device).view(B, W)
     return paged_attention(q.contiguous(), k_pool, v_pool, tables,
-                           ctx.to(torch.int32), row_map=row_map)
+                           ctx.to(torch.int32), row_map=row_map,
+                           k_scale=k_scale, v_scale=v_scale)
 
 
-def decode_attention(q, k_cache, v_cache, ctx):
+def int8_route_bound(q, k_cache, v_cache, k_scale, v_scale, ctx):
+    """(rtol, atol) within which ``slot_cache_attention`` over int8 caches
+    (f32 dequantization, f32 softmax weights) agrees with the reference's
+    route for bf16 queries (each dequantized value and each weight rounded
+    to bf16), from this call's data: q (B, 1, Hq, D), caches (B, S, Hkv,
+    D) with (B, S, Hkv) scales, row b attending slots [0, ctx[b]).
+
+    With u = 2**-8, bf16's unit roundoff, a rounded K value moves a score
+    by at most eps = u D**-0.5 max_t sum_d |q_d k_td|, so a normalized
+    weight moves by a factor within exp(+-2 eps); the rounded V values and
+    weights add at most (2u + u**2) max|v|.  Before both outputs are
+    rounded to bf16 they differ by at most (exp(2 eps) - 1 + 2u + u**2)
+    max|v|; after, by 2**-7 |ref| + (1 + u) times that."""
+    u = 2.0 ** -8
+    B, _, Hq, D = q.shape
+    Hkv = k_cache.shape[2]
+    valid = torch.arange(k_cache.shape[1], device=q.device)[None] \
+        < ctx[:, None]
+    eps = 0.0
+    for b in range(B):                   # one cache row at a time
+        k = dequantize_kv(k_cache[b], k_scale[b], torch.float32).abs()
+        qg = q[b, 0].float().abs().reshape(Hkv, Hq // Hkv, D)
+        dots = torch.einsum("kgd,tkd->kgt", qg, k)[..., valid[b]]
+        eps = max(eps, u * D ** -0.5 * float(dots.max()))
+    vmax = float((v_cache.float().abs().amax(-1) * v_scale.float())
+                 [valid].max())
+    return 2.0 ** -7, (math.expm1(2 * eps) + 2 * u + u * u) * (1 + u) * vmax
+
+
+def decode_attention(q, k_cache, v_cache, ctx, k_scale=None, v_scale=None):
     """q: (B,1,Hq,D); caches: (B,S,Hkv,D); row b attends slots [0,
-    ctx[b]).  CUDA tensors go through ``decode_attention_paged`` (no copy
-    of the caches); CPU tensors through ``decode_attention_plain``."""
+    ctx[b]).  int8 caches come with their (B, S, Hkv) bf16 scales.  CUDA
+    tensors go through ``decode_attention_paged`` (no copy of the
+    caches); CPU tensors through ``decode_attention_plain``."""
     if q.device.type == "cpu":
         valid = torch.arange(k_cache.shape[1], device=q.device)[None, :] \
             < ctx[:, None]
-        return decode_attention_plain(q, k_cache, v_cache, valid)
-    return decode_attention_paged(q, k_cache, v_cache, ctx)
+        return decode_attention_plain(q, k_cache, v_cache, valid,
+                                      k_scale=k_scale, v_scale=v_scale)
+    return decode_attention_paged(q, k_cache, v_cache, ctx,
+                                  k_scale=k_scale, v_scale=v_scale)
 
 
-def decode_attention_paged(q, k_cache, v_cache, ctx):
+def decode_attention_paged(q, k_cache, v_cache, ctx, k_scale=None,
+                           v_scale=None):
     """``decode_attention`` through ``slot_cache_attention``: one row per
     request, each its own table row."""
     B, _, Hq, D = q.shape
-    out = slot_cache_attention(q.reshape(B, Hq, D), k_cache, v_cache, ctx)
+    out = slot_cache_attention(q.reshape(B, Hq, D), k_cache, v_cache, ctx,
+                               k_scale=k_scale, v_scale=v_scale)
     return out.reshape(B, 1, Hq, -1)
 
 
-def decode_attention_plain(q, k_cache, v_cache, valid):
+def decode_attention_plain(q, k_cache, v_cache, valid, k_scale=None,
+                           v_scale=None):
     """Plain version of ``decode_attention``: valid (B, S) bool.  Scores
     and products in f32 (the reference's ``preferred_element_type``); the
     softmax weights are rounded to the cache's dtype before the product
-    with V, as in the reference.  Long caches stream through
-    ``decode_attention_blocked``."""
-    if k_cache.shape[1] >= DECODE_BLOCK_THRESHOLD:
-        return decode_attention_blocked(q, k_cache, v_cache, valid)
+    with V, as in the reference.  Long caches and int8 caches stream
+    through ``decode_attention_blocked``, as the reference sends them."""
+    if k_cache.shape[1] >= DECODE_BLOCK_THRESHOLD or k_scale is not None:
+        return decode_attention_blocked(q, k_cache, v_cache, valid,
+                                        k_scale=k_scale, v_scale=v_scale)
     Hkv = k_cache.shape[2]
     qg = _group_heads(q, Hkv)                    # (B, 1, Hkv, G, D)
     s = torch.einsum("bskgd,btkd->bkgst", qg.float(), k_cache.float()) \
@@ -316,9 +382,13 @@ def decode_attention_plain(q, k_cache, v_cache, valid):
     return out.reshape(B, 1, -1, Dv).to(q.dtype)
 
 
-def decode_attention_blocked(q, k_cache, v_cache, valid, block=2048):
+def decode_attention_blocked(q, k_cache, v_cache, valid, block=2048,
+                             k_scale=None, v_scale=None):
     """Flash-style streaming decode attention over cache blocks: running
-    (m, l, acc) statistics, an O(block) working set at any context."""
+    (m, l, acc) statistics, an O(block) working set at any context.  int8
+    blocks are dequantized to q's dtype first (each value times its
+    scale, rounded to that dtype, as the reference's ``dequantize_kv``),
+    and the weights are rounded to that dtype before the product with V."""
     B, S, Hkv, Dk = k_cache.shape
     Dv = v_cache.shape[-1]
     qg = _group_heads(q, Hkv)[:, 0].float()      # (B, Hkv, G, D)
@@ -327,9 +397,12 @@ def decode_attention_blocked(q, k_cache, v_cache, valid, block=2048):
     m = torch.full((B, Hkv, G), NEG_INF, device=q.device)
     l = torch.zeros((B, Hkv, G), device=q.device)
     for i in range(0, S, block):
-        kb = k_cache[:, i:i + block].float()
+        kb = k_cache[:, i:i + block]
         vb = v_cache[:, i:i + block]
-        s = torch.einsum("bkgd,btkd->bkgt", qg, kb) * Dk ** -0.5
+        if k_scale is not None:
+            kb = dequantize_kv(kb, k_scale[:, i:i + block], q.dtype)
+            vb = dequantize_kv(vb, v_scale[:, i:i + block], q.dtype)
+        s = torch.einsum("bkgd,btkd->bkgt", qg, kb.float()) * Dk ** -0.5
         s = torch.where(valid[:, None, None, i:i + block], s,
                         torch.full_like(s, NEG_INF))
         m_new = torch.maximum(m, s.amax(-1))
@@ -341,3 +414,145 @@ def decode_attention_blocked(q, k_cache, v_cache, valid, block=2048):
         m = m_new
     out = acc / l.clamp_min(1e-30)[..., None]
     return out.reshape(B, 1, Hkv * G, Dv).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention): MiniCPM3 / DeepSeek-V2 style
+# ---------------------------------------------------------------------------
+def mla_init(cfg, dtype, generator: torch.Generator, device):
+    """The reference's MLA tree: down- and up-projections of q
+    (``wq_a``, ``q_norm``, ``wq_b``) and of the latent kv (``wkv_a``,
+    ``kv_norm``, ``wkv_b``), then ``wo``; fan-in on axis 0."""
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.n_heads
+    qk_hd = m.qk_nope_head_dim + m.qk_rope_head_dim
+
+    def w(shape):
+        return dense_init(shape, dtype, generator, device, fan_in=shape[0])
+
+    return {
+        "wq_a": w((d, m.q_lora_rank)),
+        "q_norm": {"scale": torch.ones((m.q_lora_rank,), dtype=dtype,
+                                       device=device)},
+        "wq_b": w((m.q_lora_rank, H, qk_hd)),
+        "wkv_a": w((d, m.kv_lora_rank + m.qk_rope_head_dim)),
+        "kv_norm": {"scale": torch.ones((m.kv_lora_rank,), dtype=dtype,
+                                        device=device)},
+        "wkv_b": w((m.kv_lora_rank, H, m.qk_nope_head_dim + m.v_head_dim)),
+        "wo": w((H, m.v_head_dim, d)),
+    }
+
+
+def _mla_qkv(params, x, positions, cfg):
+    """(q_nope (B,S,H,dn), q_rope (B,S,H,dr), c (B,S,r), k_rope (B,S,dr)):
+    the rotary key is one per token, shared across heads."""
+    m = cfg.mla
+    cq = rmsnorm(params["q_norm"], x @ params["wq_a"], cfg.norm_eps)
+    q = _project(cq, params["wq_b"])
+    q_nope = q[..., :m.qk_nope_head_dim]
+    q_rope = apply_rope(q[..., m.qk_nope_head_dim:], positions,
+                        cfg.rope_theta)
+    ckv = x @ params["wkv_a"]
+    c = rmsnorm(params["kv_norm"], ckv[..., :m.kv_lora_rank], cfg.norm_eps)
+    k_rope = apply_rope(ckv[..., None, m.kv_lora_rank:], positions,
+                        cfg.rope_theta)[:, :, 0]
+    return q_nope, q_rope, c, k_rope
+
+
+def mla_prefill(params, x, positions, cfg, *, window=0):
+    """Expanded (non-absorbed) MLA for prefill: q = [q_nope, q_rope] and
+    k = [k_nope, k_rope broadcast to every head] (D = dn + dr), v (Dv =
+    v_head_dim) through ``attention`` (the flash kernel on CUDA, whose
+    scale D**-0.5 is the reference's).  Returns (out, (c, k_rope)), the
+    latent cache entry."""
+    m = cfg.mla
+    q_nope, q_rope, c, k_rope = _mla_qkv(params, x, positions, cfg)
+    kv = _project(c, params["wkv_b"])
+    k_nope = kv[..., :m.qk_nope_head_dim]
+    # the kernel takes contiguous tensors only: one copy of the slice
+    v = kv[..., m.qk_nope_head_dim:].contiguous()
+    H = cfg.n_heads
+    k_rope_h = k_rope[:, :, None, :].expand(*k_rope.shape[:2], H,
+                                            m.qk_rope_head_dim)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope_h], dim=-1)
+    out = attention(q, k, v, causal=True, window=window, impl=cfg.attn_impl)
+    return _out_project(out, params["wo"]), (c, k_rope)
+
+
+def mla_decode(params, x, c_cache, krope_cache, pos, cfg, *, window=0):
+    """Absorbed MLA decode: attend in latent space.
+
+    c_cache (B, S, r), krope_cache (B, S, dr), written in place; pos
+    (B,) int32.  ``q_lat = q_nope . W_UK`` in the model dtype; scores
+    ``(q_lat . c^T + q_rope . k_rope^T) * (dn + dr)**-0.5`` and the
+    softmax in f32; the weights rounded to the cache's dtype, ``w . c``
+    in f32, cast to the model dtype, then ``. W_UV`` and ``wo``: the
+    reference's rounding points."""
+    m = cfg.mla
+    S_cache = c_cache.shape[1]
+    q_nope, q_rope, c_new, krope_new = _mla_qkv(params, x, pos[:, None], cfg)
+    slot = pos % S_cache if window else pos
+    _cache_write(c_cache, c_new[:, 0], slot)
+    _cache_write(krope_cache, krope_new[:, 0], slot)
+    w_uk = params["wkv_b"][..., :m.qk_nope_head_dim]       # (r, H, dn)
+    q_lat = torch.einsum("bshk,rhk->bshr", q_nope, w_uk)
+    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    ctx_lat = mla_decode_attention(q_lat, q_rope, c_cache, krope_cache,
+                                   _decode_ctx(S_cache, pos), scale)
+    w_uv = params["wkv_b"][..., m.qk_nope_head_dim:]       # (r, H, dv)
+    v_out = torch.einsum("bshr,rhk->bshk", ctx_lat.to(x.dtype), w_uv)
+    return _out_project(v_out, params["wo"]), (c_cache, krope_cache)
+
+
+def mla_decode_attention(q_lat, q_rope, c_cache, krope_cache, ctx, scale):
+    """Latent attention of one query per row: q_lat (B, 1, H, r), q_rope
+    (B, 1, H, dr) over c_cache (B, S, r) and krope_cache (B, S, dr); row b
+    attends slots [0, ctx[b]).  Returns ctx_lat (B, 1, H, r) in f32.
+    CUDA tensors go through ``mla_decode_attention_bmm`` (no copy of the
+    cache); CPU tensors through ``mla_decode_attention_plain``."""
+    if q_lat.device.type == "cpu":
+        return mla_decode_attention_plain(q_lat, q_rope, c_cache,
+                                          krope_cache, ctx, scale)
+    return mla_decode_attention_bmm(q_lat, q_rope, c_cache, krope_cache,
+                                    ctx, scale)
+
+
+def _bmm_f32(a, b):
+    """``a @ b`` batched, f32 products and sums over a's dtype: bf16
+    operands take ``torch.bmm(..., out_dtype=float32)`` (CUDA only)."""
+    if a.dtype == torch.float32:
+        return torch.bmm(a, b)
+    return torch.bmm(a, b, out_dtype=torch.float32)
+
+
+def mla_decode_attention_bmm(q_lat, q_rope, c_cache, krope_cache, ctx,
+                             scale):
+    """``mla_decode_attention`` as cuBLAS products with f32 outputs over
+    the caches in place: a batch over b is one stride of the cache and
+    ``c^T`` a view, so no copy of the cache is made."""
+    B, _, H, r = q_lat.shape
+    S = c_cache.shape[1]
+    s = _bmm_f32(q_lat.reshape(B, H, r), c_cache.transpose(1, 2))
+    s.add_(_bmm_f32(q_rope.reshape(B, H, -1), krope_cache.transpose(1, 2)))
+    s.mul_(scale)
+    valid = torch.arange(S, device=ctx.device)[None, :] < ctx[:, None]
+    s.masked_fill_(~valid[:, None, :], NEG_INF)
+    w = torch.softmax(s, dim=-1).to(c_cache.dtype)
+    return _bmm_f32(w, c_cache).reshape(B, 1, H, r)
+
+
+def mla_decode_attention_plain(q_lat, q_rope, c_cache, krope_cache, ctx,
+                               scale):
+    """Plain version of ``mla_decode_attention``: f32 products over f32
+    copies of the operands, the weights rounded to the cache's dtype
+    before the product with ``c``, as in the reference."""
+    S = c_cache.shape[1]
+    s = (torch.einsum("bshr,btr->bhst", q_lat.float(), c_cache.float())
+         + torch.einsum("bshk,btk->bhst", q_rope.float(),
+                        krope_cache.float())) * scale
+    valid = torch.arange(S, device=ctx.device)[None, :] < ctx[:, None]
+    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    w = torch.softmax(s, dim=-1)
+    return torch.einsum("bhst,btr->bshr", w.to(c_cache.dtype).float(),
+                        c_cache.float())

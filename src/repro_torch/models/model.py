@@ -4,7 +4,10 @@ reference's API.
 Port of ``repro/models/model.py`` for stacks of GQA attention, full
 (``ATTN``, e.g. Llama-2-7B) or sliding-window (``ATTN_LOCAL``, e.g.
 Mixtral-8x7B), with dense or MoE FFNs (``models/moe.py``: Mixtral-8x7B,
-DeepSeek-MoE-16B), and of Mamba-2 (``MAMBA2``).  The stack is grouped
+DeepSeek-MoE-16B), of multi-head latent attention (``ATTN_MLA``,
+MiniCPM3-4B) and of Mamba-2 (``MAMBA2``); GQA slot caches may be int8
+with bf16 scales (``cfg.kv_quant``; MLA caches ignore it, as in the
+reference).  The stack is grouped
 into *stages*, maximal runs of layers with identical (kind, is_moe)
 structure, each stage's per-layer parameters stacked on a leading axis;
 a stage runs as a Python loop over that axis (the reference's
@@ -34,7 +37,6 @@ from repro_torch.models.layers import dtype_of, embed, mlp, rmsnorm, unembed
 
 # what each stack feature still needs, by ROADMAP.md item
 _UNPORTED_KINDS = {
-    ATTN_MLA: "MLA attention (ROADMAP.md Queue A item 6c)",
     RGLRU: "RG-LRU blocks (ROADMAP.md Queue A item 6f)",
 }
 
@@ -45,7 +47,7 @@ def check_ported(cfg: ModelConfig) -> None:
         if kind in _UNPORTED_KINDS:
             raise NotImplementedError(
                 f"{cfg.name}: {_UNPORTED_KINDS[kind]} is not ported")
-        if kind not in (ATTN, ATTN_LOCAL, MAMBA2):
+        if kind not in (ATTN, ATTN_LOCAL, ATTN_MLA, MAMBA2):
             raise NotImplementedError(f"{cfg.name}: layer kind {kind!r} is "
                                       "not ported")
     if cfg.is_encoder_decoder:
@@ -56,11 +58,6 @@ def check_ported(cfg: ModelConfig) -> None:
         raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} frontend "
                                   "(ROADMAP.md Queue A item 6g) is not "
                                   "ported")
-    if cfg.kv_quant:
-        raise NotImplementedError(f"{cfg.name}: int8 slot caches "
-                                  "(cfg.kv_quant, ROADMAP.md Queue A item "
-                                  "6h) are not ported; int8 KV pages are "
-                                  "(ServingEngine(kv_quant=True))")
 
 
 # ---------------------------------------------------------------------------
@@ -118,6 +115,11 @@ def _block_forward(lp, x, cfg, kind, moe_flag, positions, *,
                                          window=window)
         if want_cache:
             cache = {"k": k, "v": v}
+    elif kind == ATTN_MLA:
+        y, (c, krope) = attn_mod.mla_prefill(lp["attn"], h, positions, cfg,
+                                             window=window)
+        if want_cache:
+            cache = {"c": c, "k_rope": krope}
     elif kind == MAMBA2:
         y, st = ssm_mod.mamba2_prefill(lp["attn"], h, cfg)
         if want_cache:
@@ -194,8 +196,21 @@ def _stage_cache_zeros(cfg, kind, count, B, max_len, dt, device):
     S_c = _cache_seq_len(cfg, kind, max_len)
     if kind in (ATTN, ATTN_LOCAL):
         shape = (count, B, S_c, cfg.n_kv_heads, hd)
+        if cfg.kv_quant:                 # int8 values, bf16 scales
+            codes = dict(dtype=torch.int8, device=device)
+            scales = dict(dtype=torch.bfloat16, device=device)
+            return {"k": torch.zeros(shape, **codes),
+                    "v": torch.zeros(shape, **codes),
+                    "k_s": torch.zeros(shape[:-1], **scales),
+                    "v_s": torch.zeros(shape[:-1], **scales)}
         return {"k": torch.zeros(shape, dtype=dt, device=device),
                 "v": torch.zeros(shape, dtype=dt, device=device)}
+    if kind == ATTN_MLA:
+        m = cfg.mla
+        return {"c": torch.zeros((count, B, S_c, m.kv_lora_rank), dtype=dt,
+                                 device=device),
+                "k_rope": torch.zeros((count, B, S_c, m.qk_rope_head_dim),
+                                      dtype=dt, device=device)}
     if kind == MAMBA2:
         s = cfg.ssm
         _, nh, conv_dim = ssm_mod.mamba2_dims(cfg)
@@ -235,11 +250,17 @@ def prefill(params, batch, cfg: ModelConfig, max_len: int):
         S_c = _cache_seq_len(cfg, kind, max_len)
         fitted = {}
         for name, arr in sc.items():
-            if kind in (ATTN, ATTN_LOCAL) and name in ("k", "v"):
+            if (kind in (ATTN, ATTN_LOCAL) and name in ("k", "v")) or \
+                    (kind == ATTN_MLA and name in ("c", "k_rope")):
                 # (L, B, S, ...) -> fit each layer's (B, S, ...) slice
                 L = arr.shape[0]
                 fit = _fit_cache_seq(arr.reshape(L * B, *arr.shape[2:]), S_c)
-                fitted[name] = fit.reshape(L, B, *fit.shape[1:])
+                fit = fit.reshape(L, B, *fit.shape[1:])
+                if cfg.kv_quant and kind != ATTN_MLA:
+                    fitted[name], fitted[name + "_s"] = \
+                        attn_mod.quantize_kv(fit)
+                else:
+                    fitted[name] = fit
             else:
                 fitted[name] = arr
         cache["stages"][f"stage_{i}"] = fitted
@@ -301,9 +322,12 @@ def _block_decode(lp, x1, c, pos, cfg, kind, moe_flag):
     h = rmsnorm(lp["ln1"], x1, cfg.norm_eps)
     window = window_for(cfg, kind)
     if kind in (ATTN, ATTN_LOCAL):
-        y, (k, v) = attn_mod.gqa_decode(lp["attn"], h, c["k"], c["v"], pos,
-                                        cfg, window=window)
-        c = dict(c, k=k, v=v)
+        y, _ = attn_mod.gqa_decode(lp["attn"], h, c["k"], c["v"], pos, cfg,
+                                   window=window, k_scale=c.get("k_s"),
+                                   v_scale=c.get("v_s"))
+    elif kind == ATTN_MLA:
+        y, _ = attn_mod.mla_decode(lp["attn"], h, c["c"], c["k_rope"], pos,
+                                   cfg, window=window)
     elif kind == MAMBA2:
         y, st = ssm_mod.mamba2_decode(
             lp["attn"], h, {k: c[k] for k in ("conv_state", "ssm_state")}, cfg)

@@ -6,6 +6,7 @@ The parameter tree keeps the reference layout (``repro/models/model.py``):
 for attention (full or sliding-window) with a dense FFN,
 ``ffn.{router,w_gate,w_in,w_out[,shared.{w_in,w_gate,w_out}]}`` on MoE
 layers (a stack with dense first layers has one stage per run),
+``attn.{wq_a,q_norm,wq_b,wkv_a,kv_norm,wkv_b,wo}`` for MLA,
 ``stages.stage_0.{ln1,attn.{in_proj,conv_w,conv_b,A_log,dt_bias,D,norm,
 out_proj}}`` for Mamba-2, with a leading layer axis on every stage leaf.
 
@@ -22,8 +23,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.configs.base import MAMBA2, ModelConfig
-from repro_torch.models.attention import gqa_init
+from repro_torch.configs.base import ATTN_MLA, MAMBA2, ModelConfig
+from repro_torch.models.attention import gqa_init, mla_init
 from repro_torch.models.layers import dense_init, dtype_of, embed_init
 from repro_torch.models.model import check_ported, model_stages
 from repro_torch.models.moe import moe_init
@@ -63,8 +64,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator = None,
                 device=None):
     """A freshly drawn decoder on ``device`` (``cuda`` by default), from
     ``generator`` (seed 0 on the device when omitted): attention stages
-    (``ATTN``, ``ATTN_LOCAL``) with dense or MoE FFNs, and Mamba-2
-    (``MAMBA2``) stages.  Layers are drawn one at a time into the stacked
+    (``ATTN``, ``ATTN_LOCAL``, ``ATTN_MLA``) with dense or MoE FFNs, and
+    Mamba-2 (``MAMBA2``) stages.  Layers are drawn one at a time into the stacked
     leaves, so the f32 temporaries stay one layer large."""
     device = resolve_device(device)
     check_ported(cfg)
@@ -86,9 +87,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator = None,
         if kind == MAMBA2:
             return {"ln1": {"scale": ones},
                     "attn": mamba2_init(cfg, dt, generator, device)}
-        return {"ln1": {"scale": ones},
-                "attn": gqa_init(d, cfg.n_heads, cfg.n_kv_heads, hd, dt,
-                                 generator, device),
+        attn = mla_init(cfg, dt, generator, device) if kind == ATTN_MLA \
+            else gqa_init(d, cfg.n_heads, cfg.n_kv_heads, hd, dt, generator,
+                          device)
+        return {"ln1": {"scale": ones}, "attn": attn,
                 "ln2": {"scale": ones.clone()},
                 "ffn": moe_init(cfg, dt, generator, device) if moe_flag
                 else {k: dense_init(s, dt, generator, device)

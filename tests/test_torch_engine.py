@@ -145,18 +145,29 @@ def test_int8_greedy_tokens_match_fp(weights):
                   "cfg": dict(attn_kind="attn_local", window=16),
                   "raises": (AssertionError, "paged backend supports")},
                  id="kw1"),
-    pytest.param({"cfg": dict(kv_quant=True)}, id="kw2"),
+    # int8 slot caches (cfg.kv_quant) are ported: the stack serves on
+    # slots with whole-prompt prefill, as the reference's does
+    pytest.param({"cfg": dict(kv_quant=True), "raises": None}, id="kw2"),
 ])
 def test_options_outside_the_slice_raise(kw):
     """Options and stacks not ported yet raise, naming the ROADMAP item,
     and the paged backend refuses what the reference's paged step cannot
     serve (the slots backend and whole-prompt prefill are ported and have
-    their own tests in tests/test_torch_engine_slots.py)."""
+    their own tests in tests/test_torch_engine_slots.py); a case whose
+    option is ported since (``raises`` None) serves its requests."""
     kw = dict(kw)
     cfg = dataclasses.replace(T_CFG, **kw.pop("cfg", {}))
-    error, match = kw.pop("raises", (NotImplementedError,
-                                     "ROADMAP.md Queue A"))
-    with pytest.raises(error, match=match):
+    raises = kw.pop("raises", (NotImplementedError, "ROADMAP.md Queue A"))
+    if raises is None:
+        eng = TEngine(cfg, t_make_scheduler("fcfs"), max_slots=2, max_len=48,
+                      device="cpu", **kw)
+        assert eng.backend == "slots" and not eng.chunked
+        assert eng.cache["stages"]["stage_0"]["k"].dtype == torch.int8
+        done = eng.run(mk_reqs(TRequest, n=3))
+        assert sorted(r.rid for r in done) == [0, 1, 2]
+        assert all(r.generated == r.output_len for r in done)
+        return
+    with pytest.raises(raises[0], match=raises[1]):
         TEngine(cfg, t_make_scheduler("fcfs"), device="cpu", **kw)
 
 

@@ -5,9 +5,12 @@ tokens, admission order, prefill plans and modeled TTFT for Llama-2 on
 chunked=False``, for DeepSeek-MoE (whole-prompt and chunked) and Mixtral
 (whole-prompt, sliding-window ring caches) on ``backend="slots"`` under
 ``moe_impl`` ``dense`` and ``dispatch``, for the dense GQA stacks
-DeepSeek-7B, Granite-3-2B and StarCoder2-7B, and for Mamba-2 on
+DeepSeek-7B, Granite-3-2B and StarCoder2-7B, for MiniCPM3-4B (MLA: the
+latent caches installed into the slots, absorbed decode), for Llama-2
+with int8 slot caches (``cfg.kv_quant``: whole-prompt prefill, caches
+and scales installed into the slots) and for Mamba-2 on
 ``backend="slots"``; the engine's defaults resolve as the reference's
-do."""
+do, and the paged backend refuses MLA with the reference's assertion."""
 import dataclasses
 import importlib
 
@@ -64,10 +67,15 @@ JSpy, TSpy = spy_class(JObserver), spy_class(TObserver)
 
 
 def configs(arch):
-    """``arch`` or ``arch/moe_impl``."""
+    """``arch``, ``arch/moe_impl`` or ``arch+kv_quant`` (int8 slot
+    caches)."""
+    arch, _, option = arch.partition("+")
     name, _, impl = arch.partition("/")
     jcfg = SMOKE_FACTORIES[name]()
     tcfg = T_SMOKE[name]()
+    if option == "kv_quant":
+        jcfg = dataclasses.replace(jcfg, kv_quant=True)
+        tcfg = dataclasses.replace(tcfg, kv_quant=True)
     if name != "mamba2-2.7b":      # the flash kernel's plain version runs
         jcfg = dataclasses.replace(jcfg, attn_impl="flash")
         tcfg = dataclasses.replace(tcfg, attn_impl="flash")
@@ -130,6 +138,8 @@ def serve(side, arch, **kw):
     ("deepseek-7b", dict(backend="slots", chunked=False), "flash"),
     ("granite-3-2b", dict(backend="slots"), None),
     ("starcoder2-7b", dict(backend="slots", chunked=False), "flash"),
+    ("minicpm3-4b", dict(backend="slots"), "flash"),
+    ("llama2-7b+kv_quant", dict(backend="slots"), "flash"),
 ])
 def test_engine_matches_reference(arch, kw, kernel, monkeypatch):
     calls = []
@@ -194,6 +204,25 @@ def test_defaults_resolve_as_the_reference():
     with pytest.raises(AssertionError, match="paged backend supports"):
         TEngine(mcfg, t_make_scheduler("fcfs"), backend="paged",
                 device="cpu")
+
+
+def test_paged_backend_refuses_mla():
+    """MiniCPM3-4B serves on slots (whole-prompt prefill: MLA cannot
+    chunk); on paged both engines refuse it with the reference's
+    assertion (``src/repro/serving/engine.py:144``)."""
+    jcfg, tcfg = configs("minicpm3-4b")
+    j = JEngine(jcfg, j_make_scheduler("fcfs"), max_slots=2, max_len=32)
+    t = TEngine(tcfg, t_make_scheduler("fcfs"), max_slots=2, max_len=32,
+                device="cpu")
+    assert t.backend == j.backend == "slots"
+    assert t.chunked is j.chunked is False
+    assert t.cache["stages"]["stage_0"].keys() == {"c", "k_rope"}
+    for make, cfg, kw in ((JEngine, jcfg, {}),
+                          (TEngine, tcfg, {"device": "cpu"})):
+        with pytest.raises(AssertionError, match="paged backend supports"):
+            make(cfg, (j_make_scheduler if make is JEngine
+                       else t_make_scheduler)("fcfs"), backend="paged",
+                 chunked=False, **kw)
 
 
 def test_preempted_slots_request_recomputes():

@@ -446,3 +446,95 @@ def test_slot_chunk_attention_matches_plain(cuda):
     ok, err = within(out, plain, (2 ** -7, 2 ** -9 * float(
         v.float().abs().max())))
     assert ok, err
+
+
+@pytest.mark.parametrize("S", [256, 200])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_mla_head_dims(cuda, S, dtype):
+    """MLA prefill's shape (MiniCPM3-4B: D = 96 for q and k, Dv = 64 for
+    v, Hq = Hkv): the bf16 tile is 128 wide, so columns 96-127 of Q/K and
+    64-127 of V are zero-filled and the store keeps to Dv."""
+    rng = np.random.default_rng(S)
+    q, k = (torch.from_numpy(rng.standard_normal((1, S, 8, 96))
+                             .astype(np.float32)).to(cuda, dtype)
+            for _ in range(2))
+    v = torch.from_numpy(rng.standard_normal((1, S, 8, 64))
+                         .astype(np.float32)).to(cuda, dtype)
+    before = fa.LAUNCHES["flash_attention"]
+    out = fa.flash_attention_kernel(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    plain = fa.flash_attention_plain(q, k, v, causal=True)
+    assert out.shape == (1, S, 8, 64) and out.dtype == dtype
+    ok, err = within(out, plain, FLASH_TOL[dtype])
+    assert ok, err
+
+
+def test_slot_decode_attention_int8(cuda):
+    """``decode_attention`` on int8 slot caches with their bf16 scales
+    (``cfg.kv_quant``): the split-K kernel over int8 pools (counted under
+    ``/int8``), within one bf16 step of the kernels' plain version on the
+    same view, within ``int8_route_bound`` of the reference's route (the
+    plain version, each dequantized value and weight rounded to bf16), and
+    less extra memory than one bf16 copy of the caches."""
+    from repro_torch.models import attention as A
+
+    B, S, H, D = 8, 1280, 32, 128
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q = torch.randn(B, 1, H, D, generator=g, device=cuda).bfloat16()
+    (k, ks), (v, vs) = (A.quantize_kv(torch.randn(
+        B, S, H, D, generator=g, device=cuda).bfloat16()) for _ in range(2))
+    ctx = A._decode_ctx(S, torch.randint(0, S, (B,), generator=g,
+                                         device=cuda))
+    bf16_copy = 2 * k.numel() * 2
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = pa.LAUNCHES["paged_attention_splitk/int8"]
+    out = A.decode_attention(q, k, v, ctx, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base < bf16_copy
+    assert pa.LAUNCHES["paged_attention_splitk/int8"] == before + 1
+    page = 16
+    tables = torch.arange(B * S // page, dtype=torch.int32,
+                          device=cuda).view(B, -1)
+    same = pa.paged_attention_splitk_plain(
+        q[:, 0], k.view(-1, page, H, D), v.view(-1, page, H, D), tables,
+        ctx.to(torch.int32), k_scale=ks.view(-1, page, H),
+        v_scale=vs.view(-1, page, H))
+    ok, err = within(out[:, 0], same, FLASH_TOL[torch.bfloat16])
+    assert ok, err
+    valid = torch.arange(S, device=cuda)[None] < ctx[:, None]
+    ref = A.decode_attention_plain(q, k, v, valid, k_scale=ks, v_scale=vs)
+    ok, err = within(out, ref, A.int8_route_bound(q, k, v, ks, vs, ctx))
+    assert ok, err
+
+
+def test_mla_latent_attention_bmm(cuda):
+    """MLA's absorbed decode products at MiniCPM3-4B's shape (8 slots of
+    1280, 40 heads, latent 256, rotary 32): ``torch.bmm`` with f32
+    outputs over the bf16 cache in place, against the plain version (f32
+    products over f32 copies; the weights rounded to bf16 in both, so a
+    weight whose f32 value moves in the last bits may round the other
+    way: 2**-8 max|c|); less extra memory than one f32 copy of ``c``."""
+    from repro_torch.models import attention as A
+
+    B, S, H, r, dr = 8, 1280, 40, 256, 32
+    g = torch.Generator(device=cuda).manual_seed(6)
+    q_lat = torch.randn(B, 1, H, r, generator=g, device=cuda).bfloat16()
+    q_rope = torch.randn(B, 1, H, dr, generator=g, device=cuda).bfloat16()
+    c = torch.randn(B, S, r, generator=g, device=cuda).bfloat16()
+    kr = torch.randn(B, S, dr, generator=g, device=cuda).bfloat16()
+    ctx = torch.randint(1, S + 1, (B,), generator=g, device=cuda)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = A.mla_decode_attention(q_lat, q_rope, c, kr, ctx, 96 ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base < c.numel() * 4
+    plain = A.mla_decode_attention_plain(q_lat, q_rope, c, kr, ctx,
+                                         96 ** -0.5)
+    assert out.dtype == torch.float32 and out.shape == plain.shape
+    ok, err = within(out, plain, (1e-5, 2 ** -8 * float(
+        c.float().abs().max())))
+    assert ok, err

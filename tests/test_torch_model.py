@@ -3,12 +3,15 @@
 ``prefill_chunk`` and ``decode_step`` logits within 1e-4 and caches
 within 1e-5, for Llama-2, the dense GQA stacks DeepSeek-7B (MHA, a
 102 400-token vocabulary), Granite-3-2B (tied embeddings) and
-StarCoder2-7B (GELU MLP, G = 3 at smoke size), DeepSeek-MoE (a dense first layer, then MoE
+StarCoder2-7B (GELU MLP, G = 3 at smoke size), MiniCPM3-4B (multi-head
+latent attention: expanded prefill, absorbed decode over the latent
+cache), DeepSeek-MoE (a dense first layer, then MoE
 layers with shared experts) and Mixtral (MoE, sliding-window attention
 whose ring caches wrap) with ``attn_impl="flash"``, so the flash kernel's
 plain version runs, the MoE stacks under ``moe_impl`` ``dense`` and
 ``dispatch``, and Mamba-2 (the SSD scan's plain version); decode
-consistency of the port on its own; and the stacks it refuses."""
+consistency of the port on its own; and the stacks it refuses (MLA
+serves since its port: its case now builds the stack)."""
 import dataclasses
 
 import jax
@@ -31,7 +34,7 @@ from repro_torch.weights import init_params, params_from_numpy
 LOGIT_TOL, CACHE_TOL = 1e-4, 1e-5
 MOE = ["deepseek-moe-16b/dense", "deepseek-moe-16b/dispatch",
        "mixtral-8x7b/dense", "mixtral-8x7b/dispatch"]
-DENSE = ["deepseek-7b", "granite-3-2b", "starcoder2-7b"]
+DENSE = ["deepseek-7b", "granite-3-2b", "starcoder2-7b", "minicpm3-4b"]
 ARCHS = ["llama2-7b", "mamba2-2.7b"] + DENSE + MOE
 
 
@@ -196,11 +199,25 @@ def test_supports_chunked_prefill_matches_reference():
 
 
 @pytest.mark.parametrize("arch,item", [
-    ("minicpm3-4b", "6c"), ("recurrentgemma-2b", "6"),
+    # MLA (item 6c) is ported: its case builds the cache and the weights
+    pytest.param("minicpm3-4b", None, id="minicpm3-4b-6c"),
+    ("recurrentgemma-2b", "6"),
     ("whisper-large-v3", "6e"), ("internvl2-76b", "6g"),
 ])
 def test_unported_stacks_raise(arch, item):
     cfg = port_config(SMOKE_FACTORIES[arch]())
+    if item is None:
+        cache = tm.init_cache(cfg, 1, 16, device="cpu")
+        m = cfg.mla
+        assert {k: tuple(v.shape) for k, v in
+                cache["stages"]["stage_0"].items()} == {
+            "c": (cfg.n_layers, 1, 16, m.kv_lora_rank),
+            "k_rope": (cfg.n_layers, 1, 16, m.qk_rope_head_dim)}
+        attn = init_params(cfg, torch.Generator().manual_seed(0),
+                           "cpu")["stages"]["stage_0"]["attn"]
+        assert sorted(attn) == ["kv_norm", "q_norm", "wkv_a", "wkv_b",
+                                "wo", "wq_a", "wq_b"]
+        return
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP.md Queue A item {item}"):
         tm.init_cache(cfg, 1, 16, device="cpu")

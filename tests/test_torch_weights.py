@@ -28,7 +28,7 @@ def flat(tree, prefix=""):
 MOE_ARCHS = ["deepseek-moe-16b", "mixtral-8x7b"]
 
 
-@pytest.mark.parametrize("arch", ["llama2-7b", "mamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["llama2-7b", "mamba2-2.7b", "minicpm3-4b"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_bridge_is_exact(dtype, arch):
     check_bridge(dtype, arch)
@@ -70,7 +70,7 @@ def test_bridge_carries_expert_params():
         np.testing.assert_array_equal(t_tree[k].numpy(), v)
 
 
-@pytest.mark.parametrize("arch", ["llama2-7b", "mamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["llama2-7b", "mamba2-2.7b", "minicpm3-4b"])
 def test_init_params_matches_reference_layout(arch):
     check_init_layout(arch)
 
