@@ -34,9 +34,9 @@ The quickest proof that the port builds and serves on an NVIDIA H100:
    kernels over the slot caches, against its f32 plain version, its
    extra device memory asserted below one f32 copy of the caches; the
    same over int8 caches with their scales (run L's), within one bf16
-   step of the kernels' plain version and within ``int8_route_bound`` of
-   the reference's route, its extra memory below one bf16 copy of the
-   caches; and MLA's absorbed latent decode at run K's shape (``torch.bmm``
+   step of the kernels' plain version and within 2**-7 |ref| + 2 x 2**-9
+   max|v| of the reference's route (and outside it with a planted fault),
+   its extra memory below one bf16 copy of the caches; and MLA's absorbed latent decode at run K's shape (``torch.bmm``
    with f32 outputs over the latent cache), against its plain version,
    its extra memory below one f32 copy of the latent cache;
 3. the engine at full width, a dozen requests from three clients under
@@ -539,10 +539,8 @@ def flash_phase(torch, flush):
     whole-prompt prefill shapes of Llama-2-7B (B = 1, 32 heads, D = 128),
     Mixtral-8x7B (8 kv heads, window 4096, a 6144-token prompt),
     Granite-3-2B (8 kv heads of 64) and MiniCPM3-4B's MLA prefill (40
-    heads, D = 96 for q and k, Dv = 64 for v: the bf16 tile is 128 wide,
-    so 96-127 of Q/K and 64-127 of V are zero-filled columns; the line's
-    ``padded_mma_share`` is the share of the tile's multiply-adds those
-    columns take);
+    heads, D = 96 for q and k, Dv = 64 for v: the tile is 128 wide, so
+    96-127 of Q/K and 64-127 of V are zero-filled columns);
     library yardstick: ``scaled_dot_product_attention`` (a windowed case
     passes its mask as a boolean tensor), timed here only.  The kernels
     line carries S1024 causal bf16 and MiniCPM3's S1024 bf16
@@ -611,10 +609,6 @@ def flash_phase(torch, flush):
                 "library_ms": time_ms(torch, library, 10, flush)}
         line["bound_ms"], line["bound_by"] = flash_bound(
             S, Hq, Hkv, D, causal, window, dt, Dv)
-        if dt == "bfloat16" and D != Dv:
-            width = 128 if max(D, Dv) > 64 else 64
-            line["tile_width"] = width
-            line["padded_mma_share"] = 1 - (D + Dv) / (2 * width)
         if name in ("S1024_causal", "S6144_window4096_gqa8") \
                 and dt == "bfloat16":
             line["ms_by_kernel"] = device_ms_by_kernel(
@@ -632,7 +626,7 @@ def flash_phase(torch, flush):
         if (name, dt) == ("S1024_mla_d96_dv64", "bfloat16"):
             row["mla_shape"] = {k: line[k] for k in (
                 "case", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms", "tol_ratio", "padded_mma_share")}
+                "library_ms", "tol_ratio")}
     return {"flash_attention": row}
 
 
@@ -813,18 +807,18 @@ def slot_int8_case(torch, flush, q, k_fp, v_fp, ctx, valid):
     the split-K kernel over int8 pools.  Held against the kernels' plain
     version on the same view (f32 dequantization: one bf16 step) and
     against the plain version of the slots route (the reference's:
-    each dequantized value and weight rounded to bf16) within
-    ``int8_route_bound``; the ratio to the bound without the scores' term
-    (2**-7 |ref| + 2 x 2**-9 max|v|) is reported.  Its extra memory must
-    stay below one bf16 copy of the caches (what dequantizing them
-    whole would take).  Library yardstick: the caches dequantized to bf16,
-    then masked SDPA."""
+    each dequantized value and weight rounded to bf16) within 2**-7 |ref|
+    + 2 x 2**-9 max|v|.  Planted faults show the bound's reach: the last
+    valid slot dropped and V's scales taken from the neighbouring head
+    must fall outside it; a V code one too large is reported.  Its extra
+    memory must stay below one bf16 copy of the caches (what dequantizing
+    them whole would take).  Library yardstick: the caches dequantized to
+    bf16, then masked SDPA."""
     from repro_torch.kernels.paged_attention import (
         LAUNCHES, paged_attention_splitk_plain)
     from repro_torch.models.attention import (decode_attention,
                                               decode_attention_plain,
-                                              dequantize_kv,
-                                              int8_route_bound, quantize_kv)
+                                              dequantize_kv, quantize_kv)
 
     B, S, H, D = k_fp.shape
     (k, ks), (v, vs) = quantize_kv(k_fp), quantize_kv(v_fp)
@@ -844,15 +838,25 @@ def slot_int8_case(torch, flush, q, k_fp, v_fp, ctx, valid):
     err, ratio = tol_ratio(got[:, 0], same, BF16_TOL)
     ref, plain_extra = with_peak(torch, lambda: decode_attention_plain(
         q, k, v, valid, k_scale=ks, v_scale=vs))
-    bound = int8_route_bound(q, k, v, ks, vs, ctx)
-    ref_err, ref_ratio = tol_ratio(got, ref, bound)
     vmax = (v.float().abs().amax(-1) * vs.float())[valid].max().item()
-    _, sketch_ratio = tol_ratio(got, ref, (2 ** -7, 2 * 2 ** -9 * vmax))
+    bound = (2 ** -7, 2 * 2 ** -9 * vmax)
+    ref_err, ref_ratio = tol_ratio(got, ref, bound)
+    v_plus_one = (v.to(torch.int16) + 1).clamp(max=127).to(torch.int8)
+    faults = {"last_slot_dropped": (v, vs, (ctx - 1).clamp(min=1)),
+              "v_scale_other_head": (v, vs.roll(1, -1), ctx),
+              "v_code_plus_one": (v_plus_one, vs, ctx)}
+    fault_ratios = {name: tol_ratio(decode_attention(
+        q, k, fv, fctx, k_scale=ks, v_scale=fvs), ref, bound)[1]
+        for name, (fv, fvs, fctx) in faults.items()}
     check(ratio <= 1, f"slot int8 decode attention vs the kernels' plain "
           f"version outside {BF16_TOL}: max abs error {err}, ratio {ratio}")
     check(ref_ratio <= 1, f"slot int8 decode attention vs the reference's "
-          f"route outside int8_route_bound {bound}: max abs error "
-          f"{ref_err}, ratio {ref_ratio}")
+          f"route outside {bound}: max abs error {ref_err}, ratio "
+          f"{ref_ratio}")
+    for name in ("last_slot_dropped", "v_scale_other_head"):
+        check(fault_ratios[name] > 1, f"slot int8 decode attention: the "
+              f"planted fault {name} stays within {bound} (ratio "
+              f"{fault_ratios[name]})")
     check(bool(torch.isfinite(got.float()).all()),
           "slot int8 decode attention: non-finite output")
     check(extra < bf16_copy, f"slot int8 decode attention took {extra} B "
@@ -872,7 +876,7 @@ def slot_int8_case(torch, flush, q, k_fp, v_fp, ctx, valid):
           "rtol": BF16_TOL[0], "atol": BF16_TOL[1], "max_abs_err": err,
           "tol_ratio": ratio, "ref_bound": list(bound),
           "ref_max_abs_err": ref_err, "ref_bound_ratio": ref_ratio,
-          "ref_ratio_without_score_term": sketch_ratio,
+          "planted_fault_ratios": fault_ratios,
           "extra_peak_bytes": extra, "plain_extra_peak_bytes": plain_extra,
           "bf16_copy_bytes": bf16_copy,
           "ms": time_ms(torch, lambda: decode_attention(
@@ -1343,8 +1347,12 @@ def engine_phase(torch, kernel_rows):
           f"{runs['K']['flash_attention:mma']} times, not {n_flash}")
     dense_check(torch, minicpm[1], minicpm[0], first_k)
     decode_consistency(torch, minicpm[1], minicpm[0])
-    no_casts("K", profiled("K", minicpm, MAX_LEN_SLOTS, backend="slots",
-                           chunked=False), paged=False)
+    line = profiled("K", minicpm, MAX_LEN_SLOTS, backend="slots",
+                    chunked=False)
+    no_casts("K", line, paged=False)
+    check(line["wkv_b_slice_copies_per_iteration"] == 0, f"run K: a decode "
+          f"iteration copied W_UK or W_UV "
+          f"{line['wkv_b_slice_copies_per_iteration']} times")
     profiled("K", minicpm, MAX_LEN_SLOTS, "prefill", backend="slots",
              chunked=False)
     del minicpm
@@ -1636,7 +1644,9 @@ def profile_window(torch, run, eng, reqs, window="decode"):
     rows beside the decode rows); the first iteration of runs D and E, the
     whole prompts of the requests it admits (later iterations decode until
     a request finishes).  Device busy share = device time per iteration / wall time
-    per iteration."""
+    per iteration.  An MLA stack's decode window records each operator's
+    input shapes in its profiled iterations (their host time is not the
+    one reported) to count the copies made, by shape."""
     from torch.profiler import ProfilerActivity, profile
 
     warm, steps = {"decode": (14, 10), "prefill": (1, 3) if run == "A"
@@ -1656,8 +1666,9 @@ def profile_window(torch, run, eng, reqs, window="decode"):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     n_log = len(eng.iter_log)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    shapes = window == "decode" and eng.cfg.mla is not None
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=shapes) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             if window == "prefill":
@@ -1709,6 +1720,22 @@ def profile_window(torch, run, eng, reqs, window="decode"):
             / 1e3 / steps
         line["aten_bmm_calls_per_iteration"] = sum(e.count
                                                    for e in bmm) / steps
+    if shapes:
+        # the copies a decode iteration makes, by the shapes copied (dst,
+        # src), and those of W_UK or W_UV, the slices of wkv_b that the
+        # absorbed decode multiplies by
+        copies = sorted((e for e in prof.key_averages(
+            group_by_input_shape=True) if e.key == "aten::copy_"),
+            key=lambda e: -e.count)
+        line["copies_per_iteration_by_shape"] = [
+            {"shapes": e.input_shapes[:2], "calls": e.count / steps}
+            for e in copies[:8]]
+        m = eng.cfg.mla
+        w = {tuple(sorted((m.kv_lora_rank, eng.cfg.n_heads, d)))
+             for d in (m.qk_nope_head_dim, m.v_head_dim)}
+        line["wkv_b_slice_copies_per_iteration"] = sum(
+            e.count for e in copies if e.input_shapes
+            and tuple(sorted(e.input_shapes[0])) in w) / steps
     if reduced_of(eng.cfg):
         line["reduced"] = reduced_of(eng.cfg)
     if window == "decode" and eng.backend == "slots":

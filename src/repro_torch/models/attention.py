@@ -289,8 +289,9 @@ def slot_cache_attention(q, k_cache, v_cache, ctx, row_map=None,
     pair) instead of rounding them to the cache's dtype, so outputs may
     differ from the plain version by 2**-9 max|v| beyond one step of the
     output's dtype; int8 values are dequantized in f32, where the
-    reference rounds each to bf16 (``decode_attention_blocked``; the
-    bound is ``int8_route_bound``).  Returns (R, Hq, Dv) in q's dtype."""
+    reference rounds each to bf16 (``decode_attention_blocked``); in
+    bf16 the two routes are held within 2**-7 |ref| + 2 x 2**-9 max|v|.
+    Returns (R, Hq, Dv) in q's dtype."""
     B, S, Hkv, D = k_cache.shape
     page = math.gcd(S, 16)
     W = S // page
@@ -304,35 +305,6 @@ def slot_cache_attention(q, k_cache, v_cache, ctx, row_map=None,
     return paged_attention(q.contiguous(), k_pool, v_pool, tables,
                            ctx.to(torch.int32), row_map=row_map,
                            k_scale=k_scale, v_scale=v_scale)
-
-
-def int8_route_bound(q, k_cache, v_cache, k_scale, v_scale, ctx):
-    """(rtol, atol) within which ``slot_cache_attention`` over int8 caches
-    (f32 dequantization, f32 softmax weights) agrees with the reference's
-    route for bf16 queries (each dequantized value and each weight rounded
-    to bf16), from this call's data: q (B, 1, Hq, D), caches (B, S, Hkv,
-    D) with (B, S, Hkv) scales, row b attending slots [0, ctx[b]).
-
-    With u = 2**-8, bf16's unit roundoff, a rounded K value moves a score
-    by at most eps = u D**-0.5 max_t sum_d |q_d k_td|, so a normalized
-    weight moves by a factor within exp(+-2 eps); the rounded V values and
-    weights add at most (2u + u**2) max|v|.  Before both outputs are
-    rounded to bf16 they differ by at most (exp(2 eps) - 1 + 2u + u**2)
-    max|v|; after, by 2**-7 |ref| + (1 + u) times that."""
-    u = 2.0 ** -8
-    B, _, Hq, D = q.shape
-    Hkv = k_cache.shape[2]
-    valid = torch.arange(k_cache.shape[1], device=q.device)[None] \
-        < ctx[:, None]
-    eps = 0.0
-    for b in range(B):                   # one cache row at a time
-        k = dequantize_kv(k_cache[b], k_scale[b], torch.float32).abs()
-        qg = q[b, 0].float().abs().reshape(Hkv, Hq // Hkv, D)
-        dots = torch.einsum("kgd,tkd->kgt", qg, k)[..., valid[b]]
-        eps = max(eps, u * D ** -0.5 * float(dots.max()))
-    vmax = float((v_cache.float().abs().amax(-1) * v_scale.float())
-                 [valid].max())
-    return 2.0 ** -7, (math.expm1(2 * eps) + 2 * u + u * u) * (1 + u) * vmax
 
 
 def decode_attention(q, k_cache, v_cache, ctx, k_scale=None, v_scale=None):

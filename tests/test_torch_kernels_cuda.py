@@ -474,9 +474,10 @@ def test_slot_decode_attention_int8(cuda):
     """``decode_attention`` on int8 slot caches with their bf16 scales
     (``cfg.kv_quant``): the split-K kernel over int8 pools (counted under
     ``/int8``), within one bf16 step of the kernels' plain version on the
-    same view, within ``int8_route_bound`` of the reference's route (the
-    plain version, each dequantized value and weight rounded to bf16), and
-    less extra memory than one bf16 copy of the caches."""
+    same view, within 2**-7 |ref| + 2 x 2**-9 max|v| of the reference's
+    route (the plain version, each dequantized value and weight rounded to
+    bf16) and outside it with the last valid slot dropped, and less extra
+    memory than one bf16 copy of the caches."""
     from repro_torch.models import attention as A
 
     B, S, H, D = 8, 1280, 32, 128
@@ -506,8 +507,13 @@ def test_slot_decode_attention_int8(cuda):
     assert ok, err
     valid = torch.arange(S, device=cuda)[None] < ctx[:, None]
     ref = A.decode_attention_plain(q, k, v, valid, k_scale=ks, v_scale=vs)
-    ok, err = within(out, ref, A.int8_route_bound(q, k, v, ks, vs, ctx))
+    vmax = (v.float().abs().amax(-1) * vs.float())[valid].max().item()
+    ok, err = within(out, ref, (2 ** -7, 2 * 2 ** -9 * vmax))
     assert ok, err
+    dropped = A.decode_attention(q, k, v, (ctx - 1).clamp(min=1),
+                                 k_scale=ks, v_scale=vs)
+    ok, err = within(dropped, ref, (2 ** -7, 2 * 2 ** -9 * vmax))
+    assert not ok, err
 
 
 def test_mla_latent_attention_bmm(cuda):
