@@ -6,8 +6,9 @@ The quickest proof that the port builds and serves on an NVIDIA H100:
 1. device and build: the card's name and power limit (nvidia-smi), and
    the CUDA kernels built from ``src/repro_torch/csrc`` with nvcc (one
    nvcc per source, all started together), with ptxas' registers and
-   the dynamic shared memory of the tensor-core tiles, and the SSD
-   kernel's registers, shared memory and blocks per SM;
+   spill bytes (per kernel for the head-dim-256 instantiations), the
+   dynamic shared memory of the tensor-core tiles at head dims 128 and
+   256, and the SSD kernel's registers, shared memory and blocks per SM;
 2. kernels against their plain PyTorch versions on the card, at the
    serving path's shapes:
    - paged attention, serial and split-K, bf16 and int8 pools (Hq = Hkv
@@ -15,15 +16,19 @@ The quickest proof that the port builds and serves on an NVIDIA H100:
      widths 32 and 256, and ragged mixed launches (a prefill chunk over
      one table row, 8 decode rows, padding rows with ctx 0); at
      StarCoder2-7B's shape (Hq 36 over Hkv 4: G = 9) a decode batch of 8
-     rows and the 512-row mixed launch at width 32; each case once more
-     with f32 queries and f32 pools at a tight tolerance;
+     rows and the 512-row mixed launch at width 32; at RecurrentGemma-
+     2B's (Hq 10 over Hkv 1, D = 256: G = 10) run M's decode, 8 rows
+     over 2048-slot rings (width 128), and the 512-row mixed launch; each
+     case once more with f32 queries and f32 pools at a tight tolerance;
    - flash attention (B = 1, Hq = 32, D = 128): S = 128, 1024 and 1000
      causal in bf16 and f32 (Hkv = 32), one windowed case (window 256),
      one GQA case (Hkv = 8), Mixtral-8x7B's prefill shape (S = 6144,
      Hkv = 8, window 4096) in bf16, Granite-3-2B's (S = 1024, Hkv =
      8, D = 64) in bf16 and f32, and MiniCPM3-4B's MLA prefill (Hq = Hkv
      = 40, D = 96 for q and k, Dv = 64 for v) at S = 1024 and 1000 in
-     bf16 and f32;
+     bf16 and f32, and RecurrentGemma-2B's local attention (Hq = 10 over
+     Hkv = 1, D = 256, window 2048) at S = 1024 and 4500 in bf16 (f32 at
+     D = 256 is refused by name: its tiles stop at 128);
    - the SSD scan at Mamba-2-2.7B's shape (H = 80, P = 64, G = 1, N =
      128, chunk 128): S = 128, 1024 and 1000 with bf16 and f32 x, S = 4096
      with bf16 x (2560 blocks, 32 chunks chained per head), and S = 1000
@@ -94,17 +99,30 @@ The quickest proof that the port builds and serves on an NVIDIA H100:
         scales (once per layer and decode step, counted per pool dtype);
         its first-token logits against run D's (prefill reads no cache),
         the greedy-token agreement with D reported;
-   runs D, F, G and L decode over their slot caches through the split-K
-   paged kernels (once per layer and decode step, asserted), and their
-   decode steps, and K's, take less extra memory than an f32 copy of one
-   layer's caches (K: of its latent cache);
+     M  RecurrentGemma-2B as registered (26 layers, d_model 2560: 9 stages
+        of two RG-LRU layers, d_rnn 2560, conv width 4, between 8 local-
+        attention layers of 10 query heads over one kv head of 256,
+        window 2048; d_ff 7680, vocab 256 000, untied, bf16; random
+        weights from a seed) on the slots backend with whole-prompt
+        prefill, max_len 6400; two of the 12 prompts are 4500-6000 tokens
+        long, so flash masks by the window, the 2048-slot rings wrap and
+        the RG-LRU scan runs many 256-step tiles with a ragged tail;
+        flash at D = 256 once per attention layer and prompt (8 x 12),
+        split-K at D = 256 once per attention layer and decode step, no
+        SSD launch; first tokens of a long and a short prompt against a
+        plain forward, prefill + one decode step past the window against
+        the longer prefill;
+   runs D, F, G, L and M decode over their slot caches through the split-K
+   paged kernels (once per attention layer and decode step, asserted),
+   and their decode steps, and K's, take less extra memory than an f32
+   copy of one layer's caches (K: of its latent cache);
    plus a check of run A's first-token logits against a dense forward,
    and ``torch.profiler`` windows (device busy share, kernel launches and
    device time by kernel per iteration): decode-heavy windows of the
-   configurations of runs A, D-H, K and L, and prefill-heavy windows of
-   A (iterations that carry 512-row chunks), D, E, G and K (the first
+   configurations of runs A, D-H and K-M, and prefill-heavy windows of
+   A (iterations that carry 512-row chunks), D, E, G, K and M (the first
    iteration: the whole prompts of the requests it admits);
-   runs A, B and D-L must go through the tensor-core (``mma``) variants
+   runs A, B and D-M must go through the tensor-core (``mma``) variants
    of their kernels and launch no ``fma`` variant, and no kernel a run
    does not expect;
 4. a ``kernels`` JSON line (launches per variant beside the totals), the
@@ -158,8 +176,14 @@ MAX_LEN_SLOTS = 1280               # runs D-F: prompts <= 1024, outputs <= 128
 # parameters, 47 of 93.4 GB in bf16: the whole model exceeds the card's
 # 80 GB); fewer layers make the host's share of an iteration larger
 MIXTRAL_LAYERS = 16
-MAX_LEN_LONG = 6400                # run G: prompts <= 6000, outputs <= 128
-LONG_PROMPTS = (4500, 6001)        # run G: two prompts past the 4096 window
+MAX_LEN_LONG = 6400                # runs G, M: prompts <= 6000, outputs <= 128
+# runs G and M: two prompts past the window (Mixtral's 4096,
+# RecurrentGemma's 2048)
+LONG_PROMPTS = (4500, 6001)
+# RecurrentGemma-2B's decode shape in the kernel phase (run M: 8 slots,
+# 10 query heads over one kv head of 256, rings of 2048 slots = 128
+# pages of 16)
+D256_DECODE = "gqa10_d256_decode8_w128"
 
 
 def fail(msg: str):
@@ -194,12 +218,23 @@ def main() -> int:
     # 1. build ---------------------------------------------------------------
     t0 = time.perf_counter()
     built = _build.build_all()
-    regs = {name: sorted({line.split("Used")[1].split(",")[0].strip()
-                          for line in _build.build_log(name).splitlines()
-                          if "Used" in line and "registers" in line})
-            for name in built}
+    # per kernel: registers and spill bytes; those of each library, and
+    # the head-dim-256 instantiations in full
+    ptxas = {name: _build.ptxas_report(_build.build_log(name))
+             for name in built}
+    regs = {name: sorted({f"{k['registers']} registers"
+                          for k in kernels.values()})
+            for name, kernels in ptxas.items()}
+    spills = {name: sorted({f"{k['spill_stores']} B stores, "
+                            f"{k['spill_loads']} B loads"
+                            for k in kernels.values()})
+              for name, kernels in ptxas.items()}
+    d256 = {k: v for kernels in ptxas.values() for k, v in kernels.items()
+            if "<256" in k or "<(int)256" in k}
+    check(d256, "build: no head-dim-256 instantiation in the ptxas report")
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": built, "ptxas_registers": regs,
+          "ptxas_spill_bytes": spills, "ptxas_d256": d256,
           "tile_smem_bytes": tile_smem_bytes(),
           "ssd_scan:mma": importlib.import_module(
               "repro_torch.kernels.ssd_scan").mma_attrs()})
@@ -222,15 +257,20 @@ def main() -> int:
 
 def tile_smem_bytes():
     """Dynamic shared memory of one block of each tensor-core kernel at
-    the serving head dim (128), from the libraries' own size functions."""
+    the serving head dims 128 and 256, from the libraries' own size
+    functions; each under the 227 KB (232 448 B) a block may take."""
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
     pa = importlib.import_module("repro_torch.kernels.paged_attention")
-    out = {"flash_attention:mma": fa._lib().flash_attention_mma_smem_bytes(
-        128, 128)}
-    for quant, pools in ((0, "bf16"), (1, "int8")):
-        for thin, walk in ((0, "tensor-core walk"), (1, "one-row walk")):
-            out[f"paged_attention:mma/{pools}/{walk}"] = \
-                pa._lib().paged_attention_mma_smem_bytes(128, 128, quant, thin)
+    out = {}
+    for d in (128, 256):
+        out[f"flash_attention:mma/d{d}"] = \
+            fa._lib().flash_attention_mma_smem_bytes(d, d)
+        for quant, pools in ((0, "bf16"), (1, "int8")):
+            for thin, walk in ((0, "tensor-core walk"), (1, "one-row walk")):
+                out[f"paged_attention:mma/{pools}/{walk}/d{d}"] = \
+                    pa._lib().paged_attention_mma_smem_bytes(d, d, quant, thin)
+    check(all(0 < b <= 232448 for b in out.values()),
+          f"build: a tile's shared memory is outside (0, 232448] B: {out}")
     return out
 
 
@@ -308,10 +348,13 @@ def tol_ratio(out, plain, tol):
 
 
 def kernel_cases():
-    """(name, ctx list, row_map list, table rows, width, Hq, Hkv) at the
-    serving path's shapes: Llama-2-7B's (MHA, 32 heads) and StarCoder2-7B's
-    (36 query heads over 4 kv heads: G = 9, so a decode row is one tile of
-    9 (row, head) pairs and a chunk's tiles hold 7 rows, 63 pairs)."""
+    """(name, ctx list, row_map list, table rows, width, Hq, Hkv, D) at the
+    serving path's shapes: Llama-2-7B's (MHA, 32 heads of 128),
+    StarCoder2-7B's (36 query heads over 4 kv heads: G = 9, so a decode
+    row is one tile of 9 (row, head) pairs and a chunk's tiles hold 7
+    rows, 63 pairs) and RecurrentGemma-2B's (10 query heads over one kv
+    head of 256: G = 10; run M's decode over its 2048-slot rings, 128
+    pages of 16, and a mixed launch whose tiles hold 6 rows, 60 pairs)."""
     rng = np.random.default_rng(SEED)
     cases = []
     for w in (32, 256):
@@ -319,25 +362,32 @@ def kernel_cases():
             ctx = rng.integers(1, 16 * w + 1, b)
             ctx[0] = 16 * w                           # one full table
             cases.append((f"decode{b}_w{w}", ctx.tolist(), list(range(b)),
-                          b, w, 32, 32))
+                          b, w, 32, 32, 128))
     for w, chunk, n_pad in ((32, 512, 1024), (4, 48, 64)):
         cases.append(mixed_case(rng, w, chunk, n_pad, 32, 32))
     rng = np.random.default_rng(SEED + 16)
     ctx = rng.integers(1, 16 * 32 + 1, 8)
     ctx[0] = 16 * 32
     cases.append(("gqa9_decode8_w32", ctx.tolist(), list(range(8)), 8, 32,
-                  36, 4))
+                  36, 4, 128))
     cases.append(mixed_case(rng, 32, 512, 1024, 36, 4, prefix="gqa9_"))
+    rng = np.random.default_rng(SEED + 18)
+    ctx = rng.integers(1, 16 * 128 + 1, 8)
+    ctx[0] = 16 * 128
+    cases.append((D256_DECODE, ctx.tolist(), list(range(8)), 8, 128, 10, 1,
+                  256))
+    cases.append(mixed_case(rng, 32, 512, 1024, 10, 1, D=256,
+                            prefix="gqa10_d256_"))
     return cases
 
 
-def mixed_case(rng, w, chunk, n_pad, Hq, Hkv, prefix=""):
+def mixed_case(rng, w, chunk, n_pad, Hq, Hkv, D=128, prefix=""):
     """One prefill chunk from position 0 over table row 0, 8 decode rows
     on rows 1..8, padding rows with ctx 0 on the spare row 9."""
     dec = rng.integers(1, 16 * w + 1, 8).tolist()
     ctx = list(range(1, chunk + 1)) + dec + [0] * (n_pad - chunk - 8)
     rmap = [0] * chunk + list(range(1, 9)) + [9] * (n_pad - chunk - 8)
-    return (f"{prefix}mixed{chunk}+8_w{w}", ctx, rmap, 16, w, Hq, Hkv)
+    return (f"{prefix}mixed{chunk}+8_w{w}", ctx, rmap, 16, w, Hq, Hkv, D)
 
 
 def kernel_phase(torch, flush):
@@ -347,7 +397,7 @@ def kernel_phase(torch, flush):
     from repro_torch.models.attention import quantize_kv
 
     dev = torch.device("cuda")
-    D, page, pps = 128, 16, 4
+    page, pps = 16, 4
     rows = {"paged_attention": {"name": "paged_attention", "route": "cuda",
                                 "source": "src/repro_torch/csrc/paged_attention.cu",
                                 "replaces": "src/repro/kernels/paged_attention.py:242",
@@ -361,7 +411,7 @@ def kernel_phase(torch, flush):
     # shapes runs A (split-K, width 32) and C (serial, width 4) launch
     main_case = {"paged_attention": ("mixed48+8_w4", "bf16"),
                  "paged_attention_splitk": ("mixed512+8_w32", "bf16")}
-    for ci, (name, ctx_l, rmap_l, n_tab, W, Hq, Hkv) in enumerate(
+    for ci, (name, ctx_l, rmap_l, n_tab, W, Hq, Hkv, D) in enumerate(
             kernel_cases()):
         g = torch.Generator(device=dev).manual_seed(SEED + ci)
         B = len(ctx_l)
@@ -398,7 +448,7 @@ def kernel_phase(torch, flush):
             err_s, ratio_s = tol_ratio(o_s, p_s, tol)
             err_k, ratio_k = tol_ratio(o_k, p_k, tol)
             line = {"phase": "kernels", "case": name, "pools": pools,
-                    "rows": B, "width": W, "Hq": Hq, "Hkv": Hkv,
+                    "rows": B, "width": W, "Hq": Hq, "Hkv": Hkv, "D": D,
                     "rtol": tol[0], "atol": tol[1],
                     "serial_err": err_s, "splitk_err": err_k,
                     "serial_tol_ratio": ratio_s, "splitk_tol_ratio": ratio_k,
@@ -460,9 +510,9 @@ def kernel_phase(torch, flush):
                      "splitk_plain_ms")):
                 row = rows[kname]
                 row["max_abs_err"] = max(row["max_abs_err"], err)
+                fn = paged_attention_kernel if kname == "paged_attention" \
+                    else paged_attention_splitk_kernel
                 if main_case[kname] == (name, pools):
-                    fn = paged_attention_kernel if kname == "paged_attention" \
-                        else paged_attention_splitk_kernel
                     row["ms_by_kernel"] = device_ms_by_kernel(
                         torch, lambda: fn(*args, **kw), flush)
                     row.update(ms=line[ms], plain_ms=line[plain],
@@ -470,6 +520,17 @@ def kernel_phase(torch, flush):
                                bound_by=line["bound_by"],
                                library_ms=line["library_ms"],
                                shape=f"{name}/{pools}")
+                if D == 256 and pools == "bf16":
+                    # RecurrentGemma-2B's head dim: run M's decode shape
+                    # and the mixed launch, each with its device time by
+                    # kernel (the plan, the tensor-core walk, the combine)
+                    row.setdefault("d256_shapes", {})[name] = dict(
+                        ms=line[ms], plain_ms=line[plain],
+                        bound_ms=line["bound_ms"], bound_by=line["bound_by"],
+                        library_ms=line["library_ms"],
+                        tol_ratio=line[f"{ms[:-3]}_tol_ratio"],
+                        ms_by_kernel=device_ms_by_kernel(
+                            torch, lambda: fn(*args, **kw), flush))
     return rows
 
 
@@ -538,14 +599,18 @@ def flash_phase(torch, flush):
     """The flash-attention kernel against its plain version at the
     whole-prompt prefill shapes of Llama-2-7B (B = 1, 32 heads, D = 128),
     Mixtral-8x7B (8 kv heads, window 4096, a 6144-token prompt),
-    Granite-3-2B (8 kv heads of 64) and MiniCPM3-4B's MLA prefill (40
+    Granite-3-2B (8 kv heads of 64), MiniCPM3-4B's MLA prefill (40
     heads, D = 96 for q and k, Dv = 64 for v: the tile is 128 wide, so
-    96-127 of Q/K and 64-127 of V are zero-filled columns);
+    96-127 of Q/K and 64-127 of V are zero-filled columns) and
+    RecurrentGemma-2B's local attention (10 query heads over one kv head
+    of 256, window 2048, at S = 1024 and 4500: the 256-wide tile, Q in
+    shared memory; bf16 only, f32 at 256 is refused by name);
     library yardstick: ``scaled_dot_product_attention`` (a windowed case
     passes its mask as a boolean tensor), timed here only.  The kernels
-    line carries S1024 causal bf16 and MiniCPM3's S1024 bf16
-    (``mla_shape``); S1024 and the Mixtral case add the profiler's device
-    time (``ms_by_kernel``)."""
+    line carries S1024 causal bf16, MiniCPM3's S1024 bf16
+    (``mla_shape``) and RecurrentGemma's two (``d256_shapes``); S1024,
+    the Mixtral case and RecurrentGemma's add the profiler's device time
+    (``ms_by_kernel``)."""
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
     F = torch.nn.functional
     dev = torch.device("cuda")
@@ -567,6 +632,19 @@ def flash_phase(torch, flush):
     # MiniCPM3-4B's MLA prefill: 40 heads, D = 96 (64 + 32), Dv = 64
     cases += [(f"S{S}_mla_d96_dv64", S, 40, 40, 96, 64, True, 0, dt)
               for S in (1024, 1000) for dt in ("bfloat16", "float32")]
+    # RecurrentGemma-2B's local attention: 10 query heads over one kv head
+    # of 256, window 2048, inside it and past it (bf16: the f32 kernel's
+    # tiles stop at 128, and its refusal is checked below)
+    cases += [(name, S, 10, 1, 256, 256, True, 2048, "bfloat16")
+              for name, S in (("S1024_gqa10_d256", 1024),
+                              ("S4500_gqa10_d256_window2048", 4500))]
+    q32 = torch.zeros((1, 16, 1, 256), device=dev)
+    try:
+        fa.flash_attention_kernel(q32, q32, q32)
+        fail("flash: f32 at head dim 256 was not refused")
+    except ValueError as e:
+        check("[4, 128]" in str(e), f"flash: f32 at head dim 256 refused "
+              f"without naming the limit: {e}")
     for ci, (name, S, Hq, Hkv, D, Dv, causal, window, dt) in enumerate(
             cases):
         g = torch.Generator(device=dev).manual_seed(SEED + 100 + ci)
@@ -588,7 +666,7 @@ def flash_phase(torch, flush):
               f"flash {name}/{dt}: non-finite output")
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         mask = None
-        if window:
+        if window and window < S:       # a window past S masks nothing
             pos = torch.arange(S, device=dev)
             mask = (pos[None] <= pos[:, None]) & (pos[None] > pos[:, None]
                                                    - window)
@@ -609,7 +687,8 @@ def flash_phase(torch, flush):
                 "library_ms": time_ms(torch, library, 10, flush)}
         line["bound_ms"], line["bound_by"] = flash_bound(
             S, Hq, Hkv, D, causal, window, dt, Dv)
-        if name in ("S1024_causal", "S6144_window4096_gqa8") \
+        if name in ("S1024_causal", "S6144_window4096_gqa8",
+                    "S1024_gqa10_d256", "S4500_gqa10_d256_window2048") \
                 and dt == "bfloat16":
             line["ms_by_kernel"] = device_ms_by_kernel(
                 torch, lambda: fa.flash_attention_kernel(
@@ -626,6 +705,10 @@ def flash_phase(torch, flush):
         if (name, dt) == ("S1024_mla_d96_dv64", "bfloat16"):
             row["mla_shape"] = {k: line[k] for k in (
                 "case", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "tol_ratio")}
+        if D == 256:
+            row.setdefault("d256_shapes", {})[name] = {k: line[k] for k in (
+                "ms", "ms_by_kernel", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "tol_ratio")}
     return {"flash_attention": row}
 
@@ -1026,7 +1109,7 @@ def setup(torch, arch, n_layers=None):
 def requests(short, long_prompts=0):
     """The 12 requests of every run (``short``: run C's, which fit
     max_len 64), from SEED; ``long_prompts``: that many of the first
-    arrivals get prompts of LONG_PROMPTS tokens instead (run G)."""
+    arrivals get prompts of LONG_PROMPTS tokens instead (runs G, M)."""
     from repro_torch.core import Request
     from repro_torch.workloads.traces import sample_prompt
 
@@ -1117,9 +1200,10 @@ def serve(torch, run, model, max_len, short, expect, long_prompts=0,
         got = launches[name]
         if want in ("per_layer_prefill", "per_layer_decode"):
             n = prefills[0] if want == "per_layer_prefill" else decodes[0]
-            check(n > 0 and got == cfg.n_layers * n,
+            n_layers = layers_of(cfg, name)
+            check(n > 0 and got == n_layers * n,
                   f"run {run}: {name} launched {got} times, not "
-                  f"{cfg.n_layers} layers x {n} ({want})")
+                  f"{n_layers} layers x {n} ({want})")
         else:
             check(got > 0 if want else got == 0,
                   f"run {run}: {name} launched {got} times")
@@ -1182,6 +1266,14 @@ def serve(torch, run, model, max_len, short, expect, long_prompts=0,
     gc.collect()
     torch.cuda.empty_cache()
     return tokens, firsts, launches, line
+
+
+def layers_of(cfg, kernel):
+    """The layers of ``cfg`` that launch ``kernel`` once per call: Mamba-2
+    layers the SSD scan, attention layers (full, local or MLA) the
+    attention kernels; RecurrentGemma's RG-LRU layers launch neither."""
+    want = "mamba2" if kernel.startswith("ssd_scan") else "attn"
+    return sum(1 for k in cfg.layer_kinds() if k.startswith(want))
 
 
 def engine_phase(torch, kernel_rows):
@@ -1356,6 +1448,35 @@ def engine_phase(torch, kernel_rows):
     profiled("K", minicpm, MAX_LEN_SLOTS, "prefill", backend="slots",
              chunked=False)
     del minicpm
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # RecurrentGemma-2B: 18 RG-LRU layers (PyTorch operations, no kernel)
+    # beside 8 local-attention layers of 10 query heads over one kv head
+    # of 256: whole-prompt prefill through flash at D = 256, decode over
+    # the 2048-slot rings through split-K; two prompts past the window
+    rgemma = setup(torch, "recurrentgemma-2b")
+    window = rgemma[0].window
+    _, first_m, runs["M"], _ = serve(
+        torch, "M", rgemma, MAX_LEN_LONG, False,
+        dict(slots_attn, **{"paged_attention_splitk/bf16": "per_layer_decode",
+                            "paged_attention_splitk/int8": False}),
+        long_prompts=2, backend="slots", chunked=False)
+    long = sorted(rid for rid, (toks, _) in first_m.items()
+                  if len(toks) > window)
+    check(len(long) == 2, f"run M: {len(long)} prompts past the window "
+          f"{window}, not 2")
+    short = [rid for rid in sorted(first_m) if rid not in long]
+    dense_check(torch, rgemma[1], rgemma[0], first_m,
+                rids=long[:1] + short[:1])
+    decode_consistency(torch, rgemma[1], rgemma[0], n=window + 104)
+    line = profiled("M", rgemma, MAX_LEN_LONG, "prefill", long_prompts=2,
+                    backend="slots", chunked=False)
+    check(line["longest_prompt_prefilled"] > window, "run M: the prefill "
+          "window carried no prompt past the attention window")
+    no_casts("M", profiled("M", rgemma, MAX_LEN_LONG, long_prompts=2,
+                           backend="slots", chunked=False))
+    del rgemma
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1818,11 +1939,12 @@ def dense_check(torch, params, cfg, firsts, n=3, rids=None):
     """The served first-token logits of ``n`` requests (or of ``rids``)
     against a plain forward of the same weights, one prompt at a time:
     attention without pools or kernels (MLA expanded, as in prefill), the
-    port's MLP and MoE FFN."""
-    from repro_torch.configs.base import ATTN_MLA
+    port's RG-LRU block (it has no kernel), MLP and MoE FFN."""
+    from repro_torch.configs.base import ATTN_MLA, RGLRU
     from repro_torch.models.layers import apply_rope, embed, rmsnorm, unembed
     from repro_torch.models.model import (ffn_forward, layer_params,
                                           model_stages, window_for)
+    from repro_torch.models.rglru import rglru_prefill
 
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim()
     worst = 0.0
@@ -1841,6 +1963,9 @@ def dense_check(torch, params, cfg, firsts, n=3, rids=None):
                     if kind == ATTN_MLA:
                         x = x + mla_plain(torch, layer_params(st["attn"], i),
                                           h, pos, cfg, window)
+                    elif kind == RGLRU:
+                        x = x + rglru_prefill(layer_params(st["attn"], i),
+                                              h[None], cfg)[0][0]
                     else:
                         q, k, v = (h @ st["attn"][w][i].reshape(
                             cfg.d_model, -1) for w in ("wq", "wk", "wv"))

@@ -1,12 +1,14 @@
 """Architecture config registry (the port serves the paper's Llama-2-7B
 testbed model, the dense GQA stacks DeepSeek-7B, Granite-3-2B and
 StarCoder2-7B, MiniCPM3-4B with multi-head latent attention, the
-attention-free Mamba-2-2.7B and the MoE stacks DeepSeek-MoE-16B and
-Mixtral-8x7B, the latter with sliding-window attention)."""
+attention-free Mamba-2-2.7B, the MoE stacks DeepSeek-MoE-16B and
+Mixtral-8x7B, the latter with sliding-window attention, and the hybrid
+RecurrentGemma-2B: RG-LRU blocks beside local attention)."""
 from repro_torch.configs.base import ModelConfig, get_config, list_archs
 from repro_torch.configs import (deepseek_7b, deepseek_moe_16b, granite_3_2b,
                                  llama2_7b, mamba2_2_7b, minicpm3_4b,
-                                 mixtral_8x7b, starcoder2_7b)
+                                 mixtral_8x7b, recurrentgemma_2b,
+                                 starcoder2_7b)
 
 SMOKE_FACTORIES = {
     "deepseek-7b": deepseek_7b.smoke,
@@ -16,6 +18,7 @@ SMOKE_FACTORIES = {
     "mamba2-2.7b": mamba2_2_7b.smoke,
     "minicpm3-4b": minicpm3_4b.smoke,
     "mixtral-8x7b": mixtral_8x7b.smoke,
+    "recurrentgemma-2b": recurrentgemma_2b.smoke,
     "starcoder2-7b": starcoder2_7b.smoke,
 }
 

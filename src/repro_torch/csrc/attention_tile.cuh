@@ -4,7 +4,8 @@
 //
 // A warp owns 16 query rows.  Their Q fragments (bf16, the A operand of
 // mma.sync.m16n8k16) and their online-softmax state (m, l, acc) live in
-// registers for the whole walk over the keys.  One call of `tile_step`
+// registers for the whole walk over the keys (at DP = 256, Q lives in
+// shared memory instead: see kSmemQ).  One call of `tile_step`
 // takes a tile of kKeys = 64 keys, bf16, with their V, in shared memory
 // (rows padded by 8 elements, so the ldmatrix loads of K and the
 // transposed loads of V hit 8 distinct 16-byte bank groups: no conflicts),
@@ -52,10 +53,11 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kRows = 16 * kWarps;         // query rows (or row, head pairs) per block
 constexpr int kPad = 8;                    // bf16 elements of padding per smem row
 
-// DP: the head dim the tile is built for (32, 64 or 128); narrower heads
-// are zero-padded up to it.
+// DP: the head dim the tile is built for (32, 64, 128 or 256); narrower
+// heads are zero-padded up to it.
 template <int DP>
 struct Dims {
+  static_assert(DP == 32 || DP == 64 || DP == 128 || DP == 256, "tile width");
   static constexpr int kStride = DP + kPad;          // smem row stride (bf16)
   static constexpr int kTileElems = kKeys * kStride;  // one K or V tile
   static constexpr int kChunks = DP / 8;              // 16-byte chunks per row
@@ -82,10 +84,14 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
+__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
+  ldmatrix_x4(r, smem_u32(p));
 }
 
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const void* p) {
@@ -123,29 +129,72 @@ __device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi, uin
   lo = as_u32(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
 }
 
-// The registers of one warp: rows g = lane / 4 and g + 8 of its 16.
+// Where Q's A fragments live.  Up to DP = 128 in registers, DP / 4 of
+// them.  At DP = 256 the 64 fragment registers beside the 128 f32
+// accumulators, the 32 scores and the V fragments pass the 255 registers
+// a thread may hold, so the warp's 16 Q rows go to a tile in shared
+// memory (kQTileElems bf16, rows padded as the K tiles are) and each
+// k16 step loads its fragment with one ldmatrix; and tile_step loads each
+// pair of V fragments once for both the lo and hi products instead of
+// holding all DP / 8 of them (the same products into each accumulator in
+// the same order: the same bits).
 template <int DP>
+constexpr bool kSmemQ = DP > 128;
+constexpr int kQTileElems = 16 * Dims<256>::kStride;   // one warp's Q rows at DP = 256
+
+// The registers of one warp: rows g = lane / 4 and g + 8 of its 16.
+template <int DP, bool SMEM_Q = kSmemQ<DP>>
 struct RowState {
   uint32_t q[DP / 16][4];   // A fragments of Q, one per k16 step
   float acc[DP / 8][4];     // C fragments of the output, one per n8 block
   float m[2], l[2];         // rows g and g + 8
 };
 
+template <int DP>
+struct RowState<DP, true> {
+  uint32_t q_addr;          // shared address of this lane's ldmatrix row of Q, k16 step 0
+  float acc[DP / 8][4];
+  float m[2], l[2];
+};
+
 // Q rows `qa` (row g) and `qb` (row g + 8), `D` bf16 each, into the A
 // fragments (zeros for a null row and for d >= D); resets (m, l, acc).
+// kSmemQ: into the warp's tile `q_tile` (kQTileElems bf16) instead, the
+// same values at the same (row, d).
 template <int DP>
 __device__ __forceinline__ void init_rows(RowState<DP>& st, const __nv_bfloat16* qa,
-                                          const __nv_bfloat16* qb, int D, int lane) {
+                                          const __nv_bfloat16* qb, int D, int lane,
+                                          __nv_bfloat16* q_tile = nullptr) {
   const int t = lane & 3;
+  if constexpr (kSmemQ<DP>) {
+    constexpr int S = Dims<DP>::kStride;
+    const int g = lane >> 2;
+    __syncwarp();                            // the warp's last reads of the tile are done
+#pragma unroll 4
+    for (int kk = 0; kk < DP / 16; ++kk) {
 #pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk) {
+      for (int half = 0; half < 2; ++half) {
+        const int d = kk * 16 + half * 8 + 2 * t;
+        *reinterpret_cast<uint32_t*>(q_tile + g * S + d) =
+            (qa != nullptr && d < D) ? *reinterpret_cast<const uint32_t*>(qa + d) : 0u;
+        *reinterpret_cast<uint32_t*>(q_tile + (g + 8) * S + d) =
+            (qb != nullptr && d < D) ? *reinterpret_cast<const uint32_t*>(qb + d) : 0u;
+      }
+    }
+    __syncwarp();
+    const int mi = lane >> 3, mr = lane & 7;   // matrices: rows 0-7 / 8-15, k 0-7 / 8-15
+    st.q_addr = smem_u32(q_tile + ((mi & 1) * 8 + mr) * S + (mi >> 1) * 8);
+  } else {
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int d = kk * 16 + half * 8 + 2 * t;
-      st.q[kk][2 * half] =
-          (qa != nullptr && d < D) ? *reinterpret_cast<const uint32_t*>(qa + d) : 0u;
-      st.q[kk][2 * half + 1] =
-          (qb != nullptr && d < D) ? *reinterpret_cast<const uint32_t*>(qb + d) : 0u;
+    for (int kk = 0; kk < DP / 16; ++kk) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int d = kk * 16 + half * 8 + 2 * t;
+        st.q[kk][2 * half] =
+            (qa != nullptr && d < D) ? *reinterpret_cast<const uint32_t*>(qa + d) : 0u;
+        st.q[kk][2 * half + 1] =
+            (qb != nullptr && d < D) ? *reinterpret_cast<const uint32_t*>(qb + d) : 0u;
+      }
     }
   }
 #pragma unroll
@@ -181,13 +230,21 @@ __device__ __forceinline__ void tile_step(RowState<DP>& st, const __nv_bfloat16*
   const __nv_bfloat16* krow = Ks + ((mi >> 1) * 8 + mr) * S + (mi & 1) * 8;
 #pragma unroll
   for (int kk = 0; kk < DP / 16; ++kk) {
+    const uint32_t* a;
+    uint32_t qf[4];
+    if constexpr (kSmemQ<DP>) {
+      ldmatrix_x4(qf, st.q_addr + kk * 32u);   // 16 bf16 per k16 step
+      a = qf;
+    } else {
+      a = st.q[kk];
+    }
 #pragma unroll
     for (int jp = 0; jp < 4; ++jp) {
       if (2 * jp < nj) {
         uint32_t b[4];
         ldmatrix_x4(b, krow + jp * 16 * S + kk * 16);
-        mma_bf16(s[2 * jp], st.q[kk], b[0], b[1]);
-        mma_bf16(s[2 * jp + 1], st.q[kk], b[2], b[3]);
+        mma_bf16(s[2 * jp], a, b[0], b[1]);
+        mma_bf16(s[2 * jp + 1], a, b[2], b[3]);
       }
     }
   }
@@ -266,27 +323,41 @@ __device__ __forceinline__ void tile_step(RowState<DP>& st, const __nv_bfloat16*
       split_pair(p[1][0], p[1][1], ah[2], al[2]);   // row g,     keys 8-15
       split_pair(p[1][2], p[1][3], ah[3], al[3]);   // row g + 8, keys 8-15
       const __nv_bfloat16* vrow = Vs + (kk * 16 + (mi & 1) * 8 + mr) * S + (mi >> 1) * 8;
-      uint32_t bv[DP / 16][4];
+      if constexpr (kSmemQ<DP>) {
+        // one pair of V fragments at a time, lo then hi into each
+        // accumulator: the order of the loops below
 #pragma unroll
-      for (int n = 0; n < DP / 8; n += 2) {
-        ldmatrix_x4_trans(bv[n / 2], vrow + n * 8);
-        mma_bf16(st.acc[n], al, bv[n / 2][0], bv[n / 2][1]);
-        mma_bf16(st.acc[n + 1], al, bv[n / 2][2], bv[n / 2][3]);
-      }
+        for (int n = 0; n < DP / 8; n += 2) {
+          uint32_t bv[4];
+          ldmatrix_x4_trans(bv, vrow + n * 8);
+          mma_bf16(st.acc[n], al, bv[0], bv[1]);
+          mma_bf16(st.acc[n + 1], al, bv[2], bv[3]);
+          mma_bf16(st.acc[n], ah, bv[0], bv[1]);
+          mma_bf16(st.acc[n + 1], ah, bv[2], bv[3]);
+        }
+      } else {
+        uint32_t bv[DP / 16][4];
 #pragma unroll
-      for (int n = 0; n < DP / 8; n += 2) {
-        mma_bf16(st.acc[n], ah, bv[n / 2][0], bv[n / 2][1]);
-        mma_bf16(st.acc[n + 1], ah, bv[n / 2][2], bv[n / 2][3]);
+        for (int n = 0; n < DP / 8; n += 2) {
+          ldmatrix_x4_trans(bv[n / 2], vrow + n * 8);
+          mma_bf16(st.acc[n], al, bv[n / 2][0], bv[n / 2][1]);
+          mma_bf16(st.acc[n + 1], al, bv[n / 2][2], bv[n / 2][3]);
+        }
+#pragma unroll
+        for (int n = 0; n < DP / 8; n += 2) {
+          mma_bf16(st.acc[n], ah, bv[n / 2][0], bv[n / 2][1]);
+          mma_bf16(st.acc[n + 1], ah, bv[n / 2][2], bv[n / 2][3]);
+        }
       }
     }
   }
 }
 
-// The tile width for head dims D and Dv (<= 128): narrower heads are
-// zero-padded up to it.
+// The tile width for head dims D and Dv: narrower heads are zero-padded
+// up to it; 0 past 256 (no tile takes them).
 inline int tile_width(int D, int Dv) {
   const int d = D > Dv ? D : Dv;
-  return d <= 32 ? 32 : d <= 64 ? 64 : 128;
+  return d <= 32 ? 32 : d <= 64 ? 64 : d <= 128 ? 128 : d <= 256 ? 256 : 0;
 }
 
 // Block-wide exclusive prefix sum of one int per thread (blockDim.x a

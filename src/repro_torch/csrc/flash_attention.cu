@@ -19,8 +19,12 @@
 //
 //   - bf16 (flash_attention_mma_kernel, the serving path): one block per
 //     (q tile of 64 rows, query head, batch row), 4 warps of 16 rows each,
-//     three blocks per SM (registers capped at 168: the third block hides
-//     more of the mma and ex2 latency than the few spilled bytes cost).
+//     three blocks per SM at head dims up to 128 (registers capped at 168:
+//     the third block hides more of the mma and ex2 latency than the few
+//     spilled bytes cost).  At head dim 256 (RecurrentGemma-2B) the tile
+//     keeps Q in shared memory (attention_tile.cuh, kSmemQ) and the block
+//     takes 165 KiB of shared memory: one block per SM, registers up to
+//     255.
 //     K/V tiles of 64 keys in bf16 are double-buffered in shared memory
 //     with cp.async, so the next tile loads while this one computes; each
 //     warp runs the shared tensor-core tile routine (attention_tile.cuh:
@@ -55,7 +59,8 @@ namespace {
 constexpr int kBQ = 64;            // query rows per block
 constexpr int kBKV = 64;           // keys per kv tile
 constexpr int kThreads = 256;      // 16 x 16 threads
-constexpr int kMaxD = 128;         // largest D and Dv
+constexpr int kMaxD = 128;         // largest D and Dv of the f32 kernel
+constexpr int kMaxMmaD = 256;      // largest D and Dv of the bf16 kernel
 constexpr int kQKStride = kMaxD + 4;   // f32 row stride of the Q and K tiles
 constexpr int kVStride = kMaxD;        // f32 row stride of the V tile
 constexpr int kPStride = kBKV + 4;     // f32 row stride of the P tile
@@ -270,20 +275,26 @@ namespace at = attn_tile;
 using bf16 = __nv_bfloat16;
 
 constexpr int kStages = 2;        // K/V tiles in flight per block
-constexpr int kMinBlocks = 3;     // blocks per SM: caps registers at 168
+// blocks per SM: three cap registers at 168; at DP = 256 shared memory
+// holds one block, which may take 255
+template <int DP>
+constexpr int kMinBlocks = at::kSmemQ<DP> ? 1 : 3;
 
 template <int DP>
 constexpr size_t mma_smem_bytes() {
-  return sizeof(bf16) * kStages * 2 /* K, V */ * at::Dims<DP>::kTileElems;
+  return sizeof(bf16) * (kStages * 2 /* K, V */ * at::Dims<DP>::kTileElems +
+                         (at::kSmemQ<DP> ? at::kWarps * at::kQTileElems : 0));
 }
 
 template <int DP>
-__global__ void __launch_bounds__(at::kThreads, kMinBlocks)
+__global__ void __launch_bounds__(at::kThreads, kMinBlocks<DP>)
 flash_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                            const bf16* __restrict__ v, bf16* __restrict__ out, Shape P) {
   using Dm = at::Dims<DP>;
   extern __shared__ __align__(16) unsigned char mma_smem[];
   bf16* tiles = reinterpret_cast<bf16*>(mma_smem);   // [stage][K, V][64][kStride]
+  // kSmemQ: then each warp's Q rows
+  bf16* q_tiles = tiles + kStages * 2 * Dm::kTileElems;
 
   const int qt = gridDim.x - 1 - blockIdx.x;          // longest causal rows first
   const int h = blockIdx.y;
@@ -305,7 +316,7 @@ flash_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
     lo[r] = P.window > 0 ? max(0, row[r] - P.window + 1) : 0;
     hi[r] = P.causal ? min(P.S, row[r] + 1) : P.S;
   }
-  at::init_rows(st, qrow[0], qrow[1], P.D, lane);
+  at::init_rows(st, qrow[0], qrow[1], P.D, lane, q_tiles + warp * at::kQTileElems);
 
   // kv tiles that hold a valid key for some row of this block
   int kv_lo = 0, kv_hi = P.S;
@@ -405,24 +416,28 @@ int launch_mma(const void* q, const void* k, const void* v, void* out, const Sha
 
 extern "C" {
 
-// Shared memory the bf16 kernel's block takes for these head dims, bytes.
+// Shared memory the bf16 kernel's block takes for these head dims, bytes
+// (0 for head dims no tile takes).
 size_t flash_attention_mma_smem_bytes(int D, int Dv) {
   switch (at::tile_width(D, Dv)) {
     case 32: return mma_smem_bytes<32>();
     case 64: return mma_smem_bytes<64>();
-    default: return mma_smem_bytes<128>();
+    case 128: return mma_smem_bytes<128>();
+    case 256: return mma_smem_bytes<256>();
+    default: return 0;
   }
 }
 
 // q, k, v, out contiguous; dtype 0 = f32 (FMA kernel; D, Dv multiples of
-// 4), 1 = bf16 (tensor-core kernel; D, Dv multiples of 8, 16-byte aligned
-// rows); all four alike.
+// 4 up to 128), 1 = bf16 (tensor-core kernel; D, Dv multiples of 8 up to
+// 256, 16-byte aligned rows); all four alike.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* out, int B,
                         int S, int Hq, int Hkv, int D, int Dv, int causal, int window,
                         int dtype, float sm_scale, void* stream) {
   const int step = dtype == 1 ? 8 : 4;
+  const int max_d = dtype == 1 ? kMaxMmaD : kMaxD;
   if (B < 1 || S < 1 || Hkv < 1 || Hq % Hkv != 0 || D % step || Dv % step || D < step ||
-      Dv < step || D > kMaxD || Dv > kMaxD || window < 0)
+      Dv < step || D > max_d || Dv > max_d || window < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Shape P{B, S, Hq, Hkv, Hq / Hkv, D, Dv, causal, window, sm_scale};
   const auto st = static_cast<cudaStream_t>(stream);
@@ -431,7 +446,9 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* out, 
     switch (at::tile_width(D, Dv)) {
       case 32: return launch_mma<32>(q, k, v, out, P, st);
       case 64: return launch_mma<64>(q, k, v, out, P, st);
-      default: return launch_mma<128>(q, k, v, out, P, st);
+      case 128: return launch_mma<128>(q, k, v, out, P, st);
+      case 256: return launch_mma<256>(q, k, v, out, P, st);
+      default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
   return static_cast<int>(cudaErrorInvalidValue);

@@ -37,7 +37,12 @@
 //     decode row of an MHA stack) keeps a block per (row, head, split)
 //     and takes a one-row FMA step over the same landed pages, many
 //     blocks per SM: its gain is vectorised copies and pages in
-//     flight, not the tensor cores.  int8 pages are widened to bf16
+//     flight, not the tensor cores.  At head dim 256 (RecurrentGemma-2B,
+//     G = 10) the tensor-core walk keeps Q in shared memory
+//     (attention_tile.cuh, kSmemQ) and two page steps in flight, not
+//     three (three would pass the 227 KB a block may take), and the
+//     one-row walk gives each thread two output columns.  int8 pages
+//     are widened to bf16
 //     exactly (|x| <= 127); the K scale multiplies the f32 score after the
 //     product, the V scale is folded into P.  The serial kernel is the same
 //     walk over one split that spans the table, so serial and split-K
@@ -589,22 +594,27 @@ paged_plan_kernel(const int* __restrict__ row_map, const int* __restrict__ ctx_l
 }
 
 // Page steps in flight per block: the wide kernel keeps a ring of three
-// (two ahead of the one that computes); the thin kernel loads one step at
-// a time and keeps many blocks on each SM instead.
-template <bool THIN>
-constexpr int kStagesOf = THIN ? 1 : 3;
+// (two ahead of the one that computes), two at DP = 256; the thin kernel
+// loads one step at a time and keeps many blocks on each SM instead.
+template <int DP, bool THIN>
+constexpr int kStagesOf = THIN ? 1 : at::kSmemQ<DP> ? 2 : 3;
+
+// Output columns per thread of the thin kernel: one, two at DP = 256.
+template <int DP>
+constexpr int kThinCols = DP > at::kThreads ? DP / at::kThreads : 1;
 
 // Shared memory of one block, bytes.  bf16 pages land straight in the K/V
 // tiles; int8 pages land in int8 staging with their per-slot scales as f32
 // (the wide kernel widens them into one bf16 tile for ldmatrix; the thin
 // kernel reads them as they are).  The thin kernel adds its query row and
-// scores (f32).
+// scores (f32); the wide kernel at DP = 256 its warps' Q rows (bf16).
 template <int DP, bool QUANT, bool THIN>
 constexpr size_t mma_smem_bytes() {
   constexpr size_t tile = sizeof(bf16) * at::Dims<DP>::kTileElems;
   constexpr size_t land = QUANT ? 2 * at::kKeys * (DP + sizeof(float)) : 2 * tile;
-  return (QUANT && !THIN ? 2 * tile : 0) + kStagesOf<THIN> * land +
-         (THIN ? sizeof(float) * (DP + at::kKeys) : 0);
+  return (QUANT && !THIN ? 2 * tile : 0) + kStagesOf<DP, THIN> * land +
+         (THIN ? sizeof(float) * (DP + at::kKeys) : 0) +
+         (!THIN && at::kSmemQ<DP> ? sizeof(bf16) * at::kWarps * at::kQTileElems : 0);
 }
 
 __device__ __forceinline__ void load8(const bf16* p, float f[8]) {
@@ -631,11 +641,12 @@ __device__ __forceinline__ void load8(const int8_t* p, float f[8]) {
 // order, then their sum; every warp takes the softmax of the 64 scores
 // alike, so (m, l) live in every thread; thread t holds output column t.
 // f32 throughout (bf16 and int8 values are exact in f32), so no hi/lo.
+// At DP = 256 thread t holds columns t and t + 128.
 template <int DP, bool QUANT, typename TKV>
 __device__ __forceinline__ void thin_step(const TKV* K, const TKV* V, const float* ks,
                                           const float* vs, const float* q_s, float* s_s,
                                           int key0, int n_keys, int hi, float sm_scale,
-                                          float& m, float& l, float& acc) {
+                                          float& m, float& l, float (&acc)[kThinCols<DP>]) {
   constexpr int LS = QUANT ? DP : at::Dims<DP>::kStride;   // landed row stride
   constexpr float kLog2e = 1.4426950408889634f;
   const int key = threadIdx.x >> 1, half = threadIdx.x & 1, lane = threadIdx.x & 31;
@@ -676,11 +687,14 @@ __device__ __forceinline__ void thin_step(const TKV* K, const TKV* V, const floa
     pa = __fmul_rn(pa, vs[lane]);
     pb = __fmul_rn(pb, vs[lane + 32]);
   }
-  acc *= corr;
+#pragma unroll
+  for (int c = 0; c < kThinCols<DP>; ++c) acc[c] *= corr;
   const TKV* vc = V + min(static_cast<int>(threadIdx.x), DP - 1);
   for (int k = 0; k < n_keys; ++k) {
     const float pk = __shfl_sync(0xffffffffu, k < 32 ? pa : pb, k & 31);
-    acc = __fmaf_rn(pk, to_f(vc[k * LS]), acc);
+#pragma unroll
+    for (int c = 0; c < kThinCols<DP>; ++c)
+      acc[c] = __fmaf_rn(pk, to_f(vc[k * LS + c * at::kThreads]), acc[c]);
   }
 }
 
@@ -707,7 +721,7 @@ paged_attention_mma_kernel(const bf16* __restrict__ q, const void* __restrict__ 
                            float* __restrict__ m_out, float* __restrict__ l_out, Problem P) {
   using Dm = at::Dims<DP>;
   using TKV = typename std::conditional<QUANT, int8_t, bf16>::type;
-  constexpr int kStages = kStagesOf<THIN>;
+  constexpr int kStages = kStagesOf<DP, THIN>;
   constexpr bool kWiden = QUANT && !THIN;            // int8 -> one bf16 tile for ldmatrix
   constexpr int kElemsPerChunk = 16 / sizeof(TKV);
   constexpr int kChunks = DP / kElemsPerChunk;       // per landed slot row
@@ -723,6 +737,8 @@ paged_attention_mma_kernel(const bf16* __restrict__ q, const void* __restrict__ 
   const TKV* vp = static_cast<const TKV*>(v_pool);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t4 = lane & 3;
+  // the wide kernel at DP = 256: this warp's Q rows, where q_s would be
+  bf16* q_tile = reinterpret_cast<bf16*>(q_s) + warp * at::kQTileElems;
   const int cap_tok = Wk.n_pages * P.page;
   const int split_len = Wk.pps * P.page;
   const int step_pages = at::kKeys / P.page;
@@ -760,12 +776,16 @@ paged_attention_mma_kernel(const bf16* __restrict__ q, const void* __restrict__ 
     }
     const bool warp_live = warp * 16 < n_entries;
     at::RowState<DP> st;
-    float m1 = at::kNegInf, l1 = 0.f, acc1 = 0.f;     // the thin kernel's state
+    float m1 = at::kNegInf, l1 = 0.f;                  // the thin kernel's state
+    float acc1[kThinCols<DP>] = {};
     if constexpr (THIN) {
-      if (threadIdx.x < DP)
-        q_s[threadIdx.x] = threadIdx.x < P.D ? __bfloat162float(qrow[0][threadIdx.x]) : 0.f;
+#pragma unroll
+      for (int c = 0; c < kThinCols<DP>; ++c) {
+        const int d = threadIdx.x + c * at::kThreads;
+        if (d < DP) q_s[d] = d < P.D ? __bfloat162float(qrow[0][d]) : 0.f;
+      }
     } else {
-      at::init_rows(st, qrow[0], qrow[1], P.D, lane);
+      at::init_rows(st, qrow[0], qrow[1], P.D, lane, q_tile);
     }
 
     // first page of step `i` and the page where it stops
@@ -818,21 +838,29 @@ paged_attention_mma_kernel(const bf16* __restrict__ q, const void* __restrict__ 
         const int dv = threadIdx.x;
         if (Wk.direct) {
           const int64_t head = static_cast<int64_t>(row[0]) * P.Hq + hq[0];
-          if (dv < P.Dv) out[head * P.Dv + dv] = __float2bfloat16_rn(acc1 / fmaxf(l1, 1e-30f));
+#pragma unroll
+          for (int c = 0; c < kThinCols<DP>; ++c)
+            if (dv + c * at::kThreads < P.Dv)
+              out[head * P.Dv + dv + c * at::kThreads] =
+                  __float2bfloat16_rn(acc1[c] / fmaxf(l1, 1e-30f));
           if (m_out != nullptr && dv == 0) {
             m_out[head] = m1;
             l_out[head] = l1;
           }
         } else if (ctx[0] > s * split_len) {
           const int64_t part = (static_cast<int64_t>(row[0]) * P.Hkv + h) * Wk.n_splits + s;
-          if (dv < P.Dv) acc_p[part * P.Dv + dv] = acc1;
+#pragma unroll
+          for (int c = 0; c < kThinCols<DP>; ++c)
+            if (dv + c * at::kThreads < P.Dv) acc_p[part * P.Dv + dv + c * at::kThreads] = acc1[c];
           if (dv == 0) {
             m_p[part] = m1;
             l_p[part] = l1;
           }
         }
         m1 = at::kNegInf;
-        l1 = acc1 = 0.f;
+        l1 = 0.f;
+#pragma unroll
+        for (int c = 0; c < kThinCols<DP>; ++c) acc1[c] = 0.f;
       } else {
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
@@ -1043,7 +1071,7 @@ int paged_attention_splitk(const void* q, const void* k_pool, const void* v_pool
 // direct = 1: the serial kernel (one split over the whole table, out and
 // optional m, l written directly); direct = 0: split-K partials of
 // pages_per_split pages and the combine.  `workspace`: 3 * B + 2 * B *
-// n_splits + 3 int32 (n_splits = 1 when direct).  Head dims up to 128,
+// n_splits + 3 int32 (n_splits = 1 when direct).  Head dims up to 256,
 // multiples of 8 (bf16) or 16 (int8); G <= 64; page <= 64.
 int paged_attention_mma(const void* q, const void* k_pool, const void* v_pool,
                         const void* k_scale, const void* v_scale, const int* tables,
@@ -1055,8 +1083,8 @@ int paged_attention_mma(const void* q, const void* k_pool, const void* v_pool,
   const Problem P = make_problem(B, Hq, Hkv, D, Dv, page, T, W, n_pool, sm_scale);
   const int step = kv_dtype == kI8 ? 16 : 8;
   if ((kv_dtype != kBF16 && kv_dtype != kI8) || B < 1 || Hkv < 1 || Hq % Hkv != 0 ||
-      P.G > at::kRows || D % step || Dv % step || D < step || Dv < step || D > 128 ||
-      Dv > 128 || page < 1 || page > at::kKeys || W < 1 || T < 1 || n_pool < 1)
+      P.G > at::kRows || D % step || Dv % step || D < step || Dv < step || D > 256 ||
+      Dv > 256 || page < 1 || page > at::kKeys || W < 1 || T < 1 || n_pool < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   Walk Wk;
   Wk.direct = direct != 0;
@@ -1074,12 +1102,15 @@ int paged_attention_mma(const void* q, const void* k_pool, const void* v_pool,
     case 128: return launch_mma<64, false>(a, workspace, Wk, acc_p, m_p, l_p, out, m_out, l_out, P, st);
     case 129: return launch_mma<64, true>(a, workspace, Wk, acc_p, m_p, l_p, out, m_out, l_out, P, st);
     case 256: return launch_mma<128, false>(a, workspace, Wk, acc_p, m_p, l_p, out, m_out, l_out, P, st);
-    default: return launch_mma<128, true>(a, workspace, Wk, acc_p, m_p, l_p, out, m_out, l_out, P, st);
+    case 257: return launch_mma<128, true>(a, workspace, Wk, acc_p, m_p, l_p, out, m_out, l_out, P, st);
+    case 512: return launch_mma<256, false>(a, workspace, Wk, acc_p, m_p, l_p, out, m_out, l_out, P, st);
+    case 513: return launch_mma<256, true>(a, workspace, Wk, acc_p, m_p, l_p, out, m_out, l_out, P, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 // Shared memory of one block of the wide (thin = 0) or thin (1) walk for
-// these head dims, bytes.
+// these head dims, bytes (0 for head dims no tile takes).
 size_t paged_attention_mma_smem_bytes(int D, int Dv, int quant, int thin) {
   switch (at::tile_width(D, Dv) * 4 + (quant != 0) * 2 + (thin != 0)) {
     case 128: return mma_smem_bytes<32, false, false>();
@@ -1093,7 +1124,12 @@ size_t paged_attention_mma_smem_bytes(int D, int Dv, int quant, int thin) {
     case 512: return mma_smem_bytes<128, false, false>();
     case 513: return mma_smem_bytes<128, false, true>();
     case 514: return mma_smem_bytes<128, true, false>();
-    default: return mma_smem_bytes<128, true, true>();
+    case 515: return mma_smem_bytes<128, true, true>();
+    case 1024: return mma_smem_bytes<256, false, false>();
+    case 1025: return mma_smem_bytes<256, false, true>();
+    case 1026: return mma_smem_bytes<256, true, false>();
+    case 1027: return mma_smem_bytes<256, true, true>();
+    default: return 0;
   }
 }
 

@@ -16,6 +16,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import tempfile
@@ -120,3 +121,44 @@ def build_log(name: str) -> str:
     from the last build of ``csrc/<name>.cu``, or '' if none."""
     p = BUILD_DIR / f"{name}.log"
     return p.read_text() if p.exists() else ""
+
+
+def ptxas_report(log: str) -> Dict[str, Dict[str, int]]:
+    """Per kernel of a ``-Xptxas -v`` log: {name: {"registers",
+    "spill_stores", "spill_loads"}} (spills in bytes).  Names are
+    demangled with the toolkit's ``cu++filt`` (or ``c++filt``) where one
+    is found, else left mangled."""
+    out: Dict[str, Dict[str, int]] = {}
+    cur = None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?([^' ]+)'?", line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur is not None:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    entries = {k: v for k, v in out.items() if "registers" in v}
+    return dict(zip(_demangle(list(entries)), entries.values()))
+
+
+def _demangle(names):
+    try:
+        nvcc_dir = pathlib.Path(nvcc_path()).parent
+    except RuntimeError:
+        nvcc_dir = None
+    for tool in ([str(nvcc_dir / "cu++filt")] if nvcc_dir else []) + [
+            "c++filt"]:
+        if shutil.which(tool) is None:
+            continue
+        res = subprocess.run([tool], input="\n".join(names), text=True,
+                             capture_output=True)
+        lines = res.stdout.splitlines()
+        if res.returncode == 0 and len(lines) == len(names):
+            return lines
+    return names

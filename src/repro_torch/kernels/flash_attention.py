@@ -5,8 +5,10 @@ hand in CUDA C++ for Hopper (``csrc/flash_attention.cu``), replaces
 ``flash_attention_pallas``; beside it is a plain PyTorch version of the
 same function.  The kernel has two variants, chosen by dtype (both always
 built): ``mma`` for bf16, on the tensor cores with cp.async-fed K/V tiles
-(``csrc/attention_tile.cuh``), and ``fma`` for f32, on the f32 FMA units
-(TF32 would miss the f32 tolerance of 1e-5).
+(``csrc/attention_tile.cuh``), head dims up to 256, and ``fma`` for f32,
+on the f32 FMA units (TF32 would miss the f32 tolerance of 1e-5), head
+dims up to 128: its f32 tiles of 64 rows by 128 columns are sized for
+them, and f32 at 256 is on no serving path.
 
 Inputs, as in the reference (prefill: Sq == Skv):
     q   (B, S, Hq, D)   f32 or bf16
@@ -38,8 +40,8 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# largest head dims the CUDA kernel's register tiles hold
-MAX_HEAD_DIM = 128
+# largest head dims each variant's tiles hold
+MAX_HEAD_DIM = {torch.bfloat16: 256, torch.float32: 128}
 
 VARIANTS = {torch.bfloat16: "mma", torch.float32: "fma"}
 LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention:mma": 0,
@@ -152,11 +154,13 @@ def _check_cuda(q, k, v):
     B, S, Hq, D = q.shape
     Dv = v.shape[-1]
     step = 8 if q.dtype == torch.bfloat16 else 4      # one 16-byte vector
+    top = MAX_HEAD_DIM[q.dtype]
     for name, d in (("D", D), ("Dv", Dv)):
-        if d % step or not step <= d <= MAX_HEAD_DIM:
+        if d % step or not step <= d <= top:
             raise ValueError(f"flash attention: head dim {name}={d} must be "
-                             f"a multiple of {step} in [{step}, "
-                             f"{MAX_HEAD_DIM}] for {q.dtype}")
+                             f"a multiple of {step} in [{step}, {top}] for "
+                             f"{q.dtype} (the {VARIANTS[q.dtype]} kernel's "
+                             "tiles)")
     if B < 1 or S < 1:
         raise ValueError(f"flash attention: empty launch (B={B}, S={S})")
     if B > 65535 or Hq > 65535:

@@ -13,9 +13,10 @@ plain PyTorch version of the same function beside it:
 
 Each comes in two variants, chosen by dtype (both always built):
 
-- ``mma``: bf16 queries over bf16 or int8 pools.  Consecutive rows that
-  share a table row (the rows of one prefill chunk) form one M tile on the
-  tensor cores (``csrc/attention_tile.cuh``), so each page is loaded once
+- ``mma``: bf16 queries over bf16 or int8 pools, head dims up to 256.
+  Consecutive rows that share a table row (the rows of one prefill
+  chunk) form one M tile on the tensor cores
+  (``csrc/attention_tile.cuh``), so each page is loaded once
   per tile, not once per row; a tile of one (row, query head) pair (a
   decode row of an MHA stack) takes a one-row FMA step over the same
   cp.async-landed pages instead.  The tiles are formed on the device by a
@@ -61,6 +62,8 @@ _PLAIN_ROW_BLOCK = 16
 # a block gets 48 KiB of shared memory without opting in
 _MAX_SMEM = 48 * 1024
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+# the widest head the tensor-core tiles take (csrc/attention_tile.cuh)
+MMA_MAX_HEAD_DIM = 256
 
 VARIANTS = ("mma", "fma")
 POOLS = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "int8"}
@@ -290,10 +293,11 @@ def _check_cuda(q, k_pool, v_pool, block_tables, ctx_lens, row_map, k_scale,
     if variant(q, k_pool) == "mma":
         step = 16 if k_pool.dtype == torch.int8 else 8
         for name, d in (("D", D), ("Dv", Dv)):
-            if d % step or not step <= d <= 128:
+            if d % step or not step <= d <= MMA_MAX_HEAD_DIM:
                 raise ValueError(f"paged attention: head dim {name}={d} "
                                  f"must be a multiple of {step} in "
-                                 f"[{step}, 128] for {k_pool.dtype} pools")
+                                 f"[{step}, {MMA_MAX_HEAD_DIM}] for "
+                                 f"{k_pool.dtype} pools")
         if k_pool.dtype == torch.int8 and k_scale is None:
             raise ValueError("paged attention: int8 pools need k_scale and "
                              "v_scale")

@@ -5,9 +5,10 @@ Port of ``repro/models/model.py`` for stacks of GQA attention, full
 (``ATTN``, e.g. Llama-2-7B) or sliding-window (``ATTN_LOCAL``, e.g.
 Mixtral-8x7B), with dense or MoE FFNs (``models/moe.py``: Mixtral-8x7B,
 DeepSeek-MoE-16B), of multi-head latent attention (``ATTN_MLA``,
-MiniCPM3-4B) and of Mamba-2 (``MAMBA2``); GQA slot caches may be int8
-with bf16 scales (``cfg.kv_quant``; MLA caches ignore it, as in the
-reference).  The stack is grouped
+MiniCPM3-4B), of Mamba-2 (``MAMBA2``) and of RG-LRU blocks beside
+local attention (``RGLRU``, RecurrentGemma-2B's hybrid stack); GQA slot
+caches may be int8 with bf16 scales (``cfg.kv_quant``; MLA caches ignore
+it, as in the reference).  The stack is grouped
 into *stages*, maximal runs of layers with identical (kind, is_moe)
 structure, each stage's per-layer parameters stacked on a leading axis;
 a stage runs as a Python loop over that axis (the reference's
@@ -32,22 +33,14 @@ from repro_torch.configs.base import (ATTN, ATTN_LOCAL, ATTN_MLA, MAMBA2,
                                       RGLRU, ModelConfig)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import dtype_of, embed, mlp, rmsnorm, unembed
-
-# what each stack feature still needs, by ROADMAP.md item
-_UNPORTED_KINDS = {
-    RGLRU: "RG-LRU blocks (ROADMAP.md Queue A item 6f)",
-}
-
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a stack the port cannot run yet."""
     for kind in sorted(set(cfg.layer_kinds())):
-        if kind in _UNPORTED_KINDS:
-            raise NotImplementedError(
-                f"{cfg.name}: {_UNPORTED_KINDS[kind]} is not ported")
-        if kind not in (ATTN, ATTN_LOCAL, ATTN_MLA, MAMBA2):
+        if kind not in (ATTN, ATTN_LOCAL, ATTN_MLA, MAMBA2, RGLRU):
             raise NotImplementedError(f"{cfg.name}: layer kind {kind!r} is "
                                       "not ported")
     if cfg.is_encoder_decoder:
@@ -120,6 +113,10 @@ def _block_forward(lp, x, cfg, kind, moe_flag, positions, *,
                                              window=window)
         if want_cache:
             cache = {"c": c, "k_rope": krope}
+    elif kind == RGLRU:
+        y, st = rglru_mod.rglru_prefill(lp["attn"], h, cfg)
+        if want_cache:
+            cache = st
     elif kind == MAMBA2:
         y, st = ssm_mod.mamba2_prefill(lp["attn"], h, cfg)
         if want_cache:
@@ -211,6 +208,12 @@ def _stage_cache_zeros(cfg, kind, count, B, max_len, dt, device):
                                  device=device),
                 "k_rope": torch.zeros((count, B, S_c, m.qk_rope_head_dim),
                                       dtype=dt, device=device)}
+    if kind == RGLRU:
+        r = cfg.rglru
+        d_rnn = r.d_rnn or cfg.d_model
+        return {"conv_state": torch.zeros((count, B, r.conv_width - 1,
+                                           d_rnn), dtype=dt, device=device),
+                "h": torch.zeros((count, B, d_rnn), dtype=dt, device=device)}
     if kind == MAMBA2:
         s = cfg.ssm
         _, nh, conv_dim = ssm_mod.mamba2_dims(cfg)
@@ -328,6 +331,10 @@ def _block_decode(lp, x1, c, pos, cfg, kind, moe_flag):
     elif kind == ATTN_MLA:
         y, _ = attn_mod.mla_decode(lp["attn"], h, c["c"], c["k_rope"], pos,
                                    cfg, window=window)
+    elif kind == RGLRU:
+        y, st = rglru_mod.rglru_decode(
+            lp["attn"], h, {k: c[k] for k in ("conv_state", "h")}, cfg)
+        c = dict(c, **st)
     elif kind == MAMBA2:
         y, st = ssm_mod.mamba2_decode(
             lp["attn"], h, {k: c[k] for k in ("conv_state", "ssm_state")}, cfg)

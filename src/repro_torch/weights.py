@@ -8,7 +8,9 @@ for attention (full or sliding-window) with a dense FFN,
 layers (a stack with dense first layers has one stage per run),
 ``attn.{wq_a,q_norm,wq_b,wkv_a,kv_norm,wkv_b,wo}`` for MLA,
 ``stages.stage_0.{ln1,attn.{in_proj,conv_w,conv_b,A_log,dt_bias,D,norm,
-out_proj}}`` for Mamba-2, with a leading layer axis on every stage leaf.
+out_proj}}`` for Mamba-2, ``attn.{w_branch_x,w_branch_gate,conv_w,conv_b,
+w_gate_a,w_gate_i,lam,w_out}`` with ``ln2`` and ``ffn`` for RG-LRU
+layers, with a leading layer axis on every stage leaf.
 
 - ``init_params`` draws a model on the device with the reference's
   distributions (truncated-normal fan-in dense weights, normal x 0.02
@@ -23,11 +25,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ATTN_MLA, MAMBA2, ModelConfig
+from repro_torch.configs.base import ATTN_MLA, MAMBA2, RGLRU, ModelConfig
 from repro_torch.models.attention import gqa_init, mla_init
 from repro_torch.models.layers import dense_init, dtype_of, embed_init
 from repro_torch.models.model import check_ported, model_stages
 from repro_torch.models.moe import moe_init
+from repro_torch.models.rglru import rglru_init
 from repro_torch.models.ssm import mamba2_init
 
 
@@ -64,8 +67,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator = None,
                 device=None):
     """A freshly drawn decoder on ``device`` (``cuda`` by default), from
     ``generator`` (seed 0 on the device when omitted): attention stages
-    (``ATTN``, ``ATTN_LOCAL``, ``ATTN_MLA``) with dense or MoE FFNs, and
-    Mamba-2 (``MAMBA2``) stages.  Layers are drawn one at a time into the stacked
+    (``ATTN``, ``ATTN_LOCAL``, ``ATTN_MLA``) with dense or MoE FFNs,
+    RG-LRU (``RGLRU``) stages with dense FFNs, and Mamba-2 (``MAMBA2``)
+    stages.  Layers are drawn one at a time into the stacked
     leaves, so the f32 temporaries stay one layer large."""
     device = resolve_device(device)
     check_ported(cfg)
@@ -87,9 +91,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator = None,
         if kind == MAMBA2:
             return {"ln1": {"scale": ones},
                     "attn": mamba2_init(cfg, dt, generator, device)}
-        attn = mla_init(cfg, dt, generator, device) if kind == ATTN_MLA \
-            else gqa_init(d, cfg.n_heads, cfg.n_kv_heads, hd, dt, generator,
-                          device)
+        if kind == ATTN_MLA:
+            attn = mla_init(cfg, dt, generator, device)
+        elif kind == RGLRU:
+            attn = rglru_init(cfg, dt, generator, device)
+        else:
+            attn = gqa_init(d, cfg.n_heads, cfg.n_kv_heads, hd, dt, generator,
+                            device)
         return {"ln1": {"scale": ones}, "attn": attn,
                 "ln2": {"scale": ones.clone()},
                 "ffn": moe_init(cfg, dt, generator, device) if moe_flag

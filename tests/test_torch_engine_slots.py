@@ -8,8 +8,9 @@ chunked=False``, for DeepSeek-MoE (whole-prompt and chunked) and Mixtral
 DeepSeek-7B, Granite-3-2B and StarCoder2-7B, for MiniCPM3-4B (MLA: the
 latent caches installed into the slots, absorbed decode), for Llama-2
 with int8 slot caches (``cfg.kv_quant``: whole-prompt prefill, caches
-and scales installed into the slots) and for Mamba-2 on
-``backend="slots"``; the engine's defaults resolve as the reference's
+and scales installed into the slots), for RecurrentGemma-2B (RG-LRU
+states and local-attention rings installed into the slots, whole-prompt
+prefill by default) and for Mamba-2 on ``backend="slots"``; the engine's defaults resolve as the reference's
 do, and the paged backend refuses MLA with the reference's assertion."""
 import dataclasses
 import importlib
@@ -140,6 +141,7 @@ def serve(side, arch, **kw):
     ("starcoder2-7b", dict(backend="slots", chunked=False), "flash"),
     ("minicpm3-4b", dict(backend="slots"), "flash"),
     ("llama2-7b+kv_quant", dict(backend="slots"), "flash"),
+    ("recurrentgemma-2b", dict(backend="slots"), "flash"),
 ])
 def test_engine_matches_reference(arch, kw, kernel, monkeypatch):
     calls = []
@@ -165,8 +167,10 @@ def test_engine_matches_reference(arch, kw, kernel, monkeypatch):
         np.testing.assert_allclose(tr._first_row, jr._first_row, atol=1e-4,
                                    rtol=1e-4)
     # whole-prompt prefill goes through the kernel's plain version on the
-    # CPU, one call per layer and prompt
-    n_layers = configs(arch)[1].n_layers
+    # CPU, one call per layer of the kernel's kind and prompt
+    kinds = configs(arch)[1].layer_kinds()
+    n_layers = sum(k == "mamba2" if kernel == "ssd" else k.startswith("attn")
+                   for k in kinds)
     want = {"flash": ["flash_attention_plain"],
             "ssd": ["ssd_scan_plain"], None: []}[kernel]
     assert sorted(set(calls)) == want

@@ -4,8 +4,10 @@ The plain version (what the port's wrapper runs on CPU tensors, and what
 the CUDA kernel is held to on the card) against ``flash_attention_pallas``
 in interpret mode and against the pure-JAX blockwise
 ``repro.models.attention.flash_attention``, on the grid of
-``tests/test_kernels.py::test_flash_kernel``: f32 within 1e-5, bf16
-within one bf16 step (both sides compute in f32 and round once)."""
+``tests/test_kernels.py::test_flash_kernel`` and at RecurrentGemma-2B's
+shape (10 query heads over one kv head of 256, a window shorter than
+S): f32 within 1e-5, bf16 within one bf16 step (both sides compute in
+f32 and round once)."""
 import importlib
 
 import jax.numpy as jnp
@@ -28,6 +30,7 @@ GRID = [
     (96, 4, 1, 64, True, 48, 32, 32),
     (96, 4, 4, 32, False, 0, 32, 32),
     (100, 4, 2, 16, True, 0, 32, 32),       # ragged -> padding
+    (96, 10, 1, 256, True, 40, 32, 32),     # RecurrentGemma-2B: MQA, D=256
 ]
 
 

@@ -23,7 +23,9 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for name in names:
     importlib.import_module(name)
 for name in ("repro_torch.serving.prefix_cache", "repro_torch.core.simulator",
-             "repro_torch.serving.cluster", "repro_torch.configs.starcoder2_7b"):
+             "repro_torch.serving.cluster", "repro_torch.configs.starcoder2_7b",
+             "repro_torch.models.rglru",
+             "repro_torch.configs.recurrentgemma_2b"):
     assert name in names, name
 assert not any(k == "jax" or k.startswith(("jax.", "repro."))
                for k, v in sys.modules.items() if v is not None)
@@ -42,11 +44,13 @@ def test_port_imports_without_jax_or_repro():
 
 
 def test_serve_launcher_on_cpu(capsys):
-    """Both backends: Llama-2 on paged pools, Mamba-2 on slots (whole-
-    prompt prefill through the SSD scan's plain version)."""
+    """Both backends: Llama-2 on paged pools, Mamba-2 and
+    RecurrentGemma-2B on slots (whole-prompt prefill through the SSD
+    scan's and the flash kernel's plain versions)."""
     from repro_torch.launch import serve
     for args in (["--backend", "paged"],
-                 ["--backend", "slots", "--arch", "mamba2-2.7b"]):
+                 ["--backend", "slots", "--arch", "mamba2-2.7b"],
+                 ["--backend", "slots", "--arch", "recurrentgemma-2b"]):
         serve.main(["--device", "cpu", "--scheduler", "fcfs", "--duration",
                     "1.5", *args])
         out = capsys.readouterr().out

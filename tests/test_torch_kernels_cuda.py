@@ -72,6 +72,20 @@ def test_kernels_match_plain(cuda, pools):
     assert (o_s[zero] == 0).all() and (o_k[zero] == 0).all()
 
 
+def test_f32_kernels_at_head_dim_256(cuda):
+    """The FMA kernels loop over D: RecurrentGemma-2B's G = 10 at D = 256
+    in f32 holds 1e-5, serial and split-K."""
+    args, kw = mixed_launch(cuda, [("decode", 300), ("chunk", 10, 30)],
+                            "bfloat16", Hq=10, Hkv=1, D=256)
+    args = tuple(t.float() if t.is_floating_point() else t for t in args)
+    o_s = pa.paged_attention_kernel(*args, **kw)
+    o_k = pa.paged_attention_splitk_kernel(*args, pages_per_split=4, **kw)
+    torch.cuda.synchronize()
+    plain = pa.paged_attention_plain(*args, **kw)
+    torch.testing.assert_close(o_s, plain, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(o_k, plain, atol=1e-5, rtol=1e-5)
+
+
 def test_bf16_queries(cuda):
     args, kw = ragged_case(cuda, "bfloat16")
     q = args[0].to(torch.bfloat16)
@@ -194,6 +208,13 @@ def test_unsupported_dtype_raises_and_runs_no_plain_version(cuda,
     q = torch.zeros((1, 16, 2, 32), device=cuda, dtype=torch.float16)
     with pytest.raises(ValueError, match="dtype"):
         fa.flash_attention_kernel(q, q, q)
+    # the f32 kernel's tiles are 128 wide; bf16 takes 256, and nothing wider
+    q = torch.zeros((1, 16, 2, 256), device=cuda)
+    with pytest.raises(ValueError, match=r"\[4, 128\] for torch.float32"):
+        fa.flash_attention_kernel(q, q, q)
+    q = torch.zeros((1, 16, 2, 264), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=r"\[8, 256\]"):
+        fa.flash_attention_kernel(q, q, q)
     x = torch.zeros((1, 16, 2, 16), device=cuda, dtype=torch.float16)
     la = torch.zeros((1, 16, 2), device=cuda)
     bc = torch.zeros((1, 16, 1, 8), device=cuda, dtype=torch.float16)
@@ -260,6 +281,14 @@ MIXED = {
     # the block boundary (launch row 2048) falls inside the chunk
     "over_plan_rows": ([("decode", 100), ("chunk", 0, 2100), ("decode", 900),
                         ("pad", 31)], dict(W=140)),
+    # head dim 256 (RecurrentGemma-2B: 10 query heads over one kv head):
+    # Q in shared memory, two page steps in flight
+    "d256_gqa10": ([("chunk", 0, 90), ("decode", 300), ("decode", 17),
+                    ("pad", 5)], dict(Hq=10, Hkv=1, D=256)),
+    # head dim 256, MHA: decode rows take the one-row walk, two columns a
+    # thread
+    "d256_mha": ([("decode", 200), ("decode", 33), ("chunk", 5, 20)],
+                 dict(Hq=2, Hkv=2, D=256)),
 }
 
 
@@ -297,10 +326,24 @@ def test_mma_mixed_launch_matches_plain(cuda, case, pools):
     (300, 8, 64),        # the window spans exactly one kv tile
 ])
 def test_mma_flash_ragged_and_windowed(cuda, S, Hkv, window):
+    check_mma_flash(cuda, S, 8, Hkv, 128, window)
+
+
+@pytest.mark.parametrize("S,window", [
+    (1000, 0),          # ragged, inside no window
+    (777, 300),         # ragged, the window shorter than S
+])
+def test_mma_flash_head_dim_256(cuda, S, window):
+    """RecurrentGemma-2B's prefill shape: 10 query heads over one kv head
+    of 256, Q in shared memory, one block per SM."""
+    check_mma_flash(cuda, S, 10, 1, 256, window)
+
+
+def check_mma_flash(cuda, S, Hq, Hkv, D, window):
     rng = np.random.default_rng(S)
-    q, k, v = (torch.from_numpy(rng.standard_normal((1, S, h, 128))
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, S, h, D))
                                 .astype(np.float32)).to(cuda, torch.bfloat16)
-               for h in (8, Hkv, Hkv))
+               for h in (Hq, Hkv, Hkv))
     before = dict(fa.LAUNCHES)
     out = fa.flash_attention_kernel(q, k, v, causal=True, window=window)
     torch.cuda.synchronize()

@@ -6,12 +6,15 @@ within 1e-5, for Llama-2, the dense GQA stacks DeepSeek-7B (MHA, a
 StarCoder2-7B (GELU MLP, G = 3 at smoke size), MiniCPM3-4B (multi-head
 latent attention: expanded prefill, absorbed decode over the latent
 cache), DeepSeek-MoE (a dense first layer, then MoE
-layers with shared experts) and Mixtral (MoE, sliding-window attention
-whose ring caches wrap) with ``attn_impl="flash"``, so the flash kernel's
-plain version runs, the MoE stacks under ``moe_impl`` ``dense`` and
-``dispatch``, and Mamba-2 (the SSD scan's plain version); decode
-consistency of the port on its own; and the stacks it refuses (MLA
-serves since its port: its case now builds the stack)."""
+layers with shared experts), Mixtral (MoE, sliding-window attention
+whose ring caches wrap) and RecurrentGemma-2B (RG-LRU blocks beside
+local attention, MQA at head dim 32 in the smoke config) with
+``attn_impl="flash"``, so the flash kernel's plain version runs, the MoE
+stacks under ``moe_impl`` ``dense`` and ``dispatch``, and Mamba-2 (the
+SSD scan's plain version); RecurrentGemma's forward and its decode past
+the window held to the reference's logits; decode consistency of the
+port on its own; and the stacks it refuses (MLA and RG-LRU serve since
+their ports: their cases now build the stack)."""
 import dataclasses
 
 import jax
@@ -34,7 +37,8 @@ from repro_torch.weights import init_params, params_from_numpy
 LOGIT_TOL, CACHE_TOL = 1e-4, 1e-5
 MOE = ["deepseek-moe-16b/dense", "deepseek-moe-16b/dispatch",
        "mixtral-8x7b/dense", "mixtral-8x7b/dispatch"]
-DENSE = ["deepseek-7b", "granite-3-2b", "starcoder2-7b", "minicpm3-4b"]
+DENSE = ["deepseek-7b", "granite-3-2b", "starcoder2-7b", "minicpm3-4b",
+         "recurrentgemma-2b"]
 ARCHS = ["llama2-7b", "mamba2-2.7b"] + DENSE + MOE
 
 
@@ -167,11 +171,13 @@ def check_prefill_chunk(arch, split):
 @pytest.mark.parametrize("arch,S", [
     ("llama2-7b", 17), ("mamba2-2.7b", 33),
     ("deepseek-moe-16b/dense", 17), ("deepseek-moe-16b/dispatch", 17),
-    ("mixtral-8x7b/dense", 49), ("mixtral-8x7b/dispatch", 49)])
+    ("mixtral-8x7b/dense", 49), ("mixtral-8x7b/dispatch", 49),
+    ("recurrentgemma-2b", 49)])
 def test_decode_matches_forward(arch, S):
     """Port only, in the style of tests/test_decode_consistency.py:
     prefill(tokens[:-1]) then decode(tokens[-1]) equals prefill(tokens).
-    Mixtral's S = 49 wraps its ring caches (window 32).  Dispatch
+    Mixtral's and RecurrentGemma's S = 49 wraps their ring caches
+    (window 32).  Dispatch
     capacity follows the rows that reach the layer, so prefill and decode
     would drop different assignments: the dispatch cases run at a
     capacity factor of E / top_k, where nothing drops."""
@@ -198,25 +204,77 @@ def test_supports_chunked_prefill_matches_reference():
             arch
 
 
+def test_recurrentgemma_logits_match_reference():
+    """RecurrentGemma's smoke stack (f32, flash): the last position of
+    ``forward_hidden`` and prefill(S - 1) + one decode step at S = 49,
+    past the smoke window of 32 (the local-attention ring wraps), against
+    the reference's, as tests/test_decode_consistency.py builds them:
+    within 1e-4 (the reference holds its own two to 2e-3)."""
+    from repro.models import forward_hidden as j_forward_hidden
+    from repro.models.layers import unembed as j_unembed
+    from repro_torch.models.layers import unembed
+    jcfg, tcfg = configs("recurrentgemma-2b")
+    jp = j_init_params(jax.random.key(0), jcfg)
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    S = 49
+    toks = tokens(jcfg, 2, S, seed=21)
+    jh = j_forward_hidden(jp, {"tokens": jnp.asarray(toks)}, jcfg,
+                          mode="prefill")[0]
+    th, _ = tm.forward_hidden(tp, {"tokens": torch.from_numpy(toks)}, tcfg)
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), atol=LOGIT_TOL,
+                               rtol=LOGIT_TOL)
+    jfull = j_unembed(jp["embed"], jh[:, -1])
+    tfull = unembed(tp["embed"], th[:, -1])
+    np.testing.assert_allclose(tfull.numpy(), np.asarray(jfull),
+                               atol=LOGIT_TOL, rtol=LOGIT_TOL)
+    _, jc = j_prefill(jp, {"tokens": jnp.asarray(toks[:, :-1])}, jcfg, S + 4)
+    _, tc = tm.prefill(tp, {"tokens": torch.from_numpy(toks[:, :-1])}, tcfg,
+                       S + 4)
+    assert_cache_close(tc, jc)
+    jl, jc = j_decode(jp, jnp.asarray(toks[:, -1]), jc, jcfg)
+    tl, tc = tm.decode_step(tp, torch.from_numpy(toks[:, -1]), tc, tcfg)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=LOGIT_TOL,
+                               rtol=LOGIT_TOL)
+    assert_cache_close(tc, jc)
+    np.testing.assert_allclose(tl.numpy(), tfull.numpy(), atol=2e-3,
+                               rtol=2e-3)
+
+
 @pytest.mark.parametrize("arch,item", [
-    # MLA (item 6c) is ported: its case builds the cache and the weights
+    # MLA (item 6c) and RG-LRU (item 6f) are ported: their cases build the
+    # cache and the weights
     pytest.param("minicpm3-4b", None, id="minicpm3-4b-6c"),
-    ("recurrentgemma-2b", "6"),
+    pytest.param("recurrentgemma-2b", None, id="recurrentgemma-2b-6"),
     ("whisper-large-v3", "6e"), ("internvl2-76b", "6g"),
 ])
 def test_unported_stacks_raise(arch, item):
     cfg = port_config(SMOKE_FACTORIES[arch]())
     if item is None:
         cache = tm.init_cache(cfg, 1, 16, device="cpu")
-        m = cfg.mla
+        params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        shapes = {k: tuple(v.shape)
+                  for k, v in cache["stages"]["stage_0"].items()}
+        attn = params["stages"]["stage_0"]["attn"]
+        if cfg.mla is not None:
+            m = cfg.mla
+            assert shapes == {
+                "c": (cfg.n_layers, 1, 16, m.kv_lora_rank),
+                "k_rope": (cfg.n_layers, 1, 16, m.qk_rope_head_dim)}
+            assert sorted(attn) == ["kv_norm", "q_norm", "wkv_a", "wkv_b",
+                                    "wo", "wq_a", "wq_b"]
+            return
+        # (rglru, rglru) then (attn_local): the ring of min(16, window)
+        r = cfg.rglru
+        assert shapes == {"conv_state": (2, 1, r.conv_width - 1, r.d_rnn),
+                          "h": (2, 1, r.d_rnn)}
         assert {k: tuple(v.shape) for k, v in
-                cache["stages"]["stage_0"].items()} == {
-            "c": (cfg.n_layers, 1, 16, m.kv_lora_rank),
-            "k_rope": (cfg.n_layers, 1, 16, m.qk_rope_head_dim)}
-        attn = init_params(cfg, torch.Generator().manual_seed(0),
-                           "cpu")["stages"]["stage_0"]["attn"]
-        assert sorted(attn) == ["kv_norm", "q_norm", "wkv_a", "wkv_b",
-                                "wo", "wq_a", "wq_b"]
+                cache["stages"]["stage_1"].items()} == {
+            n: (1, 1, 16, cfg.n_kv_heads, cfg.head_dim) for n in ("k", "v")}
+        assert sorted(attn) == ["conv_b", "conv_w", "lam", "w_branch_gate",
+                                "w_branch_x", "w_gate_a", "w_gate_i",
+                                "w_out"]
+        assert sorted(params["stages"]["stage_0"]) == ["attn", "ffn", "ln1",
+                                                       "ln2"]
         return
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP.md Queue A item {item}"):

@@ -3,8 +3,9 @@
 The port's plain versions (what its wrappers run on CPU tensors) are held
 to ``paged_attention_pallas`` / ``paged_attention_splitk_pallas`` in
 interpret mode on the grids of ``tests/test_paged_kernels.py``: ragged
-contexts, GQA groups, ``row_map`` launches, int8 pools, ctx-0 rows and the
-(m, l) statistics, at the f32 tolerance of 1e-5.  The CUDA kernels
+contexts, GQA groups (RecurrentGemma-2B's G = 10 at D = 256 among them),
+``row_map`` launches, int8 pools, ctx-0 rows and the (m, l) statistics,
+at the f32 tolerance of 1e-5.  The CUDA kernels
 themselves are held to the plain versions on the card
 (``tests/test_torch_kernels_cuda.py`` and ``chip_smoke.py``).
 """
@@ -57,6 +58,7 @@ CASES = [
     (4, 4, 16, 8, 5, 12),       # MHA
     (8, 2, 16, 8, 5, 12),       # GQA G=4
     (6, 2, 32, 4, 7, 16),       # GQA G=3, odd page count
+    (10, 1, 256, 16, 5, 12),    # RecurrentGemma-2B's MQA: G=10, D=256
 ]
 
 

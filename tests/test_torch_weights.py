@@ -28,7 +28,8 @@ def flat(tree, prefix=""):
 MOE_ARCHS = ["deepseek-moe-16b", "mixtral-8x7b"]
 
 
-@pytest.mark.parametrize("arch", ["llama2-7b", "mamba2-2.7b", "minicpm3-4b"])
+@pytest.mark.parametrize("arch", ["llama2-7b", "mamba2-2.7b", "minicpm3-4b",
+                                  "recurrentgemma-2b"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_bridge_is_exact(dtype, arch):
     check_bridge(dtype, arch)
@@ -53,7 +54,7 @@ def check_bridge(dtype, arch):
     udt = np.uint16 if dtype == "bfloat16" else np.uint32
     for k in want:
         assert tuple(got[k].shape) == want[k].shape, k
-        if want[k].dtype == np.float32:       # Mamba-2's A_log, dt_bias, D
+        if want[k].dtype == np.float32:   # Mamba-2's A_log, dt_bias, D; lam
             assert got[k].dtype == torch.float32, k
             np.testing.assert_array_equal(got[k].numpy(), want[k], err_msg=k)
             continue
@@ -70,7 +71,8 @@ def test_bridge_carries_expert_params():
         np.testing.assert_array_equal(t_tree[k].numpy(), v)
 
 
-@pytest.mark.parametrize("arch", ["llama2-7b", "mamba2-2.7b", "minicpm3-4b"])
+@pytest.mark.parametrize("arch", ["llama2-7b", "mamba2-2.7b", "minicpm3-4b",
+                                  "recurrentgemma-2b"])
 def test_init_params_matches_reference_layout(arch):
     check_init_layout(arch)
 
