@@ -18,8 +18,11 @@ The quickest proof that the port builds and serves on an NVIDIA H100:
      StarCoder2-7B's shape (Hq 36 over Hkv 4: G = 9) a decode batch of 8
      rows and the 512-row mixed launch at width 32; at RecurrentGemma-
      2B's (Hq 10 over Hkv 1, D = 256: G = 10) run M's decode, 8 rows
-     over 2048-slot rings (width 128), and the 512-row mixed launch; each
-     case once more with f32 queries and f32 pools at a tight tolerance;
+     over 2048-slot rings (width 128), and the 512-row mixed launch; at
+     Whisper large-v3's (Hq = Hkv = 20, D = 64) run N's decode, 8 rows
+     over the 1500 encoder frames as 375 pages of 4 and over 448-slot
+     caches as 28 pages of 16; each case once more with f32 queries and
+     f32 pools at a tight tolerance;
    - flash attention (B = 1, Hq = 32, D = 128): S = 128, 1024 and 1000
      causal in bf16 and f32 (Hkv = 32), one windowed case (window 256),
      one GQA case (Hkv = 8), Mixtral-8x7B's prefill shape (S = 6144,
@@ -28,7 +31,10 @@ The quickest proof that the port builds and serves on an NVIDIA H100:
      = 40, D = 96 for q and k, Dv = 64 for v) at S = 1024 and 1000 in
      bf16 and f32, and RecurrentGemma-2B's local attention (Hq = 10 over
      Hkv = 1, D = 256, window 2048) at S = 1024 and 4500 in bf16 (f32 at
-     D = 256 is refused by name: its tiles stop at 128);
+     D = 256 is refused by name: its tiles stop at 128), and Whisper
+     large-v3's (B = 4, 20 heads of 64, not causal) encoder over 1500
+     frames and cross-attention of 64 prompt rows over them (Sq != Skv)
+     in bf16 and f32;
    - the SSD scan at Mamba-2-2.7B's shape (H = 80, P = 64, G = 1, N =
      128, chunk 128): S = 128, 1024 and 1000 with bf16 and f32 x, S = 4096
      with bf16 x (2560 blocks, 32 chunks chained per head), and S = 1000
@@ -112,6 +118,20 @@ The quickest proof that the port builds and serves on an NVIDIA H100:
         SSD launch; first tokens of a long and a short prompt against a
         plain forward, prefill + one decode step past the window against
         the longer prefill;
+     N  Whisper large-v3 as registered (32 encoder and 32 decoder layers,
+        d_model 1280, 20 heads of 64, GELU MLP of 5120, vocab 51 866,
+        untied, bf16; 1.60 B parameters; random weights from a seed)
+        through the model API (``prefill``, ``decode_step``: the engine
+        serves decoder-only stacks), max_len 448: two prefill calls of 4
+        requests over (4, 1500, 1280) standard-normal frames, with the
+        4-token start-of-transcript prompt and with a 64-token prompt
+        (flash once per encoder layer, decoder self- and
+        cross-attention: 96 a call, the cross-attention at Sq != Skv),
+        then the 8 requests decode together greedily to 128 new tokens
+        each (split-K once per decoder self- and cross-attention: 64 a
+        step, the 1500 frames as pages of 4); first tokens of a short and
+        a long prompt against a plain forward, prefill + one decode step
+        at 444 tokens against the longer prefill;
    runs D, F, G, L and M decode over their slot caches through the split-K
    paged kernels (once per attention layer and decode step, asserted),
    and their decode steps, and K's, take less extra memory than an f32
@@ -119,10 +139,11 @@ The quickest proof that the port builds and serves on an NVIDIA H100:
    plus a check of run A's first-token logits against a dense forward,
    and ``torch.profiler`` windows (device busy share, kernel launches and
    device time by kernel per iteration): decode-heavy windows of the
-   configurations of runs A, D-H and K-M, and prefill-heavy windows of
+   configurations of runs A, D-H and K-N, and prefill-heavy windows of
    A (iterations that carry 512-row chunks), D, E, G, K and M (the first
-   iteration: the whole prompts of the requests it admits);
-   runs A, B and D-M must go through the tensor-core (``mma``) variants
+   iteration: the whole prompts of the requests it admits) and N (one
+   prefill call);
+   runs A, B and D-N must go through the tensor-core (``mma``) variants
    of their kernels and launch no ``fma`` variant, and no kernel a run
    does not expect;
 4. a ``kernels`` JSON line (launches per variant beside the totals), the
@@ -184,6 +205,17 @@ LONG_PROMPTS = (4500, 6001)
 # 10 query heads over one kv head of 256, rings of 2048 slots = 128
 # pages of 16)
 D256_DECODE = "gqa10_d256_decode8_w128"
+# Whisper large-v3's decode shapes in the kernel phase (run N: 8 rows, 20
+# heads of 64): the cross-attention over 1500 frames (pages of gcd(1500,
+# 16) = 4 slots) and the self-attention over max_len 448 (pages of 16)
+WHISPER_CROSS_DECODE = "whisper_cross_decode8_p4_w375"
+WHISPER_SELF_DECODE = "whisper_self_decode8_w28"
+# run N: Whisper's published decoder context (n_text_ctx), the new tokens
+# each request decodes, and its start-of-transcript prompt (large-v3's
+# <|startoftranscript|><|en|><|transcribe|><|notimestamps|>)
+MAX_LEN_WHISPER = 448
+WHISPER_NEW_TOKENS = 128
+WHISPER_SOT = (50258, 50259, 50360, 50364)
 
 
 def fail(msg: str):
@@ -348,13 +380,16 @@ def tol_ratio(out, plain, tol):
 
 
 def kernel_cases():
-    """(name, ctx list, row_map list, table rows, width, Hq, Hkv, D) at the
-    serving path's shapes: Llama-2-7B's (MHA, 32 heads of 128),
+    """(name, ctx list, row_map list, table rows, width, Hq, Hkv, D, page)
+    at the serving path's shapes: Llama-2-7B's (MHA, 32 heads of 128),
     StarCoder2-7B's (36 query heads over 4 kv heads: G = 9, so a decode
     row is one tile of 9 (row, head) pairs and a chunk's tiles hold 7
-    rows, 63 pairs) and RecurrentGemma-2B's (10 query heads over one kv
+    rows, 63 pairs), RecurrentGemma-2B's (10 query heads over one kv
     head of 256: G = 10; run M's decode over its 2048-slot rings, 128
-    pages of 16, and a mixed launch whose tiles hold 6 rows, 60 pairs)."""
+    pages of 16, and a mixed launch whose tiles hold 6 rows, 60 pairs)
+    and Whisper large-v3's (run N's decode of 8 rows, 20 heads of 64: the
+    cross-attention over 1500 frames, 375 pages of 4, and the
+    self-attention over 448 slots, 28 pages of 16)."""
     rng = np.random.default_rng(SEED)
     cases = []
     for w in (32, 256):
@@ -362,22 +397,29 @@ def kernel_cases():
             ctx = rng.integers(1, 16 * w + 1, b)
             ctx[0] = 16 * w                           # one full table
             cases.append((f"decode{b}_w{w}", ctx.tolist(), list(range(b)),
-                          b, w, 32, 32, 128))
+                          b, w, 32, 32, 128, 16))
     for w, chunk, n_pad in ((32, 512, 1024), (4, 48, 64)):
         cases.append(mixed_case(rng, w, chunk, n_pad, 32, 32))
     rng = np.random.default_rng(SEED + 16)
     ctx = rng.integers(1, 16 * 32 + 1, 8)
     ctx[0] = 16 * 32
     cases.append(("gqa9_decode8_w32", ctx.tolist(), list(range(8)), 8, 32,
-                  36, 4, 128))
+                  36, 4, 128, 16))
     cases.append(mixed_case(rng, 32, 512, 1024, 36, 4, prefix="gqa9_"))
     rng = np.random.default_rng(SEED + 18)
     ctx = rng.integers(1, 16 * 128 + 1, 8)
     ctx[0] = 16 * 128
     cases.append((D256_DECODE, ctx.tolist(), list(range(8)), 8, 128, 10, 1,
-                  256))
+                  256, 16))
     cases.append(mixed_case(rng, 32, 512, 1024, 10, 1, D=256,
                             prefix="gqa10_d256_"))
+    rng = np.random.default_rng(SEED + 19)
+    cases.append((WHISPER_CROSS_DECODE, [1500] * 8, list(range(8)), 8, 375,
+                  20, 20, 64, 4))
+    ctx = rng.integers(1, 449, 8)
+    ctx[0] = 448
+    cases.append((WHISPER_SELF_DECODE, ctx.tolist(), list(range(8)), 8, 28,
+                  20, 20, 64, 16))
     return cases
 
 
@@ -387,7 +429,7 @@ def mixed_case(rng, w, chunk, n_pad, Hq, Hkv, D=128, prefix=""):
     dec = rng.integers(1, 16 * w + 1, 8).tolist()
     ctx = list(range(1, chunk + 1)) + dec + [0] * (n_pad - chunk - 8)
     rmap = [0] * chunk + list(range(1, 9)) + [9] * (n_pad - chunk - 8)
-    return (f"{prefix}mixed{chunk}+8_w{w}", ctx, rmap, 16, w, Hq, Hkv, D)
+    return (f"{prefix}mixed{chunk}+8_w{w}", ctx, rmap, 16, w, Hq, Hkv, D, 16)
 
 
 def kernel_phase(torch, flush):
@@ -397,7 +439,7 @@ def kernel_phase(torch, flush):
     from repro_torch.models.attention import quantize_kv
 
     dev = torch.device("cuda")
-    page, pps = 16, 4
+    pps = 4
     rows = {"paged_attention": {"name": "paged_attention", "route": "cuda",
                                 "source": "src/repro_torch/csrc/paged_attention.cu",
                                 "replaces": "src/repro/kernels/paged_attention.py:242",
@@ -411,7 +453,7 @@ def kernel_phase(torch, flush):
     # shapes runs A (split-K, width 32) and C (serial, width 4) launch
     main_case = {"paged_attention": ("mixed48+8_w4", "bf16"),
                  "paged_attention_splitk": ("mixed512+8_w32", "bf16")}
-    for ci, (name, ctx_l, rmap_l, n_tab, W, Hq, Hkv, D) in enumerate(
+    for ci, (name, ctx_l, rmap_l, n_tab, W, Hq, Hkv, D, page) in enumerate(
             kernel_cases()):
         g = torch.Generator(device=dev).manual_seed(SEED + ci)
         B = len(ctx_l)
@@ -520,11 +562,14 @@ def kernel_phase(torch, flush):
                                bound_by=line["bound_by"],
                                library_ms=line["library_ms"],
                                shape=f"{name}/{pools}")
-                if D == 256 and pools == "bf16":
-                    # RecurrentGemma-2B's head dim: run M's decode shape
-                    # and the mixed launch, each with its device time by
-                    # kernel (the plan, the tensor-core walk, the combine)
-                    row.setdefault("d256_shapes", {})[name] = dict(
+                shapes = "d256_shapes" if D == 256 else \
+                    "whisper_shapes" if name.startswith("whisper_") else None
+                if shapes and pools == "bf16":
+                    # RecurrentGemma-2B's head dim (run M's decode shape
+                    # and the mixed launch) and Whisper large-v3's decode
+                    # shapes (run N), each with its device time by kernel
+                    # (the plan, the walk, the combine)
+                    row.setdefault(shapes, {})[name] = dict(
                         ms=line[ms], plain_ms=line[plain],
                         bound_ms=line["bound_ms"], bound_by=line["bound_by"],
                         library_ms=line["library_ms"],
@@ -576,20 +621,22 @@ def reset_launch_counts():
         mod.reset_launch_counts()
 
 
-def flash_bound(S, Hq, Hkv, D, causal, window, dtype, Dv=None):
-    """(ms, bound_by): q, k, v read and out written once over HBM
-    bandwidth, against the multiply-adds of the (q, k) pairs the mask
-    keeps (QK^T over D and PV over Dv, 2 operations each) over the peak
-    for the type."""
+def flash_bound(Sq, Skv, Hq, Hkv, D, causal, window, dtype, Dv=None, B=1):
+    """(ms, bound_by): q (B, Sq, Hq, D), k and v (B, Skv, Hkv, D | Dv) read
+    and out (B, Sq, Hq, Dv) written once over HBM bandwidth, against the
+    multiply-adds of the (q, k) pairs the mask keeps (QK^T over D and PV
+    over Dv, 2 operations each) over the peak for the type.  The mask is
+    the kernel's, aligned top-left: all Sq x Skv pairs when neither causal
+    nor windowed."""
     Dv = D if Dv is None else Dv
     elem = {"bfloat16": 2, "float32": 4}[dtype]
-    n_bytes = S * (Hq * (D + Dv) + Hkv * (D + Dv)) * elem
+    n_bytes = B * (Sq * Hq + Skv * Hkv) * (D + Dv) * elem
     pairs = 0
-    for qpos in range(S):
+    for qpos in range(Sq):
         lo = max(0, qpos - window + 1) if window else 0
-        hi = qpos + 1 if causal else S
-        pairs += hi - lo
-    flops = 2 * pairs * (D + Dv) * Hq
+        hi = min(qpos + 1, Skv) if causal else Skv
+        pairs += max(0, hi - lo)
+    flops = 2 * B * pairs * (D + Dv) * Hq
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -601,16 +648,20 @@ def flash_phase(torch, flush):
     Mixtral-8x7B (8 kv heads, window 4096, a 6144-token prompt),
     Granite-3-2B (8 kv heads of 64), MiniCPM3-4B's MLA prefill (40
     heads, D = 96 for q and k, Dv = 64 for v: the tile is 128 wide, so
-    96-127 of Q/K and 64-127 of V are zero-filled columns) and
+    96-127 of Q/K and 64-127 of V are zero-filled columns),
     RecurrentGemma-2B's local attention (10 query heads over one kv head
     of 256, window 2048, at S = 1024 and 4500: the 256-wide tile, Q in
-    shared memory; bf16 only, f32 at 256 is refused by name);
+    shared memory; bf16 only, f32 at 256 is refused by name) and Whisper
+    large-v3's (run N: B = 4, 20 heads of 64, not causal): the encoder's
+    self-attention over 1500 frames and the decoder's cross-attention of
+    a 64-token prompt over them (Sq != Skv);
     library yardstick: ``scaled_dot_product_attention`` (a windowed case
-    passes its mask as a boolean tensor), timed here only.  The kernels
-    line carries S1024 causal bf16, MiniCPM3's S1024 bf16
-    (``mla_shape``) and RecurrentGemma's two (``d256_shapes``); S1024,
-    the Mixtral case and RecurrentGemma's add the profiler's device time
-    (``ms_by_kernel``)."""
+    passes its mask as a boolean tensor; Sq != Skv it takes as is), timed
+    here only.  The kernels line carries S1024 causal bf16, MiniCPM3's
+    S1024 bf16 (``mla_shape``), RecurrentGemma's two (``d256_shapes``)
+    and Whisper's four (``whisper_shapes``); S1024, the Mixtral case,
+    RecurrentGemma's and Whisper's bf16 cases add the profiler's device
+    time (``ms_by_kernel``)."""
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
     F = torch.nn.functional
     dev = torch.device("cuda")
@@ -618,7 +669,8 @@ def flash_phase(torch, flush):
            "source": "src/repro_torch/csrc/flash_attention.cu",
            "replaces": "src/repro/kernels/flash_attention.py:93",
            "max_abs_err": 0.0}
-    # (name, S, Hq, Hkv, D, Dv, causal, window, dtype)
+    # (name, S, Hq, Hkv, D, Dv, causal, window, dtype[, Skv, B]): Skv = S
+    # and B = 1 unless given
     cases = [(f"S{S}_causal", S, 32, 32, 128, 128, True, 0, dt)
              for S in (128, 1024, 1000) for dt in ("bfloat16", "float32")]
     cases += [("S1024_window256", 1024, 32, 32, 128, 128, True, 256,
@@ -638,6 +690,12 @@ def flash_phase(torch, flush):
     cases += [(name, S, 10, 1, 256, 256, True, 2048, "bfloat16")
               for name, S in (("S1024_gqa10_d256", 1024),
                               ("S4500_gqa10_d256_window2048", 4500))]
+    # Whisper large-v3 (run N's prefill call of 4 requests): the encoder
+    # over 1500 frames, the cross-attention of 64 prompt rows over them
+    cases += [(name, Sq, 20, 20, 64, 64, False, 0, dt, 1500, 4)
+              for name, Sq in (("whisper_enc_S1500", 1500),
+                               ("whisper_cross_Sq64_Skv1500", 64))
+              for dt in ("bfloat16", "float32")]
     q32 = torch.zeros((1, 16, 1, 256), device=dev)
     try:
         fa.flash_attention_kernel(q32, q32, q32)
@@ -645,20 +703,21 @@ def flash_phase(torch, flush):
     except ValueError as e:
         check("[4, 128]" in str(e), f"flash: f32 at head dim 256 refused "
               f"without naming the limit: {e}")
-    for ci, (name, S, Hq, Hkv, D, Dv, causal, window, dt) in enumerate(
-            cases):
+    for ci, case in enumerate(cases):
+        name, S, Hq, Hkv, D, Dv, causal, window, dt = case[:9]
+        Skv, B = case[9:] if len(case) > 9 else (S, 1)
         g = torch.Generator(device=dev).manual_seed(SEED + 100 + ci)
         dtype = getattr(torch, dt)
-        q = torch.randn(1, S, Hq, D, generator=g, device=dev).to(dtype)
-        k = torch.randn(1, S, Hkv, D, generator=g, device=dev).to(dtype)
-        v = torch.randn(1, S, Hkv, Dv, generator=g, device=dev).to(dtype)
+        q = torch.randn(B, S, Hq, D, generator=g, device=dev).to(dtype)
+        k = torch.randn(B, Skv, Hkv, D, generator=g, device=dev).to(dtype)
+        v = torch.randn(B, Skv, Hkv, Dv, generator=g, device=dev).to(dtype)
         tol = BF16_TOL if dt == "bfloat16" else F32_TOL
         out = fa.flash_attention_kernel(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         plain = fa.flash_attention_plain(q, k, v, causal=causal,
                                          window=window)
         err, ratio = tol_ratio(out, plain, tol)
-        check(out.shape == plain.shape == (1, S, Hq, Dv),
+        check(out.shape == plain.shape == (B, S, Hq, Dv),
               f"flash {name}/{dt}: output shape {tuple(out.shape)}")
         check(ratio <= 1, f"flash {name}/{dt}: kernel vs plain outside "
               f"tolerance {tol}: max abs error {err}, ratio {ratio}")
@@ -673,12 +732,13 @@ def flash_phase(torch, flush):
 
         def library():
             return F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+                qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
                 enable_gqa=Hkv != Hq)
 
         line = {"phase": "kernels", "kernel": "flash_attention",
-                "case": name, "dtype": dt, "S": S, "Hq": Hq, "Hkv": Hkv,
-                "D": D, "Dv": Dv, "window": window, "rtol": tol[0],
+                "case": name, "dtype": dt, "B": B, "S": S, "Skv": Skv,
+                "Hq": Hq, "Hkv": Hkv, "D": D, "Dv": Dv, "causal": causal,
+                "window": window, "rtol": tol[0],
                 "atol": tol[1], "max_abs_err": err, "tol_ratio": ratio,
                 "ms": time_ms(torch, lambda: fa.flash_attention_kernel(
                     q, k, v, causal=causal, window=window), 20, flush),
@@ -686,10 +746,11 @@ def flash_phase(torch, flush):
                     q, k, v, causal=causal, window=window), 3, flush),
                 "library_ms": time_ms(torch, library, 10, flush)}
         line["bound_ms"], line["bound_by"] = flash_bound(
-            S, Hq, Hkv, D, causal, window, dt, Dv)
-        if name in ("S1024_causal", "S6144_window4096_gqa8",
-                    "S1024_gqa10_d256", "S4500_gqa10_d256_window2048") \
-                and dt == "bfloat16":
+            S, Skv, Hq, Hkv, D, causal, window, dt, Dv, B)
+        whisper = name.startswith("whisper_")
+        if dt == "bfloat16" and (whisper or name in (
+                "S1024_causal", "S6144_window4096_gqa8", "S1024_gqa10_d256",
+                "S4500_gqa10_d256_window2048")):
             line["ms_by_kernel"] = device_ms_by_kernel(
                 torch, lambda: fa.flash_attention_kernel(
                     q, k, v, causal=causal, window=window), flush,
@@ -710,6 +771,11 @@ def flash_phase(torch, flush):
             row.setdefault("d256_shapes", {})[name] = {k: line[k] for k in (
                 "ms", "ms_by_kernel", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "tol_ratio")}
+        if whisper:
+            row.setdefault("whisper_shapes", {})[f"{name}/{dt}"] = {
+                k: line[k] for k in ("ms", "ms_by_kernel", "plain_ms",
+                                     "bound_ms", "bound_by", "library_ms",
+                                     "tol_ratio") if k in line}
     return {"flash_attention": row}
 
 
@@ -1480,6 +1546,10 @@ def engine_phase(torch, kernel_rows):
     gc.collect()
     torch.cuda.empty_cache()
 
+    # Whisper large-v3: the encoder and cross-attention through flash
+    # (Sq != Skv), decode through split-K over pages of 16 and of 4
+    runs["N"] = whisper_run(torch)
+
     emit({"phase": "engine", "launches_by_run": {
         run: {k: n for k, n in r.items() if n} for run, r in runs.items()}})
     for name, row in kernel_rows.items():
@@ -1492,6 +1562,182 @@ def engine_phase(torch, kernel_rows):
                  for k in runs["A"] if k.startswith(f"{name}/")}
         if pools:
             row["launches_by_pools"] = pools
+
+
+def whisper_run(torch):
+    """Run N: Whisper large-v3 as registered (32 encoder and 32 decoder
+    layers, d_model 1280, 20 heads of 64, GELU MLP of 5120, vocab 51 866,
+    untied, bf16; random weights from SEED) through the model API, which
+    is how an encoder-decoder is served (the engine's requests carry no
+    frames).  Two prefill calls of 4 requests each over (4, 1500, 1280)
+    standard-normal frames, one with the 4-token start-of-transcript
+    prompt and one with a 64-token prompt, each launching flash once per
+    encoder layer, decoder self-attention and cross-attention (96); then
+    the 8 requests decode together (rows at two positions) greedily to
+    WHISPER_NEW_TOKENS new tokens each, each step launching split-K once
+    per decoder self- and cross-attention (64): the slot caches of
+    MAX_LEN_WHISPER slots as pages of 16, the 1500 frames as pages of 4.
+    Checks: the launch counts of each phase and nothing else of the
+    port, finite logits, the first tokens of a short and a long prompt
+    against ``whisper_plain`` on the card, decode consistency at 444
+    tokens (max_len 448); the decode and prefill profile windows.
+    Returns the launch counts of the three phases, summed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import decode_step, prefill
+    from repro_torch.weights import init_params
+
+    cfg = get_config("whisper-large-v3")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED), "cuda")
+    torch.cuda.synchronize()
+    emit({"phase": "engine_setup", "run": "N", "model": cfg.name,
+          "n_layers": cfg.n_layers, "n_encoder_layers": cfg.n_encoder_layers,
+          "d_model": cfg.d_model, "dtype": cfg.dtype,
+          "n_params": cfg.n_params(), "weight_gib": sum(
+              t.numel() * t.element_size() for t in _leaves(params)) / 2 ** 30,
+          "init_s": time.perf_counter() - t0})
+    rng = np.random.default_rng(SEED + 19)
+    T, d = cfg.n_frontend_tokens, cfg.d_model
+    batches = []
+    for plen in (len(WHISPER_SOT), 64):
+        toks = np.concatenate([np.tile(WHISPER_SOT, (4, 1)), rng.integers(
+            0, WHISPER_SOT[0], (4, plen - len(WHISPER_SOT)))], axis=1)
+        frames = rng.standard_normal((4, T, d)).astype(np.float32)
+        batches.append({"tokens": torch.from_numpy(toks).to("cuda"),
+                        "frames": torch.from_numpy(frames).to("cuda")})
+    # flash once per encoder layer and per decoder layer's self- and
+    # cross-attention (32 + 2 x 32 = 96 a call); split-K once per decoder
+    # layer's self- and cross-attention (64 a step)
+    others = {name: 0 for name in launch_counts()}
+    n_flash = cfg.n_encoder_layers + 2 * cfg.n_layers
+    flash = dict(others, **{"flash_attention": n_flash,
+                            "flash_attention:mma": n_flash})
+    n_steps = WHISPER_NEW_TOKENS - 1
+    splitk = dict(others, **{k: 2 * cfg.n_layers * n_steps for k in (
+        "paged_attention_splitk", "paged_attention_splitk:mma",
+        "paged_attention_splitk/bf16")})
+
+    def phase(name, want, fn):
+        """fn() between a reset and a read of the launch counts, which
+        must equal ``want``; (fn's result, wall seconds, the counts)."""
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = launch_counts()
+        check(got == want, f"run N, {name}: launches "
+              f"{ {k: n for k, n in got.items() if n} }, not "
+              f"{ {k: n for k, n in want.items() if n} }")
+        return out, wall, got
+
+    torch.cuda.reset_peak_memory_stats()
+    start_gib = torch.cuda.memory_allocated() / 2 ** 30
+    runs, walls, firsts, caches = [], [], [], []
+    for i, b in enumerate(batches):
+        (logits, cache), wall, got = phase(
+            f"prefill call {i}", flash,
+            lambda: prefill(params, b, cfg, MAX_LEN_WHISPER))
+        check(bool(torch.isfinite(logits.float()).all()),
+              f"run N: prefill call {i}: non-finite logits")
+        runs.append(got)
+        walls.append(wall)
+        firsts.append(logits.float().cpu().numpy())
+        caches.append(cache)
+    # the 8 requests in one decode batch: rows at positions 4 and 64
+    cache = {"pos": torch.cat([c["pos"] for c in caches]), "stages": {
+        si: {name: torch.cat([c["stages"][si][name] for c in caches], dim=1)
+             for name in st} for si, st in caches[0]["stages"].items()}}
+    del caches
+    first = torch.from_numpy(np.concatenate(firsts)).to("cuda").argmax(-1)
+
+    def decode():
+        tok, finite, out = first, torch.ones((), dtype=torch.bool,
+                                             device="cuda"), [first]
+        for _ in range(n_steps):
+            logits, _ = decode_step(params, tok, cache, cfg)
+            finite &= torch.isfinite(logits).all()
+            tok = logits.argmax(-1)
+            out.append(tok)
+        return finite, torch.stack(out, 1)
+
+    (finite, tokens), decode_s, got = phase("decode", splitk, decode)
+    runs.append(got)
+    check(bool(finite), "run N: non-finite decode logits")
+    check(tokens.shape == (8, WHISPER_NEW_TOKENS), f"run N: tokens "
+          f"{tuple(tokens.shape)}")
+    prompt_tokens = sum(int(b["tokens"].numel()) for b in batches)
+    emit({"phase": "engine", "run": "N", "model": cfg.name,
+          "entry": "models.prefill / models.decode_step",
+          "max_len": MAX_LEN_WHISPER, "requests": 8, "prefill_calls": 2,
+          "frames_per_request": T, "prompt_tokens": prompt_tokens,
+          "output_tokens": int(tokens.numel()), "decode_steps": n_steps,
+          "prefill_call_ms": [w * 1e3 for w in walls],
+          "decode_ms_per_step": decode_s / n_steps * 1e3,
+          "output_tok_per_s_decode": 8 * n_steps / decode_s,
+          "launches_by_phase": [{k: n for k, n in r.items() if n}
+                                for r in runs],
+          "distinct_tokens_per_request": [
+              len(set(r)) for r in tokens.cpu().tolist()],
+          "start_mem_gib": start_gib,
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+
+    # first tokens of a short and a long prompt against a plain forward
+    worst = 0.0
+    with torch.no_grad():
+        for ci, b in enumerate(batches):
+            ref = whisper_plain(torch, params, cfg, b["frames"][0],
+                                b["tokens"][0]).cpu().numpy()
+            served = firsts[ci][0]
+            rel = float(np.abs(served - ref).max() / np.abs(ref).max())
+            worst = max(worst, rel)
+            emit({"phase": "dense_check", "model": cfg.name, "run": "N",
+                  "prefill_call": ci, "prompt_len": int(b["tokens"].shape[1]),
+                  "frames": T, "max_rel_err": rel, "argmax_equal":
+                      int(np.argmax(served)) == int(np.argmax(ref))})
+    check(worst < DENSE_REL_TOL, f"run N: served first-token logits differ "
+          f"from the plain forward by {worst} (relative)")
+    decode_consistency(torch, params, cfg, n=MAX_LEN_WHISPER - 4)
+
+    # profile windows: 10 decode steps of the 8 rows after 10 timed on
+    # the host clock, and one prefill call (the 64-token prompts)
+    tok = tokens[:, -1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        logits, _ = decode_step(params, tok, cache, cfg)
+        tok = logits.argmax(-1)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / 10
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            logits, _ = decode_step(params, tok, cache, cfg)
+            tok = logits.argmax(-1)
+        torch.cuda.synchronize()
+    emit({"phase": "profile", "run": "N", "window": "decode",
+          "iterations": 10, "rows_per_iteration": 8,
+          **profile_summary(prof, 10, wall_ms)})
+    del cache
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        prefill(params, batches[1], cfg, MAX_LEN_WHISPER)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    emit({"phase": "profile", "run": "N", "window": "prefill",
+          "iterations": 1, "rows_per_iteration": 4,
+          "prompt_rows_per_iteration": [int(batches[1]["tokens"].numel())],
+          "frames_per_iteration": 4 * T,
+          **profile_summary(prof, 1, wall_ms)})
+    del params, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: sum(r[k] for r in runs) for k in runs[0]}
 
 
 def no_casts(run, line, paged=True):
@@ -1730,13 +1976,22 @@ def decode_consistency(torch, params, cfg, n=300):
     holds the SSD-scan kernel's final state (and the conv tail) against
     the ``ssd_step`` recurrence (run E), the flash kernel's prefill
     against decode over the slot cache (runs F and G; past the window,
-    G's ring cache wraps)."""
+    G's ring cache wraps; run N: the cross-attention's flash at Sq != Skv
+    against split-K over the cached frames, pages of 4).  An
+    encoder-decoder's batch adds (1, T, d) standard-normal frames, drawn
+    with numpy as that test draws them."""
     from repro_torch.models.model import decode_step, prefill
 
-    toks = torch.from_numpy(np.random.default_rng(SEED + 7).integers(
-        0, cfg.vocab_size, (1, n))).to("cuda")
-    full, _ = prefill(params, {"tokens": toks}, cfg, n + 4)
-    _, cache = prefill(params, {"tokens": toks[:, :-1]}, cfg, n + 4)
+    rng = np.random.default_rng(SEED + 7)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, n))).to(
+        "cuda")
+    batch = {"tokens": toks}
+    if cfg.is_encoder_decoder:
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (1, cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32)).to(
+            "cuda")
+    full, _ = prefill(params, batch, cfg, n + 4)
+    _, cache = prefill(params, dict(batch, tokens=toks[:, :-1]), cfg, n + 4)
     step, _ = decode_step(params, toks[:, -1], cache, cfg)
     full, step = full.float()[0].cpu().numpy(), step.float()[0].cpu().numpy()
     rel = float(np.abs(step - full).max() / np.abs(full).max())
@@ -1799,38 +2054,9 @@ def profile_window(torch, run, eng, reqs, window="decode"):
         if window == "prefill":
             wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     logged = eng.iter_log[n_log:]
-    events = [e for e in prof.key_averages()
-              if getattr(e, "device_type", None) is not None
-              and str(e.device_type).endswith("CUDA")]
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    device_ms = sum(dev_us(e) for e in events) / 1e3 / steps
-    top = sorted(events, key=dev_us, reverse=True)[:8]
-    ours = defaultdict(lambda: [0.0, 0.0])        # the port's own kernels
-    for e in events:
-        if any(n in e.key for n in ("paged_attention", "paged_plan",
-                                    "flash_attention", "ssd_scan")):
-            name = e.key[:80]
-            ours[name][0] += dev_us(e) / 1e3 / steps
-            ours[name][1] += e.count / steps
     line = {"phase": "profile", "run": run, "window": window,
             "iterations": steps, "rows_per_iteration": rows / steps,
-            "wall_ms_per_iteration": wall_ms,
-            "device_ms_per_iteration": device_ms,
-            "device_busy_share": device_ms / wall_ms,
-            "kernel_launches_per_iteration":
-                sum(e.count for e in events) / steps,
-            "port_kernels_ms_per_iteration": {
-                k: v[0] for k, v in sorted(ours.items())},
-            "port_kernel_launches_per_iteration": {
-                k: v[1] for k, v in sorted(ours.items())},
-            "top_device_kernels": [
-                {"name": e.key[:80],
-                 "ms_per_iteration": dev_us(e) / 1e3 / steps,
-                 "calls_per_iteration": e.count / steps} for e in top]}
+            **profile_summary(prof, steps, wall_ms)}
     # the device time of the kernels each batched product launched (MLA's
     # latent decode, MoE's experts)
     bmm = [e for e in prof.key_averages() if e.key == "aten::bmm"]
@@ -1888,6 +2114,42 @@ def profile_window(torch, run, eng, reqs, window="decode"):
     return line
 
 
+def profile_summary(prof, steps, wall_ms):
+    """A profiled window's device time, busy share, launches, the port's
+    kernels and the top device kernels, per iteration (``steps`` of them,
+    ``wall_ms`` each on the host clock)."""
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) is not None
+              and str(e.device_type).endswith("CUDA")]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    device_ms = sum(dev_us(e) for e in events) / 1e3 / steps
+    top = sorted(events, key=dev_us, reverse=True)[:8]
+    ours = defaultdict(lambda: [0.0, 0.0])        # the port's own kernels
+    for e in events:
+        if any(n in e.key for n in ("paged_attention", "paged_plan",
+                                    "flash_attention", "ssd_scan")):
+            name = e.key[:80]
+            ours[name][0] += dev_us(e) / 1e3 / steps
+            ours[name][1] += e.count / steps
+    return {"wall_ms_per_iteration": wall_ms,
+            "device_ms_per_iteration": device_ms,
+            "device_busy_share": device_ms / wall_ms,
+            "kernel_launches_per_iteration":
+                sum(e.count for e in events) / steps,
+            "port_kernels_ms_per_iteration": {
+                k: v[0] for k, v in sorted(ours.items())},
+            "port_kernel_launches_per_iteration": {
+                k: v[1] for k, v in sorted(ours.items())},
+            "top_device_kernels": [
+                {"name": e.key[:80],
+                 "ms_per_iteration": dev_us(e) / 1e3 / steps,
+                 "calls_per_iteration": e.count / steps} for e in top]}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1896,17 +2158,20 @@ def _leaves(tree):
         yield tree
 
 
-def plain_attention(torch, q, k, v, window, heads=8):
-    """Causal (and windowed) attention of one prompt, scores in f32,
-    ``heads`` query heads at a time.  q (S, Hq, D), k (S, Hkv, D), v (S,
-    Hkv, Dv)."""
+def plain_attention(torch, q, k, v, window, heads=8, causal=True):
+    """Causal (and windowed) attention of one prompt, or (``causal``
+    False) every query row over every key, scores in f32, ``heads`` query
+    heads at a time.  q (S, Hq, D), k (Skv, Hkv, D), v (Skv, Hkv, Dv)."""
     S, H, hd = q.shape
     G = H // k.shape[1]
     k, v = (t.repeat_interleave(G, dim=1).float() for t in (k, v))
     pos = torch.arange(S, device=q.device)
-    keep = pos[None] <= pos[:, None]
+    kpos = torch.arange(k.shape[0], device=q.device)
+    keep = torch.ones((S, k.shape[0]), dtype=torch.bool, device=q.device)
+    if causal:
+        keep &= kpos[None] <= pos[:, None]
     if window:
-        keep &= pos[None] > pos[:, None] - window
+        keep &= kpos[None] > pos[:, None] - window
     out = torch.empty((S, H, v.shape[-1]), device=q.device)
     for h in range(0, H, heads):
         s = torch.einsum("shd,thd->hst", q[:, h:h + heads].float(),
@@ -1915,6 +2180,62 @@ def plain_attention(torch, q, k, v, window, heads=8):
         out[:, h:h + heads] = torch.einsum("hst,thd->shd", p,
                                            v[:, h:h + heads])
     return out.to(q.dtype)
+
+
+def gqa_plain(torch, lp, h, pos, cfg, window, causal=True, kv=None):
+    """One attention layer's output for one prompt h (S, d): the rotary
+    projections, attention by ``plain_attention``, ``wo``.  ``kv``: the
+    encoder's output (T, d), attended without rotary embedding and
+    without a mask (Whisper's cross-attention; ``lp`` its ``cross``)."""
+    from repro_torch.models.layers import apply_rope
+
+    H, hd = cfg.n_heads, cfg.resolved_head_dim()
+    q = (h @ lp["wq"].reshape(cfg.d_model, -1)).reshape(len(h), H, hd)
+    src = h if kv is None else kv
+    k, v = ((src @ lp[w].reshape(cfg.d_model, -1)).reshape(
+        len(src), -1, hd) for w in ("wk", "wv"))
+    if kv is None:
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
+    o = plain_attention(torch, q, k, v, window,
+                        causal=causal and kv is None)
+    return o.reshape(len(h), -1) @ lp["wo"].reshape(H * hd, -1)
+
+
+def whisper_plain(torch, params, cfg, frames, toks):
+    """Last-token logits of one Whisper request, plain: the encoder over
+    ``frames`` (T, d) and the decoder over ``toks``, each attention by
+    ``gqa_plain`` (the encoder's and the cross-attention not causal), the
+    MLPs and norms the port's."""
+    from repro_torch.models.layers import dtype_of, embed, rmsnorm, unembed
+    from repro_torch.models.model import _sinusoid, ffn_forward, layer_params
+
+    dt = dtype_of(cfg)
+
+    def block(lp, x, pos, causal, enc=None):
+        h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
+        x = x + gqa_plain(torch, lp["attn"], h, pos, cfg, 0, causal=causal)
+        if enc is not None:
+            hc = rmsnorm(lp["ln_cross"], x, cfg.norm_eps)
+            x = x + gqa_plain(torch, lp["cross"], hc, pos, cfg, 0, kv=enc)
+        h2 = rmsnorm(lp["ln2"], x, cfg.norm_eps)
+        return x + ffn_forward(lp["ffn"], h2, cfg, False)
+
+    T = frames.shape[0]
+    pos = torch.arange(T, device=frames.device)
+    x = frames.to(dt) + _sinusoid(pos, cfg.d_model).to(dt)
+    st = params["enc"]["stages"]["stage_0"]
+    for i in range(cfg.n_encoder_layers):
+        x = block(layer_params(st, i), x, pos, causal=False)
+    enc = rmsnorm(params["enc"]["final_norm"], x, cfg.norm_eps)
+    pos = torch.arange(len(toks), device=frames.device)
+    x = embed(params["embed"], toks)
+    x = x + _sinusoid(pos, cfg.d_model).to(x.dtype)
+    st = params["stages"]["stage_0"]
+    for i in range(cfg.n_layers):
+        x = block(layer_params(st, i), x, pos, causal=True, enc=enc)
+    return unembed(params["embed"], rmsnorm(params["final_norm"], x[-1:],
+                                            cfg.norm_eps)).float()[0]
 
 
 def mla_plain(torch, lp, h, pos, cfg, window):
@@ -1941,12 +2262,11 @@ def dense_check(torch, params, cfg, firsts, n=3, rids=None):
     attention without pools or kernels (MLA expanded, as in prefill), the
     port's RG-LRU block (it has no kernel), MLP and MoE FFN."""
     from repro_torch.configs.base import ATTN_MLA, RGLRU
-    from repro_torch.models.layers import apply_rope, embed, rmsnorm, unembed
+    from repro_torch.models.layers import embed, rmsnorm, unembed
     from repro_torch.models.model import (ffn_forward, layer_params,
                                           model_stages, window_for)
     from repro_torch.models.rglru import rglru_prefill
 
-    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim()
     worst = 0.0
     with torch.no_grad():
         for rid in rids or sorted(firsts)[:n]:
@@ -1967,16 +2287,8 @@ def dense_check(torch, params, cfg, firsts, n=3, rids=None):
                         x = x + rglru_prefill(layer_params(st["attn"], i),
                                               h[None], cfg)[0][0]
                     else:
-                        q, k, v = (h @ st["attn"][w][i].reshape(
-                            cfg.d_model, -1) for w in ("wq", "wk", "wv"))
-                        q = apply_rope(q.reshape(S, H, hd), pos,
-                                       cfg.rope_theta)
-                        k = apply_rope(k.reshape(S, Hkv, hd), pos,
-                                       cfg.rope_theta)
-                        o = plain_attention(torch, q, k,
-                                            v.reshape(S, Hkv, hd), window)
-                        x = x + o.reshape(S, -1) @ st["attn"]["wo"][
-                            i].reshape(H * hd, -1)
+                        x = x + gqa_plain(torch, layer_params(st["attn"], i),
+                                          h, pos, cfg, window)
                     h2 = rmsnorm({"scale": st["ln2"]["scale"][i]}, x,
                                  cfg.norm_eps)
                     x = x + ffn_forward(layer_params(st["ffn"], i), h2, cfg,

@@ -3,12 +3,13 @@ testbed model, the dense GQA stacks DeepSeek-7B, Granite-3-2B and
 StarCoder2-7B, MiniCPM3-4B with multi-head latent attention, the
 attention-free Mamba-2-2.7B, the MoE stacks DeepSeek-MoE-16B and
 Mixtral-8x7B, the latter with sliding-window attention, and the hybrid
-RecurrentGemma-2B: RG-LRU blocks beside local attention)."""
+RecurrentGemma-2B: RG-LRU blocks beside local attention, and the
+encoder-decoder Whisper large-v3 over stubbed audio frames)."""
 from repro_torch.configs.base import ModelConfig, get_config, list_archs
 from repro_torch.configs import (deepseek_7b, deepseek_moe_16b, granite_3_2b,
                                  llama2_7b, mamba2_2_7b, minicpm3_4b,
                                  mixtral_8x7b, recurrentgemma_2b,
-                                 starcoder2_7b)
+                                 starcoder2_7b, whisper_large_v3)
 
 SMOKE_FACTORIES = {
     "deepseek-7b": deepseek_7b.smoke,
@@ -20,6 +21,7 @@ SMOKE_FACTORIES = {
     "mixtral-8x7b": mixtral_8x7b.smoke,
     "recurrentgemma-2b": recurrentgemma_2b.smoke,
     "starcoder2-7b": starcoder2_7b.smoke,
+    "whisper-large-v3": whisper_large_v3.smoke,
 }
 
 __all__ = ["ModelConfig", "get_config", "list_archs", "SMOKE_FACTORIES"]

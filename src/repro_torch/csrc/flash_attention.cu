@@ -4,13 +4,17 @@
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py
 // (flash_attention_pallas, _flash_kernel).
 //
-// What it computes (the TPU kernel's contract): q (B, S, Hq, D) attends
-// k (B, S, Hkv, D) and v (B, S, Hkv, Dv); query head h reads kv head h / G
-// (G = Hq / Hkv).  Scores are (q . k) * sm_scale in f32; a masked score is
-// *set* to NEG_INF = -1e30, which is finite.  The mask is kpos < S, plus
-// kpos <= qpos when causal, plus kpos > qpos - window when window > 0.
-// The online softmax keeps (m, l, acc) in f32 and the output is
-// acc / max(l, 1e-30), rounded once to q's type.
+// What it computes (the TPU kernel's contract): q (B, Sq, Hq, D) attends
+// k (B, Skv, Hkv, D) and v (B, Skv, Hkv, Dv); query head h reads kv head
+// h / G (G = Hq / Hkv).  Sq and Skv may differ (prefill: Sq == Skv; the
+// cross-attention of an encoder-decoder: Sq prompt rows over Skv encoder
+// frames).  Scores are (q . k) * sm_scale in f32; a masked score is *set*
+// to NEG_INF = -1e30, which is finite.  The mask is kpos < Skv, plus
+// kpos <= qpos when causal, plus kpos > qpos - window when window > 0,
+// both aligned top-left (qpos and kpos count from 0, as in the TPU
+// kernel).  The online softmax keeps (m, l, acc) in f32 and the output is
+// acc / max(l, 1e-30), rounded once to q's type.  Query rows are bounded
+// by Sq; key rows, the kv tiles walked and the K/V offsets by Skv.
 //
 // Bound: at the serving shape (S up to 1024, D = 128) the work is
 // 4 * S^2/2 * D operations per head against 4 * S * D bytes, hundreds of
@@ -39,11 +43,13 @@
 //
 // The TPU kernel runs every kv tile, fully masked ones included.  These
 // kernels walk only the kv tiles that hold a valid key for some row of the
-// block (below the diagonal, inside the band).  Skipping changes nothing:
-// a row's own diagonal key is always valid and lies in a walked tile, so
-// the first valid score sets corr = exp(-1e30 - m) = 0 and wipes whatever
-// fully masked entries had added before it.  q tiles are taken in reverse
-// order, so the longest causal rows start first.
+// block (below the diagonal, inside the band).  Skipping changes nothing
+// for a row with a valid key: that key lies in a walked tile, so the first
+// valid score sets corr = exp(-1e30 - m) = 0 and wipes whatever fully
+// masked entries had added before it.  Every row has one unless a window
+// ends before key 0 or past key Skv - 1 (Sq >= Skv + window): the wrapper
+// refuses such calls.  q tiles are taken in reverse order, so the longest
+// causal rows start first.
 //
 // Plain C interface (loaded with ctypes); the launch is on the caller's
 // stream, allocates nothing and returns cudaGetLastError().
@@ -80,7 +86,7 @@ __device__ __forceinline__ void store4(float* p, float4 v) {
 }
 
 struct Shape {
-  int B, S, Hq, Hkv, G, D, Dv, causal, window;
+  int B, Sq, Skv, Hq, Hkv, G, D, Dv, causal, window;
   float sm_scale;
 };
 
@@ -119,7 +125,7 @@ flash_attention_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
 
-  load_tile(q_s, kQKStride, q, b, q0, P.S, P.Hq, h, P.D);
+  load_tile(q_s, kQKStride, q, b, q0, P.Sq, P.Hq, h, P.D);
 
   float m[4], l[4], acc[4][8];
 #pragma unroll
@@ -131,14 +137,14 @@ flash_attention_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   // kv tiles that hold a valid key for some row of this block
-  int kv_lo = 0, kv_hi = P.S;
-  if (P.causal) kv_hi = min(P.S, q0 + kBQ);
+  int kv_lo = 0, kv_hi = P.Skv;
+  if (P.causal) kv_hi = min(P.Skv, q0 + kBQ);
   if (P.window > 0) kv_lo = max(0, q0 - P.window + 1);
   const bool wide_v = P.Dv > 64;
 
   for (int kv0 = (kv_lo / kBKV) * kBKV; kv0 < kv_hi; kv0 += kBKV) {
-    load_tile(k_s, kQKStride, k, b, kv0, P.S, P.Hkv, hk, P.D);
-    load_tile(v_s, kVStride, v, b, kv0, P.S, P.Hkv, hk, P.Dv);
+    load_tile(k_s, kQKStride, k, b, kv0, P.Skv, P.Hkv, hk, P.D);
+    load_tile(v_s, kVStride, v, b, kv0, P.Skv, P.Hkv, hk, P.Dv);
     __syncthreads();
 
     // scores: rows ty*4 + i, keys tx + 16*j
@@ -173,7 +179,7 @@ flash_attention_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kpos = kv0 + tx + 16 * j;
-        bool ok = kpos < P.S;
+        bool ok = kpos < P.Skv;
         if (P.causal) ok = ok && kpos <= qpos;
         if (P.window > 0) ok = ok && kpos > qpos - P.window;
         s[i][j] = ok ? s[i][j] * P.sm_scale : kNegInf;
@@ -238,9 +244,9 @@ flash_attention_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int s_row = q0 + ty * 4 + i;
-    if (s_row >= P.S) continue;
+    if (s_row >= P.Sq) continue;
     const float lc = fmaxf(l[i], 1e-30f);
-    T* dst = out + ((static_cast<int64_t>(b) * P.S + s_row) * P.Hq + h) * P.Dv;
+    T* dst = out + ((static_cast<int64_t>(b) * P.Sq + s_row) * P.Hq + h) * P.Dv;
     if (tx * 4 < P.Dv)
       store4(dst + tx * 4, make_float4(acc[i][0] / lc, acc[i][1] / lc,
                                        acc[i][2] / lc, acc[i][3] / lc));
@@ -261,7 +267,7 @@ int launch_fma(const void* q, const void* k, const void* v, void* out, const Sha
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
-  const dim3 grid((P.S + kBQ - 1) / kBQ, P.Hq, P.B);
+  const dim3 grid((P.Sq + kBQ - 1) / kBQ, P.Hq, P.B);
   flash_attention_fma_kernel<T><<<grid, kThreads, kSmemBytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(out), P);
@@ -310,29 +316,29 @@ flash_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
   int lo[2], hi[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    qrow[r] = row[r] < P.S
-                  ? q + ((static_cast<int64_t>(b) * P.S + row[r]) * P.Hq + h) * P.D
+    qrow[r] = row[r] < P.Sq
+                  ? q + ((static_cast<int64_t>(b) * P.Sq + row[r]) * P.Hq + h) * P.D
                   : nullptr;
     lo[r] = P.window > 0 ? max(0, row[r] - P.window + 1) : 0;
-    hi[r] = P.causal ? min(P.S, row[r] + 1) : P.S;
+    hi[r] = P.causal ? min(P.Skv, row[r] + 1) : P.Skv;
   }
   at::init_rows(st, qrow[0], qrow[1], P.D, lane, q_tiles + warp * at::kQTileElems);
 
   // kv tiles that hold a valid key for some row of this block
-  int kv_lo = 0, kv_hi = P.S;
-  if (P.causal) kv_hi = min(P.S, q0 + at::kRows);
+  int kv_lo = 0, kv_hi = P.Skv;
+  if (P.causal) kv_hi = min(P.Skv, q0 + at::kRows);
   if (P.window > 0) kv_lo = max(0, q0 - P.window + 1);
   const int t_begin = kv_lo / at::kKeys;
   const int t_end = (kv_hi + at::kKeys - 1) / at::kKeys;
   // the warp's last visible key + 1, over its rows
-  const int w_hi = P.causal ? min(P.S, w0 + 16) : P.S;
+  const int w_hi = P.causal ? min(P.Skv, w0 + 16) : P.Skv;
 
   const int64_t k_row = static_cast<int64_t>(P.Hkv) * P.D;    // elements per position
   const int64_t v_row = static_cast<int64_t>(P.Hkv) * P.Dv;
-  const bf16* k_base = k + (static_cast<int64_t>(b) * P.S * P.Hkv + hk) * P.D;
-  const bf16* v_base = v + (static_cast<int64_t>(b) * P.S * P.Hkv + hk) * P.Dv;
+  const bf16* k_base = k + (static_cast<int64_t>(b) * P.Skv * P.Hkv + hk) * P.D;
+  const bf16* v_base = v + (static_cast<int64_t>(b) * P.Skv * P.Hkv + hk) * P.Dv;
 
-  // K and V rows [kv0, kv0 + 64) into stage `buf`; rows past S and columns
+  // K and V rows [kv0, kv0 + 64) into stage `buf`; rows past Skv and columns
   // past D (Dv) are zero-filled
   auto load_step = [&](int kv0, int buf) {
     bf16* k_s = tiles + (2 * buf) * Dm::kTileElems;
@@ -343,7 +349,7 @@ flash_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
       const int r = rem / Dm::kChunks, c = rem % Dm::kChunks;
       const int s = kv0 + r;
       const int width = is_v ? P.Dv : P.D;
-      const bool ok = s < P.S && c * 8 < width;
+      const bool ok = s < P.Skv && c * 8 < width;
       const bf16* src = is_v ? v_base : k_base;
       if (ok) src += s * (is_v ? v_row : k_row) + c * 8;
       at::cp_async16((is_v ? v_s : k_s) + r * Dm::kStride + c * 8, src, ok);
@@ -365,7 +371,7 @@ flash_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
     at::cp_async_wait<kStages - 1>();
     __syncthreads();
     const int kv0 = (t_begin + i) * at::kKeys;
-    bool work = w0 < P.S;
+    bool work = w0 < P.Sq;
     if (P.causal) work = work && kv0 < w_hi;
     if (P.window > 0) work = work && kv0 + at::kKeys > w0 - P.window + 1;
     if (work) {
@@ -380,9 +386,9 @@ flash_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
   const int t4 = lane & 3;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    if (row[r] >= P.S) continue;
+    if (row[r] >= P.Sq) continue;
     const float lc = fmaxf(st.l[r], 1e-30f);
-    bf16* dst = out + ((static_cast<int64_t>(b) * P.S + row[r]) * P.Hq + h) * P.Dv;
+    bf16* dst = out + ((static_cast<int64_t>(b) * P.Sq + row[r]) * P.Hq + h) * P.Dv;
 #pragma unroll
     for (int n = 0; n < DP / 8; ++n) {
       const int dv = n * 8 + 2 * t4;
@@ -405,7 +411,7 @@ int launch_mma(const void* q, const void* k, const void* v, void* out, const Sha
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
-  const dim3 grid((P.S + at::kRows - 1) / at::kRows, P.Hq, P.B);
+  const dim3 grid((P.Sq + at::kRows - 1) / at::kRows, P.Hq, P.B);
   flash_attention_mma_kernel<DP><<<grid, at::kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(out), P);
@@ -428,18 +434,19 @@ size_t flash_attention_mma_smem_bytes(int D, int Dv) {
   }
 }
 
-// q, k, v, out contiguous; dtype 0 = f32 (FMA kernel; D, Dv multiples of
-// 4 up to 128), 1 = bf16 (tensor-core kernel; D, Dv multiples of 8 up to
-// 256, 16-byte aligned rows); all four alike.
+// q (B, Sq, Hq, D), k (B, Skv, Hkv, D), v (B, Skv, Hkv, Dv) and out
+// (B, Sq, Hq, Dv), all contiguous; dtype 0 = f32 (FMA kernel; D, Dv
+// multiples of 4 up to 128), 1 = bf16 (tensor-core kernel; D, Dv multiples
+// of 8 up to 256, 16-byte aligned rows); all four alike.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* out, int B,
-                        int S, int Hq, int Hkv, int D, int Dv, int causal, int window,
-                        int dtype, float sm_scale, void* stream) {
+                        int Sq, int Skv, int Hq, int Hkv, int D, int Dv, int causal,
+                        int window, int dtype, float sm_scale, void* stream) {
   const int step = dtype == 1 ? 8 : 4;
   const int max_d = dtype == 1 ? kMaxMmaD : kMaxD;
-  if (B < 1 || S < 1 || Hkv < 1 || Hq % Hkv != 0 || D % step || Dv % step || D < step ||
+  if (B < 1 || Sq < 1 || Skv < 1 || Hkv < 1 || Hq % Hkv != 0 || D % step || Dv % step || D < step ||
       Dv < step || D > max_d || Dv > max_d || window < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Shape P{B, S, Hq, Hkv, Hq / Hkv, D, Dv, causal, window, sm_scale};
+  const Shape P{B, Sq, Skv, Hq, Hkv, Hq / Hkv, D, Dv, causal, window, sm_scale};
   const auto st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_fma<float>(q, k, v, out, P, st);
   if (dtype == 1) {

@@ -314,7 +314,11 @@ paged_attention_combine_kernel(const float* __restrict__ acc_p, const float* __r
   for (int off = 16; off > 0; off >>= 1) l += __shfl_xor_sync(0xffffffffu, l, off);
   const float inv_l = 1.f / fmaxf(l, 1e-30f);
   const int64_t o = (static_cast<int64_t>(b) * P.Hq + hq) * P.Dv;
-  for (int dv0 = 4 * lane; dv0 < P.Dv; dv0 += 128) {   // 4 columns a lane
+  // 4 columns a lane; every lane runs every pass, since each pass
+  // shuffles the split weights across the whole warp (at Dv < 128 the
+  // lanes past Dv only relay them)
+  for (int d0 = 0; d0 < P.Dv; d0 += 128) {
+    const int dv0 = d0 + 4 * lane;
     float a[4] = {0.f, 0.f, 0.f, 0.f};
     for (int s0 = 0; s0 < n_valid; s0 += 32) {
       const int s = s0 + lane;

@@ -1,4 +1,5 @@
-"""Blockwise prefill attention: whole-prompt prefill's hot spot.
+"""Blockwise attention: whole-prompt prefill's hot spot, and the
+cross-attention of an encoder-decoder's prefill.
 
 Port of ``repro/kernels/flash_attention.py``.  One kernel, written by
 hand in CUDA C++ for Hopper (``csrc/flash_attention.cu``), replaces
@@ -10,18 +11,22 @@ on the f32 FMA units (TF32 would miss the f32 tolerance of 1e-5), head
 dims up to 128: its f32 tiles of 64 rows by 128 columns are sized for
 them, and f32 at 256 is on no serving path.
 
-Inputs, as in the reference (prefill: Sq == Skv):
-    q   (B, S, Hq, D)   f32 or bf16
-    k   (B, S, Hkv, D)  q's dtype; query head h reads kv head h // G
-    v   (B, S, Hkv, Dv) q's dtype
-Returns (B, S, Hq, Dv) in q's dtype.
+Inputs, as in the reference (self-attention prefill: Sq == Skv; Whisper's
+cross-attention: Sq prompt rows over Skv encoder frames):
+    q   (B, Sq, Hq, D)    f32 or bf16
+    k   (B, Skv, Hkv, D)  q's dtype; query head h reads kv head h // G
+    v   (B, Skv, Hkv, Dv) q's dtype
+Returns (B, Sq, Hq, Dv) in q's dtype.
 
 The contract of the TPU kernel: scores are ``(q . k) * D**-0.5`` in f32;
 masked scores are *set* to NEG_INF = -1e30 (finite); the mask is
-``kpos < S``, plus ``kpos <= qpos`` when causal, plus
-``kpos > qpos - window`` when windowed; the online softmax keeps
-(m, l, acc) in f32 and the output is ``acc / max(l, 1e-30)``, rounded
-once to q's dtype.
+``kpos < Skv``, plus ``kpos <= qpos`` when causal, plus
+``kpos > qpos - window`` when windowed, aligned top-left (qpos and kpos
+count from 0); the online softmax keeps (m, l, acc) in f32 and the
+output is ``acc / max(l, 1e-30)``, rounded once to q's dtype.  A row
+that no key is visible to (a window that ends past the last key: Sq >=
+Skv + window) has no defined output: the TPU kernel's depends on its
+padding, so both versions refuse such calls.
 
 A wrapper runs the plain version only when its tensors lie on the CPU
 (the tests).  On CUDA tensors it launches the kernel or raises; there is
@@ -58,19 +63,24 @@ def _validate(q, k, v, window, block_q, block_kv):
         raise ValueError(f"flash attention: q, k, v must be (B, S, H, D), "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
-    B, S, Hq, D = q.shape
-    Bk, Sk, Hkv, Dk = k.shape
+    B, Sq, Hq, D = q.shape
+    Bk, Skv, Hkv, Dk = k.shape
     Bv, Sv, Hv, _ = v.shape
-    if (Bk, Sk, Dk) != (B, S, D) or (Bv, Sv, Hv) != (Bk, Sk, Hkv):
+    if (Bk, Dk) != (B, D) or (Bv, Sv, Hv) != (Bk, Skv, Hkv):
         raise ValueError(f"flash attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} do not agree "
-                         "(prefill needs Sq == Skv)")
+                         "(q and k share B and D; k and v share B, their "
+                         "length and their heads)")
     if Hkv == 0 or Hq % Hkv != 0:
         raise ValueError(f"flash attention: Hq={Hq} query heads do not "
                          f"group evenly over Hkv={Hkv} kv heads")
     if window < 0 or block_q <= 0 or block_kv <= 0:
         raise ValueError(f"flash attention: window={window}, block_q="
                          f"{block_q}, block_kv={block_kv}")
+    if window and Sq >= Skv + window:
+        raise ValueError(f"flash attention: window={window} leaves query "
+                         f"rows {Skv + window - 1}..{Sq - 1} of Sq={Sq} no "
+                         f"visible key among Skv={Skv}")
     if k.device != q.device or v.device != q.device:
         raise ValueError(f"flash attention: tensors on mixed devices "
                          f"{sorted({str(t.device) for t in (q, k, v)})}")
@@ -86,23 +96,23 @@ def flash_attention_plain(q, k, v, *, causal=True, window=0, block_q=128,
     (``block_q`` does not change the result: rows are independent).
     Fully masked blocks run, as in the TPU kernel."""
     _validate(q, k, v, window, block_q, block_kv)
-    B, S, Hq, D = q.shape
-    Hkv, Dv = k.shape[2], v.shape[-1]
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
     G = Hq // Hkv
-    bkv = min(block_kv, S)
-    qf = q.float().permute(0, 2, 1, 3)                      # (B, Hq, S, D)
+    bkv = min(block_kv, Skv)
+    qf = q.float().permute(0, 2, 1, 3)                      # (B, Hq, Sq, D)
     kf = k.float().repeat_interleave(G, dim=2).permute(0, 2, 1, 3)
     vf = v.float().repeat_interleave(G, dim=2).permute(0, 2, 1, 3)
-    qpos = torch.arange(S, device=q.device)[:, None]
-    m = torch.full((B, Hq, S, 1), NEG_INF, device=q.device)
-    l = torch.zeros((B, Hq, S, 1), device=q.device)
-    acc = torch.zeros((B, Hq, S, Dv), device=q.device)
-    for j0 in range(0, S, bkv):
+    qpos = torch.arange(Sq, device=q.device)[:, None]
+    m = torch.full((B, Hq, Sq, 1), NEG_INF, device=q.device)
+    l = torch.zeros((B, Hq, Sq, 1), device=q.device)
+    acc = torch.zeros((B, Hq, Sq, Dv), device=q.device)
+    for j0 in range(0, Skv, bkv):
         kpos = torch.arange(j0, j0 + bkv, device=q.device)[None, :]
         kb = kf[:, :, j0:j0 + bkv]
         vb = vf[:, :, j0:j0 + bkv]
-        s = (qf @ kb.transpose(-1, -2)) * D ** -0.5          # (B, Hq, S, b)
-        mask = kpos < S
+        s = (qf @ kb.transpose(-1, -2)) * D ** -0.5         # (B, Hq, Sq, b)
+        mask = kpos < Skv
         if causal:
             mask = mask & (kpos <= qpos)
         if window:
@@ -129,7 +139,7 @@ _I = ctypes.c_int
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
     if lib.flash_attention_fwd.argtypes is None:
-        lib.flash_attention_fwd.argtypes = [_P] * 4 + [_I] * 9 \
+        lib.flash_attention_fwd.argtypes = [_P] * 4 + [_I] * 10 \
             + [ctypes.c_float, _P]
         lib.flash_attention_fwd.restype = _I
         lib.flash_attention_mma_smem_bytes.argtypes = [_I, _I]
@@ -151,8 +161,8 @@ def _check_cuda(q, k, v):
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash attention: q {q.dtype}, k {k.dtype}, v "
                          f"{v.dtype} must share one dtype")
-    B, S, Hq, D = q.shape
-    Dv = v.shape[-1]
+    B, Sq, Hq, D = q.shape
+    Skv, Dv = k.shape[1], v.shape[-1]
     step = 8 if q.dtype == torch.bfloat16 else 4      # one 16-byte vector
     top = MAX_HEAD_DIM[q.dtype]
     for name, d in (("D", D), ("Dv", Dv)):
@@ -161,8 +171,9 @@ def _check_cuda(q, k, v):
                              f"a multiple of {step} in [{step}, {top}] for "
                              f"{q.dtype} (the {VARIANTS[q.dtype]} kernel's "
                              "tiles)")
-    if B < 1 or S < 1:
-        raise ValueError(f"flash attention: empty launch (B={B}, S={S})")
+    if B < 1 or Sq < 1 or Skv < 1:
+        raise ValueError(f"flash attention: empty launch (B={B}, Sq={Sq}, "
+                         f"Skv={Skv})")
     if B > 65535 or Hq > 65535:
         raise ValueError(f"flash attention: grid of B={B}, Hq={Hq} above "
                          "65535")
@@ -170,14 +181,14 @@ def _check_cuda(q, k, v):
 
 def _flash_cuda(q, k, v, causal, window):
     _check_cuda(q, k, v)
-    B, S, Hq, D = q.shape
-    Hkv, Dv = k.shape[2], v.shape[-1]
-    out = torch.empty((B, S, Hq, Dv), dtype=q.dtype, device=q.device)
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    out = torch.empty((B, Sq, Hq, Dv), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _lib().flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, S, Hq, Hkv, D, Dv, int(causal), int(window),
+            B, Sq, Skv, Hq, Hkv, D, Dv, int(causal), int(window),
             _DTYPE_CODE[q.dtype], D ** -0.5, stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_fwd ({VARIANTS[q.dtype]}): "
@@ -193,7 +204,7 @@ def _flash_cuda(q, k, v, causal, window):
 # ---------------------------------------------------------------------------
 def flash_attention_kernel(q, k, v, *, causal=True, window=0, block_q=128,
                            block_kv=128):
-    """Prefill attention.  CPU tensors run ``flash_attention_plain``;
+    """Blockwise attention (Sq and Skv may differ).  CPU tensors run ``flash_attention_plain``;
     CUDA tensors the kernel (``mma`` for bf16, ``fma`` for f32), whose own
     tiles are 64 x 64 (block sizes only reorder f32 sums, so
     ``block_q``/``block_kv`` steer the plain version alone)."""

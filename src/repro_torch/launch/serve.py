@@ -41,8 +41,11 @@ def build_predictor(name, cm, seed=0):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    # the engine serves decoder-only stacks (its requests carry no audio
+    # frames)
     ap.add_argument("--arch", default="llama2-7b",
-                    choices=sorted(SMOKE_FACTORIES))
+                    choices=sorted(a for a, f in SMOKE_FACTORIES.items()
+                                   if not f().is_encoder_decoder))
     ap.add_argument("--backend", default="slots", choices=["slots", "paged"])
     ap.add_argument("--scheduler", default="equinox",
                     choices=["fcfs", "rpm", "vtc", "equinox"])

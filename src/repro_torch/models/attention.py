@@ -1,7 +1,7 @@
 """Attention: dense GQA (full or sliding-window masks), MLA, int8 KV
-quantization.
+quantization, and the cross-attention of an encoder-decoder (Whisper).
 
-Port of ``repro/models/attention.py`` (GQA and MLA, not cross-attention).
+Port of ``repro/models/attention.py``.
 Two implementations share one math definition:
 
 - ``naive_attention`` materialises the scores; the smoke configs and the
@@ -18,9 +18,12 @@ reference does with ``preferred_element_type=f32``: on CUDA tensors it
 runs through the hand-written paged-attention kernels over a view of the
 cache as a pool of pages (``slot_cache_attention``; int8 caches with
 their bf16 scales too); on CPU tensors the plain products below run, in
-f32.  MLA decode attends in the latent space (``mla_decode``): its cache
-(the latent ``c`` and the shared rotary key) has no page layout the
-paged kernels take, so its products are ``torch.bmm`` calls with f32
+f32.  A decode step's cross-attention over the encoder frames cached at
+prefill (``cross_decode_attention``) takes the same kernels on CUDA
+tensors and, as the reference's decode, ``naive_attention`` on CPU
+tensors.  MLA decode attends in the latent space (``mla_decode``): its
+cache (the latent ``c`` and the shared rotary key) has no page layout
+the paged kernels take, so its products are ``torch.bmm`` calls with f32
 outputs over the cache in place on CUDA, f32 products on the CPU.  Slot
 caches are written in place (the reference returns updated copies); a
 write past the cache's length is dropped, as the reference's masked
@@ -104,12 +107,12 @@ def naive_attention(q, k, v, *, causal=True, window=0):
 # ---------------------------------------------------------------------------
 def flash_attention(q, k, v, *, causal=True, window=0, block_q=512,
                     block_kv=512):
-    """Prefill attention (Sq == Skv).  CUDA tensors launch the flash
-    kernel; CPU tensors run its plain version."""
-    S = q.shape[1]
+    """Blockwise attention of Sq query rows over Skv keys (prefill: Sq ==
+    Skv; cross-attention: Skv encoder frames).  CUDA tensors launch the
+    flash kernel; CPU tensors run its plain version."""
     return flash_attention_kernel(q, k, v, causal=causal, window=window,
-                                  block_q=min(block_q, S),
-                                  block_kv=min(block_kv, S))
+                                  block_q=min(block_q, q.shape[1]),
+                                  block_kv=min(block_kv, k.shape[1]))
 
 
 def attention(q, k, v, *, causal=True, window=0, impl="flash"):
@@ -121,13 +124,14 @@ def attention(q, k, v, *, causal=True, window=0, impl="flash"):
 # ---------------------------------------------------------------------------
 # GQA forward (prefill) and decode step
 # ---------------------------------------------------------------------------
-def gqa_prefill(params, x, positions, cfg, *, window=0):
-    """Causal self-attention over the prompt.  Returns (out,
-    (k_cache_entry, v_cache_entry))."""
+def gqa_prefill(params, x, positions, cfg, *, window=0, causal=True):
+    """Self-attention over the prompt (causal; an encoder's is not).
+    Returns (out, (k_cache_entry, v_cache_entry))."""
     q = apply_rope(_project(x, params["wq"]), positions, cfg.rope_theta)
     k = apply_rope(_project(x, params["wk"]), positions, cfg.rope_theta)
     v = _project(x, params["wv"])
-    out = attention(q, k, v, causal=True, window=window, impl=cfg.attn_impl)
+    out = attention(q, k, v, causal=causal, window=window,
+                    impl=cfg.attn_impl)
     return _out_project(out, params["wo"]), (k, v)
 
 
@@ -386,6 +390,55 @@ def decode_attention_blocked(q, k_cache, v_cache, valid, block=2048,
         m = m_new
     out = acc / l.clamp_min(1e-30)[..., None]
     return out.reshape(B, 1, Hkv * G, Dv).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (the Whisper decoder over the encoder's output)
+# ---------------------------------------------------------------------------
+def cross_init(d_model, n_heads, head_dim, dtype, generator: torch.Generator,
+               device):
+    """The reference's cross tree: wq/wk/wv (d_model, heads, head_dim), wo
+    (heads, head_dim, d_model), as ``gqa_init`` with one kv head per query
+    head."""
+    return gqa_init(d_model, n_heads, n_heads, head_dim, dtype, generator,
+                    device)
+
+
+def cross_kv(params, enc_out):
+    """The encoder output's keys and values, (B, T, H, hd) each: no rotary
+    embedding, no mask."""
+    return _project(enc_out, params["wk"]), _project(enc_out, params["wv"])
+
+
+def cross_attn(params, x, enc_k, enc_v, impl="flash"):
+    """x (B, S, d) attends every encoder frame, not causally: through
+    ``attention`` (the flash kernel on CUDA at Sq = S, Skv = T)."""
+    q = _project(x, params["wq"])
+    out = attention(q, enc_k, enc_v, causal=False, impl=impl)
+    return _out_project(out, params["wo"])
+
+
+def cross_decode(params, x, enc_k, enc_v):
+    """A decode step's cross-attention: x (B, 1, d) over the encoder
+    frames cached at prefill, (B, T, H, hd) each."""
+    q = _project(x, params["wq"])
+    return _out_project(cross_decode_attention(q, enc_k, enc_v),
+                        params["wo"])
+
+
+def cross_decode_attention(q, enc_k, enc_v):
+    """q (B, 1, H, hd) over every frame of its row, the softmax weights
+    kept in f32 as the reference's ``impl="naive"`` keeps them: on CUDA
+    tensors ``slot_cache_attention`` with ctx = T for every row (the
+    frames viewed as pages of gcd(T, 16) slots; split-K at T = 1500:
+    375 pages of 4), on CPU tensors ``naive_attention``."""
+    if q.device.type == "cpu":
+        return naive_attention(q, enc_k, enc_v, causal=False)
+    B, _, H, hd = q.shape
+    ctx = torch.full((B,), enc_k.shape[1], dtype=torch.int32,
+                     device=q.device)
+    out = slot_cache_attention(q.reshape(B, H, hd), enc_k, enc_v, ctx)
+    return out.reshape(B, 1, H, -1)
 
 
 # ---------------------------------------------------------------------------

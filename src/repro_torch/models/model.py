@@ -6,9 +6,12 @@ Port of ``repro/models/model.py`` for stacks of GQA attention, full
 Mixtral-8x7B), with dense or MoE FFNs (``models/moe.py``: Mixtral-8x7B,
 DeepSeek-MoE-16B), of multi-head latent attention (``ATTN_MLA``,
 MiniCPM3-4B), of Mamba-2 (``MAMBA2``) and of RG-LRU blocks beside
-local attention (``RGLRU``, RecurrentGemma-2B's hybrid stack); GQA slot
-caches may be int8 with bf16 scales (``cfg.kv_quant``; MLA caches ignore
-it, as in the reference).  The stack is grouped
+local attention (``RGLRU``, RecurrentGemma-2B's hybrid stack), and the
+encoder-decoder Whisper large-v3 (``is_encoder_decoder``: a non-causal
+encoder over stubbed audio frames, ``batch["frames"]`` (B, T, d), and a
+decoder whose every layer adds cross-attention to the encoder's output);
+GQA slot caches may be int8 with bf16 scales (``cfg.kv_quant``; MLA
+caches ignore it, as in the reference).  The stack is grouped
 into *stages*, maximal runs of layers with identical (kind, is_moe)
 structure, each stage's per-layer parameters stacked on a leading axis;
 a stage runs as a Python loop over that axis (the reference's
@@ -18,10 +21,13 @@ naming the ``ROADMAP.md`` item that ports them.
     prefill(params, batch, cfg, max_len)    -> (last_logits, cache)
     prefill_chunk(params, tokens, cfg, cache) -> (last_logits, cache)
     decode_step(params, tokens, cache, cfg) -> (logits, cache)
-    init_cache(cfg, batch, max_len, device=...) -> zeroed cache
+    init_cache(cfg, batch, max_len, device=..., enc_len=...) -> zeroed cache
+    encode(params, frames, cfg)             -> the encoder's output
 
 Caches keep the reference's layout (``{"pos": (B,), "stages":
-{"stage_i": {...}}}`` with a leading layer axis).  ``prefill_chunk`` and
+{"stage_i": {...}}}`` with a leading layer axis; an encoder-decoder's
+stages add ``cross_k``/``cross_v`` (L, B, T, H, hd), the encoder's keys
+and values, written once by ``prefill``).  ``prefill_chunk`` and
 ``decode_step`` update the cache they are given in place and return it
 with the new positions; ``prefill`` builds a new one.
 """
@@ -37,17 +43,14 @@ from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import dtype_of, embed, mlp, rmsnorm, unembed
 
+
 def check_ported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a stack the port cannot run yet."""
     for kind in sorted(set(cfg.layer_kinds())):
         if kind not in (ATTN, ATTN_LOCAL, ATTN_MLA, MAMBA2, RGLRU):
             raise NotImplementedError(f"{cfg.name}: layer kind {kind!r} is "
                                       "not ported")
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(f"{cfg.name}: encoder-decoder stacks and "
-                                  "cross-attention (ROADMAP.md Queue A item "
-                                  "6e) are not ported")
-    if cfg.frontend != "text":
+    if cfg.frontend not in ("text", "audio_stub"):
         raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} frontend "
                                   "(ROADMAP.md Queue A item 6g) is not "
                                   "ported")
@@ -97,15 +100,17 @@ def ffn_forward(params, h, cfg, moe_flag):
     return mlp(params, h, cfg.act)
 
 
-def _block_forward(lp, x, cfg, kind, moe_flag, positions, *,
-                   want_cache=False):
-    """Returns (x, cache_entry_or_None)."""
+def _block_forward(lp, x, cfg, kind, moe_flag, positions, *, causal=True,
+                   enc_kv=None, want_cache=False):
+    """Returns (x, cache_entry_or_None).  ``enc_kv``: the encoder's output,
+    which a decoder layer of an encoder-decoder attends after its
+    self-attention (its keys and values join the cache entry)."""
     h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
     window = window_for(cfg, kind)
     cache = None
     if kind in (ATTN, ATTN_LOCAL):
         y, (k, v) = attn_mod.gqa_prefill(lp["attn"], h, positions, cfg,
-                                         window=window)
+                                         window=window, causal=causal)
         if want_cache:
             cache = {"k": k, "v": v}
     elif kind == ATTN_MLA:
@@ -124,6 +129,13 @@ def _block_forward(lp, x, cfg, kind, moe_flag, positions, *,
     else:
         raise NotImplementedError(f"layer kind {kind!r} is not ported")
     x = x + y
+    if enc_kv is not None:
+        hc = rmsnorm(lp["ln_cross"], x, cfg.norm_eps)
+        ck, cv = attn_mod.cross_kv(lp["cross"], enc_kv)
+        x = x + attn_mod.cross_attn(lp["cross"], hc, ck, cv,
+                                    impl=cfg.attn_impl)
+        if want_cache:
+            cache = dict(cache or {}, cross_k=ck, cross_v=cv)
     if kind != MAMBA2:
         h2 = rmsnorm(lp["ln2"], x, cfg.norm_eps)
         x = x + ffn_forward(lp["ffn"], h2, cfg, moe_flag)
@@ -147,15 +159,42 @@ def _fit_cache_seq(arr, S_cache):
 
 
 def _run_stage(stage_params, x, cfg, kind, moe_flag, count, positions, *,
-               want_cache=False):
+               causal=True, enc_out=None, want_cache=False):
     """The stage's layers in order; returns (x, stacked caches or None)."""
     caches = []
     for i in range(count):
         x, cache = _block_forward(layer_params(stage_params, i), x, cfg,
-                                  kind, moe_flag, positions,
-                                  want_cache=want_cache)
+                                  kind, moe_flag, positions, causal=causal,
+                                  enc_kv=enc_out, want_cache=want_cache)
         caches.append(cache)
     return x, _stack(caches) if want_cache else None
+
+
+# ---------------------------------------------------------------------------
+# The audio frontend (a stub, as in the reference: frame embeddings come
+# precomputed) and the encoder
+# ---------------------------------------------------------------------------
+def _sinusoid(positions, d):
+    """(..., d) f32: sin then cos of positions times 10000**(-i / (d/2))."""
+    half = d // 2
+    freq = torch.exp(-torch.log(torch.tensor(10000.0)) * torch.arange(
+        half, dtype=torch.float32) / half).to(positions.device)
+    ang = positions[..., None].float() * freq
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+@torch.no_grad()
+def encode(params, frames, cfg):
+    """The Whisper encoder over stubbed frame embeddings (B, T, d): the
+    sinusoid added, ``n_encoder_layers`` non-causal attention layers
+    (``params["enc"]``), the final norm."""
+    dt = dtype_of(cfg)
+    B, T, _ = frames.shape
+    pos = torch.arange(T, device=frames.device)[None].expand(B, T)
+    x = frames.to(dt) + _sinusoid(pos, cfg.d_model).to(dt)
+    x, _ = _run_stage(params["enc"]["stages"]["stage_0"], x, cfg, ATTN,
+                      False, cfg.n_encoder_layers, pos, causal=False)
+    return rmsnorm(params["enc"]["final_norm"], x, cfg.norm_eps)
 
 
 # ---------------------------------------------------------------------------
@@ -163,17 +202,22 @@ def _run_stage(stage_params, x, cfg, kind, moe_flag, count, positions, *,
 # ---------------------------------------------------------------------------
 @torch.no_grad()
 def forward_hidden(params, batch, cfg, *, want_cache=False):
-    """Causal forward of a text batch.  Returns (hidden (B,S,d), caches
-    per stage, or None per stage without ``want_cache``)."""
+    """Causal forward of a text batch (an encoder-decoder's also takes
+    ``batch["frames"]``).  Returns (hidden (B,S,d), caches per stage, or
+    None per stage without ``want_cache``)."""
     check_ported(cfg)
     tokens = batch["tokens"]
     x = embed(params["embed"], tokens).to(dtype_of(cfg))
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    enc_out = None
+    if cfg.is_encoder_decoder:
+        enc_out = encode(params, batch["frames"], cfg)
+        x = x + _sinusoid(positions, cfg.d_model).to(x.dtype)
     caches = []
     for i, (kind, moe_flag, count) in enumerate(model_stages(cfg)):
         x, cache = _run_stage(params["stages"][f"stage_{i}"], x, cfg, kind,
-                              moe_flag, count, positions,
+                              moe_flag, count, positions, enc_out=enc_out,
                               want_cache=want_cache)
         caches.append(cache)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -227,14 +271,22 @@ def _stage_cache_zeros(cfg, kind, count, B, max_len, dt, device):
 
 @torch.no_grad()
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
-               pos: int = 0, *, device):
+               pos: int = 0, *, device, enc_len: int = 0):
+    """Zeroed caches; an encoder-decoder's cross caches hold ``enc_len``
+    frames."""
     check_ported(cfg)
     dt = dtype_of(cfg)
     cache = {"pos": torch.full((batch_size,), pos, dtype=torch.int32,
                                device=device), "stages": {}}
     for i, (kind, _moe, count) in enumerate(model_stages(cfg)):
-        cache["stages"][f"stage_{i}"] = _stage_cache_zeros(
-            cfg, kind, count, batch_size, max_len, dt, device)
+        c = _stage_cache_zeros(cfg, kind, count, batch_size, max_len, dt,
+                               device)
+        if cfg.is_encoder_decoder:
+            shape = (count, batch_size, enc_len, cfg.n_heads,
+                     cfg.resolved_head_dim())
+            c["cross_k"] = torch.zeros(shape, dtype=dt, device=device)
+            c["cross_v"] = torch.zeros(shape, dtype=dt, device=device)
+        cache["stages"][f"stage_{i}"] = c
     return cache
 
 
@@ -342,6 +394,10 @@ def _block_decode(lp, x1, c, pos, cfg, kind, moe_flag):
     else:
         raise NotImplementedError(f"layer kind {kind!r} is not ported")
     x1 = x1 + y
+    if "cross_k" in c:
+        hc = rmsnorm(lp["ln_cross"], x1, cfg.norm_eps)
+        x1 = x1 + attn_mod.cross_decode(lp["cross"], hc, c["cross_k"],
+                                        c["cross_v"])
     if kind != MAMBA2:
         h2 = rmsnorm(lp["ln2"], x1, cfg.norm_eps)
         x1 = x1 + ffn_forward(lp["ffn"], h2, cfg, moe_flag)
@@ -359,6 +415,8 @@ def decode_step(params, tokens, cache, cfg: ModelConfig):
     check_ported(cfg)
     pos = cache["pos"]
     x = embed(params["embed"], tokens)[:, None].to(dtype_of(cfg))
+    if cfg.is_encoder_decoder:
+        x = x + _sinusoid(pos[:, None], cfg.d_model).to(x.dtype)
     for i, (kind, moe_flag, count) in enumerate(model_stages(cfg)):
         sp = params["stages"][f"stage_{i}"]
         sc = cache["stages"][f"stage_{i}"]

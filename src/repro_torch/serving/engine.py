@@ -112,6 +112,14 @@ class ServingEngine:
             assert backend == "paged" and self.chunked, \
                 "prefix_cache requires the paged backend + chunked prefill"
         check_ported(cfg)
+        if cfg.is_encoder_decoder:
+            # the reference fails such a stack later: its prefill passes
+            # no frames, and its paged step asserts
+            raise NotImplementedError(
+                f"{cfg.name}: the engine serves decoder-only stacks: its "
+                "requests carry no audio frames for an encoder-decoder's "
+                "encoder; run Whisper through models.prefill (with "
+                "batch['frames']) and models.decode_step")
         if backend == "paged":
             if len(model_stages(cfg)) > 1:
                 # the reference fails such a stack later, in its scan
@@ -122,7 +130,7 @@ class ServingEngine:
                     "(DeepSeek-MoE-16B's first layer is dense) runs on "
                     "backend='slots'")
             kinds = {k for k, _, _ in model_stages(cfg)}
-            assert kinds == {ATTN} and not cfg.is_encoder_decoder, \
+            assert kinds == {ATTN}, \
                 "paged backend supports uniform dense-GQA stacks"
         self.kv_quant = kv_quant
         self.backend = backend

@@ -10,7 +10,10 @@ layers (a stack with dense first layers has one stage per run),
 ``stages.stage_0.{ln1,attn.{in_proj,conv_w,conv_b,A_log,dt_bias,D,norm,
 out_proj}}`` for Mamba-2, ``attn.{w_branch_x,w_branch_gate,conv_w,conv_b,
 w_gate_a,w_gate_i,lam,w_out}`` with ``ln2`` and ``ffn`` for RG-LRU
-layers, with a leading layer axis on every stage leaf.
+layers, with a leading layer axis on every stage leaf.  An
+encoder-decoder (Whisper) adds ``ln_cross`` and ``cross.{wq,wk,wv,wo}``
+to every decoder layer and the encoder ``enc.{stages.stage_0,
+final_norm}``, whose layers are attention layers with a dense FFN.
 
 - ``init_params`` draws a model on the device with the reference's
   distributions (truncated-normal fan-in dense weights, normal x 0.02
@@ -25,8 +28,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ATTN_MLA, MAMBA2, RGLRU, ModelConfig
-from repro_torch.models.attention import gqa_init, mla_init
+from repro_torch.configs.base import ATTN, ATTN_MLA, MAMBA2, RGLRU, ModelConfig
+from repro_torch.models.attention import cross_init, gqa_init, mla_init
 from repro_torch.models.layers import dense_init, dtype_of, embed_init
 from repro_torch.models.model import check_ported, model_stages
 from repro_torch.models.moe import moe_init
@@ -68,9 +71,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator = None,
     """A freshly drawn decoder on ``device`` (``cuda`` by default), from
     ``generator`` (seed 0 on the device when omitted): attention stages
     (``ATTN``, ``ATTN_LOCAL``, ``ATTN_MLA``) with dense or MoE FFNs,
-    RG-LRU (``RGLRU``) stages with dense FFNs, and Mamba-2 (``MAMBA2``)
-    stages.  Layers are drawn one at a time into the stacked
-    leaves, so the f32 temporaries stay one layer large."""
+    RG-LRU (``RGLRU``) stages with dense FFNs, Mamba-2 (``MAMBA2``)
+    stages, and an encoder-decoder's cross-attention and encoder.  Layers
+    are drawn one at a time into the stacked leaves, so the f32
+    temporaries stay one layer large."""
     device = resolve_device(device)
     check_ported(cfg)
     if generator is None:
@@ -85,24 +89,30 @@ def init_params(cfg: ModelConfig, generator: torch.Generator = None,
     if cfg.act == "silu":
         ffn_shapes["w_gate"] = (d, cfg.d_ff)
 
-    def draw(kind, moe_flag):
-        """One layer of ``kind``: {"ln1", "attn"[, "ln2", "ffn"]}."""
+    def draw(kind, moe_flag, cross):
+        """One layer of ``kind``: {"ln1", "attn"[, "ln_cross", "cross"][,
+        "ln2", "ffn"]}."""
         ones = torch.ones((d,), dtype=dt, device=device)
+        layer = {"ln1": {"scale": ones}}
         if kind == MAMBA2:
-            return {"ln1": {"scale": ones},
-                    "attn": mamba2_init(cfg, dt, generator, device)}
-        if kind == ATTN_MLA:
-            attn = mla_init(cfg, dt, generator, device)
+            layer["attn"] = mamba2_init(cfg, dt, generator, device)
+        elif kind == ATTN_MLA:
+            layer["attn"] = mla_init(cfg, dt, generator, device)
         elif kind == RGLRU:
-            attn = rglru_init(cfg, dt, generator, device)
+            layer["attn"] = rglru_init(cfg, dt, generator, device)
         else:
-            attn = gqa_init(d, cfg.n_heads, cfg.n_kv_heads, hd, dt, generator,
-                            device)
-        return {"ln1": {"scale": ones}, "attn": attn,
-                "ln2": {"scale": ones.clone()},
-                "ffn": moe_init(cfg, dt, generator, device) if moe_flag
+            layer["attn"] = gqa_init(d, cfg.n_heads, cfg.n_kv_heads, hd, dt,
+                                     generator, device)
+        if cross:
+            layer["ln_cross"] = {"scale": ones.clone()}
+            layer["cross"] = cross_init(d, cfg.n_heads, hd, dt, generator,
+                                        device)
+        if kind != MAMBA2:
+            layer["ln2"] = {"scale": ones.clone()}
+            layer["ffn"] = moe_init(cfg, dt, generator, device) if moe_flag \
                 else {k: dense_init(s, dt, generator, device)
-                      for k, s in ffn_shapes.items()}}
+                      for k, s in ffn_shapes.items()}
+        return layer
 
     def put(dst, src, i):
         for k, v in src.items():
@@ -116,16 +126,23 @@ def init_params(cfg: ModelConfig, generator: torch.Generator = None,
                 torch.empty((count, *v.shape), dtype=v.dtype, device=device)
                 for k, v in layer.items()}
 
-    stages = {}
-    for si, (kind, moe_flag, count) in enumerate(model_stages(cfg)):
+    def stage_of(kind, moe_flag, count, cross=False):
         stage = None
         for i in range(count):
-            layer = draw(kind, moe_flag)
+            layer = draw(kind, moe_flag, cross)
             if stage is None:
                 stage = alloc(layer, count)
             put(stage, layer, i)
-        stages[f"stage_{si}"] = stage
-    return {"embed": embed,
-            "final_norm": {"scale": torch.ones((d,), dtype=dt,
-                                               device=device)},
-            "stages": stages}
+        return stage
+
+    def final_norm():
+        return {"scale": torch.ones((d,), dtype=dt, device=device)}
+
+    params = {"embed": embed, "final_norm": final_norm(), "stages": {
+        f"stage_{si}": stage_of(kind, moe_flag, count,
+                                cross=cfg.is_encoder_decoder)
+        for si, (kind, moe_flag, count) in enumerate(model_stages(cfg))}}
+    if cfg.is_encoder_decoder:
+        params["enc"] = {"stages": {"stage_0": stage_of(
+            ATTN, False, cfg.n_encoder_layers)}, "final_norm": final_norm()}
+    return params

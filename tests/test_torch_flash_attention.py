@@ -4,10 +4,11 @@ The plain version (what the port's wrapper runs on CPU tensors, and what
 the CUDA kernel is held to on the card) against ``flash_attention_pallas``
 in interpret mode and against the pure-JAX blockwise
 ``repro.models.attention.flash_attention``, on the grid of
-``tests/test_kernels.py::test_flash_kernel`` and at RecurrentGemma-2B's
+``tests/test_kernels.py::test_flash_kernel``, at RecurrentGemma-2B's
 shape (10 query heads over one kv head of 256, a window shorter than
-S): f32 within 1e-5, bf16 within one bf16 step (both sides compute in
-f32 and round once)."""
+S) and at Sq != Skv (Whisper's cross-attention: prompt rows over encoder
+frames, causal and windowed masks aligned top-left): f32 within 1e-5,
+bf16 within one bf16 step (both sides compute in f32 and round once)."""
 import importlib
 
 import jax.numpy as jnp
@@ -31,13 +32,19 @@ GRID = [
     (96, 4, 4, 32, False, 0, 32, 32),
     (100, 4, 2, 16, True, 0, 32, 32),       # ragged -> padding
     (96, 10, 1, 256, True, 40, 32, 32),     # RecurrentGemma-2B: MQA, D=256
+    # (Sq, Skv): Whisper's cross-attention shape, fewer query rows than
+    # keys, and more
+    ((20, 75), 4, 4, 64, False, 0, 32, 32),
+    ((75, 20), 4, 2, 32, True, 0, 32, 16),
 ]
 
 
 def inputs(S, Hq, Hkv, D, dtype, seed=0):
+    """``S`` is Sq == Skv, or a pair (Sq, Skv)."""
+    Sq, Skv = S if isinstance(S, tuple) else (S, S)
     rng = np.random.default_rng(seed)
-    arrs = [rng.standard_normal((2, S, h, D)).astype(np.float32)
-            for h in (Hq, Hkv, Hkv)]
+    arrs = [rng.standard_normal((2, n, h, D)).astype(np.float32)
+            for n, h in ((Sq, Hq), (Skv, Hkv), (Skv, Hkv))]
     jx = [jnp.asarray(a, getattr(jnp, dtype)) for a in arrs]
     tx = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrs]
     return jx, tx
@@ -91,7 +98,7 @@ def test_wrapper_validates_and_counts_nothing_on_cpu():
     with pytest.raises(ValueError, match="group evenly"):
         fa.flash_attention_kernel(q, k[:, :, :1].repeat(1, 1, 3, 1),
                                   v[:, :, :1].repeat(1, 1, 3, 1))
-    with pytest.raises(ValueError, match="Sq == Skv"):
-        fa.flash_attention_kernel(q, k[:, :16], v[:, :16])
+    with pytest.raises(ValueError, match="k and v share B, their length"):
+        fa.flash_attention_kernel(q, k, v[:, :16])
     with pytest.raises(ValueError, match="no kernel"):
         fa.flash_attention_kernel(q.to("meta"), k.to("meta"), v.to("meta"))

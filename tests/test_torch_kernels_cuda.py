@@ -140,14 +140,21 @@ def within(out, plain, tol):
     (100, 4, 2, 16, True, 0),               # ragged
     (200, 4, 4, 128, True, 0),
     (130, 2, 2, 128, False, 70),            # windowed, not causal
+    # (Sq, Skv): Whisper's cross-attention (prompt rows over 1500 frames),
+    # more rows than keys, a causal window aligned top-left
+    ((64, 1500), 4, 4, 64, False, 0),
+    ((20, 75), 4, 2, 64, True, 8),
+    ((75, 20), 4, 2, 32, True, 0),
+    ((100, 70), 4, 4, 64, False, 40),       # rows 70..99 see the tail only
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain(cuda, S, Hq, Hkv, D, causal, window,
                                     dtype):
-    rng = np.random.default_rng(S + D)
-    q, k, v = (torch.from_numpy(rng.standard_normal((2, S, h, D))
+    Sq, Skv = S if isinstance(S, tuple) else (S, S)
+    rng = np.random.default_rng(Sq + Skv + D)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, n, h, D))
                                 .astype(np.float32)).to(cuda, dtype)
-               for h in (Hq, Hkv, Hkv))
+               for n, h in ((Sq, Hq), (Skv, Hkv), (Skv, Hkv)))
     before = fa.LAUNCHES["flash_attention"]
     out = fa.flash_attention_kernel(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
@@ -289,6 +296,13 @@ MIXED = {
     # thread
     "d256_mha": ([("decode", 200), ("decode", 33), ("chunk", 5, 20)],
                  dict(Hq=2, Hkv=2, D=256)),
+    # head dims below 128 over more than 32 splits: the combine's lanes
+    # past Dv relay the split weights of its shuffles (Whisper large-v3's
+    # decode: Dv = 64, 94 splits over its 1500 frames)
+    "d64_mha_many_splits": ([("decode", 2500), ("decode", 700)],
+                            dict(Hq=2, Hkv=2, D=64, W=160)),
+    "d32_gqa_many_splits": ([("decode", 2000), ("chunk", 0, 30)],
+                            dict(Hq=8, Hkv=2, D=32, W=160)),
 }
 
 
@@ -470,6 +484,31 @@ def test_slot_decode_attention_takes_no_f32_copy(cuda, case):
     torch.cuda.synchronize()
     assert torch.cuda.max_memory_allocated() - base >= f32_copy
     ok, err = within(out, plain, (2 ** -7, 2 ** -9 * float(
+        v.float().abs().max())))
+    assert ok, err
+
+
+@pytest.mark.parametrize("T,page", [(1500, 4), (448, 16)])
+def test_whisper_decode_attention_through_split_k(cuda, T, page):
+    """Whisper large-v3's decode shapes (20 heads of 64, 8 rows): the
+    cross-attention over 1500 frames viewed as 375 pages of 4 (a 64-key
+    step of the tensor-core walk spans 16 pages), and the self-attention
+    over 448 slots, 28 pages of 16; every row attends all T slots, one
+    split-K launch, against the naive attention (softmax weights in f32
+    on both sides)."""
+    from repro_torch.models import attention as A
+
+    g = torch.Generator(device=cuda).manual_seed(T)
+    q = torch.randn(8, 1, 20, 64, generator=g, device=cuda).bfloat16()
+    k = torch.randn(8, T, 20, 64, generator=g, device=cuda).bfloat16()
+    v = torch.randn(8, T, 20, 64, generator=g, device=cuda).bfloat16()
+    assert np.gcd(T, 16) == page
+    before = pa.LAUNCHES["paged_attention_splitk:mma"]
+    out = A.cross_decode_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES["paged_attention_splitk:mma"] == before + 1
+    want = A.naive_attention(q, k, v, causal=False)
+    ok, err = within(out, want, (2 ** -7, 2 ** -9 * float(
         v.float().abs().max())))
     assert ok, err
 

@@ -13,8 +13,9 @@ local attention, MQA at head dim 32 in the smoke config) with
 stacks under ``moe_impl`` ``dense`` and ``dispatch``, and Mamba-2 (the
 SSD scan's plain version); RecurrentGemma's forward and its decode past
 the window held to the reference's logits; decode consistency of the
-port on its own; and the stacks it refuses (MLA and RG-LRU serve since
-their ports: their cases now build the stack)."""
+port on its own; and the stacks it refuses (MLA, RG-LRU and Whisper's
+encoder-decoder serve since their ports: their cases now build the
+stack)."""
 import dataclasses
 
 import jax
@@ -241,20 +242,38 @@ def test_recurrentgemma_logits_match_reference():
 
 
 @pytest.mark.parametrize("arch,item", [
-    # MLA (item 6c) and RG-LRU (item 6f) are ported: their cases build the
-    # cache and the weights
+    # MLA (item 6c), RG-LRU (item 6f) and the encoder-decoder (item 6e)
+    # are ported: their cases build the cache and the weights
     pytest.param("minicpm3-4b", None, id="minicpm3-4b-6c"),
     pytest.param("recurrentgemma-2b", None, id="recurrentgemma-2b-6"),
-    ("whisper-large-v3", "6e"), ("internvl2-76b", "6g"),
+    pytest.param("whisper-large-v3", None, id="whisper-large-v3-6e"),
+    ("internvl2-76b", "6g"),
 ])
 def test_unported_stacks_raise(arch, item):
     cfg = port_config(SMOKE_FACTORIES[arch]())
     if item is None:
-        cache = tm.init_cache(cfg, 1, 16, device="cpu")
+        T = cfg.n_frontend_tokens
+        cache = tm.init_cache(cfg, 1, 16, device="cpu", enc_len=T)
         params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
         shapes = {k: tuple(v.shape)
                   for k, v in cache["stages"]["stage_0"].items()}
         attn = params["stages"]["stage_0"]["attn"]
+        if cfg.is_encoder_decoder:
+            L, H, hd = cfg.n_layers, cfg.n_heads, cfg.resolved_head_dim()
+            assert shapes == {"k": (L, 1, 16, H, hd), "v": (L, 1, 16, H, hd),
+                              "cross_k": (L, 1, T, H, hd),
+                              "cross_v": (L, 1, T, H, hd)}
+            assert sorted(params["stages"]["stage_0"]) == [
+                "attn", "cross", "ffn", "ln1", "ln2", "ln_cross"]
+            assert sorted(params["stages"]["stage_0"]["cross"]) == \
+                sorted(attn) == ["wk", "wo", "wq", "wv"]
+            enc = params["enc"]
+            assert sorted(enc) == ["final_norm", "stages"]
+            assert sorted(enc["stages"]["stage_0"]) == ["attn", "ffn", "ln1",
+                                                        "ln2"]
+            assert enc["stages"]["stage_0"]["attn"]["wq"].shape[0] == \
+                cfg.n_encoder_layers
+            return
         if cfg.mla is not None:
             m = cfg.mla
             assert shapes == {
