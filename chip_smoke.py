@@ -35,6 +35,15 @@ The quickest proof that the port builds and serves on an NVIDIA H100:
      large-v3's (B = 4, 20 heads of 64, not causal) encoder over 1500
      frames and cross-attention of 64 prompt rows over them (Sq != Skv)
      in bf16 and f32;
+   - the flash backward (``csrc/flash_attention_bwd.cu``: delta, dK/dV,
+     dQ) at run P's shape (Granite-3-2B: B 4, S 2048, 32 query heads
+     over 8 kv heads of 64, causal) and at Llama-2-7B's (B 1, S 4096, 32
+     heads of 128), bf16 and f32, fed the forward kernel's output and
+     lse (the lse held to the plain forward's), against
+     ``flash_attention_bwd_plain`` (f32: 1e-4 of the largest gradient;
+     bf16: one bf16 step of it), timed beside the backward of
+     ``scaled_dot_product_attention`` and the forward; head dim 256
+     refused by name;
    - the SSD scan at Mamba-2-2.7B's shape (H = 80, P = 64, G = 1, N =
      128, chunk 128): S = 128, 1024 and 1000 with bf16 and f32 x, S = 4096
      with bf16 x (2560 blocks, 32 chunks chained per head), and S = 1000
@@ -132,21 +141,44 @@ The quickest proof that the port builds and serves on an NVIDIA H100:
         step, the 1500 frames as pages of 4); first tokens of a short and
         a long prompt against a plain forward, prefill + one decode step
         at 444 tokens against the longer prefill;
-   runs D, F, G, L and M decode over their slot caches through the split-K
-   paged kernels (once per attention layer and decode step, asserted),
-   and their decode steps, and K's, take less extra memory than an f32
-   copy of one layer's caches (K: of its latent cache);
+     O  InternVL2-76B at full width (d_model 8192, 64 query heads over 8
+        kv heads of 128, d_ff 28 672, vocab 128 256, untied, bf16; random
+        weights from a seed), depth cut 80 -> 32 layers (the whole model,
+        141 GB in bf16, exceeds the card), slots with whole-prompt
+        prefill, max_len 1536: the 12 requests each carry the engine's
+        256 stubbed patches ahead of the prompt (numpy normals from the
+        request id, as the reference draws them), so flash runs once per
+        layer and prompt at Sq = 256 + prompt (asserted per launch) and
+        decode starts at prompt + 256 (split-K once per layer and step);
+        first tokens against a plain forward over the same patches and
+        tokens, prefill + one decode step after the prefix against the
+        longer prefill, the decode profile window;
+     P  Granite-3-2B as registered (40 layers, d_model 2048, 32 query
+        heads over 8 kv heads of 64, d_ff 8192, vocab 49 155, tied, bf16,
+        remat per layer; random weights from a seed) trained by
+        ``training.train``: 8 AdamW steps (peak lr 3e-4, warmup 2, clip
+        1.0, weight decay 0.01) on batches of 4 x 2048 tokens of the
+        synthetic Markov stream; step 0's loss against ``loss_fn`` with
+        the plain attention on the same weights and batch (within 1e-2),
+        the loss falling, flash forward launched 2 x 40 x 8 times (the
+        forward and its recompute under remat) and the backward 40 x 8;
+        step times, tokens/s, peak memory and one profiled step;
+   runs D, F, G, L, M and O decode over their slot caches through the
+   split-K paged kernels (once per attention layer and decode step,
+   asserted), and their decode steps, and K's, take less extra memory
+   than an f32 copy of one layer's caches (K: of its latent cache);
    plus a check of run A's first-token logits against a dense forward,
    and ``torch.profiler`` windows (device busy share, kernel launches and
    device time by kernel per iteration): decode-heavy windows of the
-   configurations of runs A, D-H and K-N, and prefill-heavy windows of
-   A (iterations that carry 512-row chunks), D, E, G, K and M (the first
+   configurations of runs A, D-H and K-O, prefill-heavy windows of A
+   (iterations that carry 512-row chunks), D, E, G, K and M (the first
    iteration: the whole prompts of the requests it admits) and N (one
-   prefill call);
-   runs A, B and D-N must go through the tensor-core (``mma``) variants
-   of their kernels and launch no ``fma`` variant, and no kernel a run
-   does not expect;
-4. a ``kernels`` JSON line (launches per variant beside the totals), the
+   prefill call), and one training step of run P;
+   runs A, B and D-P must go through the tensor-core (``mma``) variants
+   of their forward kernels and launch no ``fma`` variant, and no kernel
+   a run does not expect (the backward only in run P);
+4. a ``kernels`` JSON line (the four ports of the Pallas kernels and the
+   flash backward; launches per variant beside the totals), the
    nvidia-smi line, and last the result line ``{"ok": true, "device":
    {...}}``.
 
@@ -168,7 +200,7 @@ import statistics
 import subprocess
 import sys
 import time
-from collections import defaultdict
+from collections import Counter, defaultdict
 
 import numpy as np
 
@@ -216,6 +248,23 @@ WHISPER_SELF_DECODE = "whisper_self_decode8_w28"
 MAX_LEN_WHISPER = 448
 WHISPER_NEW_TOKENS = 128
 WHISPER_SOT = (50258, 50259, 50360, 50364)
+# run O: InternVL2-76B's depth cut to 32 of its 80 layers (29.5 B of 70.6 B
+# parameters, 59.0 of 141.1 GB in bf16: the whole model exceeds the card's
+# 80 GB); 256 patches + a prompt of up to 1024 + up to 128 outputs
+INTERNVL_LAYERS = 32
+MAX_LEN_VLM = 1536
+# run P: Granite-3-2B training at full width and depth, the JAX
+# package's TrainConfig fields
+TRAIN = dict(batch=4, seq_len=2048, steps=8, peak_lr=3e-4, warmup=2,
+             weight_decay=0.01, grad_clip=1.0, log_every=1, seed=SEED)
+TRAIN_LOSS_TOL = 1e-2              # step 0's loss vs the plain attention's
+# the flash backward kernel vs its plain version: f32 sums in other orders
+# (max |d| within 1e-4 of the largest |plain|); bf16: both widen the same
+# inputs to f32 and round once (max |d| within one bf16 step of the
+# largest |plain|)
+BWD_F32_REL = 1e-4
+BWD_BF16_STEPS = 1
+LSE_TOL = 2e-5                     # f32 lse: |d| <= tol (1 + max |lse|)
 
 
 def fail(msg: str):
@@ -274,6 +323,7 @@ def main() -> int:
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     kernel_rows = kernel_phase(torch, flush)
     kernel_rows.update(flash_phase(torch, flush))
+    kernel_rows.update(flash_bwd_phase(torch, flush))
     kernel_rows.update(ssd_phase(torch, flush))
     kernel_rows["paged_attention_splitk"]["slot_int8_decode"] = \
         slot_attention_phase(torch, flush)
@@ -779,6 +829,154 @@ def flash_phase(torch, flush):
     return {"flash_attention": row}
 
 
+def flash_bwd_bound(Sq, Skv, Hq, Hkv, D, Dv, causal, window, dtype, B=1):
+    """(ms, bound_by) of the backward: q, k, v, out, dout and the f32 lse
+    read and dq, dk, dv written once over HBM bandwidth, against the
+    multiply-adds of the (q, k) pairs the mask keeps in its five products
+    (S = QK^T and dQ = dS K over D and dK = dS^T Q over D; dP = dO V^T
+    and dV = P^T dO over Dv; 2 operations each: 2.5x the forward's at D
+    = Dv) over the peak for the inputs' type."""
+    elem = {"bfloat16": 2, "float32": 4}[dtype]
+    n_bytes = B * (2 * Sq * Hq * (D + Dv) + 2 * Skv * Hkv * (D + Dv)) \
+        * elem + B * Sq * Hq * 4
+    pairs = 0
+    for qpos in range(Sq):
+        lo = max(0, qpos - window + 1) if window else 0
+        hi = min(qpos + 1, Skv) if causal else Skv
+        pairs += max(0, hi - lo)
+    flops = 2 * B * pairs * Hq * (3 * D + 2 * Dv)
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bwd_ratio(torch, got, plain):
+    """(max |got - plain|, that over the tolerance): f32 BWD_F32_REL of
+    the largest |plain|, bf16 BWD_BF16_STEPS bf16 steps of it."""
+    err = (got.float() - plain.float()).abs().max().item()
+    top = plain.float().abs().max().item()
+    if got.dtype == torch.bfloat16:
+        tol = BWD_BF16_STEPS * 2.0 ** (np.floor(np.log2(top)) - 7)
+    else:
+        tol = BWD_F32_REL * top
+    return err, err / tol
+
+
+def flash_bwd_phase(torch, flush):
+    """The flash backward kernel (three launches: delta, dK/dV, dQ)
+    against ``flash_attention_bwd_plain`` on the card, at run P's shape
+    (Granite-3-2B: B 4, S 2048, 32 query heads over 8 kv heads of 64,
+    causal) and at Llama-2-7B's (B 1, S 4096, 32 heads of 128), in bf16
+    and f32, each fed the forward kernel's output and lse; the lse
+    itself against the plain forward's.  Library yardstick: the backward
+    of ``scaled_dot_product_attention`` through autograd (its forward run
+    once, outside the timing).  The kernels line carries the Granite bf16
+    case, run P's."""
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    F = torch.nn.functional
+    dev = torch.device("cuda")
+    row = {"name": "flash_attention_bwd", "route": "cuda",
+           "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+           "replaces": "src/repro/models/attention.py:205",
+           "max_abs_err": 0.0}
+    # (name, B, S, Hq, Hkv, D)
+    cases = [("granite_B4_S2048_gqa4_d64", 4, 2048, 32, 8, 64),
+             ("llama_B1_S4096_d128", 1, 4096, 32, 32, 128)]
+    for ci, (name, B, S, Hq, Hkv, D) in enumerate(cases):
+        for dt in ("bfloat16", "float32"):
+            g = torch.Generator(device=dev).manual_seed(SEED + 300 + ci)
+            dtype = getattr(torch, dt)
+            q, k, v, do = (torch.randn(B, S, h, D, generator=g,
+                                       device=dev).to(dtype)
+                           for h in (Hq, Hkv, Hkv, Hq))
+            out, lse = fa.flash_attention_kernel(q, k, v, causal=True,
+                                                 return_lse=True)
+            _, p_lse = fa.flash_attention_plain(q, k, v, causal=True,
+                                                block_q=512, block_kv=512,
+                                                return_lse=True)
+            lse_err = (lse - p_lse).abs().max().item()
+            check(lse_err <= LSE_TOL * (1 + p_lse.abs().max().item()),
+                  f"flash {name}/{dt}: forward lse off the plain version's "
+                  f"by {lse_err}")
+            grads = fa.flash_attention_bwd_kernel(q, k, v, out, lse, do,
+                                                  causal=True)
+            torch.cuda.synchronize()
+            plain = fa.flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                                 causal=True, block_q=512,
+                                                 block_kv=512)
+            errs = {}
+            for gname, got, want in zip(("dq", "dk", "dv"), grads, plain):
+                check(got.shape == want.shape and got.dtype == dtype,
+                      f"flash backward {name}/{dt}: {gname} "
+                      f"{tuple(got.shape)} {got.dtype}")
+                check(bool(torch.isfinite(got.float()).all()),
+                      f"flash backward {name}/{dt}: non-finite {gname}")
+                errs[gname] = bwd_ratio(torch, got, want)
+                check(errs[gname][1] <= 1, f"flash backward {name}/{dt}: "
+                      f"{gname} off the plain version by {errs[gname][0]} "
+                      f"(ratio {errs[gname][1]})")
+            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                          for t in (q, k, v))
+            o_lib = F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=Hkv != Hq)
+            dot = do.transpose(1, 2)
+
+            def library():
+                torch.autograd.grad(o_lib, (qt, kt, vt), dot,
+                                    retain_graph=True)
+
+            line = {"phase": "kernels", "kernel": "flash_attention_bwd",
+                    "case": name, "dtype": dt, "B": B, "S": S, "Hq": Hq,
+                    "Hkv": Hkv, "D": D, "causal": True,
+                    "tolerance": (f"{BWD_BF16_STEPS} bf16 step of the "
+                                  "largest |plain|" if dt == "bfloat16"
+                                  else f"{BWD_F32_REL} x the largest "
+                                  "|plain|"),
+                    "max_abs_err": {k: e for k, (e, _) in errs.items()},
+                    "tol_ratio": max(r for _, r in errs.values()),
+                    "lse_max_abs_err": lse_err,
+                    "ms": time_ms(torch, lambda: fa.flash_attention_bwd_kernel(
+                        q, k, v, out, lse, do, causal=True), 10, flush),
+                    "plain_ms": time_ms(
+                        torch, lambda: fa.flash_attention_bwd_plain(
+                            q, k, v, out, lse, do, causal=True, block_q=512,
+                            block_kv=512), 3, flush),
+                    "library_ms": time_ms(torch, library, 10, flush),
+                    "forward_ms": time_ms(torch, lambda: fa.flash_attention_kernel(
+                        q, k, v, causal=True, return_lse=True), 10, flush)}
+            line["bound_ms"], line["bound_by"] = flash_bwd_bound(
+                S, S, Hq, Hkv, D, D, True, 0, dt, B)
+            if dt == "bfloat16":
+                line["ms_by_kernel"] = device_ms_by_kernel(
+                    torch, lambda: fa.flash_attention_bwd_kernel(
+                        q, k, v, out, lse, do, causal=True), flush,
+                    names=("flash_bwd",))
+            emit(line)
+            row["max_abs_err"] = max(row["max_abs_err"],
+                                     *line["max_abs_err"].values())
+            row.setdefault("shapes", {})[f"{name}/{dt}"] = {
+                k: line[k] for k in ("ms", "plain_ms", "library_ms",
+                                     "bound_ms", "bound_by", "tol_ratio",
+                                     "forward_ms") + (
+                    ("ms_by_kernel",) if "ms_by_kernel" in line else ())}
+            if (ci, dt) == (0, "bfloat16"):
+                row.update({k: line[k] for k in (
+                    "ms", "ms_by_kernel", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")}, shape=f"{name}/{dt}")
+            del q, k, v, do, out, lse, p_lse, grads, plain, qt, kt, vt, o_lib
+            torch.cuda.empty_cache()
+    # a head dim the backward's tiles do not take is refused by name
+    q = torch.zeros((1, 16, 1, 256), device=dev, dtype=torch.bfloat16)
+    try:
+        fa.flash_attention_bwd_kernel(q, q, q, q, torch.zeros(
+            (1, 16, 1), device=dev), q)
+        fail("flash backward: head dim 256 was not refused")
+    except ValueError as e:
+        check("above 128" in str(e), f"flash backward: head dim 256 refused "
+              f"without naming the limit: {e}")
+    return {"flash_attention_bwd": row}
+
+
 def ssd_bound(S, H, P, N, chunk, dtype):
     """(ms, bound_by): x, la, B, C read and y and the f32 final state
     written once over HBM bandwidth, against the multiply-adds each
@@ -1240,8 +1438,11 @@ def serve(torch, run, model, max_len, short, expect, long_prompts=0,
     reqs = requests(short, long_prompts) if reqs is None else reqs
     if eng.backend == "slots":
         # slot caches do not wrap for full attention: a write past
-        # max_len would be dropped
-        check(all(r.prompt_len + r.output_len + 1 <= max_len
+        # max_len would be dropped (a vision stack's patches take slots
+        # ahead of the prompt)
+        prefix = cfg.n_frontend_tokens if cfg.frontend == "vision_stub" \
+            else 0
+        check(all(prefix + r.prompt_len + r.output_len + 1 <= max_len
                   for r in reqs), f"run {run}: a request outgrows "
               f"max_len {max_len}")
     torch.cuda.reset_peak_memory_stats()
@@ -1550,6 +1751,21 @@ def engine_phase(torch, kernel_rows):
     # (Sq != Skv), decode through split-K over pages of 16 and of 4
     runs["N"] = whisper_run(torch)
 
+    # InternVL2-76B (32 of 80 layers): 256 stubbed patches ahead of every
+    # prompt, whole-prompt prefill through flash at Sq = 256 + prompt,
+    # decode through split-K over the slot caches from prompt + 256
+    vlm = setup(torch, "internvl2-76b", n_layers=INTERNVL_LAYERS)
+    runs["O"] = internvl_run(torch, vlm, slots_attn)
+    no_casts("O", profiled("O", vlm, MAX_LEN_VLM, backend="slots",
+                           chunked=False))
+    del vlm
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Granite-3-2B training at full width and depth: flash forward (with
+    # lse) and its recompute under remat, the flash backward kernel
+    runs["P"] = train_run(torch)
+
     emit({"phase": "engine", "launches_by_run": {
         run: {k: n for k, n in r.items() if n} for run, r in runs.items()}})
     for name, row in kernel_rows.items():
@@ -1562,6 +1778,161 @@ def engine_phase(torch, kernel_rows):
                  for k in runs["A"] if k.startswith(f"{name}/")}
         if pools:
             row["launches_by_pools"] = pools
+
+
+def internvl_run(torch, vlm, slots_attn):
+    """Run O: InternVL2-76B at full width (d_model 8192, 64 query heads
+    over 8 kv heads of 128, d_ff 28 672, vocab 128 256, untied, bf16;
+    random weights from SEED), depth cut to INTERNVL_LAYERS of 80, on the
+    slots engine with whole-prompt prefill, max_len MAX_LEN_VLM: the 12
+    requests of runs A-M, each with the engine's 256 stubbed patches
+    ahead of its prompt.  Checks: 12/12 served; flash once per layer and
+    prefill, each at Sq = 256 + the prompt; split-K once per layer and
+    decode step, over bf16 pools; first tokens against a plain forward
+    over the same patches and tokens; decode consistency after the
+    prefix.  ``vlm``: ``setup``'s model.  Returns the run's launch
+    counts."""
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    cfg = vlm[0]
+    P = cfg.n_frontend_tokens
+    seen = []                            # Sq of every flash launch
+    launch = fa._flash_cuda
+
+    def spy(q, *a, **kw):
+        seen.append(q.shape[1])
+        return launch(q, *a, **kw)
+
+    fa._flash_cuda = spy
+    try:
+        _, first_o, launches, line = serve(
+            torch, "O", vlm, MAX_LEN_VLM, False,
+            dict(slots_attn, **{"paged_attention_splitk/bf16":
+                                "per_layer_decode",
+                                "paged_attention_splitk/int8": False}),
+            backend="slots", chunked=False)
+    finally:
+        fa._flash_cuda = launch
+    want = Counter()
+    for toks, _ in first_o.values():
+        want[P + len(toks)] += cfg.n_layers
+    check(Counter(seen) == want, f"run O: flash launched at Sq "
+          f"{sorted(set(seen))}, not at {P} + each prompt, {cfg.n_layers} "
+          "times each")
+    emit({"phase": "engine", "run": "O", "flash_sq": sorted(set(seen)),
+          "vision_prefix": P, "flash_launches": len(seen)})
+    dense_check(torch, vlm[1], cfg, first_o)
+    decode_consistency(torch, vlm[1], cfg)
+    return launches
+
+
+def train_run(torch):
+    """Run P: Granite-3-2B as registered (40 layers, d_model 2048, 32
+    query heads over 8 kv heads of 64, d_ff 8192, vocab 49 155, tied,
+    bf16, remat per layer; random weights from SEED) trained at full
+    width and depth by ``training.train``: TRAIN's 8 AdamW steps on
+    batches of 4 x 2048 tokens of the synthetic Markov stream.  Checks:
+    step 0's loss within TRAIN_LOSS_TOL of ``loss_fn`` with the plain
+    attention (``attn_impl="naive"``) on the same weights and batch; the
+    loss after the last step below step 0's; flash forward launched 2 x
+    40 x 8 times (the forward and its recompute under remat), the
+    backward 40 x 8, nothing else of the port (the backward kernel at a
+    layer's shapes is held to its plain version in the kernel phase:
+    ``granite_B4_S2048_gqa4_d64``).  Reports step times
+    (median after the first), tokens/s, peak memory and one profiled
+    step.  Returns the run's launch counts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import loss_fn
+    from repro_torch.training import (AdamW, TrainConfig, cosine_schedule,
+                                      make_train_step, train)
+    from repro_torch.training.data import batches
+    from repro_torch.weights import init_params
+
+    cfg = get_config("granite-3-2b")
+    check(cfg.remat and cfg.attn_impl == "flash" and cfg.dtype == "bfloat16",
+          f"run P: {cfg.name} is not a bf16 flash stack with remat")
+    tc = TrainConfig(**TRAIN)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED), "cuda")
+    torch.cuda.synchronize()
+    emit({"phase": "engine_setup", "run": "P", "model": cfg.name,
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "dtype": cfg.dtype, "n_params": cfg.n_params(),
+          "weight_gib": sum(t.numel() * t.element_size()
+                            for t in _leaves(params)) / 2 ** 30,
+          "init_s": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    b0 = next(batches(cfg.vocab_size, tc.batch, tc.seq_len, 1, tc.seed))
+    data_s = time.perf_counter() - t0
+    with torch.no_grad():
+        plain_loss = float(loss_fn(params, {
+            k: torch.from_numpy(v).to("cuda") for k, v in b0.items()},
+            dataclasses.replace(cfg, attn_impl="naive")))
+    torch.cuda.empty_cache()
+    stamps = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start_gib = torch.cuda.memory_allocated() / 2 ** 30
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    params, losses = train(cfg, tc, params=params, device="cuda",
+                           log=lambda msg: stamps.append(time.perf_counter()))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = np.diff([t0] + stamps) * 1e3
+    L, n = cfg.n_layers, tc.steps
+    want = {name: 0 for name in launches}
+    want.update({"flash_attention": 2 * L * n, "flash_attention:mma": 2 * L * n,
+                 "flash_attention_bwd": L * n,
+                 "flash_attention_bwd:bf16": L * n})
+    loss = [v for _, v in losses]
+    tokens = tc.batch * tc.seq_len
+    emit({"phase": "train", "run": "P", "model": cfg.name,
+          "entry": "training.train", "batch": tc.batch,
+          "seq_len": tc.seq_len, "steps": n, "remat": cfg.remat,
+          "losses": loss, "plain_attention_step0_loss": plain_loss,
+          "step0_loss_err": abs(loss[0] - plain_loss), "wall_s": wall,
+          "step_ms": list(steps), "step_ms_median_after_first":
+              float(np.median(steps[1:])),
+          "tokens_per_s": tokens / float(np.median(steps[1:])) * 1e3,
+          "data_ms_per_batch": data_s * 1e3,
+          "launches": {k: v for k, v in launches.items() if v},
+          "start_mem_gib": start_gib, "peak_mem_gib": peak})
+    check(len(loss) == n and all(np.isfinite(loss)),
+          f"run P: losses {loss}")
+    check(abs(loss[0] - plain_loss) <= TRAIN_LOSS_TOL, f"run P: step 0's "
+          f"loss {loss[0]} is {abs(loss[0] - plain_loss)} from the plain "
+          f"attention's {plain_loss}")
+    check(loss[-1] < loss[0], f"run P: the loss did not fall: {loss}")
+    check(launches == want, f"run P: launches "
+          f"{ {k: v for k, v in launches.items() if v} }, not "
+          f"{ {k: v for k, v in want.items() if v} }")
+
+    # one more step under the profiler (a fresh optimizer state)
+    opt = AdamW(lr=cosine_schedule(tc.peak_lr, tc.warmup, tc.steps),
+                weight_decay=tc.weight_decay, grad_clip=tc.grad_clip)
+    state = opt.init(params)
+    step_fn = make_train_step(cfg, opt)
+    b1 = {k: torch.from_numpy(v).to("cuda") for k, v in next(batches(
+        cfg.vocab_size, tc.batch, tc.seq_len, 1, tc.seed + 1)).items()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(params, state, b1)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    emit({"phase": "profile", "run": "P", "window": "train_step",
+          "iterations": 1, "rows_per_iteration": tokens,
+          **profile_summary(prof, 1, wall_ms)})
+    del params, state, step_fn, opt, b1
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def whisper_run(torch):
@@ -1977,8 +2348,9 @@ def decode_consistency(torch, params, cfg, n=300):
     the ``ssd_step`` recurrence (run E), the flash kernel's prefill
     against decode over the slot cache (runs F and G; past the window,
     G's ring cache wraps; run N: the cross-attention's flash at Sq != Skv
-    against split-K over the cached frames, pages of 4).  An
-    encoder-decoder's batch adds (1, T, d) standard-normal frames, drawn
+    against split-K over the cached frames, pages of 4; run O: decode
+    after the vision prefix).  An encoder-decoder's batch adds (1, T, d)
+    standard-normal frames, a vision stack's (1, P, d) patches, drawn
     with numpy as that test draws them."""
     from repro_torch.models.model import decode_step, prefill
 
@@ -1986,12 +2358,17 @@ def decode_consistency(torch, params, cfg, n=300):
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, n))).to(
         "cuda")
     batch = {"tokens": toks}
-    if cfg.is_encoder_decoder:
-        batch["frames"] = torch.from_numpy(rng.standard_normal(
+    extra = {"audio_stub": "frames", "vision_stub": "patch_embeds"}.get(
+        cfg.frontend)
+    if extra:
+        batch[extra] = torch.from_numpy(rng.standard_normal(
             (1, cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32)).to(
             "cuda")
-    full, _ = prefill(params, batch, cfg, n + 4)
-    _, cache = prefill(params, dict(batch, tokens=toks[:, :-1]), cfg, n + 4)
+    max_len = n + 4 + (cfg.n_frontend_tokens if extra == "patch_embeds"
+                       else 0)
+    full, _ = prefill(params, batch, cfg, max_len)
+    _, cache = prefill(params, dict(batch, tokens=toks[:, :-1]), cfg,
+                       max_len)
     step, _ = decode_step(params, toks[:, -1], cache, cfg)
     full, step = full.float()[0].cpu().numpy(), step.float()[0].cpu().numpy()
     rel = float(np.abs(step - full).max() / np.abs(full).max())
@@ -2131,7 +2508,8 @@ def profile_summary(prof, steps, wall_ms):
     ours = defaultdict(lambda: [0.0, 0.0])        # the port's own kernels
     for e in events:
         if any(n in e.key for n in ("paged_attention", "paged_plan",
-                                    "flash_attention", "ssd_scan")):
+                                    "flash_attention", "flash_bwd",
+                                    "ssd_scan")):
             name = e.key[:80]
             ours[name][0] += dev_us(e) / 1e3 / steps
             ours[name][1] += e.count / steps
@@ -2260,7 +2638,9 @@ def dense_check(torch, params, cfg, firsts, n=3, rids=None):
     """The served first-token logits of ``n`` requests (or of ``rids``)
     against a plain forward of the same weights, one prompt at a time:
     attention without pools or kernels (MLA expanded, as in prefill), the
-    port's RG-LRU block (it has no kernel), MLP and MoE FFN."""
+    port's RG-LRU block (it has no kernel), MLP and MoE FFN.  A vision
+    stack's request starts with the engine's patches for it (standard
+    normals from ``default_rng(rid)``, in the model dtype)."""
     from repro_torch.configs.base import ATTN_MLA, RGLRU
     from repro_torch.models.layers import embed, rmsnorm, unembed
     from repro_torch.models.model import (ffn_forward, layer_params,
@@ -2271,8 +2651,13 @@ def dense_check(torch, params, cfg, firsts, n=3, rids=None):
     with torch.no_grad():
         for rid in rids or sorted(firsts)[:n]:
             toks, served = firsts[rid]
-            S = len(toks)
             x = embed(params["embed"], torch.as_tensor(toks, device="cuda"))
+            if cfg.frontend == "vision_stub":
+                patches = np.random.default_rng(rid).standard_normal(
+                    (cfg.n_frontend_tokens, cfg.d_model))
+                x = torch.cat([torch.from_numpy(patches).to(
+                    "cuda", x.dtype), x])
+            S = x.shape[0]
             pos = torch.arange(S, device="cuda")
             for si, (kind, moe_flag, count) in enumerate(model_stages(cfg)):
                 st = params["stages"][f"stage_{si}"]
@@ -2299,7 +2684,8 @@ def dense_check(torch, params, cfg, firsts, n=3, rids=None):
             rel = float(np.abs(served - ref).max() / np.abs(ref).max())
             worst = max(worst, rel)
             emit({"phase": "dense_check", "model": cfg.name, "rid": rid,
-                  "prompt_len": S, "max_rel_err": rel,
+                  "prompt_len": len(toks), "positions": S,
+                  "max_rel_err": rel,
                   "argmax_equal": int(np.argmax(served)) == int(np.argmax(ref))})
     check(worst < DENSE_REL_TOL, f"{cfg.name}: served first-token logits "
           f"differ from the plain forward by {worst} (relative)")

@@ -1,0 +1,73 @@
+#!/usr/bin/env python3
+"""Chosen phases of ``chip_smoke.py`` alone, on one card: a shorter call
+while a new phase is brought up.
+
+    python3 scripts/chip_phases.py bwd,P,O
+
+``bwd``: the flash backward kernel lines (``flash_bwd_phase``); ``P``:
+Granite-3-2B training (``train_run``); ``O``: InternVL2-76B through the
+slots engine (``internvl_run``, without its profile window).  Builds the
+kernels first, prints chip_smoke's JSON lines and the seconds each phase
+took, and last the ``kernels`` rows of the phases run with the launches
+of the runs run.  Exits non-zero on any failed check, as chip_smoke does.
+"""
+from __future__ import annotations
+
+import json
+import pathlib
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "src"))
+
+import chip_smoke as cs  # noqa: E402
+
+
+def main(argv) -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_phases: no CUDA device", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import _build
+
+    which = argv[0].split(",") if argv else ["bwd", "P", "O"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader", "-i", "0"], capture_output=True,
+        text=True, check=True).stdout.strip(), flush=True)
+    cs.emit({"phase": "build", "libraries": _build.build_all()})
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    rows, runs = {}, {}
+    t0 = time.perf_counter()
+    if "bwd" in which:
+        rows.update(cs.flash_bwd_phase(torch, flush))
+        cs.emit({"phase": "seconds", "bwd": time.perf_counter() - t0})
+    if "P" in which:
+        t0 = time.perf_counter()
+        runs["P"] = cs.train_run(torch)
+        cs.emit({"phase": "seconds", "P": time.perf_counter() - t0})
+    if "O" in which:
+        t0 = time.perf_counter()
+        paged = {name: False for name in cs.launch_counts()
+                 if "/" not in name}
+        slots_attn = dict(
+            paged, flash_attention="per_layer_prefill",
+            paged_attention_splitk="per_layer_decode",
+            **{"flash_attention:mma": "per_layer_prefill",
+               "paged_attention_splitk:mma": "per_layer_decode"})
+        vlm = cs.setup(torch, "internvl2-76b", n_layers=cs.INTERNVL_LAYERS)
+        runs["O"] = cs.internvl_run(torch, vlm, slots_attn)
+        cs.emit({"phase": "seconds", "O": time.perf_counter() - t0})
+    for name, row in rows.items():
+        row["launches"] = sum(r[name] for r in runs.values())
+    print(json.dumps({"kernels": list(rows.values())}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

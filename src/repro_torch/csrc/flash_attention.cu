@@ -14,7 +14,11 @@
 // both aligned top-left (qpos and kpos count from 0, as in the TPU
 // kernel).  The online softmax keeps (m, l, acc) in f32 and the output is
 // acc / max(l, 1e-30), rounded once to q's type.  Query rows are bounded
-// by Sq; key rows, the kv tiles walked and the K/V offsets by Skv.
+// by Sq; key rows, the kv tiles walked and the K/V offsets by Skv.  When
+// the caller passes an lse buffer (training: the backward kernels of
+// flash_attention_bwd.cu recompute the probabilities from it), each row
+// also writes lse = m + log(max(l, 1e-30)) in f32, (B, Sq, Hq), as the
+// reference's _flash_fwd_impl defines it; the serving calls pass null.
 //
 // Bound: at the serving shape (S up to 1024, D = 128) the work is
 // 4 * S^2/2 * D operations per head against 4 * S * D bytes, hundreds of
@@ -110,7 +114,8 @@ __device__ __forceinline__ void load_tile(float* __restrict__ dst, int stride,
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, Shape P) {
+                       const T* __restrict__ v, T* __restrict__ out,
+                       float* __restrict__ lse, Shape P) {
   extern __shared__ float4 smem_raw[];
   float* q_s = reinterpret_cast<float*>(smem_raw);
   float* k_s = q_s + kBQ * kQKStride;      // K tile, then the P tile
@@ -246,7 +251,9 @@ flash_attention_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int s_row = q0 + ty * 4 + i;
     if (s_row >= P.Sq) continue;
     const float lc = fmaxf(l[i], 1e-30f);
-    T* dst = out + ((static_cast<int64_t>(b) * P.Sq + s_row) * P.Hq + h) * P.Dv;
+    const int64_t o_row = (static_cast<int64_t>(b) * P.Sq + s_row) * P.Hq + h;
+    if (lse != nullptr && tx == 0) lse[o_row] = m[i] + logf(lc);
+    T* dst = out + o_row * P.Dv;
     if (tx * 4 < P.Dv)
       store4(dst + tx * 4, make_float4(acc[i][0] / lc, acc[i][1] / lc,
                                        acc[i][2] / lc, acc[i][3] / lc));
@@ -257,8 +264,8 @@ flash_attention_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T>
-int launch_fma(const void* q, const void* k, const void* v, void* out, const Shape& P,
-               cudaStream_t stream) {
+int launch_fma(const void* q, const void* k, const void* v, void* out, float* lse,
+               const Shape& P, cudaStream_t stream) {
   static bool configured = false;          // opt in to > 48 KiB once per type
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -270,7 +277,7 @@ int launch_fma(const void* q, const void* k, const void* v, void* out, const Sha
   const dim3 grid((P.Sq + kBQ - 1) / kBQ, P.Hq, P.B);
   flash_attention_fma_kernel<T><<<grid, kThreads, kSmemBytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), P);
+      static_cast<T*>(out), lse, P);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -295,7 +302,8 @@ constexpr size_t mma_smem_bytes() {
 template <int DP>
 __global__ void __launch_bounds__(at::kThreads, kMinBlocks<DP>)
 flash_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                           const bf16* __restrict__ v, bf16* __restrict__ out, Shape P) {
+                           const bf16* __restrict__ v, bf16* __restrict__ out,
+                           float* __restrict__ lse, Shape P) {
   using Dm = at::Dims<DP>;
   extern __shared__ __align__(16) unsigned char mma_smem[];
   bf16* tiles = reinterpret_cast<bf16*>(mma_smem);   // [stage][K, V][64][kStride]
@@ -388,7 +396,9 @@ flash_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
   for (int r = 0; r < 2; ++r) {
     if (row[r] >= P.Sq) continue;
     const float lc = fmaxf(st.l[r], 1e-30f);
-    bf16* dst = out + ((static_cast<int64_t>(b) * P.Sq + row[r]) * P.Hq + h) * P.Dv;
+    const int64_t o_row = (static_cast<int64_t>(b) * P.Sq + row[r]) * P.Hq + h;
+    if (lse != nullptr && t4 == 0) lse[o_row] = st.m[r] + logf(lc);
+    bf16* dst = out + o_row * P.Dv;
 #pragma unroll
     for (int n = 0; n < DP / 8; ++n) {
       const int dv = n * 8 + 2 * t4;
@@ -400,8 +410,8 @@ flash_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
 }
 
 template <int DP>
-int launch_mma(const void* q, const void* k, const void* v, void* out, const Shape& P,
-               cudaStream_t stream) {
+int launch_mma(const void* q, const void* k, const void* v, void* out, float* lse,
+               const Shape& P, cudaStream_t stream) {
   constexpr size_t smem = mma_smem_bytes<DP>();
   static bool configured = false;
   if (!configured) {
@@ -414,7 +424,7 @@ int launch_mma(const void* q, const void* k, const void* v, void* out, const Sha
   const dim3 grid((P.Sq + at::kRows - 1) / at::kRows, P.Hq, P.B);
   flash_attention_mma_kernel<DP><<<grid, at::kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), P);
+      static_cast<bf16*>(out), lse, P);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -437,9 +447,10 @@ size_t flash_attention_mma_smem_bytes(int D, int Dv) {
 // q (B, Sq, Hq, D), k (B, Skv, Hkv, D), v (B, Skv, Hkv, Dv) and out
 // (B, Sq, Hq, Dv), all contiguous; dtype 0 = f32 (FMA kernel; D, Dv
 // multiples of 4 up to 128), 1 = bf16 (tensor-core kernel; D, Dv multiples
-// of 8 up to 256, 16-byte aligned rows); all four alike.
-int flash_attention_fwd(const void* q, const void* k, const void* v, void* out, int B,
-                        int Sq, int Skv, int Hq, int Hkv, int D, int Dv, int causal,
+// of 8 up to 256, 16-byte aligned rows); all four alike.  lse: null, or an
+// f32 (B, Sq, Hq) buffer for each row's log-sum-exp.
+int flash_attention_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
+                        int B, int Sq, int Skv, int Hq, int Hkv, int D, int Dv, int causal,
                         int window, int dtype, float sm_scale, void* stream) {
   const int step = dtype == 1 ? 8 : 4;
   const int max_d = dtype == 1 ? kMaxMmaD : kMaxD;
@@ -448,13 +459,14 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* out, 
     return static_cast<int>(cudaErrorInvalidValue);
   const Shape P{B, Sq, Skv, Hq, Hkv, Hq / Hkv, D, Dv, causal, window, sm_scale};
   const auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_fma<float>(q, k, v, out, P, st);
+  float* lse_f = static_cast<float*>(lse);
+  if (dtype == 0) return launch_fma<float>(q, k, v, out, lse_f, P, st);
   if (dtype == 1) {
     switch (at::tile_width(D, Dv)) {
-      case 32: return launch_mma<32>(q, k, v, out, P, st);
-      case 64: return launch_mma<64>(q, k, v, out, P, st);
-      case 128: return launch_mma<128>(q, k, v, out, P, st);
-      case 256: return launch_mma<256>(q, k, v, out, P, st);
+      case 32: return launch_mma<32>(q, k, v, out, lse_f, P, st);
+      case 64: return launch_mma<64>(q, k, v, out, lse_f, P, st);
+      case 128: return launch_mma<128>(q, k, v, out, lse_f, P, st);
+      case 256: return launch_mma<256>(q, k, v, out, lse_f, P, st);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }

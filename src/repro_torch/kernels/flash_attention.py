@@ -28,11 +28,26 @@ that no key is visible to (a window that ends past the last key: Sq >=
 Skv + window) has no defined output: the TPU kernel's depends on its
 padding, so both versions refuse such calls.
 
+Training differentiates it (``FlashAttentionFunction``, the port of
+the reference's ``jax.custom_vjp`` ``_flash_core``): the forward also
+writes each row's log-sum-exp ``lse = m + log(max(l, 1e-30))`` (f32,
+(B, Sq, Hq); the reference's ``_flash_fwd_impl``), and the backward is a
+second hand-written kernel (``csrc/flash_attention_bwd.cu``, the port of
+the jnp ``_flash_core_bwd``): delta = rowsum(dO * O), then dK/dV per
+64-key tile over the G query heads of its kv head, then dQ per 64-row
+query tile, each recomputing P = exp(s - lse) under the forward's mask;
+f32 FMA for both types, head dims up to 128, no atomics.  Its plain
+version, ``flash_attention_bwd_plain``, walks the reference's block
+pairs.  ``O`` in delta is the output in q's dtype (the reference keeps
+its f32 output for it: the same in f32, one bf16 rounding apart in bf16).
+
 A wrapper runs the plain version only when its tensors lie on the CPU
 (the tests).  On CUDA tensors it launches the kernel or raises; there is
 no fallback.  ``LAUNCHES`` counts kernel launches, in all and per variant
-(``flash_attention:mma``), so a run can show that the prefill path went
-through the kernel.
+(``flash_attention:mma``; a backward call, its three kernels, once as
+``flash_attention_bwd`` and once by input type,
+``flash_attention_bwd:bf16``), so a run can show that the prefill and
+training paths went through the kernels.
 """
 from __future__ import annotations
 
@@ -49,8 +64,14 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = {torch.bfloat16: 256, torch.float32: 128}
 
 VARIANTS = {torch.bfloat16: "mma", torch.float32: "fma"}
+# the backward's largest head dim: its f32 tiles of 4 x 8 per thread
+MAX_BWD_HEAD_DIM = 128
+BWD_VARIANTS = {torch.bfloat16: "bf16", torch.float32: "f32"}
 LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention:mma": 0,
-                            "flash_attention:fma": 0}
+                            "flash_attention:fma": 0,
+                            "flash_attention_bwd": 0,
+                            "flash_attention_bwd:bf16": 0,
+                            "flash_attention_bwd:f32": 0}
 
 
 def reset_launch_counts() -> None:
@@ -90,11 +111,12 @@ def _validate(q, k, v, window, block_q, block_kv):
 # plain PyTorch version
 # ---------------------------------------------------------------------------
 def flash_attention_plain(q, k, v, *, causal=True, window=0, block_q=128,
-                          block_kv=128):
+                          block_kv=128, return_lse=False):
     """The kernel's function, walked over kv blocks of ``block_kv`` with
     the (m, l, acc) online softmax in f32 over every query row at once
     (``block_q`` does not change the result: rows are independent).
-    Fully masked blocks run, as in the TPU kernel."""
+    Fully masked blocks run, as in the TPU kernel.  ``return_lse``: also
+    each row's f32 log-sum-exp (B, Sq, Hq)."""
     _validate(q, k, v, window, block_q, block_kv)
     B, Sq, Hq, D = q.shape
     Skv, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
@@ -125,8 +147,11 @@ def flash_attention_plain(q, k, v, *, causal=True, window=0, block_q=128,
         l = l * corr + p.sum(-1, keepdim=True)
         acc = acc * corr + p @ vb
         m = m_new
-    out = acc / l.clamp_min(1e-30)
-    return out.permute(0, 2, 1, 3).to(q.dtype)
+    l = l.clamp_min(1e-30)
+    out = (acc / l).permute(0, 2, 1, 3).to(q.dtype)
+    if return_lse:
+        return out, (m + torch.log(l))[..., 0].permute(0, 2, 1)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -139,7 +164,7 @@ _I = ctypes.c_int
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
     if lib.flash_attention_fwd.argtypes is None:
-        lib.flash_attention_fwd.argtypes = [_P] * 4 + [_I] * 10 \
+        lib.flash_attention_fwd.argtypes = [_P] * 5 + [_I] * 10 \
             + [ctypes.c_float, _P]
         lib.flash_attention_fwd.restype = _I
         lib.flash_attention_mma_smem_bytes.argtypes = [_I, _I]
@@ -179,15 +204,18 @@ def _check_cuda(q, k, v):
                          "65535")
 
 
-def _flash_cuda(q, k, v, causal, window):
+def _flash_cuda(q, k, v, causal, window, return_lse=False):
     _check_cuda(q, k, v)
     B, Sq, Hq, D = q.shape
     Skv, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
     out = torch.empty((B, Sq, Hq, Dv), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, Sq, Hq), dtype=torch.float32,
+                      device=q.device) if return_lse else None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _lib().flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             B, Sq, Skv, Hq, Hkv, D, Dv, int(causal), int(window),
             _DTYPE_CODE[q.dtype], D ** -0.5, stream)
     if rc != 0:
@@ -196,22 +224,203 @@ def _flash_cuda(q, k, v, causal, window):
                            f"({torch.cuda.get_device_name(q.device)})")
     LAUNCHES["flash_attention"] += 1
     LAUNCHES[f"flash_attention:{VARIANTS[q.dtype]}"] += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 # ---------------------------------------------------------------------------
 # public wrapper
 # ---------------------------------------------------------------------------
 def flash_attention_kernel(q, k, v, *, causal=True, window=0, block_q=128,
-                           block_kv=128):
+                           block_kv=128, return_lse=False):
     """Blockwise attention (Sq and Skv may differ).  CPU tensors run ``flash_attention_plain``;
     CUDA tensors the kernel (``mma`` for bf16, ``fma`` for f32), whose own
     tiles are 64 x 64 (block sizes only reorder f32 sums, so
-    ``block_q``/``block_kv`` steer the plain version alone)."""
+    ``block_q``/``block_kv`` steer the plain version alone).
+    ``return_lse``: (out, lse), lse f32 (B, Sq, Hq)."""
     _validate(q, k, v, window, block_q, block_kv)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     block_q=block_q, block_kv=block_kv)
+                                     block_q=block_q, block_kv=block_kv,
+                                     return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"flash attention: no kernel for {q.device}")
-    return _flash_cuda(q, k, v, causal, window)
+    return _flash_cuda(q, k, v, causal, window, return_lse)
+
+
+# ---------------------------------------------------------------------------
+# the backward: plain version
+# ---------------------------------------------------------------------------
+def block_pairs(n_q, n_kv, block_q, block_kv, causal, window):
+    """The reference's ``_block_pairs``: (i, j) block pairs that hold an
+    unmasked entry, on positions (q block i spans [i bq, (i+1) bq))."""
+    pairs = []
+    for i in range(n_q):
+        q_lo, q_hi = i * block_q, (i + 1) * block_q - 1
+        for j in range(n_kv):
+            kv_lo, kv_hi = j * block_kv, (j + 1) * block_kv - 1
+            if causal and kv_lo > q_hi:
+                continue
+            if window and kv_hi <= q_lo - window:
+                continue
+            pairs.append((i, j))
+    return pairs
+
+
+def _validate_bwd(q, k, v, out, lse, dout):
+    B, Sq, Hq, _ = q.shape
+    Dv = v.shape[-1]
+    if tuple(out.shape) != (B, Sq, Hq, Dv) or out.shape != dout.shape:
+        raise ValueError(f"flash attention backward: out {tuple(out.shape)} "
+                         f"and dout {tuple(dout.shape)} must be "
+                         f"{(B, Sq, Hq, Dv)}")
+    if tuple(lse.shape) != (B, Sq, Hq) or lse.dtype != torch.float32:
+        raise ValueError(f"flash attention backward: lse must be f32 "
+                         f"{(B, Sq, Hq)}, got {lse.dtype} "
+                         f"{tuple(lse.shape)}")
+    if {t.device for t in (out, lse, dout)} != {q.device}:
+        raise ValueError("flash attention backward: tensors on mixed "
+                         "devices")
+
+
+def flash_attention_bwd_plain(q, k, v, out, lse, dout, *, causal=True,
+                              window=0, block_q=128, block_kv=128):
+    """(dq, dk, dv) of ``flash_attention_plain`` at ``dout``, as the
+    reference's ``_flash_core_bwd``: the static block pairs in order,
+    P = exp(s - lse) under the mask, dS = P (dP - delta) scale, sums in
+    f32, each gradient rounded once to its input's dtype."""
+    _validate(q, k, v, window, block_q, block_kv)
+    _validate_bwd(q, k, v, out, lse, dout)
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    G = Hq // Hkv
+    bq, bkv = min(block_q, Sq), min(block_kv, Skv)
+    scale = D ** -0.5
+    qf = q.float().reshape(B, Sq, Hkv, G, D)
+    dof = dout.float().reshape(B, Sq, Hkv, G, Dv)
+    kf, vf = k.float(), v.float()
+    delta = (dof * out.float().reshape(B, Sq, Hkv, G, Dv)).sum(-1)
+    lse_g = lse.reshape(B, Sq, Hkv, G)
+    dq = torch.zeros((B, Sq, Hkv, G, D), device=q.device)
+    dk = torch.zeros((B, Skv, Hkv, D), device=q.device)
+    dv = torch.zeros((B, Skv, Hkv, Dv), device=q.device)
+    pos = torch.arange(max(Sq, Skv), device=q.device)
+    n_q, n_kv = -(-Sq // bq), -(-Skv // bkv)
+    for i, j in block_pairs(n_q, n_kv, bq, bkv, causal, window):
+        qs = slice(i * bq, min((i + 1) * bq, Sq))
+        ks = slice(j * bkv, min((j + 1) * bkv, Skv))
+        qpos, kpos = pos[qs][:, None], pos[ks][None, :]
+        mask = kpos < Skv
+        if causal:
+            mask = mask & (kpos <= qpos)
+        if window:
+            mask = mask & (kpos > qpos - window)
+        mask = mask[None, :, None, None, :]
+        qb, dob, kb, vb = qf[:, qs], dof[:, qs], kf[:, ks], vf[:, ks]
+        s = torch.einsum("bskgd,btkd->bskgt", qb, kb) * scale
+        p = torch.where(mask, torch.exp(s - lse_g[:, qs, ..., None]),
+                        torch.zeros((), device=q.device))
+        dv[:, ks] += torch.einsum("bskgt,bskgd->btkd", p, dob)
+        dp = torch.einsum("bskgd,btkd->bskgt", dob, vb)
+        ds = p * (dp - delta[:, qs, ..., None]) * scale
+        dq[:, qs] += torch.einsum("bskgt,btkd->bskgd", ds, kb)
+        dk[:, ks] += torch.einsum("bskgt,bskgd->btkd", ds, qb)
+    return (dq.reshape(B, Sq, Hq, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+# ---------------------------------------------------------------------------
+# the backward: CUDA kernels (csrc/flash_attention_bwd.cu)
+# ---------------------------------------------------------------------------
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attention_bwd")
+    if lib.flash_attention_bwd.argtypes is None:
+        lib.flash_attention_bwd.argtypes = [_P] * 10 + [_I] * 10 \
+            + [ctypes.c_float, _P]
+        lib.flash_attention_bwd.restype = _I
+        lib.flash_attention_bwd_smem_bytes.argtypes = [_I, _I, _I]
+        lib.flash_attention_bwd_smem_bytes.restype = ctypes.c_size_t
+    return lib
+
+
+def _flash_bwd_cuda(q, k, v, out, lse, dout, causal, window):
+    _check_cuda(q, k, v)
+    for name, t in (("out", out), ("dout", dout), ("lse", lse)):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"flash attention backward: {name} must be "
+                             "contiguous and start on a 16-byte boundary")
+    if out.dtype != q.dtype or dout.dtype != q.dtype:
+        raise ValueError(f"flash attention backward: out {out.dtype} and "
+                         f"dout {dout.dtype} must be q's {q.dtype}")
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    if max(D, Dv) > MAX_BWD_HEAD_DIM:
+        raise ValueError(f"flash attention backward: head dims D={D}, "
+                         f"Dv={Dv} above {MAX_BWD_HEAD_DIM} (the backward "
+                         "kernel's f32 tiles of 4 x 8 per thread)")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    delta = torch.empty((B, Sq, Hq), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _bwd_lib().flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            B, Sq, Skv, Hq, Hkv, D, Dv, int(causal), int(window),
+            _DTYPE_CODE[q.dtype], D ** -0.5, stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_bwd ({BWD_VARIANTS[q.dtype]}): "
+                           f"CUDA error {rc} "
+                           f"({torch.cuda.get_device_name(q.device)})")
+    LAUNCHES["flash_attention_bwd"] += 1
+    LAUNCHES[f"flash_attention_bwd:{BWD_VARIANTS[q.dtype]}"] += 1
+    return dq, dk, dv
+
+
+def flash_attention_bwd_kernel(q, k, v, out, lse, dout, *, causal=True,
+                               window=0, block_q=128, block_kv=128):
+    """(dq, dk, dv).  CPU tensors run ``flash_attention_bwd_plain``; CUDA
+    tensors the three backward kernels (f32 FMA for bf16 and f32 inputs,
+    head dims up to 128; ``block_q``/``block_kv`` steer the plain version
+    alone)."""
+    _validate(q, k, v, window, block_q, block_kv)
+    _validate_bwd(q, k, v, out, lse, dout)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, lse, dout,
+                                         causal=causal, window=window,
+                                         block_q=block_q, block_kv=block_kv)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash attention backward: no kernel for "
+                         f"{q.device}")
+    return _flash_bwd_cuda(q, k, v, out, lse, dout, causal, window)
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Flash attention with its gradient: the forward saves (q, k, v, out,
+    lse), the backward recomputes the probabilities from lse.  CPU tensors
+    run the plain versions both ways; CUDA tensors launch the kernels or
+    raise."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, block_q, block_kv):
+        out, lse = flash_attention_kernel(
+            q, k, v, causal=causal, window=window, block_q=block_q,
+            block_kv=block_kv, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, window, block_q, block_kv)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, block_q, block_kv = ctx.args
+        dq, dk, dv = flash_attention_bwd_kernel(
+            q, k, v, out, lse, dout.contiguous(), causal=causal,
+            window=window, block_q=block_q, block_kv=block_kv)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention_train(q, k, v, *, causal=True, window=0, block_q=128,
+                          block_kv=128):
+    """``flash_attention_kernel`` with a gradient (``FlashAttentionFunction``)."""
+    return FlashAttentionFunction.apply(q, k, v, causal, window, block_q,
+                                        block_kv)

@@ -5,10 +5,11 @@ Port of ``repro/launch/serve.py``: the continuous-batching engine
 workload, reporting the paper's metrics.  ``--backend slots`` (the
 default) serves per-slot caches with whole-prompt prefill for stacks
 that cannot chunk (Mamba-2: the SSD-scan kernel; Mixtral's windowed
-stack and MiniCPM3's MLA: the flash kernel) and chunked prefill for the
+stack, MiniCPM3's MLA and InternVL2's vision prefix, stubbed patches
+ahead of every prompt: the flash kernel) and chunked prefill for the
 others (Llama-2, DeepSeek-MoE); ``--backend paged`` serves paged KV
 pools through the paged-attention kernels (single-stage full-attention
-stacks).  Runs on
+text stacks).  Runs on
 the card by default; ``--device cpu`` runs the kernels' plain versions
 on the CPU.
 

@@ -1,0 +1,50 @@
+"""Training launcher.
+
+Port of ``repro/launch/train.py``: AdamW steps (``training.train``) on
+the synthetic Markov corpus, on the card by default.  ``--smoke`` takes
+the reduced config; without it the registered one at full width (the
+port trains dense GQA stacks: Llama-2-7B, DeepSeek-7B, Granite-3-2B,
+StarCoder2-7B and, where it fits, InternVL2-76B; the others are refused
+by their ROADMAP item).  Sharded training (``--production``, a
+device mesh) is ROADMAP.md Queue A item 12.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \
+        --steps 8 --batch 4 --seq 2048
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama2-7b \
+        --smoke --device cpu --steps 20 --batch 4 --seq 64
+"""
+from __future__ import annotations
+
+import argparse
+
+from repro_torch.configs import SMOKE_FACTORIES, get_config
+from repro_torch.training import TrainConfig, train
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama2-7b",
+                    choices=sorted(SMOKE_FACTORIES))
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced config (CPU-sized)")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--ckpt", default="")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device the model trains on")
+    args = ap.parse_args(argv)
+
+    cfg = (SMOKE_FACTORIES[args.arch]() if args.smoke
+           else get_config(args.arch))
+    tc = TrainConfig(batch=args.batch, seq_len=args.seq, steps=args.steps,
+                     peak_lr=args.lr, ckpt_path=args.ckpt, seed=args.seed)
+    _, losses = train(cfg, tc, device=args.device)
+    print(f"final loss: {losses[-1][1]:.4f}")
+    return losses
+
+
+if __name__ == "__main__":
+    main()

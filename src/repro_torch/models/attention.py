@@ -10,7 +10,10 @@ Two implementations share one math definition:
   tensors the hand-written kernel (``repro_torch.kernels.flash_attention``,
   the port of ``flash_attention_pallas``), on CPU tensors its plain
   version.  The reference's pure-JAX blockwise version and the Pallas
-  kernel compute the same function; the port has this one.
+  kernel compute the same function; the port has this one.  When a
+  gradient is wanted (training) it goes through the kernel's autograd
+  Function, whose backward is the hand-written backward kernel (the port
+  of the reference's custom VJP); serving launches the forward alone.
 
 Attention over a slot cache (a decode step, or a prefill chunk against
 the prompt's cached prefix) keeps the cache in its dtype, as the
@@ -35,7 +38,8 @@ import math
 
 import torch
 
-from repro_torch.kernels.flash_attention import flash_attention_kernel
+from repro_torch.kernels.flash_attention import (flash_attention_kernel,
+                                                 flash_attention_train)
 from repro_torch.kernels.ops import paged_attention
 from repro_torch.models.layers import apply_rope, dense_init, rmsnorm
 
@@ -109,10 +113,15 @@ def flash_attention(q, k, v, *, causal=True, window=0, block_q=512,
                     block_kv=512):
     """Blockwise attention of Sq query rows over Skv keys (prefill: Sq ==
     Skv; cross-attention: Skv encoder frames).  CUDA tensors launch the
-    flash kernel; CPU tensors run its plain version."""
-    return flash_attention_kernel(q, k, v, causal=causal, window=window,
-                                  block_q=min(block_q, q.shape[1]),
-                                  block_kv=min(block_kv, k.shape[1]))
+    flash kernel; CPU tensors run its plain version.  With a gradient
+    wanted, through ``flash_attention_train`` (forward with lse, the
+    backward kernel)."""
+    fn = flash_attention_kernel
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        fn = flash_attention_train
+    return fn(q, k, v, causal=causal, window=window,
+              block_q=min(block_q, q.shape[1]),
+              block_kv=min(block_kv, k.shape[1]))
 
 
 def attention(q, k, v, *, causal=True, window=0, impl="flash"):

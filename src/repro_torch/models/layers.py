@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -92,3 +93,33 @@ def unembed(params, x):
     if "head" in params:
         return x @ params["head"]
     return x @ params["table"].T
+
+
+# ---------------------------------------------------------------------------
+# Chunked cross-entropy: never materialises (B, S, V) at once
+# ---------------------------------------------------------------------------
+def _chunk_nll(embed_params, xc, lc, mc):
+    """(sum of masked NLL, sum of the mask) of one chunk, logits in f32."""
+    logits = unembed(embed_params, xc).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, lc[..., None].long())[..., 0]
+    return ((logz - gold) * mc).sum(), mc.sum()
+
+
+def chunked_ce_loss(embed_params, x, labels, chunk=512, mask=None):
+    """x: (B, S, d) final hidden; labels: (B, S) int.  Mean token NLL: the
+    masked sum over chunks of ``chunk`` positions divided by the mask's
+    count (at least 1).  Each chunk runs under ``checkpoint``, as the
+    reference's ``jax.checkpoint``: its (B, chunk, vocab) logits are
+    recomputed in the backward pass instead of being kept."""
+    B, S, _ = x.shape
+    chunk = min(chunk, S)
+    if mask is None:
+        mask = torch.ones((B, S), dtype=torch.float32, device=x.device)
+    tot = cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for s0 in range(0, S, chunk):
+        t, c = checkpoint(_chunk_nll, embed_params, x[:, s0:s0 + chunk],
+                          labels[:, s0:s0 + chunk], mask[:, s0:s0 + chunk],
+                          use_reentrant=False)
+        tot, cnt = tot + t, cnt + c
+    return tot / cnt.clamp_min(1.0)

@@ -9,15 +9,20 @@ MiniCPM3-4B), of Mamba-2 (``MAMBA2``) and of RG-LRU blocks beside
 local attention (``RGLRU``, RecurrentGemma-2B's hybrid stack), and the
 encoder-decoder Whisper large-v3 (``is_encoder_decoder``: a non-causal
 encoder over stubbed audio frames, ``batch["frames"]`` (B, T, d), and a
-decoder whose every layer adds cross-attention to the encoder's output);
-GQA slot caches may be int8 with bf16 scales (``cfg.kv_quant``; MLA
-caches ignore it, as in the reference).  The stack is grouped
-into *stages*, maximal runs of layers with identical (kind, is_moe)
+decoder whose every layer adds cross-attention to the encoder's output),
+and InternVL2's vision prefix (``vision_stub``: ``batch["patch_embeds"]``
+(B, P, d) go before the token embeddings, positions count both, labels
+only the tokens); GQA slot caches may be int8 with bf16 scales
+(``cfg.kv_quant``; MLA caches ignore it, as in the reference).  The
+stack is grouped into *stages*, maximal runs of layers with identical (kind, is_moe)
 structure, each stage's per-layer parameters stacked on a leading axis;
 a stage runs as a Python loop over that axis (the reference's
 ``lax.scan``).  Other kinds and options raise ``NotImplementedError``
 naming the ``ROADMAP.md`` item that ports them.
 
+    forward_hidden(params, batch, cfg, mode=) -> (hidden, aux, caches,
+                                                 n_prefix)
+    loss_fn(params, batch, cfg)             -> mean next-token NLL
     prefill(params, batch, cfg, max_len)    -> (last_logits, cache)
     prefill_chunk(params, tokens, cfg, cache) -> (last_logits, cache)
     decode_step(params, tokens, cache, cfg) -> (logits, cache)
@@ -30,10 +35,20 @@ stages add ``cross_k``/``cross_v`` (L, B, T, H, hd), the encoder's keys
 and values, written once by ``prefill``).  ``prefill_chunk`` and
 ``decode_step`` update the cache they are given in place and return it
 with the new positions; ``prefill`` builds a new one.
+
+Training (``mode="train"``, ``loss_fn``) runs with autograd: attention
+through the flash kernel's autograd Function (its backward kernel),
+layer bodies under ``torch.utils.checkpoint`` when ``cfg.remat`` (one
+layer at a time, or groups of ``cfg.remat_group`` layers, as the
+reference's ``jax.checkpoint``), the loss by ``chunked_ce_loss``.  It
+trains dense GQA stacks (full or windowed attention, text or vision
+prefix); ``check_trainable`` refuses the others by their ROADMAP item.
+The serving entry points run under ``torch.no_grad``.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import (ATTN, ATTN_LOCAL, ATTN_MLA, MAMBA2,
                                       RGLRU, ModelConfig)
@@ -41,7 +56,8 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import dtype_of, embed, mlp, rmsnorm, unembed
+from repro_torch.models.layers import (chunked_ce_loss, dtype_of, embed, mlp,
+                                       rmsnorm, unembed)
 
 
 def check_ported(cfg: ModelConfig) -> None:
@@ -50,10 +66,29 @@ def check_ported(cfg: ModelConfig) -> None:
         if kind not in (ATTN, ATTN_LOCAL, ATTN_MLA, MAMBA2, RGLRU):
             raise NotImplementedError(f"{cfg.name}: layer kind {kind!r} is "
                                       "not ported")
-    if cfg.frontend not in ("text", "audio_stub"):
+    if cfg.frontend not in ("text", "audio_stub", "vision_stub"):
         raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} frontend "
-                                  "(ROADMAP.md Queue A item 6g) is not "
-                                  "ported")
+                                  "is not ported")
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Training takes dense GQA stacks (full or windowed attention, text
+    or vision prefix); the others raise ``NotImplementedError`` naming the
+    ROADMAP.md Queue A item that ports their gradient."""
+    check_ported(cfg)
+    kinds = set(cfg.layer_kinds())
+    for cond, what, item in (
+            (cfg.moe is not None, "MoE (its aux loss and the dispatch's "
+             "gradient)", "11a"),
+            (ATTN_MLA in kinds, "MLA", "11b"),
+            (RGLRU in kinds, "RG-LRU", "11c"),
+            (MAMBA2 in kinds, "Mamba-2 (its SSD kernel has no backward)",
+             "11d"),
+            (cfg.is_encoder_decoder, "the encoder-decoder", "11e")):
+        if cond:
+            raise NotImplementedError(
+                f"{cfg.name}: training {what} is not ported (ROADMAP.md "
+                f"Queue A item {item})")
 
 
 # ---------------------------------------------------------------------------
@@ -83,6 +118,19 @@ def layer_params(tree, i):
     if isinstance(tree, dict):
         return {k: layer_params(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def unbind_layers(tree):
+    """The per-layer trees of a stage's stacked tree, from one ``unbind``
+    per leaf.  Under autograd the gradients of the layers then come back
+    as one ``stack`` per leaf, where indexing layer by layer
+    (``layer_params``) would give each layer's gradient a zero-filled
+    copy of the whole stacked leaf to add up."""
+    if not isinstance(tree, dict):
+        return tree.unbind(0)
+    per_key = {k: unbind_layers(v) for k, v in tree.items()}
+    n = len(next(iter(per_key.values())))
+    return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
 
 
 def _stack(entries):
@@ -159,15 +207,33 @@ def _fit_cache_seq(arr, S_cache):
 
 
 def _run_stage(stage_params, x, cfg, kind, moe_flag, count, positions, *,
-               causal=True, enc_out=None, want_cache=False):
-    """The stage's layers in order; returns (x, stacked caches or None)."""
-    caches = []
-    for i in range(count):
-        x, cache = _block_forward(layer_params(stage_params, i), x, cfg,
-                                  kind, moe_flag, positions, causal=causal,
-                                  enc_kv=enc_out, want_cache=want_cache)
-        caches.append(cache)
-    return x, _stack(caches) if want_cache else None
+               causal=True, enc_out=None, want_cache=False, remat=False):
+    """The stage's layers in order; returns (x, stacked caches or None).
+    ``remat`` (training): each layer body under ``checkpoint``, or each
+    group of ``cfg.remat_group`` layers when the group divides the stage
+    and is smaller than it (the reference's grouped remat), so the
+    backward saves only the group's input and reruns its forward."""
+    per_layer = unbind_layers(stage_params)
+
+    def layers(x, lo, hi):
+        caches = []
+        for i in range(lo, hi):
+            x, cache = _block_forward(per_layer[i], x, cfg,
+                                      kind, moe_flag, positions,
+                                      causal=causal, enc_kv=enc_out,
+                                      want_cache=want_cache)
+            caches.append(cache)
+        return x, caches
+
+    if not remat:
+        x, caches = layers(x, 0, count)
+        return x, _stack(caches) if want_cache else None
+    G = cfg.remat_group
+    step = G if G > 1 and count % G == 0 and count > G else 1
+    for lo in range(0, count, step):
+        x = checkpoint(lambda h, lo=lo: layers(h, lo, lo + step)[0], x,
+                       use_reentrant=False)
+    return x, None
 
 
 # ---------------------------------------------------------------------------
@@ -198,30 +264,67 @@ def encode(params, frames, cfg):
 
 
 # ---------------------------------------------------------------------------
-# Full forward -> hidden states
+# The vision frontend (a stub, as in the reference: patch embeddings come
+# precomputed)
 # ---------------------------------------------------------------------------
-@torch.no_grad()
-def forward_hidden(params, batch, cfg, *, want_cache=False):
-    """Causal forward of a text batch (an encoder-decoder's also takes
-    ``batch["frames"]``).  Returns (hidden (B,S,d), caches per stage, or
-    None per stage without ``want_cache``)."""
+def _embed_inputs(params, batch, cfg):
+    """(x (B, S, d), positions (B, S), n_prefix): a ``vision_stub`` batch's
+    ``patch_embeds`` (B, P, d) go first, then the token embeddings, and
+    positions run 0..S-1 over both; n_prefix = P (0 without patches)."""
+    dt = dtype_of(cfg)
+    x = embed(params["embed"], batch["tokens"]).to(dt)
+    n_prefix = 0
+    if cfg.frontend == "vision_stub":
+        patches = batch["patch_embeds"].to(dt)
+        x = torch.cat([patches, x], dim=1)
+        n_prefix = patches.shape[1]
+    B, S = x.shape[:2]
+    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    return x, positions, n_prefix
+
+
+# ---------------------------------------------------------------------------
+# Full forward -> hidden states, and the training loss
+# ---------------------------------------------------------------------------
+def forward_hidden(params, batch, cfg, *, mode="train", want_cache=False):
+    """Causal forward of a batch (an encoder-decoder's also takes
+    ``batch["frames"]``, a vision stack's ``batch["patch_embeds"]``).
+    Returns (hidden (B, S, d), aux, caches per stage (None per stage
+    without ``want_cache``), n_prefix).  ``mode="train"`` applies
+    ``cfg.remat``; autograd records whatever needs a gradient.  ``aux``
+    is the MoE load-balance loss, which only training reads: training
+    refuses MoE stacks (``check_trainable``), so it is zero."""
     check_ported(cfg)
-    tokens = batch["tokens"]
-    x = embed(params["embed"], tokens).to(dtype_of(cfg))
-    B, S = tokens.shape
-    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    x, positions, n_prefix = _embed_inputs(params, batch, cfg)
     enc_out = None
     if cfg.is_encoder_decoder:
         enc_out = encode(params, batch["frames"], cfg)
         x = x + _sinusoid(positions, cfg.d_model).to(x.dtype)
+    remat = cfg.remat and mode == "train" and not want_cache
     caches = []
     for i, (kind, moe_flag, count) in enumerate(model_stages(cfg)):
         x, cache = _run_stage(params["stages"][f"stage_{i}"], x, cfg, kind,
                               moe_flag, count, positions, enc_out=enc_out,
-                              want_cache=want_cache)
+                              want_cache=want_cache, remat=remat)
         caches.append(cache)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return x, caches
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux, caches, n_prefix
+
+
+def loss_fn(params, batch, cfg: ModelConfig):
+    """Mean next-token NLL over the tokens (the vision prefix's rows are
+    dropped; ``batch["mask"]`` optional), plus ``router_aux_coef`` times
+    the MoE aux loss.  Differentiable in ``params``."""
+    check_trainable(cfg)
+    hidden, aux, _, n_prefix = forward_hidden(params, batch, cfg,
+                                              mode="train")
+    if n_prefix:
+        hidden = hidden[:, n_prefix:]
+    nll = chunked_ce_loss(params["embed"], hidden, batch["labels"],
+                          mask=batch.get("mask"))
+    coef = cfg.moe.router_aux_coef if cfg.moe is not None else 0.0
+    return nll + coef * aux
 
 
 # ---------------------------------------------------------------------------
@@ -295,9 +398,10 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
 # ---------------------------------------------------------------------------
 @torch.no_grad()
 def prefill(params, batch, cfg: ModelConfig, max_len: int):
-    hidden, caches = forward_hidden(params, batch, cfg, want_cache=True)
+    hidden, _, caches, n_prefix = forward_hidden(
+        params, batch, cfg, mode="prefill", want_cache=True)
     logits = unembed(params["embed"], hidden[:, -1])
-    B, S = batch["tokens"].shape
+    B, S = hidden.shape[0], batch["tokens"].shape[1] + n_prefix
     cache = {"pos": torch.full((B,), S, dtype=torch.int32,
                                device=hidden.device), "stages": {}}
     for i, (kind, _moe, _count) in enumerate(model_stages(cfg)):

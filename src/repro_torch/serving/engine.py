@@ -29,6 +29,12 @@ has advanced over the iteration that ran its last chunk.  The engine
 exposes the replica protocol (``submit``/``step``/``clock``/``has_work``/
 ``advance_to``) of the cluster layer (DESIGN.md §7).
 
+A vision-language stack (``vision_stub``: InternVL2) runs on slots with
+whole-prompt prefill: each request carries one image's worth of stubbed
+patch embeddings, drawn with numpy from the request id exactly as the
+reference draws them, ahead of its prompt; its cache positions, and its
+decode, start at ``prompt_len`` plus the patches.
+
 The engine runs on ``cuda`` unless the caller passes ``device="cpu"``
 (the tests); on the CPU the kernels' plain versions run instead.
 """
@@ -121,6 +127,16 @@ class ServingEngine:
                 "encoder; run Whisper through models.prefill (with "
                 "batch['frames']) and models.decode_step")
         if backend == "paged":
+            if cfg.frontend == "vision_stub":
+                # the reference takes such a stack and scatters only the
+                # first prompt_len of its prompt_len + patches cache
+                # positions into pages
+                raise NotImplementedError(
+                    f"{cfg.name}: the paged backend does not hold the "
+                    "vision prefix (the JAX package's whole-prompt paged "
+                    "install scatters prompt_len positions of a cache "
+                    "that starts with the patches); serve it on "
+                    "backend='slots'")
             if len(model_stages(cfg)) > 1:
                 # the reference fails such a stack later, in its scan
                 raise NotImplementedError(
@@ -261,6 +277,7 @@ class ServingEngine:
         """Admission bookkeeping only — no model work happens here.  The
         prompt runs later through the shared chunk plan."""
         req._slot = slot
+        req._vlm_prefix = 0
         req._pcache = None            # slots backend: partial prefill cache
         req._pos = 0
         self.slots[slot] = req
@@ -286,10 +303,19 @@ class ServingEngine:
 
     def _prefill_whole(self, req: Request):
         """One-shot prompt prefill (stacks without incremental prefill, or
-        ``chunked=False``): one kernel launch per layer."""
-        logits, req._pcache = prefill(
-            self.params, {"tokens": self._tokens(req, 0, req.prompt_len)},
-            self.cfg, self.max_len)
+        ``chunked=False``): one kernel launch per layer.  A vision stack's
+        request gets its stubbed patches first: standard normals from
+        ``default_rng(rid)``, drawn in f64 with numpy as the reference
+        draws them, cast to the model dtype on the device."""
+        batch = {"tokens": self._tokens(req, 0, req.prompt_len)}
+        if self.cfg.frontend == "vision_stub":
+            patches = np.random.default_rng(req.rid).standard_normal(
+                (1, self.cfg.n_frontend_tokens, self.cfg.d_model))
+            batch["patch_embeds"] = torch.from_numpy(patches).to(
+                self.device, dtype_of(self.cfg))
+            req._vlm_prefix = self.cfg.n_frontend_tokens
+        logits, req._pcache = prefill(self.params, batch, self.cfg,
+                                      self.max_len)
         return logits[0]
 
     def _prefill_chunk_slots(self, req: Request, start: int, chunk: int):
@@ -402,12 +428,12 @@ class ServingEngine:
             for key, stage in self.cache["stages"].items():
                 for name, dst in stage.items():
                     dst[:, slot] = req._pcache["stages"][key][name][:, 0]
-            self.cache["pos"][slot] = req.prompt_len
+            self.cache["pos"][slot] = req.prompt_len + req._vlm_prefix
         req._pcache = None
         req._next_token = int(np.argmax(row))
         if self.keep_first_logits:
             req._first_row = np.asarray(row, np.float32)
-        req._pos = req.prompt_len
+        req._pos = req.prompt_len + req._vlm_prefix
 
     # -- decode -------------------------------------------------------------------
     def _decode_slots(self, tokens_np):

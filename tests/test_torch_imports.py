@@ -26,7 +26,11 @@ for name in ("repro_torch.serving.prefix_cache", "repro_torch.core.simulator",
              "repro_torch.serving.cluster", "repro_torch.configs.starcoder2_7b",
              "repro_torch.models.rglru",
              "repro_torch.configs.recurrentgemma_2b",
-             "repro_torch.configs.whisper_large_v3"):
+             "repro_torch.configs.whisper_large_v3",
+             "repro_torch.configs.internvl2_76b",
+             "repro_torch.training.optim", "repro_torch.training.trainer",
+             "repro_torch.training.checkpoint", "repro_torch.training.data",
+             "repro_torch.launch.train"):
     assert name in names, name
 assert not any(k == "jax" or k.startswith(("jax.", "repro."))
                for k, v in sys.modules.items() if v is not None)

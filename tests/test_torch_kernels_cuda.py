@@ -626,3 +626,109 @@ def test_mla_latent_attention_bmm(cuda):
     ok, err = within(out, plain, (1e-5, 2 ** -8 * float(
         c.float().abs().max())))
     assert ok, err
+
+
+# ---------------------------------------------------------------------------
+# the flash backward (csrc/flash_attention_bwd.cu) and the forward's lse
+# ---------------------------------------------------------------------------
+# f32: both sides sum in f32 in other orders, max |kernel - plain| within
+# 1e-4 of the largest |plain|; bf16: both widen the same bf16 inputs to
+# f32 and round once, so within one bf16 step of the largest |plain|
+BWD_REL = {torch.float32: 1e-4}
+LSE_TOL = 2e-5                   # f32 lse: |kernel - plain| <= tol (1 + |lse|)
+
+
+def bf16_step(x):
+    """One bf16 step (unit in the last place) at the largest |x|."""
+    return 2.0 ** (np.floor(np.log2(x.float().abs().max().item())) - 7)
+
+
+def bwd_within(got, want):
+    d = (got.float() - want.float()).abs().max().item()
+    if got.dtype == torch.bfloat16:
+        return d <= bf16_step(want), d / bf16_step(want)
+    return d <= BWD_REL[got.dtype] * want.float().abs().max().item(), \
+        d / want.float().abs().max().item()
+
+
+def bwd_case(device, Sq, Skv, Hq, Hkv, D, Dv, dtype, seed, B=2):
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((B, n, h, d))
+                                    .astype(np.float32)).to(device, dtype)
+                   for n, h, d in ((Sq, Hq, D), (Skv, Hkv, D), (Skv, Hkv, Dv),
+                                   (Sq, Hq, Dv)))
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("S,Hq,Hkv,D,Dv,causal,window", [
+    (256, 8, 2, 64, 64, True, 0),            # Granite-3-2B's G = 4, D = 64
+    (200, 8, 1, 128, 128, True, 0),          # ragged, G = 8, D = 128
+    (130, 9, 1, 32, 32, True, 40),           # StarCoder2's G = 9, windowed
+    (100, 4, 4, 96, 64, True, 0),            # D != Dv (MLA's 96 / 64)
+    (96, 4, 2, 64, 64, False, 0),            # full
+    (150, 4, 2, 64, 64, False, 33),          # windowed, not causal
+    ((64, 300), 4, 4, 64, 64, False, 0),     # Sq < Skv (cross-attention)
+    ((90, 40), 4, 2, 32, 32, True, 0),       # Sq > Skv
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_kernel_matches_plain(cuda, S, Hq, Hkv, D, Dv, causal,
+                                             window, dtype):
+    Sq, Skv = S if isinstance(S, tuple) else (S, S)
+    q, k, v, do = bwd_case(cuda, Sq, Skv, Hq, Hkv, D, Dv, dtype, Sq + D)
+    out, lse = fa.flash_attention_kernel(q, k, v, causal=causal,
+                                         window=window, return_lse=True)
+    p_out, p_lse = fa.flash_attention_plain(q, k, v, causal=causal,
+                                            window=window, return_lse=True)
+    before = dict(fa.LAUNCHES)
+    grads = fa.flash_attention_bwd_kernel(q, k, v, out, lse, do,
+                                          causal=causal, window=window)
+    torch.cuda.synchronize()
+    variant = "bf16" if dtype == torch.bfloat16 else "f32"
+    assert fa.LAUNCHES["flash_attention_bwd"] == \
+        before["flash_attention_bwd"] + 1
+    assert fa.LAUNCHES[f"flash_attention_bwd:{variant}"] == \
+        before[f"flash_attention_bwd:{variant}"] + 1
+    assert (lse - p_lse).abs().max().item() <= \
+        LSE_TOL * (1 + p_lse.abs().max().item())
+    plain = fa.flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                         causal=causal, window=window)
+    for name, got, want in zip(("dq", "dk", "dv"), grads, plain):
+        assert got.dtype == dtype and got.shape == want.shape, name
+        ok, ratio = bwd_within(got, want)
+        assert ok, (name, ratio)
+
+
+def test_flash_autograd_through_the_kernels(cuda):
+    """The autograd Function on CUDA tensors launches the forward (with
+    lse) and the backward kernel, and its gradients are the plain
+    versions'."""
+    q, k, v, do = bwd_case(cuda, 192, 192, 8, 2, 64, 64, torch.float32, 3)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    before = dict(fa.LAUNCHES)
+    out = fa.flash_attention_train(q, k, v, causal=True)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    assert fa.LAUNCHES["flash_attention_bwd"] == \
+        before["flash_attention_bwd"] + 1
+    with torch.no_grad():
+        p_out, p_lse = fa.flash_attention_plain(q, k, v, return_lse=True)
+        plain = fa.flash_attention_bwd_plain(q, k, v, p_out, p_lse, do)
+    for got, want in zip(grads, plain):
+        ok, ratio = bwd_within(got, want)
+        assert ok, ratio
+
+
+def test_flash_backward_refuses_and_runs_no_plain_version(cuda,
+                                                          monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(fa, "flash_attention_bwd_plain", boom)
+    q = torch.zeros((1, 16, 2, 256), device=cuda, dtype=torch.bfloat16)
+    lse = torch.zeros((1, 16, 2), device=cuda)
+    with pytest.raises(ValueError, match="above 128"):
+        fa.flash_attention_bwd_kernel(q, q, q, q, lse, q)
+    q = torch.zeros((1, 16, 2, 64), device=cuda, dtype=torch.float16)
+    with pytest.raises(ValueError, match="dtype"):
+        fa.flash_attention_bwd_kernel(q, q, q, q, lse, q)

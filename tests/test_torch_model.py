@@ -13,9 +13,9 @@ local attention, MQA at head dim 32 in the smoke config) with
 stacks under ``moe_impl`` ``dense`` and ``dispatch``, and Mamba-2 (the
 SSD scan's plain version); RecurrentGemma's forward and its decode past
 the window held to the reference's logits; decode consistency of the
-port on its own; and the stacks it refuses (MLA, RG-LRU and Whisper's
-encoder-decoder serve since their ports: their cases now build the
-stack)."""
+port on its own; and the stacks it refuses (MLA, RG-LRU, Whisper's
+encoder-decoder and InternVL2's vision prefix serve since their ports:
+their cases now build the stack)."""
 import dataclasses
 
 import jax
@@ -221,7 +221,8 @@ def test_recurrentgemma_logits_match_reference():
     toks = tokens(jcfg, 2, S, seed=21)
     jh = j_forward_hidden(jp, {"tokens": jnp.asarray(toks)}, jcfg,
                           mode="prefill")[0]
-    th, _ = tm.forward_hidden(tp, {"tokens": torch.from_numpy(toks)}, tcfg)
+    th, _, _, _ = tm.forward_hidden(tp, {"tokens": torch.from_numpy(toks)},
+                                    tcfg)
     np.testing.assert_allclose(th.numpy(), np.asarray(jh), atol=LOGIT_TOL,
                                rtol=LOGIT_TOL)
     jfull = j_unembed(jp["embed"], jh[:, -1])
@@ -242,12 +243,13 @@ def test_recurrentgemma_logits_match_reference():
 
 
 @pytest.mark.parametrize("arch,item", [
-    # MLA (item 6c), RG-LRU (item 6f) and the encoder-decoder (item 6e)
-    # are ported: their cases build the cache and the weights
+    # MLA (item 6c), RG-LRU (item 6f), the encoder-decoder (item 6e) and
+    # the vision prefix (item 6g) are ported: their cases build the cache
+    # and the weights
     pytest.param("minicpm3-4b", None, id="minicpm3-4b-6c"),
     pytest.param("recurrentgemma-2b", None, id="recurrentgemma-2b-6"),
     pytest.param("whisper-large-v3", None, id="whisper-large-v3-6e"),
-    ("internvl2-76b", "6g"),
+    pytest.param("internvl2-76b", None, id="internvl2-76b-6g"),
 ])
 def test_unported_stacks_raise(arch, item):
     cfg = port_config(SMOKE_FACTORIES[arch]())
@@ -273,6 +275,17 @@ def test_unported_stacks_raise(arch, item):
                                                         "ln2"]
             assert enc["stages"]["stage_0"]["attn"]["wq"].shape[0] == \
                 cfg.n_encoder_layers
+            return
+        if cfg.frontend == "vision_stub":
+            # the patches need no cache or weights of their own: a dense
+            # GQA stack whose cache holds patches and tokens alike
+            L, hd = cfg.n_layers, cfg.resolved_head_dim()
+            assert shapes == {n: (L, 1, 16, cfg.n_kv_heads, hd)
+                              for n in ("k", "v")}
+            assert sorted(attn) == ["wk", "wo", "wq", "wv"]
+            assert sorted(params["stages"]["stage_0"]) == ["attn", "ffn",
+                                                           "ln1", "ln2"]
+            assert sorted(params["embed"]) == ["head", "table"]
             return
         if cfg.mla is not None:
             m = cfg.mla
