@@ -36,14 +36,16 @@ The quickest proof that the port builds and serves on an NVIDIA H100:
      frames and cross-attention of 64 prompt rows over them (Sq != Skv)
      in bf16 and f32;
    - the flash backward (``csrc/flash_attention_bwd.cu``: delta, dK/dV,
-     dQ) at run P's shape (Granite-3-2B: B 4, S 2048, 32 query heads
-     over 8 kv heads of 64, causal) and at Llama-2-7B's (B 1, S 4096, 32
-     heads of 128), bf16 and f32, fed the forward kernel's output and
-     lse (the lse held to the plain forward's), against
-     ``flash_attention_bwd_plain`` (f32: 1e-4 of the largest gradient;
-     bf16: one bf16 step of it), timed beside the backward of
-     ``scaled_dot_product_attention`` and the forward; head dim 256
-     refused by name;
+     dQ; bf16 on the tensor cores, f32 on the FMA units) at run P's
+     shape (Granite-3-2B: B 4, S 2048, 32 query heads over 8 kv heads of
+     64, causal) and at Llama-2-7B's (B 1, S 4096, 32 heads of 128),
+     bf16 and f32, and at RecurrentGemma-2B's (B 1, S 4096, 10 query
+     heads over one kv head of 256, window 2048) in bf16, fed the
+     forward kernel's output and lse (the lse held to the plain
+     forward's), against ``flash_attention_bwd_plain`` (f32: 1e-4 of the
+     largest gradient; bf16: one bf16 step of it), timed beside the
+     backward of ``scaled_dot_product_attention`` and the forward; f32
+     above head dim 128 and bf16 above 256 refused by name;
    - the SSD scan at Mamba-2-2.7B's shape (H = 80, P = 64, G = 1, N =
      128, chunk 128): S = 128, 1024 and 1000 with bf16 and f32 x, S = 4096
      with bf16 x (2560 blocks, 32 chunks chained per head), and S = 1000
@@ -161,8 +163,11 @@ The quickest proof that the port builds and serves on an NVIDIA H100:
         synthetic Markov stream; step 0's loss against ``loss_fn`` with
         the plain attention on the same weights and batch (within 1e-2),
         the loss falling, flash forward launched 2 x 40 x 8 times (the
-        forward and its recompute under remat) and the backward 40 x 8;
-        step times, tokens/s, peak memory and one profiled step;
+        forward and its recompute under remat) and the backward's
+        tensor-core variant 40 x 8; step times, tokens/s, peak memory and
+        one profiled step (with the device time of the optimizer's
+        ``adamw_update`` label and of the backward kernels, and the
+        update profiled alone);
    runs D, F, G, L, M and O decode over their slot caches through the
    split-K paged kernels (once per attention layer and decode step,
    asserted), and their decode steps, and K's, take less extra memory
@@ -177,10 +182,10 @@ The quickest proof that the port builds and serves on an NVIDIA H100:
    runs A, B and D-P must go through the tensor-core (``mma``) variants
    of their forward kernels and launch no ``fma`` variant, and no kernel
    a run does not expect (the backward only in run P);
-4. a ``kernels`` JSON line (the four ports of the Pallas kernels and the
-   flash backward; launches per variant beside the totals), the
-   nvidia-smi line, and last the result line ``{"ok": true, "device":
-   {...}}``.
+4. a ``seconds`` line (wall time of each phase), the nvidia-smi line, a
+   ``kernels`` JSON line (the four ports of the Pallas kernels and the
+   flash backward; launches per variant beside the totals), and last the
+   result line ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero; no phase catches an error and goes on.
 Without a CUDA device it exits 2 before printing any result.  TF32 is
@@ -201,6 +206,7 @@ import subprocess
 import sys
 import time
 from collections import Counter, defaultdict
+from typing import Dict
 
 import numpy as np
 
@@ -267,6 +273,12 @@ BWD_BF16_STEPS = 1
 LSE_TOL = 2e-5                     # f32 lse: |d| <= tol (1 + max |lse|)
 
 
+# wall seconds: each phase of main, each run group of the engine phase
+# (``engine/<runs>``), and the profile windows and reference checks summed
+# over all runs; printed as the ``seconds`` line
+SECONDS: Dict[str, float] = defaultdict(float)
+
+
 def fail(msg: str):
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
     sys.exit(1)
@@ -313,22 +325,39 @@ def main() -> int:
     d256 = {k: v for kernels in ptxas.values() for k, v in kernels.items()
             if "<256" in k or "<(int)256" in k}
     check(d256, "build: no head-dim-256 instantiation in the ptxas report")
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+    # the backward's instantiations in full; its tensor-core kernels below
+    # head dim 256 spill nothing
+    bwd = ptxas["flash_attention_bwd"]
+    spilled = [k for k, v in bwd.items() if "mma" in k and "256" not in k
+               and v["spill_stores"] + v["spill_loads"]]
+    check(not spilled, f"build: backward kernels spill: {spilled}")
+    SECONDS["build"] = time.perf_counter() - t0
+    emit({"phase": "build", "seconds": SECONDS["build"],
           "libraries": built, "ptxas_registers": regs,
           "ptxas_spill_bytes": spills, "ptxas_d256": d256,
+          "ptxas_flash_attention_bwd": bwd,
           "tile_smem_bytes": tile_smem_bytes(),
           "ssd_scan:mma": importlib.import_module(
               "repro_torch.kernels.ssd_scan").mma_attrs()})
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-    kernel_rows = kernel_phase(torch, flush)
-    kernel_rows.update(flash_phase(torch, flush))
-    kernel_rows.update(flash_bwd_phase(torch, flush))
-    kernel_rows.update(ssd_phase(torch, flush))
-    kernel_rows["paged_attention_splitk"]["slot_int8_decode"] = \
-        slot_attention_phase(torch, flush)
-    engine_phase(torch, kernel_rows)
 
+    def timed(phase, fn, *args):
+        t = time.perf_counter()
+        out = fn(torch, *args)
+        SECONDS[phase] = time.perf_counter() - t
+        return out
+
+    kernel_rows = timed("paged_kernels", kernel_phase, flush)
+    kernel_rows.update(timed("flash", flash_phase, flush))
+    kernel_rows.update(timed("flash_bwd", flash_bwd_phase, flush))
+    kernel_rows.update(timed("ssd", ssd_phase, flush))
+    kernel_rows["paged_attention_splitk"]["slot_int8_decode"] = \
+        timed("slot_attention", slot_attention_phase, flush)
+    timed("engine_runs", engine_phase, kernel_rows)
+    SECONDS["total"] = time.perf_counter() - t0
+
+    emit({"phase": "seconds", **SECONDS})
     print(smi, flush=True)
     emit({"kernels": list(kernel_rows.values())})
     emit({"ok": True, "device": {"platform": "gpu",
@@ -339,14 +368,18 @@ def main() -> int:
 
 def tile_smem_bytes():
     """Dynamic shared memory of one block of each tensor-core kernel at
-    the serving head dims 128 and 256, from the libraries' own size
-    functions; each under the 227 KB (232 448 B) a block may take."""
+    head dims 128 and 256 (the backward's dK/dV and dQ kernels too), from
+    the libraries' own size functions; each under the 227 KB (232 448 B)
+    a block may take."""
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
     pa = importlib.import_module("repro_torch.kernels.paged_attention")
     out = {}
     for d in (128, 256):
         out[f"flash_attention:mma/d{d}"] = \
             fa._lib().flash_attention_mma_smem_bytes(d, d)
+        for kernel, what in ((0, "dkdv"), (1, "dq")):
+            out[f"flash_attention_bwd:mma/{what}/d{d}"] = \
+                fa._bwd_lib().flash_attention_bwd_smem_bytes(d, d, 1, kernel)
         for quant, pools in ((0, "bf16"), (1, "int8")):
             for thin, walk in ((0, "tensor-core walk"), (1, "one-row walk")):
                 out[f"paged_attention:mma/{pools}/{walk}/d{d}"] = \
@@ -867,11 +900,15 @@ def flash_bwd_phase(torch, flush):
     against ``flash_attention_bwd_plain`` on the card, at run P's shape
     (Granite-3-2B: B 4, S 2048, 32 query heads over 8 kv heads of 64,
     causal) and at Llama-2-7B's (B 1, S 4096, 32 heads of 128), in bf16
-    and f32, each fed the forward kernel's output and lse; the lse
-    itself against the plain forward's.  Library yardstick: the backward
-    of ``scaled_dot_product_attention`` through autograd (its forward run
-    once, outside the timing).  The kernels line carries the Granite bf16
-    case, run P's."""
+    (the ``mma`` variant) and f32 (``fma``), and at RecurrentGemma-2B's
+    local attention (B 1, S 4096, 10 query heads over one kv head of
+    256, window 2048, causal) in bf16 (f32 stops at head dim 128), each
+    fed the forward kernel's output and lse; the lse itself against the
+    plain forward's.  Library yardstick: the backward of
+    ``scaled_dot_product_attention`` through autograd (its forward run
+    once, outside the timing; the window as a boolean mask).  The
+    kernels line carries the Granite bf16 case, run P's.  Head dims past
+    a variant's tiles are refused by name."""
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
     F = torch.nn.functional
     dev = torch.device("cuda")
@@ -879,31 +916,35 @@ def flash_bwd_phase(torch, flush):
            "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
            "replaces": "src/repro/models/attention.py:205",
            "max_abs_err": 0.0}
-    # (name, B, S, Hq, Hkv, D)
-    cases = [("granite_B4_S2048_gqa4_d64", 4, 2048, 32, 8, 64),
-             ("llama_B1_S4096_d128", 1, 4096, 32, 32, 128)]
-    for ci, (name, B, S, Hq, Hkv, D) in enumerate(cases):
-        for dt in ("bfloat16", "float32"):
+    # (name, B, S, Hq, Hkv, D, window, dtypes): f32 stops at D = 128
+    both = ("bfloat16", "float32")
+    cases = [("granite_B4_S2048_gqa4_d64", 4, 2048, 32, 8, 64, 0, both),
+             ("llama_B1_S4096_d128", 1, 4096, 32, 32, 128, 0, both),
+             ("rgemma_B1_S4096_gqa10_d256_window2048", 1, 4096, 10, 1, 256,
+              2048, ("bfloat16",))]
+    for ci, (name, B, S, Hq, Hkv, D, window, dtypes) in enumerate(cases):
+        for dt in dtypes:
             g = torch.Generator(device=dev).manual_seed(SEED + 300 + ci)
             dtype = getattr(torch, dt)
             q, k, v, do = (torch.randn(B, S, h, D, generator=g,
                                        device=dev).to(dtype)
                            for h in (Hq, Hkv, Hkv, Hq))
-            out, lse = fa.flash_attention_kernel(q, k, v, causal=True,
-                                                 return_lse=True)
-            _, p_lse = fa.flash_attention_plain(q, k, v, causal=True,
-                                                block_q=512, block_kv=512,
-                                                return_lse=True)
+            mask = dict(causal=True, window=window)
+            out, lse = fa.flash_attention_kernel(q, k, v, return_lse=True,
+                                                 **mask)
+            _, p_lse = fa.flash_attention_plain(q, k, v, block_q=512,
+                                                block_kv=512,
+                                                return_lse=True, **mask)
             lse_err = (lse - p_lse).abs().max().item()
             check(lse_err <= LSE_TOL * (1 + p_lse.abs().max().item()),
                   f"flash {name}/{dt}: forward lse off the plain version's "
                   f"by {lse_err}")
             grads = fa.flash_attention_bwd_kernel(q, k, v, out, lse, do,
-                                                  causal=True)
+                                                  **mask)
             torch.cuda.synchronize()
             plain = fa.flash_attention_bwd_plain(q, k, v, out, lse, do,
-                                                 causal=True, block_q=512,
-                                                 block_kv=512)
+                                                 block_q=512, block_kv=512,
+                                                 **mask)
             errs = {}
             for gname, got, want in zip(("dq", "dk", "dv"), grads, plain):
                 check(got.shape == want.shape and got.dtype == dtype,
@@ -917,8 +958,15 @@ def flash_bwd_phase(torch, flush):
                       f"(ratio {errs[gname][1]})")
             qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                           for t in (q, k, v))
-            o_lib = F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=Hkv != Hq)
+            if window:                 # the band as a boolean mask
+                pos = torch.arange(S, device=dev)
+                band = (pos[None] <= pos[:, None]) \
+                    & (pos[None] > pos[:, None] - window)
+                o_lib = F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=band, enable_gqa=Hkv != Hq)
+            else:
+                o_lib = F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=Hkv != Hq)
             dot = do.transpose(1, 2)
 
             def library():
@@ -927,7 +975,7 @@ def flash_bwd_phase(torch, flush):
 
             line = {"phase": "kernels", "kernel": "flash_attention_bwd",
                     "case": name, "dtype": dt, "B": B, "S": S, "Hq": Hq,
-                    "Hkv": Hkv, "D": D, "causal": True,
+                    "Hkv": Hkv, "D": D, "causal": True, "window": window,
                     "tolerance": (f"{BWD_BF16_STEPS} bf16 step of the "
                                   "largest |plain|" if dt == "bfloat16"
                                   else f"{BWD_F32_REL} x the largest "
@@ -936,20 +984,20 @@ def flash_bwd_phase(torch, flush):
                     "tol_ratio": max(r for _, r in errs.values()),
                     "lse_max_abs_err": lse_err,
                     "ms": time_ms(torch, lambda: fa.flash_attention_bwd_kernel(
-                        q, k, v, out, lse, do, causal=True), 10, flush),
+                        q, k, v, out, lse, do, **mask), 10, flush),
                     "plain_ms": time_ms(
                         torch, lambda: fa.flash_attention_bwd_plain(
-                            q, k, v, out, lse, do, causal=True, block_q=512,
-                            block_kv=512), 3, flush),
+                            q, k, v, out, lse, do, block_q=512,
+                            block_kv=512, **mask), 3, flush),
                     "library_ms": time_ms(torch, library, 10, flush),
                     "forward_ms": time_ms(torch, lambda: fa.flash_attention_kernel(
-                        q, k, v, causal=True, return_lse=True), 10, flush)}
+                        q, k, v, return_lse=True, **mask), 10, flush)}
             line["bound_ms"], line["bound_by"] = flash_bwd_bound(
-                S, S, Hq, Hkv, D, D, True, 0, dt, B)
+                S, S, Hq, Hkv, D, D, True, window, dt, B)
             if dt == "bfloat16":
                 line["ms_by_kernel"] = device_ms_by_kernel(
                     torch, lambda: fa.flash_attention_bwd_kernel(
-                        q, k, v, out, lse, do, causal=True), flush,
+                        q, k, v, out, lse, do, **mask), flush,
                     names=("flash_bwd",))
             emit(line)
             row["max_abs_err"] = max(row["max_abs_err"],
@@ -965,15 +1013,18 @@ def flash_bwd_phase(torch, flush):
                     "library_ms")}, shape=f"{name}/{dt}")
             del q, k, v, do, out, lse, p_lse, grads, plain, qt, kt, vt, o_lib
             torch.cuda.empty_cache()
-    # a head dim the backward's tiles do not take is refused by name
-    q = torch.zeros((1, 16, 1, 256), device=dev, dtype=torch.bfloat16)
-    try:
-        fa.flash_attention_bwd_kernel(q, q, q, q, torch.zeros(
-            (1, 16, 1), device=dev), q)
-        fail("flash backward: head dim 256 was not refused")
-    except ValueError as e:
-        check("above 128" in str(e), f"flash backward: head dim 256 refused "
-              f"without naming the limit: {e}")
+    # head dims a variant's tiles do not take are refused by name: f32
+    # above 128 (the FMA kernels), bf16 above 256 (the tensor-core tiles)
+    for d, dt, limit in ((256, torch.float32, 128),
+                         (264, torch.bfloat16, 256)):
+        q = torch.zeros((1, 16, 1, d), device=dev, dtype=dt)
+        try:
+            fa.flash_attention_bwd_kernel(q, q, q, q, torch.zeros(
+                (1, 16, 1), device=dev), q)
+            fail(f"flash backward: {dt} at head dim {d} was not refused")
+        except ValueError as e:
+            check(f"above {limit}" in str(e), f"flash backward: {dt} at "
+                  f"head dim {d} refused without naming the limit: {e}")
     return {"flash_attention_bwd": row}
 
 
@@ -1564,6 +1615,13 @@ def engine_phase(torch, kernel_rows):
         **{"flash_attention:mma": "per_layer_prefill",
            "paged_attention_splitk:mma": "per_layer_decode"})
     runs = {}                         # run -> its launch counts
+    last = [time.perf_counter()]
+
+    def lap(group):                   # wall seconds of a group of runs
+        now = time.perf_counter()
+        SECONDS[f"engine/{group}"] = now - last[0]
+        last[0] = now
+
     llama = setup(torch, "llama2-7b")
     tok_a, first_a, runs["A"], _ = serve(torch, "A", llama, 512, False,
                                          dict(paged, **splitk_mma),
@@ -1620,6 +1678,7 @@ def engine_phase(torch, kernel_rows):
                            chunked=False))
     del llama, quant
     torch.cuda.empty_cache()
+    lap("A-D,J,L")
 
     mamba = setup(torch, "mamba2-2.7b")
     _, _, runs["E"], _ = serve(torch, "E", mamba, MAX_LEN_SLOTS, False,
@@ -1632,6 +1691,7 @@ def engine_phase(torch, kernel_rows):
     del mamba
     gc.collect()
     torch.cuda.empty_cache()
+    lap("E")
 
     # the MoE stacks: whole-prompt prefill through the flash kernel,
     # decode through the paged kernels over the slot caches
@@ -1651,6 +1711,7 @@ def engine_phase(torch, kernel_rows):
     del deepseek
     gc.collect()
     torch.cuda.empty_cache()
+    lap("F")
 
     mixtral = setup(torch, "mixtral-8x7b", n_layers=MIXTRAL_LAYERS)
     window = mixtral[0].window
@@ -1673,6 +1734,7 @@ def engine_phase(torch, kernel_rows):
     del mixtral
     gc.collect()
     torch.cuda.empty_cache()
+    lap("G")
 
     # StarCoder2-7B: G = 9 through the paged kernels at full width
     starcoder = setup(torch, "starcoder2-7b")
@@ -1691,6 +1753,7 @@ def engine_phase(torch, kernel_rows):
     del starcoder
     gc.collect()
     torch.cuda.empty_cache()
+    lap("H,I")
 
     # MiniCPM3-4B: MLA, whole-prompt prefill through flash at D = 96 /
     # Dv = 64, absorbed latent decode (torch.bmm, no paged kernel)
@@ -1717,6 +1780,7 @@ def engine_phase(torch, kernel_rows):
     del minicpm
     gc.collect()
     torch.cuda.empty_cache()
+    lap("K")
 
     # RecurrentGemma-2B: 18 RG-LRU layers (PyTorch operations, no kernel)
     # beside 8 local-attention layers of 10 query heads over one kv head
@@ -1746,10 +1810,12 @@ def engine_phase(torch, kernel_rows):
     del rgemma
     gc.collect()
     torch.cuda.empty_cache()
+    lap("M")
 
     # Whisper large-v3: the encoder and cross-attention through flash
     # (Sq != Skv), decode through split-K over pages of 16 and of 4
     runs["N"] = whisper_run(torch)
+    lap("N")
 
     # InternVL2-76B (32 of 80 layers): 256 stubbed patches ahead of every
     # prompt, whole-prompt prefill through flash at Sq = 256 + prompt,
@@ -1761,10 +1827,12 @@ def engine_phase(torch, kernel_rows):
     del vlm
     gc.collect()
     torch.cuda.empty_cache()
+    lap("O")
 
     # Granite-3-2B training at full width and depth: flash forward (with
     # lse) and its recompute under remat, the flash backward kernel
     runs["P"] = train_run(torch)
+    lap("P")
 
     emit({"phase": "engine", "launches_by_run": {
         run: {k: n for k, n in r.items() if n} for run, r in runs.items()}})
@@ -1835,11 +1903,13 @@ def train_run(torch):
     attention (``attn_impl="naive"``) on the same weights and batch; the
     loss after the last step below step 0's; flash forward launched 2 x
     40 x 8 times (the forward and its recompute under remat), the
-    backward 40 x 8, nothing else of the port (the backward kernel at a
-    layer's shapes is held to its plain version in the kernel phase:
-    ``granite_B4_S2048_gqa4_d64``).  Reports step times
-    (median after the first), tokens/s, peak memory and one profiled
-    step.  Returns the run's launch counts."""
+    backward's ``mma`` variant 40 x 8, nothing else of the port (the
+    backward kernel at a layer's shapes is held to its plain version in
+    the kernel phase: ``granite_B4_S2048_gqa4_d64``).  Reports step
+    times (median after the first), tokens/s, peak memory and one
+    profiled step, with the device ms of the ``adamw_update`` label and
+    of the backward's kernels, and the update profiled alone.  Returns
+    the run's launch counts."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
@@ -1888,7 +1958,7 @@ def train_run(torch):
     want = {name: 0 for name in launches}
     want.update({"flash_attention": 2 * L * n, "flash_attention:mma": 2 * L * n,
                  "flash_attention_bwd": L * n,
-                 "flash_attention_bwd:bf16": L * n})
+                 "flash_attention_bwd:mma": L * n})
     loss = [v for _, v in losses]
     tokens = tc.batch * tc.seq_len
     emit({"phase": "train", "run": "P", "model": cfg.name,
@@ -1926,9 +1996,34 @@ def train_run(torch):
         step_fn(params, state, b1)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    # the optimizer's share, beside the backward's: the device time of
+    # the kernels launched under AdamW.update's record_function label,
+    # and the update alone, profiled by itself (the parameters stand in
+    # for their gradients: the same leaves, the same kernels).  The
+    # label's sum has read 177 to 328 ms between calls whose kernels
+    # summed the same, the update alone 177: the second is the measure.
+    adamw = [e for e in prof.key_averages() if e.key == "adamw_update"
+             and str(e.device_type).endswith("CPU")]
+    summary = profile_summary(prof, 1, wall_ms)
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof_alone:
+        opt.update(params, state, params)
+        torch.cuda.synchronize()
+    alone = profile_summary(prof_alone, 1, (time.perf_counter() - t0) * 1e3)
     emit({"phase": "profile", "run": "P", "window": "train_step",
-          "iterations": 1, "rows_per_iteration": tokens,
-          **profile_summary(prof, 1, wall_ms)})
+          "iterations": 1, "rows_per_iteration": tokens, **summary,
+          "adamw_update_device_ms": sum(
+              getattr(e, "device_time_total", getattr(e, "cuda_time_total",
+                                                      0.0))
+              for e in adamw) / 1e3,
+          "adamw_update_alone_device_ms": alone["device_ms_per_iteration"],
+          "adamw_update_alone_launches": alone[
+              "kernel_launches_per_iteration"],
+          "flash_bwd_device_ms": sum(
+              ms for name, ms in summary[
+                  "port_kernels_ms_per_iteration"].items()
+              if "flash_bwd" in name)})
+    check(adamw, "run P: no adamw_update label in the profiled step")
     del params, state, step_fn, opt, b1
     gc.collect()
     torch.cuda.empty_cache()
@@ -2084,8 +2179,7 @@ def whisper_run(torch):
         tok = logits.argmax(-1)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / 10
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(10):
             logits, _ = decode_step(params, tok, cache, cfg)
             tok = logits.argmax(-1)
@@ -2094,8 +2188,7 @@ def whisper_run(torch):
           "iterations": 10, "rows_per_iteration": 8,
           **profile_summary(prof, 10, wall_ms)})
     del cache
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         prefill(params, batches[1], cfg, MAX_LEN_WHISPER)
         torch.cuda.synchronize()
@@ -2354,6 +2447,7 @@ def decode_consistency(torch, params, cfg, n=300):
     with numpy as that test draws them."""
     from repro_torch.models.model import decode_step, prefill
 
+    t0 = time.perf_counter()
     rng = np.random.default_rng(SEED + 7)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, n))).to(
         "cuda")
@@ -2373,6 +2467,7 @@ def decode_consistency(torch, params, cfg, n=300):
     full, step = full.float()[0].cpu().numpy(), step.float()[0].cpu().numpy()
     rel = float(np.abs(step - full).max() / np.abs(full).max())
     same = int(np.argmax(step)) == int(np.argmax(full))
+    SECONDS["reference_checks"] += time.perf_counter() - t0
     emit({"phase": "decode_consistency", "model": cfg.name, "prompt_len": n,
           "moe_impl": cfg.moe_impl if cfg.moe else None,
           "max_rel_err": rel, "argmax_equal": same,
@@ -2402,6 +2497,7 @@ def profile_window(torch, run, eng, reqs, window="decode"):
     one reported) to count the copies made, by shape."""
     from torch.profiler import ProfilerActivity, profile
 
+    t_window = time.perf_counter()
     warm, steps = {"decode": (14, 10), "prefill": (1, 3) if run == "A"
                    else (0, 1)}[window]
     for r in reqs:
@@ -2420,8 +2516,13 @@ def profile_window(torch, run, eng, reqs, window="decode"):
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     n_log = len(eng.iter_log)
     shapes = window == "decode" and eng.cfg.mla is not None
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=shapes) as prof:
+    # CPU-side operator events only where a line reads them (an MLA
+    # stack's decode window: aten::bmm and the copies by shape): parsing
+    # them took most of a window's wall time (7 of 13.6 minutes of the
+    # smoke went to the windows with them on)
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU]
+                                            if shapes else [])
+    with profile(activities=activities, record_shapes=shapes) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             if window == "prefill":
@@ -2488,6 +2589,7 @@ def profile_window(torch, run, eng, reqs, window="decode"):
         check(sum(n for _, n, _ in logged) > 0,
               f"run {run}: the prefill window ran no prompt tokens")
     emit(line)
+    SECONDS["profile_windows"] += time.perf_counter() - t_window
     return line
 
 
@@ -2495,9 +2597,12 @@ def profile_summary(prof, steps, wall_ms):
     """A profiled window's device time, busy share, launches, the port's
     kernels and the top device kernels, per iteration (``steps`` of them,
     ``wall_ms`` each on the host clock)."""
+    # device kernels; a record_function label's span on the device
+    # timeline (a user annotation) is not one
     events = [e for e in prof.key_averages()
               if getattr(e, "device_type", None) is not None
-              and str(e.device_type).endswith("CUDA")]
+              and str(e.device_type).endswith("CUDA")
+              and not getattr(e, "is_user_annotation", False)]
 
     def dev_us(e):
         return getattr(e, "self_device_time_total",
@@ -2647,6 +2752,7 @@ def dense_check(torch, params, cfg, firsts, n=3, rids=None):
                                           model_stages, window_for)
     from repro_torch.models.rglru import rglru_prefill
 
+    t0 = time.perf_counter()
     worst = 0.0
     with torch.no_grad():
         for rid in rids or sorted(firsts)[:n]:
@@ -2687,6 +2793,7 @@ def dense_check(torch, params, cfg, firsts, n=3, rids=None):
                   "prompt_len": len(toks), "positions": S,
                   "max_rel_err": rel,
                   "argmax_equal": int(np.argmax(served)) == int(np.argmax(ref))})
+    SECONDS["reference_checks"] += time.perf_counter() - t0
     check(worst < DENSE_REL_TOL, f"{cfg.name}: served first-token logits "
           f"differ from the plain forward by {worst} (relative)")
 

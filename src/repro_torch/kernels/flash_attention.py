@@ -36,18 +36,21 @@ second hand-written kernel (``csrc/flash_attention_bwd.cu``, the port of
 the jnp ``_flash_core_bwd``): delta = rowsum(dO * O), then dK/dV per
 64-key tile over the G query heads of its kv head, then dQ per 64-row
 query tile, each recomputing P = exp(s - lse) under the forward's mask;
-f32 FMA for both types, head dims up to 128, no atomics.  Its plain
-version, ``flash_attention_bwd_plain``, walks the reference's block
-pairs.  ``O`` in delta is the output in q's dtype (the reference keeps
+no atomics.  Two variants, chosen by dtype: ``mma`` for bf16, on the
+tensor cores (bf16 tiles fed by cp.async, ``mma.sync`` products, P and
+dS as hi + lo bf16 terms), head dims up to 256; ``fma`` for f32, on the
+f32 FMA units, head dims up to 128.  Its plain version,
+``flash_attention_bwd_plain``, walks the reference's block pairs.
+``O`` in delta is the output in q's dtype (the reference keeps
 its f32 output for it: the same in f32, one bf16 rounding apart in bf16).
 
 A wrapper runs the plain version only when its tensors lie on the CPU
 (the tests).  On CUDA tensors it launches the kernel or raises; there is
 no fallback.  ``LAUNCHES`` counts kernel launches, in all and per variant
 (``flash_attention:mma``; a backward call, its three kernels, once as
-``flash_attention_bwd`` and once by input type,
-``flash_attention_bwd:bf16``), so a run can show that the prefill and
-training paths went through the kernels.
+``flash_attention_bwd`` and once by variant,
+``flash_attention_bwd:mma``), so a run can show that the prefill and
+training paths went through the kernels, and on which units.
 """
 from __future__ import annotations
 
@@ -64,14 +67,15 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = {torch.bfloat16: 256, torch.float32: 128}
 
 VARIANTS = {torch.bfloat16: "mma", torch.float32: "fma"}
-# the backward's largest head dim: its f32 tiles of 4 x 8 per thread
-MAX_BWD_HEAD_DIM = 128
-BWD_VARIANTS = {torch.bfloat16: "bf16", torch.float32: "f32"}
+# the backward's largest head dims: bf16 tensor-core tiles up to 256, the
+# f32 FMA kernels' 4 x 8 tiles per thread up to 128
+MAX_BWD_HEAD_DIM = {torch.bfloat16: 256, torch.float32: 128}
+BWD_VARIANTS = {torch.bfloat16: "mma", torch.float32: "fma"}
 LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention:mma": 0,
                             "flash_attention:fma": 0,
                             "flash_attention_bwd": 0,
-                            "flash_attention_bwd:bf16": 0,
-                            "flash_attention_bwd:f32": 0}
+                            "flash_attention_bwd:mma": 0,
+                            "flash_attention_bwd:fma": 0}
 
 
 def reset_launch_counts() -> None:
@@ -337,12 +341,18 @@ def _bwd_lib() -> ctypes.CDLL:
         lib.flash_attention_bwd.argtypes = [_P] * 10 + [_I] * 10 \
             + [ctypes.c_float, _P]
         lib.flash_attention_bwd.restype = _I
-        lib.flash_attention_bwd_smem_bytes.argtypes = [_I, _I, _I]
+        lib.flash_attention_bwd_smem_bytes.argtypes = [_I] * 4
         lib.flash_attention_bwd_smem_bytes.restype = ctypes.c_size_t
     return lib
 
 
 def _flash_bwd_cuda(q, k, v, out, lse, dout, causal, window):
+    D, Dv = q.shape[-1], v.shape[-1]
+    top = MAX_BWD_HEAD_DIM.get(q.dtype)
+    if top is not None and max(D, Dv) > top:
+        raise ValueError(f"flash attention backward: head dims D={D}, "
+                         f"Dv={Dv} above {top} for {q.dtype} (the "
+                         f"{BWD_VARIANTS[q.dtype]} backward kernel's tiles)")
     _check_cuda(q, k, v)
     for name, t in (("out", out), ("dout", dout), ("lse", lse)):
         if not t.is_contiguous() or t.data_ptr() % 16:
@@ -351,12 +361,8 @@ def _flash_bwd_cuda(q, k, v, out, lse, dout, causal, window):
     if out.dtype != q.dtype or dout.dtype != q.dtype:
         raise ValueError(f"flash attention backward: out {out.dtype} and "
                          f"dout {dout.dtype} must be q's {q.dtype}")
-    B, Sq, Hq, D = q.shape
-    Skv, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
-    if max(D, Dv) > MAX_BWD_HEAD_DIM:
-        raise ValueError(f"flash attention backward: head dims D={D}, "
-                         f"Dv={Dv} above {MAX_BWD_HEAD_DIM} (the backward "
-                         "kernel's f32 tiles of 4 x 8 per thread)")
+    B, Sq, Hq, _ = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     delta = torch.empty((B, Sq, Hq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
@@ -379,9 +385,9 @@ def _flash_bwd_cuda(q, k, v, out, lse, dout, causal, window):
 def flash_attention_bwd_kernel(q, k, v, out, lse, dout, *, causal=True,
                                window=0, block_q=128, block_kv=128):
     """(dq, dk, dv).  CPU tensors run ``flash_attention_bwd_plain``; CUDA
-    tensors the three backward kernels (f32 FMA for bf16 and f32 inputs,
-    head dims up to 128; ``block_q``/``block_kv`` steer the plain version
-    alone)."""
+    tensors the three backward kernels (``mma`` for bf16, head dims up to
+    256; ``fma`` for f32, up to 128; ``block_q``/``block_kv`` steer the
+    plain version alone)."""
     _validate(q, k, v, window, block_q, block_kv)
     _validate_bwd(q, k, v, out, lse, dout)
     if q.device.type == "cpu":

@@ -55,7 +55,13 @@ class AdamW:
     @torch.no_grad()
     def update(self, grads, state, params):
         """One step: ``params`` and the moments updated in place from
-        ``grads`` (a tree shaped as ``params``).  Returns (params, state)."""
+        ``grads`` (a tree shaped as ``params``).  Returns (params, state).
+        Runs under the profiler label ``adamw_update``, so a profiled step
+        shows the optimizer's device time."""
+        with torch.profiler.record_function("adamw_update"):
+            return self._update(grads, state, params)
+
+    def _update(self, grads, state, params):
         step = state["step"] + 1
         lr = self.lr(step) if callable(self.lr) else self.lr
         g_leaves = tree_leaves(grads)

@@ -632,8 +632,10 @@ def test_mla_latent_attention_bmm(cuda):
 # the flash backward (csrc/flash_attention_bwd.cu) and the forward's lse
 # ---------------------------------------------------------------------------
 # f32: both sides sum in f32 in other orders, max |kernel - plain| within
-# 1e-4 of the largest |plain|; bf16: both widen the same bf16 inputs to
-# f32 and round once, so within one bf16 step of the largest |plain|
+# 1e-4 of the largest |plain|; bf16: the kernel's products take the bf16
+# inputs exactly and P and dS as hi + lo bf16 terms (16 significant bits;
+# tests/test_torch_bwd_tile_numerics.py), both sides sum in f32 and round
+# once, so within one bf16 step of the largest |plain|
 BWD_REL = {torch.float32: 1e-4}
 LSE_TOL = 2e-5                   # f32 lse: |kernel - plain| <= tol (1 + |lse|)
 
@@ -669,12 +671,22 @@ def bwd_case(device, Sq, Skv, Hq, Hkv, D, Dv, dtype, seed, B=2):
     (150, 4, 2, 64, 64, False, 33),          # windowed, not causal
     ((64, 300), 4, 4, 64, 64, False, 0),     # Sq < Skv (cross-attention)
     ((90, 40), 4, 2, 32, 32, True, 0),       # Sq > Skv
+    (300, 10, 1, 256, 256, True, 128),       # RecurrentGemma's G = 10, D = 256,
+                                             # S past the window
+    ((100, 170), 4, 2, 256, 256, False, 0),  # D = 256, full, Sq != Skv
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_backward_kernel_matches_plain(cuda, S, Hq, Hkv, D, Dv, causal,
                                              window, dtype):
+    """The kernel against its plain version, both fed the forward kernel's
+    output and lse; f32 past head dim 128 (D = 256) is refused by name."""
     Sq, Skv = S if isinstance(S, tuple) else (S, S)
     q, k, v, do = bwd_case(cuda, Sq, Skv, Hq, Hkv, D, Dv, dtype, Sq + D)
+    if max(D, Dv) > fa.MAX_BWD_HEAD_DIM[dtype]:
+        with pytest.raises(ValueError, match="above 128"):
+            fa.flash_attention_bwd_kernel(q, k, v, do, torch.zeros(
+                do.shape[:3], device=cuda), do, causal=causal, window=window)
+        return
     out, lse = fa.flash_attention_kernel(q, k, v, causal=causal,
                                          window=window, return_lse=True)
     p_out, p_lse = fa.flash_attention_plain(q, k, v, causal=causal,
@@ -683,7 +695,7 @@ def test_flash_backward_kernel_matches_plain(cuda, S, Hq, Hkv, D, Dv, causal,
     grads = fa.flash_attention_bwd_kernel(q, k, v, out, lse, do,
                                           causal=causal, window=window)
     torch.cuda.synchronize()
-    variant = "bf16" if dtype == torch.bfloat16 else "f32"
+    variant = "mma" if dtype == torch.bfloat16 else "fma"
     assert fa.LAUNCHES["flash_attention_bwd"] == \
         before["flash_attention_bwd"] + 1
     assert fa.LAUNCHES[f"flash_attention_bwd:{variant}"] == \
@@ -719,15 +731,38 @@ def test_flash_autograd_through_the_kernels(cuda):
         assert ok, ratio
 
 
+def test_flash_backward_bf16_repeats_bit_for_bit(cuda):
+    """No atomics: two calls of the bf16 backward on the same inputs give
+    the same bits (run P's G = 4 at D = 64, and G = 10 at D = 256 with a
+    window)."""
+    for S, Hq, Hkv, D, window in ((512, 8, 2, 64, 0), (300, 10, 1, 256, 128)):
+        q, k, v, do = bwd_case(cuda, S, S, Hq, Hkv, D, D, torch.bfloat16, 7)
+        out, lse = fa.flash_attention_kernel(q, k, v, causal=True,
+                                             window=window, return_lse=True)
+        first = fa.flash_attention_bwd_kernel(q, k, v, out, lse, do,
+                                              causal=True, window=window)
+        again = fa.flash_attention_bwd_kernel(q, k, v, out, lse, do,
+                                              causal=True, window=window)
+        torch.cuda.synchronize()
+        for a, b in zip(first, again):
+            assert torch.equal(a, b), (S, D)
+
+
 def test_flash_backward_refuses_and_runs_no_plain_version(cuda,
                                                           monkeypatch):
+    """Head dims past a variant's tiles are refused by name: f32 above 128
+    (the FMA kernels), bf16 above 256 (the tensor-core tiles); the plain
+    version never runs on a CUDA tensor."""
     def boom(*a, **k):
         raise AssertionError("the plain version ran on a CUDA tensor")
 
     monkeypatch.setattr(fa, "flash_attention_bwd_plain", boom)
-    q = torch.zeros((1, 16, 2, 256), device=cuda, dtype=torch.bfloat16)
     lse = torch.zeros((1, 16, 2), device=cuda)
+    q = torch.zeros((1, 16, 2, 256), device=cuda, dtype=torch.float32)
     with pytest.raises(ValueError, match="above 128"):
+        fa.flash_attention_bwd_kernel(q, q, q, q, lse, q)
+    q = torch.zeros((1, 16, 2, 264), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="above 256"):
         fa.flash_attention_bwd_kernel(q, q, q, q, lse, q)
     q = torch.zeros((1, 16, 2, 64), device=cuda, dtype=torch.float16)
     with pytest.raises(ValueError, match="dtype"):
