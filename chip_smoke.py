@@ -40,7 +40,10 @@ The quickest proof that the port builds and serves on an NVIDIA H100:
      shape (Granite-3-2B: B 4, S 2048, 32 query heads over 8 kv heads of
      64, causal) and at Llama-2-7B's (B 1, S 4096, 32 heads of 128),
      bf16 and f32, and at RecurrentGemma-2B's (B 1, S 4096, 10 query
-     heads over one kv head of 256, window 2048) in bf16, fed the
+     heads over one kv head of 256, window 2048), MiniCPM3-4B's MLA (B
+     4, S 2048, 40 heads, D 96 / Dv 64), Whisper large-v3's encoder (B
+     8, S 1500, 20 heads of 64, not causal) and cross-attention (B 8, 448
+     rows over 1500 frames) in bf16, fed the
      forward kernel's output and lse (the lse held to the plain
      forward's), against ``flash_attention_bwd_plain`` (f32: 1e-4 of the
      largest gradient; bf16: one bf16 step of it), timed beside the
@@ -49,7 +52,11 @@ The quickest proof that the port builds and serves on an NVIDIA H100:
    - the SSD scan at Mamba-2-2.7B's shape (H = 80, P = 64, G = 1, N =
      128, chunk 128): S = 128, 1024 and 1000 with bf16 and f32 x, S = 4096
      with bf16 x (2560 blocks, 32 chunks chained per head), and S = 1000
-     bf16 from an initial state.
+     bf16 from an initial state;
+   - the public entry point ``kernels.ops.paged_attention_splitk`` at
+     run C's narrow mixed launch (4 pages a table row, below the
+     split-K threshold): one split-K launch a call, against its plain
+     version.
    Each case prints one JSON line with errors and times (kernel, plain
    version, a library yardstick where one exists, the bound); and the
    slots backend's decode attention at run D's shape through the paged
@@ -168,6 +175,29 @@ The quickest proof that the port builds and serves on an NVIDIA H100:
         one profiled step (with the device time of the optimizer's
         ``adamw_update`` label and of the backward kernels, and the
         update profiled alone);
+     Q  DeepSeek-MoE-16B at full width, depth cut 28 -> 7 layers (1
+        dense + 6 MoE, 4.03 B parameters: a step holds ~12 bytes a
+        parameter plus the optimizer's f32 temporaries, so all 28 layers,
+        ~196 GB, exceed the card, and 8 layers run out of its memory),
+        the capacity dispatch at capacity factor 1.0 (assignments past an
+        expert's capacity drop), trained by ``training.train``: 4 AdamW
+        steps of 4 x 2048 tokens, the MoE load-balance loss in the loss;
+        step 0's aux reported, and whether two gradients of one batch
+        are equal bit for bit;
+     R  MiniCPM3-4B as registered (62 layers, MLA), trained as Q: 4 x
+        2048 tokens, flash and its backward at D = 96 / Dv = 64;
+     S  Whisper large-v3 as registered (32 + 32 layers), trained as Q on
+        8 x 448 tokens over 1500 stubbed frames a row (``train`` draws
+        them from the step's seed): the encoder without remat, the
+        cross-attention's flash and backward at Sq 448, Skv 1500;
+     T  RecurrentGemma-2B as registered (26 layers), trained as Q on 2 x
+        4096 tokens, past the 2048 window: 8 local-attention layers at
+        head dim 256 through flash and its backward, 18 RG-LRU layers in
+        PyTorch;
+     each of Q-T with P's checks (step 0's loss within 1e-2 of the plain
+     attention's, the loss falling, the flash forward and backward
+     launched as derived from the stack and nothing else of the port),
+     step times, tokens/s and peak memory;
    runs D, F, G, L, M and O decode over their slot caches through the
    split-K paged kernels (once per attention layer and decode step,
    asserted), and their decode steps, and K's, take less extra memory
@@ -179,9 +209,9 @@ The quickest proof that the port builds and serves on an NVIDIA H100:
    (iterations that carry 512-row chunks), D, E, G, K and M (the first
    iteration: the whole prompts of the requests it admits) and N (one
    prefill call), and one training step of run P;
-   runs A, B and D-P must go through the tensor-core (``mma``) variants
+   runs A, B and D-T must go through the tensor-core (``mma``) variants
    of their forward kernels and launch no ``fma`` variant, and no kernel
-   a run does not expect (the backward only in run P);
+   a run does not expect (the backward only in runs P-T);
 4. a ``seconds`` line (wall time of each phase), the nvidia-smi line, a
    ``kernels`` JSON line (the four ports of the Pallas kernels and the
    flash backward; launches per variant beside the totals), and last the
@@ -264,6 +294,17 @@ MAX_LEN_VLM = 1536
 TRAIN = dict(batch=4, seq_len=2048, steps=8, peak_lr=3e-4, warmup=2,
              weight_decay=0.01, grad_clip=1.0, log_every=1, seed=SEED)
 TRAIN_LOSS_TOL = 1e-2              # step 0's loss vs the plain attention's
+# runs Q-T: 4 AdamW steps of each stack family's registered config
+# (run -> arch, depth or None for all layers, batch, sequence length);
+# Q's 7 of 28 layers are the deepest that fit: 7 peaked at 65.8 GiB on an
+# H100 80GB HBM3 (79.2 GiB), 8 ran out of memory in the optimizer update
+TRAIN_QT = dict(TRAIN, steps=4)
+TRAIN_RUNS = {
+    "Q": ("deepseek-moe-16b", 7, 4, 2048),
+    "R": ("minicpm3-4b", None, 4, 2048),
+    "S": ("whisper-large-v3", None, 8, 448),
+    "T": ("recurrentgemma-2b", None, 2, 4096),
+}
 # the flash backward kernel vs its plain version: f32 sums in other orders
 # (max |d| within 1e-4 of the largest |plain|); bf16: both widen the same
 # inputs to f32 and round once (max |d| within one bf16 step of the
@@ -354,6 +395,8 @@ def main() -> int:
     kernel_rows.update(timed("ssd", ssd_phase, flush))
     kernel_rows["paged_attention_splitk"]["slot_int8_decode"] = \
         timed("slot_attention", slot_attention_phase, flush)
+    kernel_rows["paged_attention_splitk"]["ops_entry"] = \
+        timed("ops_splitk", ops_splitk_phase, flush)
     timed("engine_runs", engine_phase, kernel_rows)
     SECONDS["total"] = time.perf_counter() - t0
 
@@ -515,13 +558,30 @@ def mixed_case(rng, w, chunk, n_pad, Hq, Hkv, D=128, prefix=""):
     return (f"{prefix}mixed{chunk}+8_w{w}", ctx, rmap, 16, w, Hq, Hkv, D, 16)
 
 
+def case_inputs(torch, ci, case):
+    """Case ``ci`` of ``kernel_cases()``'s inputs on the card, in f32,
+    drawn from SEED + ci: q, the two pools, the page tables (the first
+    pages of a permutation of the pool) and the ctx and row_map tensors."""
+    _, ctx_l, rmap_l, n_tab, W, Hq, Hkv, D, page = case
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + ci)
+    n_pool = n_tab * W + 1
+    q32 = torch.randn(len(ctx_l), Hq, D, generator=g, device=dev)
+    kp32 = torch.randn(n_pool, page, Hkv, D, generator=g, device=dev)
+    vp32 = torch.randn(n_pool, page, Hkv, D, generator=g, device=dev)
+    perm = torch.randperm(n_pool, generator=torch.Generator().manual_seed(ci))
+    tables = perm[:n_tab * W].reshape(n_tab, W).to(torch.int32).to(dev)
+    ctx = torch.tensor(ctx_l, dtype=torch.int32, device=dev)
+    rmap = torch.tensor(rmap_l, dtype=torch.int32, device=dev)
+    return q32, kp32, vp32, tables, ctx, rmap
+
+
 def kernel_phase(torch, flush):
     from repro_torch.kernels.paged_attention import (
         paged_attention_kernel, paged_attention_plain,
         paged_attention_splitk_kernel, paged_attention_splitk_plain)
     from repro_torch.models.attention import quantize_kv
 
-    dev = torch.device("cuda")
     pps = 4
     rows = {"paged_attention": {"name": "paged_attention", "route": "cuda",
                                 "source": "src/repro_torch/csrc/paged_attention.cu",
@@ -536,19 +596,11 @@ def kernel_phase(torch, flush):
     # shapes runs A (split-K, width 32) and C (serial, width 4) launch
     main_case = {"paged_attention": ("mixed48+8_w4", "bf16"),
                  "paged_attention_splitk": ("mixed512+8_w32", "bf16")}
-    for ci, (name, ctx_l, rmap_l, n_tab, W, Hq, Hkv, D, page) in enumerate(
-            kernel_cases()):
-        g = torch.Generator(device=dev).manual_seed(SEED + ci)
+    for ci, case in enumerate(kernel_cases()):
+        name, ctx_l, _, _, W, Hq, Hkv, D, _ = case
         B = len(ctx_l)
-        n_pool = n_tab * W + 1
-        q32 = torch.randn(B, Hq, D, generator=g, device=dev)
-        kp32 = torch.randn(n_pool, page, Hkv, D, generator=g, device=dev)
-        vp32 = torch.randn(n_pool, page, Hkv, D, generator=g, device=dev)
+        q32, kp32, vp32, tables, ctx, rmap = case_inputs(torch, ci, case)
         q, kp, vp = (t.to(torch.bfloat16) for t in (q32, kp32, vp32))
-        perm = torch.randperm(n_pool, generator=torch.Generator().manual_seed(ci))
-        tables = perm[:n_tab * W].reshape(n_tab, W).to(torch.int32).to(dev)
-        ctx = torch.tensor(ctx_l, dtype=torch.int32, device=dev)
-        rmap = torch.tensor(rmap_l, dtype=torch.int32, device=dev)
         zero = ctx == 0
         valid = ~zero
         for pools in ("bf16", "int8", "f32"):
@@ -660,6 +712,62 @@ def kernel_phase(torch, flush):
                         ms_by_kernel=device_ms_by_kernel(
                             torch, lambda: fn(*args, **kw), flush))
     return rows
+
+
+def ops_splitk_phase(torch, flush):
+    """The public entry point ``kernels.ops.paged_attention_splitk`` (split-K
+    whatever the table width) at run C's narrow launch, mixed48+8_w4 in
+    bf16 (4 pages a table row, below ``SPLIT_K_THRESHOLD_PAGES``, where
+    ``ops.paged_attention`` takes the serial kernel): the inputs
+    ``kernel_phase`` draws for that case, held to
+    ``paged_attention_splitk_plain`` at BF16_TOL, one split-K launch a
+    call, timed beside the plain version and the serial kernel.  Returns
+    the line for the split-K row of the kernels line."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.paged_attention import (
+        paged_attention_kernel, paged_attention_splitk_plain)
+
+    name = "mixed48+8_w4"
+    ci, case = next((i, c) for i, c in enumerate(kernel_cases())
+                    if c[0] == name)
+    W = case[4]
+    check(W < ops.SPLIT_K_THRESHOLD_PAGES, f"ops split-K: {name} is "
+          f"{W} pages wide, not below the threshold")
+    q32, kp32, vp32, tables, ctx, rmap = case_inputs(torch, ci, case)
+    q, kp, vp = (t.to(torch.bfloat16) for t in (q32, kp32, vp32))
+    args = (q, kp, vp, tables, ctx)
+    reset_launch_counts()
+    out = ops.paged_attention_splitk(*args, row_map=rmap)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in launch_counts().items() if v}
+    check(counts.get("paged_attention_splitk") == 1
+          and not counts.get("paged_attention"), f"ops split-K: a call "
+          f"launched {counts}")
+    plain = paged_attention_splitk_plain(
+        *args, pages_per_split=ops.DEFAULT_PAGES_PER_SPLIT, row_map=rmap)
+    err, ratio = tol_ratio(out, plain, BF16_TOL)
+    line = {"phase": "kernels", "kernel": "paged_attention_splitk",
+            "entry": "kernels.ops.paged_attention_splitk", "case": name,
+            "pools": "bf16", "width": W,
+            "pages_per_split": ops.DEFAULT_PAGES_PER_SPLIT,
+            "launches_per_call": counts, "rtol": BF16_TOL[0],
+            "atol": BF16_TOL[1], "max_abs_err": err, "tol_ratio": ratio,
+            "ms": time_ms(torch, lambda: ops.paged_attention_splitk(
+                *args, row_map=rmap), 20, flush),
+            "serial_ms": time_ms(torch, lambda: paged_attention_kernel(
+                *args, row_map=rmap), 20, flush),
+            "plain_ms": time_ms(torch, lambda: paged_attention_splitk_plain(
+                *args, pages_per_split=ops.DEFAULT_PAGES_PER_SPLIT,
+                row_map=rmap), 3, flush)}
+    line["bound_ms"], line["bound_by"] = bound(torch, q, kp, vp, tables, ctx,
+                                               rmap, None)
+    emit(line)
+    check(ratio <= 1, f"ops split-K {name}: off the plain version by {err} "
+          f"(ratio {ratio} to {BF16_TOL})")
+    reset_launch_counts()
+    return {k: line[k] for k in ("case", "width", "max_abs_err", "tol_ratio",
+                                 "ms", "serial_ms", "plain_ms", "bound_ms",
+                                 "bound_by")}
 
 
 def device_ms_by_kernel(torch, fn, flush, reps=5,
@@ -902,13 +1010,18 @@ def flash_bwd_phase(torch, flush):
     causal) and at Llama-2-7B's (B 1, S 4096, 32 heads of 128), in bf16
     (the ``mma`` variant) and f32 (``fma``), and at RecurrentGemma-2B's
     local attention (B 1, S 4096, 10 query heads over one kv head of
-    256, window 2048, causal) in bf16 (f32 stops at head dim 128), each
+    256, window 2048, causal) in bf16 (f32 stops at head dim 128), and in
+    bf16 at the shapes of runs R and S: MiniCPM3-4B's MLA (B 4, S 2048,
+    40 heads, D 96 for q and k, Dv 64 for v, causal), Whisper large-v3's
+    encoder (B 8, S 1500, 20 heads of 64, not causal) and its
+    cross-attention (B 8, 448 rows over 1500 frames, not causal); each
     fed the forward kernel's output and lse; the lse itself against the
     plain forward's.  Library yardstick: the backward of
     ``scaled_dot_product_attention`` through autograd (its forward run
-    once, outside the timing; the window as a boolean mask).  The
-    kernels line carries the Granite bf16 case, run P's.  Head dims past
-    a variant's tiles are refused by name."""
+    once, outside the timing; the window as a boolean mask; MLA's
+    D != Dv as well).  The kernels line carries the Granite bf16
+    case, run P's.  Head dims past a variant's tiles are refused by
+    name."""
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
     F = torch.nn.functional
     dev = torch.device("cuda")
@@ -916,20 +1029,31 @@ def flash_bwd_phase(torch, flush):
            "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
            "replaces": "src/repro/models/attention.py:205",
            "max_abs_err": 0.0}
-    # (name, B, S, Hq, Hkv, D, window, dtypes): f32 stops at D = 128
-    both = ("bfloat16", "float32")
-    cases = [("granite_B4_S2048_gqa4_d64", 4, 2048, 32, 8, 64, 0, both),
-             ("llama_B1_S4096_d128", 1, 4096, 32, 32, 128, 0, both),
-             ("rgemma_B1_S4096_gqa10_d256_window2048", 1, 4096, 10, 1, 256,
-              2048, ("bfloat16",))]
-    for ci, (name, B, S, Hq, Hkv, D, window, dtypes) in enumerate(cases):
+    # (name, B, Sq, Skv, Hq, Hkv, D, Dv, causal, window, dtypes): f32
+    # stops at D = 128
+    both, bf16 = ("bfloat16", "float32"), ("bfloat16",)
+    cases = [("granite_B4_S2048_gqa4_d64", 4, 2048, 2048, 32, 8, 64, 64,
+              True, 0, both),
+             ("llama_B1_S4096_d128", 1, 4096, 4096, 32, 32, 128, 128, True,
+              0, both),
+             ("rgemma_B1_S4096_gqa10_d256_window2048", 1, 4096, 4096, 10, 1,
+              256, 256, True, 2048, bf16),
+             ("mla_B4_S2048_h40_d96_dv64", 4, 2048, 2048, 40, 40, 96, 64,
+              True, 0, bf16),
+             ("whisper_enc_B8_S1500_h20_d64", 8, 1500, 1500, 20, 20, 64, 64,
+              False, 0, bf16),
+             ("whisper_cross_B8_Sq448_Skv1500_h20_d64", 8, 448, 1500, 20, 20,
+              64, 64, False, 0, bf16)]
+    for ci, (name, B, S, Skv, Hq, Hkv, D, Dv, causal, window,
+             dtypes) in enumerate(cases):
         for dt in dtypes:
             g = torch.Generator(device=dev).manual_seed(SEED + 300 + ci)
             dtype = getattr(torch, dt)
-            q, k, v, do = (torch.randn(B, S, h, D, generator=g,
+            q, k, v, do = (torch.randn(B, s_, h, d, generator=g,
                                        device=dev).to(dtype)
-                           for h in (Hq, Hkv, Hkv, Hq))
-            mask = dict(causal=True, window=window)
+                           for s_, h, d in ((S, Hq, D), (Skv, Hkv, D),
+                                            (Skv, Hkv, Dv), (S, Hq, Dv)))
+            mask = dict(causal=causal, window=window)
             out, lse = fa.flash_attention_kernel(q, k, v, return_lse=True,
                                                  **mask)
             _, p_lse = fa.flash_attention_plain(q, k, v, block_q=512,
@@ -958,15 +1082,14 @@ def flash_bwd_phase(torch, flush):
                       f"(ratio {errs[gname][1]})")
             qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                           for t in (q, k, v))
+            sdpa = dict(enable_gqa=Hkv != Hq)
             if window:                 # the band as a boolean mask
                 pos = torch.arange(S, device=dev)
-                band = (pos[None] <= pos[:, None]) \
+                sdpa["attn_mask"] = (pos[None] <= pos[:, None]) \
                     & (pos[None] > pos[:, None] - window)
-                o_lib = F.scaled_dot_product_attention(
-                    qt, kt, vt, attn_mask=band, enable_gqa=Hkv != Hq)
             else:
-                o_lib = F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, enable_gqa=Hkv != Hq)
+                sdpa["is_causal"] = causal
+            o_lib = F.scaled_dot_product_attention(qt, kt, vt, **sdpa)
             dot = do.transpose(1, 2)
 
             def library():
@@ -974,8 +1097,9 @@ def flash_bwd_phase(torch, flush):
                                     retain_graph=True)
 
             line = {"phase": "kernels", "kernel": "flash_attention_bwd",
-                    "case": name, "dtype": dt, "B": B, "S": S, "Hq": Hq,
-                    "Hkv": Hkv, "D": D, "causal": True, "window": window,
+                    "case": name, "dtype": dt, "B": B, "S": S, "Skv": Skv,
+                    "Hq": Hq, "Hkv": Hkv, "D": D, "Dv": Dv, "causal": causal,
+                    "window": window,
                     "tolerance": (f"{BWD_BF16_STEPS} bf16 step of the "
                                   "largest |plain|" if dt == "bfloat16"
                                   else f"{BWD_F32_REL} x the largest "
@@ -993,7 +1117,7 @@ def flash_bwd_phase(torch, flush):
                     "forward_ms": time_ms(torch, lambda: fa.flash_attention_kernel(
                         q, k, v, return_lse=True, **mask), 10, flush)}
             line["bound_ms"], line["bound_by"] = flash_bwd_bound(
-                S, S, Hq, Hkv, D, D, True, window, dt, B)
+                S, Skv, Hq, Hkv, D, Dv, causal, window, dt, B)
             if dt == "bfloat16":
                 line["ms_by_kernel"] = device_ms_by_kernel(
                     torch, lambda: fa.flash_attention_bwd_kernel(
@@ -1833,6 +1957,10 @@ def engine_phase(torch, kernel_rows):
     # lse) and its recompute under remat, the flash backward kernel
     runs["P"] = train_run(torch)
     lap("P")
+    # the MoE, MLA, encoder-decoder and RG-LRU stacks trained
+    for run in TRAIN_RUNS:
+        runs[run] = stack_train_run(torch, run)
+        lap(run)
 
     emit({"phase": "engine", "launches_by_run": {
         run: {k: n for k, n in r.items() if n} for run, r in runs.items()}})
@@ -1893,53 +2021,68 @@ def internvl_run(torch, vlm, slots_attn):
     return launches
 
 
-def train_run(torch):
-    """Run P: Granite-3-2B as registered (40 layers, d_model 2048, 32
-    query heads over 8 kv heads of 64, d_ff 8192, vocab 49 155, tied,
-    bf16, remat per layer; random weights from SEED) trained at full
-    width and depth by ``training.train``: TRAIN's 8 AdamW steps on
-    batches of 4 x 2048 tokens of the synthetic Markov stream.  Checks:
-    step 0's loss within TRAIN_LOSS_TOL of ``loss_fn`` with the plain
-    attention (``attn_impl="naive"``) on the same weights and batch; the
-    loss after the last step below step 0's; flash forward launched 2 x
-    40 x 8 times (the forward and its recompute under remat), the
-    backward's ``mma`` variant 40 x 8, nothing else of the port (the
-    backward kernel at a layer's shapes is held to its plain version in
-    the kernel phase: ``granite_B4_S2048_gqa4_d64``).  Reports step
-    times (median after the first), tokens/s, peak memory and one
-    profiled step, with the device ms of the ``adamw_update`` label and
-    of the backward's kernels, and the update profiled alone.  Returns
-    the run's launch counts."""
-    from torch.profiler import ProfilerActivity, profile
+def train_launches(cfg, steps):
+    """The flash forward and backward launches ``steps`` training steps
+    of ``cfg`` make: each attention call of a layer once forward and once
+    backward, a decoder layer's forward once more under remat (its
+    recompute); an encoder-decoder's decoder layers attend twice (self
+    and cross), its encoder layers once, without remat."""
+    from repro_torch.configs.base import ATTN, ATTN_LOCAL, ATTN_MLA
 
-    from repro_torch.configs import get_config
-    from repro_torch.models.model import loss_fn
-    from repro_torch.training import (AdamW, TrainConfig, cosine_schedule,
-                                      make_train_step, train)
+    n_attn = sum(k in (ATTN, ATTN_LOCAL, ATTN_MLA)
+                 for k in cfg.layer_kinds())
+    n_attn *= 2 if cfg.is_encoder_decoder else 1
+    n_enc = cfg.n_encoder_layers if cfg.is_encoder_decoder else 0
+    fwd = steps * (n_enc + (2 if cfg.remat else 1) * n_attn)
+    bwd = steps * (n_enc + n_attn)
+    return {"flash_attention": fwd, "flash_attention:mma": fwd,
+            "flash_attention_bwd": bwd, "flash_attention_bwd:mma": bwd}
+
+
+def train_check(torch, run, cfg, tc, reduced=None, aux=False):
+    """One training run: weights drawn on the card from SEED,
+    ``training.train`` over ``tc``, and its checks: step 0's loss within
+    TRAIN_LOSS_TOL of ``loss_fn`` with the plain attention
+    (``attn_impl="naive"``) on the same weights and batch (an
+    encoder-decoder's with the frames ``train`` draws for step 0), the
+    loss after the last step below step 0's, the flash forward and
+    backward launched as ``train_launches`` derives and nothing else of
+    the port.  Emits the ``train`` line (step times, the median after the
+    first, tokens/s, peak memory; ``aux``: step 0's MoE load-balance loss
+    from ``forward_hidden``).  Returns (params, launches, step 0's batch
+    on the card)."""
+    from repro_torch.models.model import forward_hidden, loss_fn
+    from repro_torch.training import train
     from repro_torch.training.data import batches
+    from repro_torch.training.trainer import STUB_INPUTS, stub_embeddings
     from repro_torch.weights import init_params
 
-    cfg = get_config("granite-3-2b")
     check(cfg.remat and cfg.attn_impl == "flash" and cfg.dtype == "bfloat16",
-          f"run P: {cfg.name} is not a bf16 flash stack with remat")
-    tc = TrainConfig(**TRAIN)
+          f"run {run}: {cfg.name} is not a bf16 flash stack with remat")
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
         SEED), "cuda")
     torch.cuda.synchronize()
-    emit({"phase": "engine_setup", "run": "P", "model": cfg.name,
-          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
-          "dtype": cfg.dtype, "n_params": cfg.n_params(),
-          "weight_gib": sum(t.numel() * t.element_size()
-                            for t in _leaves(params)) / 2 ** 30,
-          "init_s": time.perf_counter() - t0})
+    setup_line = {"phase": "engine_setup", "run": run, "model": cfg.name,
+                  "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                  "dtype": cfg.dtype, "n_params": cfg.n_params(),
+                  "weight_gib": sum(t.numel() * t.element_size()
+                                    for t in _leaves(params)) / 2 ** 30,
+                  "init_s": time.perf_counter() - t0}
+    if reduced:
+        setup_line["reduced"] = reduced
+    emit(setup_line)
     t0 = time.perf_counter()
     b0 = next(batches(cfg.vocab_size, tc.batch, tc.seq_len, 1, tc.seed))
+    stub = STUB_INPUTS.get(cfg.frontend)
+    if stub:
+        b0[stub] = stub_embeddings(cfg, tc, 0)
     data_s = time.perf_counter() - t0
+    b0 = {k: torch.from_numpy(v).to("cuda") for k, v in b0.items()}
     with torch.no_grad():
-        plain_loss = float(loss_fn(params, {
-            k: torch.from_numpy(v).to("cuda") for k, v in b0.items()},
-            dataclasses.replace(cfg, attn_impl="naive")))
+        plain_loss = float(loss_fn(params, b0, dataclasses.replace(
+            cfg, attn_impl="naive")))
+        aux0 = float(forward_hidden(params, b0, cfg)[1]) if aux else None
     torch.cuda.empty_cache()
     stamps = []
     torch.cuda.synchronize()
@@ -1954,33 +2097,69 @@ def train_run(torch):
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     steps = np.diff([t0] + stamps) * 1e3
-    L, n = cfg.n_layers, tc.steps
     want = {name: 0 for name in launches}
-    want.update({"flash_attention": 2 * L * n, "flash_attention:mma": 2 * L * n,
-                 "flash_attention_bwd": L * n,
-                 "flash_attention_bwd:mma": L * n})
+    want.update(train_launches(cfg, tc.steps))
     loss = [v for _, v in losses]
     tokens = tc.batch * tc.seq_len
-    emit({"phase": "train", "run": "P", "model": cfg.name,
-          "entry": "training.train", "batch": tc.batch,
-          "seq_len": tc.seq_len, "steps": n, "remat": cfg.remat,
-          "losses": loss, "plain_attention_step0_loss": plain_loss,
-          "step0_loss_err": abs(loss[0] - plain_loss), "wall_s": wall,
-          "step_ms": list(steps), "step_ms_median_after_first":
-              float(np.median(steps[1:])),
-          "tokens_per_s": tokens / float(np.median(steps[1:])) * 1e3,
-          "data_ms_per_batch": data_s * 1e3,
-          "launches": {k: v for k, v in launches.items() if v},
-          "start_mem_gib": start_gib, "peak_mem_gib": peak})
-    check(len(loss) == n and all(np.isfinite(loss)),
-          f"run P: losses {loss}")
-    check(abs(loss[0] - plain_loss) <= TRAIN_LOSS_TOL, f"run P: step 0's "
-          f"loss {loss[0]} is {abs(loss[0] - plain_loss)} from the plain "
-          f"attention's {plain_loss}")
-    check(loss[-1] < loss[0], f"run P: the loss did not fall: {loss}")
-    check(launches == want, f"run P: launches "
+    line = {"phase": "train", "run": run, "model": cfg.name,
+            "entry": "training.train", "n_layers": cfg.n_layers,
+            "batch": tc.batch, "seq_len": tc.seq_len, "steps": tc.steps,
+            "remat": cfg.remat, "losses": loss,
+            "plain_attention_step0_loss": plain_loss,
+            "step0_loss_err": abs(loss[0] - plain_loss), "wall_s": wall,
+            "step_ms": list(steps), "step_ms_median_after_first":
+                float(np.median(steps[1:])),
+            "tokens_per_s": tokens / float(np.median(steps[1:])) * 1e3,
+            "data_ms_per_batch": data_s * 1e3,
+            "launches": {k: v for k, v in launches.items() if v},
+            "start_mem_gib": start_gib, "peak_mem_gib": peak,
+            "device_mem_gib": torch.cuda.get_device_properties(
+                0).total_memory / 2 ** 30}
+    if stub:
+        line[f"{stub}_per_step"] = list(b0[stub].shape)
+    if aux:
+        line["step0_aux"] = aux0
+    if reduced:
+        line["reduced"] = reduced
+    emit(line)
+    check(len(loss) == tc.steps and all(np.isfinite(loss)),
+          f"run {run}: losses {loss}")
+    check(abs(loss[0] - plain_loss) <= TRAIN_LOSS_TOL, f"run {run}: step "
+          f"0's loss {loss[0]} is {abs(loss[0] - plain_loss)} from the "
+          f"plain attention's {plain_loss}")
+    check(loss[-1] < loss[0], f"run {run}: the loss did not fall: {loss}")
+    check(launches == want, f"run {run}: launches "
           f"{ {k: v for k, v in launches.items() if v} }, not "
           f"{ {k: v for k, v in want.items() if v} }")
+    if aux:
+        check(np.isfinite(aux0) and aux0 > 0, f"run {run}: aux {aux0}")
+    return params, launches, b0
+
+
+def train_run(torch):
+    """Run P: Granite-3-2B as registered (40 layers, d_model 2048, 32
+    query heads over 8 kv heads of 64, d_ff 8192, vocab 49 155, tied,
+    bf16, remat per layer; random weights from SEED) trained at full
+    width and depth by ``training.train``: TRAIN's 8 AdamW steps on
+    batches of 4 x 2048 tokens of the synthetic Markov stream, checked by
+    ``train_check``: flash forward launched 2 x 40 x 8 times (the
+    forward and its recompute under remat), the backward's ``mma``
+    variant 40 x 8 (the backward kernel at a layer's shapes is held to
+    its plain version in the kernel phase: ``granite_B4_S2048_gqa4_d64``).
+    Then one profiled step, with the device ms of the ``adamw_update``
+    label and of the backward's kernels, and the update profiled alone.
+    Returns the run's launch counts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.training import (AdamW, TrainConfig, cosine_schedule,
+                                      make_train_step)
+    from repro_torch.training.data import batches
+
+    cfg = get_config("granite-3-2b")
+    tc = TrainConfig(**TRAIN)
+    params, launches, _ = train_check(torch, "P", cfg, tc)
+    tokens = tc.batch * tc.seq_len
 
     # one more step under the profiler (a fresh optimizer state)
     opt = AdamW(lr=cosine_schedule(tc.peak_lr, tc.warmup, tc.steps),
@@ -2025,6 +2204,78 @@ def train_run(torch):
               if "flash_bwd" in name)})
     check(adamw, "run P: no adamw_update label in the profiled step")
     del params, state, step_fn, opt, b1
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def stack_train_run(torch, run):
+    """Runs Q-T: the MoE, MLA, encoder-decoder and RG-LRU stacks trained
+    by ``training.train`` at full width, TRAIN_QT's 4 AdamW steps each on
+    random weights from SEED, checked by ``train_check`` (TRAIN_RUNS has
+    each run's model, depth, batch and launches):
+
+    Q  DeepSeek-MoE-16B, 7 of 28 layers (1 dense + 6 MoE: 4.03 B
+       parameters, ~48 GB of weights, gradients and f32 moments; all 28
+       need ~196 GB; 8 do not fit), registered with ``moe_impl=
+       "dispatch"`` at capacity factor 1.0, so assignments past an
+       expert's capacity drop; 4 x 2048 tokens; flash 2 x 7 x 4 = 56,
+       backward 28.  Also step 0's aux loss, and
+       whether two gradients of the same loss on the same batch are
+       equal bit for bit (the gathers' gradients accumulate by index);
+    R  MiniCPM3-4B, all 62 layers (4.26 B parameters), MLA: flash at D =
+       96 / Dv = 64; 4 x 2048 tokens; flash 496, backward 248;
+    S  Whisper large-v3, all 32 + 32 layers (1.60 B parameters), 8 x 448
+       tokens over 1500 stubbed frames a row; the encoder runs without
+       remat, so flash 4 x (32 + 2 x 64) = 640, backward 4 x 96 = 384
+       (the cross-attention at Sq 448, Skv 1500);
+    T  RecurrentGemma-2B, all 26 layers (3.31 B parameters), 2 x 4096
+       tokens, so the 2048 window cuts; 8 local-attention layers at head
+       dim 256: flash 64, backward 32 (the 18 RG-LRU layers launch no
+       kernel of the port).
+
+    Returns the run's launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import loss_fn
+    from repro_torch.training import TrainConfig
+
+    arch, n_layers, batch, seq_len = TRAIN_RUNS[run]
+    cfg = get_config(arch)
+    if cfg.moe is not None:
+        check(cfg.moe_impl == "dispatch" and cfg.moe.capacity_factor == 1.0,
+              f"{run}: {arch} is registered with moe_impl {cfg.moe_impl!r} "
+              f"at capacity factor {cfg.moe.capacity_factor}, not the "
+              "dispatch at 1.0")
+    reduced = None
+    if n_layers is not None:
+        full = cfg.n_params()
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        reduced = {"n_layers": [get_config(arch).n_layers, n_layers],
+                   "n_params": [full, cfg.n_params()],
+                   "why": "a step holds ~12 bytes a parameter (bf16 weights "
+                          "and gradients, f32 moments) plus the optimizer's "
+                          "f32 temporaries: the deepest stack that fits the "
+                          "card (on an H100 80GB, 7 layers peaked at 65.8 "
+                          "GiB and 8 ran out of memory)"}
+    tc = TrainConfig(**dict(TRAIN_QT, batch=batch, seq_len=seq_len))
+    params, launches, b0 = train_check(torch, run, cfg, tc, reduced,
+                                       aux=cfg.moe is not None)
+    if cfg.moe is not None:
+        # two gradients of one loss on one batch, bit for bit
+        leaves = list(_leaves(params))
+        first = None
+        for _ in range(2):
+            loss = loss_fn(params, b0, cfg)
+            grads = torch.autograd.grad(loss, leaves)
+            if first is None:
+                first = (loss.detach(), grads)
+        same = [bool(torch.equal(a, b)) for a, b in zip(first[1], grads)]
+        emit({"phase": "train", "run": run, "check": "determinism",
+              "loss_bitwise_equal": bool(torch.equal(first[0], loss)),
+              "grad_leaves": len(same), "grad_leaves_bitwise_equal":
+                  sum(same)})
+        del first, grads, loss
+    del params, b0
     gc.collect()
     torch.cuda.empty_cache()
     return launches

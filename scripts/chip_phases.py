@@ -2,10 +2,13 @@
 """Chosen phases of ``chip_smoke.py`` alone, on one card: a shorter call
 while a new phase is brought up.
 
-    python3 scripts/chip_phases.py bwd,P,O
+    python3 scripts/chip_phases.py bwd,ops,P,Q,R,S,T,O
 
-``bwd``: the flash backward kernel lines (``flash_bwd_phase``); ``P``:
-Granite-3-2B training (``train_run``); ``O``: InternVL2-76B through the
+``bwd``: the flash backward kernel lines (``flash_bwd_phase``); ``ops``:
+``kernels.ops.paged_attention_splitk``'s line (``ops_splitk_phase``);
+``P``: Granite-3-2B training (``train_run``); ``Q``-``T``: training
+DeepSeek-MoE-16B (7 layers), MiniCPM3-4B, Whisper large-v3 and
+RecurrentGemma-2B (``stack_train_run``); ``O``: InternVL2-76B through the
 slots engine (``internvl_run``, without its profile window).  Builds the
 kernels first, prints chip_smoke's JSON lines and the seconds each phase
 took, and last the ``kernels`` rows of the phases run with the launches
@@ -47,10 +50,19 @@ def main(argv) -> int:
     if "bwd" in which:
         rows.update(cs.flash_bwd_phase(torch, flush))
         cs.emit({"phase": "seconds", "bwd": time.perf_counter() - t0})
+    if "ops" in which:
+        t0 = time.perf_counter()
+        cs.ops_splitk_phase(torch, flush)
+        cs.emit({"phase": "seconds", "ops": time.perf_counter() - t0})
     if "P" in which:
         t0 = time.perf_counter()
         runs["P"] = cs.train_run(torch)
         cs.emit({"phase": "seconds", "P": time.perf_counter() - t0})
+    for run in cs.TRAIN_RUNS:
+        if run in which:
+            t0 = time.perf_counter()
+            runs[run] = cs.stack_train_run(torch, run)
+            cs.emit({"phase": "seconds", run: time.perf_counter() - t0})
     if "O" in which:
         t0 = time.perf_counter()
         paged = {name: False for name in cs.launch_counts()

@@ -1,11 +1,11 @@
 """Public entry points of the port's kernels.
 
 Port of ``repro/kernels/ops.py``: flash attention, the split-K dispatch
-of paged attention and the SSD scan.  Block tables at least
-``SPLIT_K_THRESHOLD_PAGES`` wide go to the flash-decoding split-K kernel;
-below it the serial page chain is short enough that the combine would
-dominate.  CPU tensors run each kernel's plain version, CUDA tensors the
-kernel itself.
+of paged attention, split-K paged attention whatever the table width,
+and the SSD scan.  Block tables at least ``SPLIT_K_THRESHOLD_PAGES`` wide
+go to the flash-decoding split-K kernel; below it the serial page chain
+is short enough that the combine would dominate.  CPU tensors run each
+kernel's plain version, CUDA tensors the kernel itself.
 """
 from __future__ import annotations
 
@@ -35,6 +35,16 @@ def paged_attention(q, k_pool, v_pool, block_tables, ctx_lens, row_map=None,
     return paged_attention_kernel(q, k_pool, v_pool, block_tables, ctx_lens,
                                   row_map=row_map, k_scale=k_scale,
                                   v_scale=v_scale)
+
+
+def paged_attention_splitk(q, k_pool, v_pool, block_tables, ctx_lens,
+                           row_map=None, k_scale=None, v_scale=None, *,
+                           pages_per_split=DEFAULT_PAGES_PER_SPLIT):
+    """Always split-K, regardless of table width."""
+    return paged_attention_splitk_kernel(
+        q, k_pool, v_pool, block_tables, ctx_lens,
+        pages_per_split=pages_per_split, row_map=row_map, k_scale=k_scale,
+        v_scale=v_scale)
 
 
 def ssd_scan(x, la, Bm, Cm, *, chunk=128):

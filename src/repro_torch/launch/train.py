@@ -2,15 +2,16 @@
 
 Port of ``repro/launch/train.py``: AdamW steps (``training.train``) on
 the synthetic Markov corpus, on the card by default.  ``--smoke`` takes
-the reduced config; without it the registered one at full width (the
-port trains dense GQA stacks: Llama-2-7B, DeepSeek-7B, Granite-3-2B,
-StarCoder2-7B and, where it fits, InternVL2-76B; the others are refused
-by their ROADMAP item).  Sharded training (``--production``, a
-device mesh) is ROADMAP.md Queue A item 12.
+the reduced config; without it the registered one at full width, where
+it fits the card (the port trains every ``--arch`` but Mamba-2-2.7B,
+which is refused by its ROADMAP item, 11d: dense GQA, MoE, MLA, RG-LRU,
+the vision prefix and Whisper's encoder-decoder over stubbed frames).
+Sharded training (``--production``, a device mesh) is ROADMAP.md Queue A
+item 12.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \
         --steps 8 --batch 4 --seq 2048
-    PYTHONPATH=src python -m repro_torch.launch.train --arch llama2-7b \
+    PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm3-4b \
         --smoke --device cpu --steps 20 --batch 4 --seq 64
 """
 from __future__ import annotations

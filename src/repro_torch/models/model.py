@@ -22,12 +22,13 @@ naming the ``ROADMAP.md`` item that ports them.
 
     forward_hidden(params, batch, cfg, mode=) -> (hidden, aux, caches,
                                                  n_prefix)
-    loss_fn(params, batch, cfg)             -> mean next-token NLL
+    loss_fn(params, batch, cfg)             -> mean next-token NLL (+ MoE aux)
     prefill(params, batch, cfg, max_len)    -> (last_logits, cache)
     prefill_chunk(params, tokens, cfg, cache) -> (last_logits, cache)
     decode_step(params, tokens, cache, cfg) -> (logits, cache)
     init_cache(cfg, batch, max_len, device=..., enc_len=...) -> zeroed cache
     encode(params, frames, cfg)             -> the encoder's output
+    long_context_variant(cfg)               -> the sliding-window rewrite
 
 Caches keep the reference's layout (``{"pos": (B,), "stages":
 {"stage_i": {...}}}`` with a leading layer axis; an encoder-decoder's
@@ -38,14 +39,18 @@ with the new positions; ``prefill`` builds a new one.
 
 Training (``mode="train"``, ``loss_fn``) runs with autograd: attention
 through the flash kernel's autograd Function (its backward kernel),
-layer bodies under ``torch.utils.checkpoint`` when ``cfg.remat`` (one
-layer at a time, or groups of ``cfg.remat_group`` layers, as the
-reference's ``jax.checkpoint``), the loss by ``chunked_ce_loss``.  It
-trains dense GQA stacks (full or windowed attention, text or vision
-prefix); ``check_trainable`` refuses the others by their ROADMAP item.
-The serving entry points run under ``torch.no_grad``.
+decoder layer bodies under ``torch.utils.checkpoint`` when ``cfg.remat``
+(one layer at a time, or groups of ``cfg.remat_group`` layers, as the
+reference's ``jax.checkpoint``; an encoder runs without it, as the
+reference's), the loss by ``chunked_ce_loss`` plus
+``router_aux_coef`` times the MoE load-balance loss summed over the
+layers.  It trains every stack the port runs but Mamba-2, whose SSD
+kernel has no backward (``check_trainable`` refuses it by its ROADMAP
+item).  The serving entry points run under ``torch.no_grad``.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -72,23 +77,14 @@ def check_ported(cfg: ModelConfig) -> None:
 
 
 def check_trainable(cfg: ModelConfig) -> None:
-    """Training takes dense GQA stacks (full or windowed attention, text
-    or vision prefix); the others raise ``NotImplementedError`` naming the
-    ROADMAP.md Queue A item that ports their gradient."""
+    """Training takes every stack the port runs but Mamba-2, which raises
+    ``NotImplementedError`` naming the ROADMAP.md Queue A item that ports
+    its gradient."""
     check_ported(cfg)
-    kinds = set(cfg.layer_kinds())
-    for cond, what, item in (
-            (cfg.moe is not None, "MoE (its aux loss and the dispatch's "
-             "gradient)", "11a"),
-            (ATTN_MLA in kinds, "MLA", "11b"),
-            (RGLRU in kinds, "RG-LRU", "11c"),
-            (MAMBA2 in kinds, "Mamba-2 (its SSD kernel has no backward)",
-             "11d"),
-            (cfg.is_encoder_decoder, "the encoder-decoder", "11e")):
-        if cond:
-            raise NotImplementedError(
-                f"{cfg.name}: training {what} is not ported (ROADMAP.md "
-                f"Queue A item {item})")
+    if MAMBA2 in cfg.layer_kinds():
+        raise NotImplementedError(
+            f"{cfg.name}: training Mamba-2 (its SSD kernel has no backward) "
+            "is not ported (ROADMAP.md Queue A item 11d)")
 
 
 # ---------------------------------------------------------------------------
@@ -105,6 +101,21 @@ def model_stages(cfg: ModelConfig):
         else:
             runs.append([k, moe_flag, 1])
     return [tuple(r) for r in runs]
+
+
+def long_context_variant(cfg: ModelConfig) -> ModelConfig:
+    """Sliding-window rewrite used for long_500k on full-attention archs
+    (beyond-paper adaptation, see DESIGN.md §4)."""
+    if cfg.supports_long_context():
+        return cfg
+    w = cfg.long_context_window
+    changes = {"window": w if cfg.window == 0 else min(cfg.window, w)}
+    if cfg.attn_kind == ATTN:
+        changes["attn_kind"] = ATTN_LOCAL
+    if cfg.layer_pattern:
+        changes["layer_pattern"] = tuple(
+            ATTN_LOCAL if k == ATTN else k for k in cfg.layer_pattern)
+    return dataclasses.replace(cfg, **changes)
 
 
 def window_for(cfg, kind):
@@ -149,10 +160,12 @@ def ffn_forward(params, h, cfg, moe_flag):
 
 
 def _block_forward(lp, x, cfg, kind, moe_flag, positions, *, causal=True,
-                   enc_kv=None, want_cache=False):
-    """Returns (x, cache_entry_or_None).  ``enc_kv``: the encoder's output,
-    which a decoder layer of an encoder-decoder attends after its
-    self-attention (its keys and values join the cache entry)."""
+                   enc_kv=None, want_cache=False, want_aux=False):
+    """Returns (x, aux, cache_entry_or_None).  ``enc_kv``: the encoder's
+    output, which a decoder layer of an encoder-decoder attends after its
+    self-attention (its keys and values join the cache entry).  ``aux``:
+    an MoE layer's load-balance loss when ``want_aux`` (training), else
+    None."""
     h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
     window = window_for(cfg, kind)
     cache = None
@@ -184,10 +197,15 @@ def _block_forward(lp, x, cfg, kind, moe_flag, positions, *, causal=True,
                                     impl=cfg.attn_impl)
         if want_cache:
             cache = dict(cache or {}, cross_k=ck, cross_v=cv)
+    aux = None
     if kind != MAMBA2:
         h2 = rmsnorm(lp["ln2"], x, cfg.norm_eps)
-        x = x + ffn_forward(lp["ffn"], h2, cfg, moe_flag)
-    return x, cache
+        if moe_flag:
+            f, aux = moe_mod.moe_ffn(lp["ffn"], h2, cfg, want_aux=want_aux)
+        else:
+            f = mlp(lp["ffn"], h2, cfg.act)
+        x = x + f
+    return x, aux, cache
 
 
 def _fit_cache_seq(arr, S_cache):
@@ -207,33 +225,41 @@ def _fit_cache_seq(arr, S_cache):
 
 
 def _run_stage(stage_params, x, cfg, kind, moe_flag, count, positions, *,
-               causal=True, enc_out=None, want_cache=False, remat=False):
-    """The stage's layers in order; returns (x, stacked caches or None).
+               causal=True, enc_out=None, want_cache=False, remat=False,
+               want_aux=False):
+    """The stage's layers in order; returns (x, aux, stacked caches or
+    None), ``aux`` the sum of the MoE layers' load-balance losses in
+    layer order when ``want_aux`` (None on a stage without them).
     ``remat`` (training): each layer body under ``checkpoint``, or each
     group of ``cfg.remat_group`` layers when the group divides the stage
     and is smaller than it (the reference's grouped remat), so the
-    backward saves only the group's input and reruns its forward."""
+    backward saves only the group's input and reruns its forward; the
+    checkpointed function returns (x, aux)."""
     per_layer = unbind_layers(stage_params)
 
     def layers(x, lo, hi):
-        caches = []
+        aux, caches = None, []
         for i in range(lo, hi):
-            x, cache = _block_forward(per_layer[i], x, cfg,
-                                      kind, moe_flag, positions,
-                                      causal=causal, enc_kv=enc_out,
-                                      want_cache=want_cache)
+            x, a, cache = _block_forward(per_layer[i], x, cfg,
+                                         kind, moe_flag, positions,
+                                         causal=causal, enc_kv=enc_out,
+                                         want_cache=want_cache,
+                                         want_aux=want_aux)
+            aux = a if aux is None else aux + a
             caches.append(cache)
-        return x, caches
+        return x, aux, caches
 
     if not remat:
-        x, caches = layers(x, 0, count)
-        return x, _stack(caches) if want_cache else None
+        x, aux, caches = layers(x, 0, count)
+        return x, aux, _stack(caches) if want_cache else None
     G = cfg.remat_group
     step = G if G > 1 and count % G == 0 and count > G else 1
+    aux = None
     for lo in range(0, count, step):
-        x = checkpoint(lambda h, lo=lo: layers(h, lo, lo + step)[0], x,
-                       use_reentrant=False)
-    return x, None
+        x, a = checkpoint(lambda h, lo=lo: layers(h, lo, lo + step)[:2], x,
+                          use_reentrant=False)
+        aux = a if aux is None else aux + a
+    return x, aux, None
 
 
 # ---------------------------------------------------------------------------
@@ -249,17 +275,17 @@ def _sinusoid(positions, d):
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
-@torch.no_grad()
 def encode(params, frames, cfg):
     """The Whisper encoder over stubbed frame embeddings (B, T, d): the
     sinusoid added, ``n_encoder_layers`` non-causal attention layers
-    (``params["enc"]``), the final norm."""
+    (``params["enc"]``), the final norm.  Autograd records it when a
+    gradient is wanted (training, without remat, as the reference's)."""
     dt = dtype_of(cfg)
     B, T, _ = frames.shape
     pos = torch.arange(T, device=frames.device)[None].expand(B, T)
     x = frames.to(dt) + _sinusoid(pos, cfg.d_model).to(dt)
-    x, _ = _run_stage(params["enc"]["stages"]["stage_0"], x, cfg, ATTN,
-                      False, cfg.n_encoder_layers, pos, causal=False)
+    x, _, _ = _run_stage(params["enc"]["stages"]["stage_0"], x, cfg, ATTN,
+                         False, cfg.n_encoder_layers, pos, causal=False)
     return rmsnorm(params["enc"]["final_norm"], x, cfg.norm_eps)
 
 
@@ -292,8 +318,9 @@ def forward_hidden(params, batch, cfg, *, mode="train", want_cache=False):
     Returns (hidden (B, S, d), aux, caches per stage (None per stage
     without ``want_cache``), n_prefix).  ``mode="train"`` applies
     ``cfg.remat``; autograd records whatever needs a gradient.  ``aux``
-    is the MoE load-balance loss, which only training reads: training
-    refuses MoE stacks (``check_trainable``), so it is zero."""
+    (f32, 0-d) is the MoE load-balance loss summed over the layers, which
+    only training reads: computed under ``mode="train"``, zero in the
+    serving modes (and on stacks without MoE layers)."""
     check_ported(cfg)
     x, positions, n_prefix = _embed_inputs(params, batch, cfg)
     enc_out = None
@@ -301,14 +328,17 @@ def forward_hidden(params, batch, cfg, *, mode="train", want_cache=False):
         enc_out = encode(params, batch["frames"], cfg)
         x = x + _sinusoid(positions, cfg.d_model).to(x.dtype)
     remat = cfg.remat and mode == "train" and not want_cache
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = []
     for i, (kind, moe_flag, count) in enumerate(model_stages(cfg)):
-        x, cache = _run_stage(params["stages"][f"stage_{i}"], x, cfg, kind,
-                              moe_flag, count, positions, enc_out=enc_out,
-                              want_cache=want_cache, remat=remat)
+        x, stage_aux, cache = _run_stage(
+            params["stages"][f"stage_{i}"], x, cfg, kind, moe_flag, count,
+            positions, enc_out=enc_out, want_cache=want_cache, remat=remat,
+            want_aux=mode == "train")
+        if stage_aux is not None:
+            aux = aux + stage_aux
         caches.append(cache)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, aux, caches, n_prefix
 
 

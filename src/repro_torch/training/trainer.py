@@ -1,4 +1,4 @@
-"""Training loop: AdamW steps over a dense GQA stack on the card.
+"""Training loop: AdamW steps over a decoder stack on the card.
 
 Port of ``repro/training/trainer.py``.  A step is the loss
 (``models.loss_fn``: the forward with remat, attention through the flash
@@ -7,10 +7,13 @@ kernel's autograd Function, chunked cross-entropy), its gradient by
 update in place.  The weights are drawn by ``weights.init_params`` from
 ``TrainConfig.seed`` on the device (``cuda`` unless the caller asks for
 the CPU), or handed in (``params=``: the tests bridge the reference's).
-A ``mesh`` is refused: sharding is ROADMAP.md Queue A item 12.  A
-vision stack's batches carry stubbed patch embeddings (standard normals
-drawn with numpy from the step's data seed): the reference's ``train``
-feeds no patches, so it cannot train such a stack.
+A ``mesh`` is refused: sharding is ROADMAP.md Queue A item 12, and
+Mamba-2 stacks by ``check_trainable`` (item 11d).  A vision stack's
+batches carry stubbed patch embeddings (``patch_embeds``), an
+encoder-decoder's (``audio_stub``, Whisper) stubbed frame embeddings
+(``frames``), each (batch, ``n_frontend_tokens``, d_model) standard
+normals drawn with numpy from the step's data seed: the reference's
+``train`` feeds neither, so it cannot train such a stack.
 """
 from __future__ import annotations
 
@@ -41,6 +44,18 @@ class TrainConfig:
     ckpt_every: int = 0               # 0 = only final
     ckpt_path: str = ""
     seed: int = 0
+
+
+# the batch key of a frontend stub's embeddings
+STUB_INPUTS = {"vision_stub": "patch_embeds", "audio_stub": "frames"}
+
+
+def stub_embeddings(cfg: ModelConfig, tc: TrainConfig, step: int):
+    """Step ``step``'s stubbed patch or frame embeddings: (batch,
+    ``n_frontend_tokens``, d_model) f32 standard normals from the step's
+    data seed."""
+    return np.random.default_rng(tc.seed * 100_003 + step).standard_normal(
+        (tc.batch, cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32)
 
 
 def make_train_step(cfg: ModelConfig, opt: AdamW):
@@ -92,11 +107,9 @@ def train(cfg: ModelConfig, tc: TrainConfig = TrainConfig(), mesh=None,
     t0 = time.time()
     for i, b in enumerate(batches(cfg.vocab_size, tc.batch, tc.seq_len,
                                   tc.steps, tc.seed)):
-        if cfg.frontend == "vision_stub":
-            b["patch_embeds"] = np.random.default_rng(
-                tc.seed * 100_003 + i).standard_normal(
-                (tc.batch, cfg.n_frontend_tokens, cfg.d_model)).astype(
-                np.float32)
+        stub = STUB_INPUTS.get(cfg.frontend)
+        if stub:
+            b[stub] = stub_embeddings(cfg, tc, i)
         batch = {k: torch.from_numpy(v).to(device) for k, v in b.items()}
         params, opt_state, loss = step_fn(params, opt_state, batch)
         if i % tc.log_every == 0 or i == tc.steps - 1:

@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: every ``repro_torch`` module imports with
 ``jax`` and ``repro`` made unimportable, and no module builds a kernel
-when it is imported.  Also drives the port's ``serve`` launcher on the
-CPU."""
+when it is imported.  Also drives the port's ``serve`` and ``train``
+launchers on the CPU."""
 import os
 import pathlib
 import subprocess
@@ -32,6 +32,9 @@ for name in ("repro_torch.serving.prefix_cache", "repro_torch.core.simulator",
              "repro_torch.training.checkpoint", "repro_torch.training.data",
              "repro_torch.launch.train"):
     assert name in names, name
+# the public entry points the reference's packages export
+from repro_torch.models import long_context_variant, loss_fn
+from repro_torch.kernels import paged_attention_splitk
 assert not any(k == "jax" or k.startswith(("jax.", "repro."))
                for k, v in sys.modules.items() if v is not None)
 from repro_torch.kernels import _build
@@ -63,6 +66,16 @@ def test_serve_launcher_on_cpu(capsys):
         done, total = out.split("finished ")[1].split(
             " requests")[0].split("/")
         assert done == total and int(total) > 0
+
+
+def test_train_launcher_on_cpu(capsys):
+    """MiniCPM3-4B's smoke config (MLA) trains through the launcher."""
+    from repro_torch.launch import train
+    losses = train.main(["--arch", "minicpm3-4b", "--smoke", "--device",
+                         "cpu", "--steps", "3", "--batch", "2", "--seq",
+                         "32"])
+    assert [s for s, _ in losses] == [0, 2]      # every 10th and the last
+    assert "final loss:" in capsys.readouterr().out
 
 
 def test_serve_launcher_defaults_to_cuda(monkeypatch):

@@ -19,7 +19,10 @@ CPU, weights bridged from the reference's):
   within 1e-5 relative, the final parameters within 1e-5 absolute;
 - checkpoints: f32 from the reference into the port and back, a bf16
   tree bit for bit, the reference's bf16 file read bit for bit;
-- the stacks and options training refuses, by their ROADMAP item."""
+- the stack and option training refuses, by their ROADMAP item
+  (Mamba-2, whose SSD kernel has no backward; a mesh).  MoE, MLA,
+  Whisper and RG-LRU training have files of their own
+  (``tests/test_torch_train_*.py``)."""
 import dataclasses
 
 import jax
@@ -293,11 +296,7 @@ def test_checkpoint_round_trips(tmp_path):
 # ---------------------------------------------------------------------------
 # what training refuses
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("arch,item", [
-    ("deepseek-moe-16b", "11a"), ("mixtral-8x7b", "11a"),
-    ("minicpm3-4b", "11b"), ("recurrentgemma-2b", "11c"),
-    ("mamba2-2.7b", "11d"), ("whisper-large-v3", "11e"),
-])
+@pytest.mark.parametrize("arch,item", [("mamba2-2.7b", "11d")])
 def test_training_refuses_unported_stacks(arch, item):
     cfg = port_config(SMOKE_FACTORIES[arch]())
     with pytest.raises(NotImplementedError,
