@@ -53,6 +53,15 @@ The quickest proof that the port builds and serves on an NVIDIA H100:
      128, chunk 128): S = 128, 1024 and 1000 with bf16 and f32 x, S = 4096
      with bf16 x (2560 blocks, 32 chunks chained per head), and S = 1000
      bf16 from an initial state;
+   - the SSD scan's backward (``csrc/ssd_scan_bwd.cu``: inject, chain,
+     chunk, group sum; f32 FMA for both types) at run U's shape
+     (Mamba-2-2.7B training: B 4, S 2048, H 80, P 64, G 1, N 128, chunk
+     128) in bf16, at S 1000 from an initial state with a nonzero dstate
+     in bf16 and f32, and with 8 groups of 10 heads in bf16, fed the
+     forward kernel's chunk states (held to the plain forward's), against
+     ``ssd_scan_bwd_plain`` (f32: 1e-4 of each gradient's largest
+     element; bf16: 2**-7 of it), timed beside the forward that writes
+     the chunk states;
    - the public entry point ``kernels.ops.paged_attention_splitk`` at
      run C's narrow mixed launch (4 pages a table row, below the
      split-K threshold): one split-K launch a call, against its plain
@@ -194,10 +203,17 @@ The quickest proof that the port builds and serves on an NVIDIA H100:
         4096 tokens, past the 2048 window: 8 local-attention layers at
         head dim 256 through flash and its backward, 18 RG-LRU layers in
         PyTorch;
-     each of Q-T with P's checks (step 0's loss within 1e-2 of the plain
-     attention's, the loss falling, the flash forward and backward
-     launched as derived from the stack and nothing else of the port),
-     step times, tokens/s and peak memory;
+     U  Mamba-2-2.7B as registered (64 layers, d_model 2560, 80 heads of
+        64, state 128, chunk 128, vocab 50 280, bf16; 2.83 B parameters)
+        trained as Q on 4 x 2048 tokens: the SSD scan forward twice a
+        layer and step (remat), each time writing its chunk states, the
+        SSD backward kernel once, no flash; two gradients of one batch
+        compared bit for bit, their launches checked;
+     each of Q-U with P's checks (step 0's loss within 1e-2 of the plain
+     attention's and the plain SSD scan's, the loss falling, the flash
+     and SSD-scan forward and backward launched as derived from the
+     stack and nothing else of the port), step times, tokens/s and peak
+     memory;
    runs D, F, G, L, M and O decode over their slot caches through the
    split-K paged kernels (once per attention layer and decode step,
    asserted), and their decode steps, and K's, take less extra memory
@@ -211,11 +227,17 @@ The quickest proof that the port builds and serves on an NVIDIA H100:
    prefill call), and one training step of run P;
    runs A, B and D-T must go through the tensor-core (``mma``) variants
    of their forward kernels and launch no ``fma`` variant, and no kernel
-   a run does not expect (the backward only in runs P-T);
-4. a ``seconds`` line (wall time of each phase), the nvidia-smi line, a
+   a run does not expect (the backward kernels only in runs P-U);
+4. the port's engine examples through their ``main()`` on the card:
+   ``examples/quickstart_torch.py`` (MoPE, a reduced Llama-2 under
+   Equinox) and ``examples/serve_multiarch_torch.py`` (every registered
+   architecture's smoke config, the encoder-decoder refused by the
+   engine), each one's seconds on the ``examples`` line;
+5. a ``seconds`` line (wall time of each phase), the nvidia-smi line, a
    ``kernels`` JSON line (the four ports of the Pallas kernels and the
-   flash backward; launches per variant beside the totals), and last the
-   result line ``{"ok": true, "device": {...}}``.
+   flash and SSD-scan backward kernels; launches per variant beside the
+   totals), and last the result line ``{"ok": true, "device":
+   {...}}``.
 
 Any failed check exits non-zero; no phase catches an error and goes on.
 Without a CUDA device it exits 2 before printing any result.  TF32 is
@@ -225,6 +247,7 @@ switched off for matmuls and cuDNN, so f32 products are full f32.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import gc
@@ -254,6 +277,11 @@ F32_TOL = (1e-5, 1e-5)             # f32 q, f32 pools
 # the SSD scan: the gate of tests/test_kernels.py::test_ssd_kernel
 SSD_BF16_TOL = (2 ** -7, 1e-4)
 SSD_F32_TOL = (0.0, 5e-4)
+# the SSD backward kernel vs its plain version, each gradient's max |d|
+# within a share of its largest |plain|: f32 sums in other orders (and
+# the kernel's compensated la_cum) at 1e-4; bf16 dx, dB and dC rounded
+# once each, at SSD_BF16_TOL's 2**-7 (one bf16 step at the top)
+SSD_BWD_REL = {"float32": 1e-4, "bfloat16": SSD_BF16_TOL[0]}
 # int8 pools vs the bf16 pools they were quantized from: the noise bound
 # of tests/test_paged_kernels.py (0.15 x std of the fp output), held by
 # the RMS of the difference; its max is reported (it grows with the
@@ -304,6 +332,7 @@ TRAIN_RUNS = {
     "R": ("minicpm3-4b", None, 4, 2048),
     "S": ("whisper-large-v3", None, 8, 448),
     "T": ("recurrentgemma-2b", None, 2, 4096),
+    "U": ("mamba2-2.7b", None, 4, 2048),
 }
 # the flash backward kernel vs its plain version: f32 sums in other orders
 # (max |d| within 1e-4 of the largest |plain|); bf16: both widen the same
@@ -377,6 +406,7 @@ def main() -> int:
           "libraries": built, "ptxas_registers": regs,
           "ptxas_spill_bytes": spills, "ptxas_d256": d256,
           "ptxas_flash_attention_bwd": bwd,
+          "ptxas_ssd_scan_bwd": ptxas["ssd_scan_bwd"],
           "tile_smem_bytes": tile_smem_bytes(),
           "ssd_scan:mma": importlib.import_module(
               "repro_torch.kernels.ssd_scan").mma_attrs()})
@@ -393,11 +423,13 @@ def main() -> int:
     kernel_rows.update(timed("flash", flash_phase, flush))
     kernel_rows.update(timed("flash_bwd", flash_bwd_phase, flush))
     kernel_rows.update(timed("ssd", ssd_phase, flush))
+    kernel_rows.update(timed("ssd_bwd", ssd_bwd_phase, flush))
     kernel_rows["paged_attention_splitk"]["slot_int8_decode"] = \
         timed("slot_attention", slot_attention_phase, flush)
     kernel_rows["paged_attention_splitk"]["ops_entry"] = \
         timed("ops_splitk", ops_splitk_phase, flush)
     timed("engine_runs", engine_phase, kernel_rows)
+    timed("examples", examples_phase)
     SECONDS["total"] = time.perf_counter() - t0
 
     emit({"phase": "seconds", **SECONDS})
@@ -1248,6 +1280,151 @@ def ssd_phase(torch, flush):
     return {"ssd_scan": row}
 
 
+def ssd_bwd_bound(B, S, H, P, G, N, chunk, dtype, init, dstate):
+    """(ms, bound_by) of the SSD scan's backward: x, dy, B, C and the f32
+    la (and initial state and dstate when given) read and dx, dB, dC, dla
+    (and d(initial state)) written once over HBM bandwidth, against the
+    multiply-adds of ``ssd_scan_bwd_plain``'s equations, 2 operations
+    each, over the peak for x's type.  Per chunk of q positions and head,
+    over its q (q + 1) / 2 causal pairs: C B^T and dM = dy x^T (N + P),
+    sum_i M_ij dy_i (P), (dM o L) B and its transpose with C (2 N); and
+    five (P, N) products a position: the chunk states recomputed (the
+    function is given no states), dy (x) C into dS, dS B_j, dS^T x_j and
+    S^T dy_i."""
+    elem = {"bfloat16": 2, "float32": 4}[dtype]
+    n_bytes = B * S * (3 * H * P + 4 * G * N) * elem + 2 * B * S * H * 4 \
+        + B * H * P * N * 4 * (int(init) * 2 + int(dstate))
+    macs = 0
+    for t0 in range(0, S, chunk):
+        q = min(chunk, S - t0)
+        macs += B * H * (q * (q + 1) // 2 * (3 * N + 2 * P) + 5 * q * P * N)
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * macs / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ssd_bwd_ratio(got, want, dt):
+    """(max |got - want|, that over SSD_BWD_REL[dt] of the largest
+    |want|)."""
+    err = (got.float() - want.float()).abs().max().item()
+    top = max(want.float().abs().max().item(), 1e-30)
+    return err, err / (SSD_BWD_REL[dt] * top)
+
+
+def ssd_bwd_phase(torch, flush):
+    """The SSD scan's backward kernels (``csrc/ssd_scan_bwd.cu``: inject,
+    chain, chunk, group sum) against ``ssd_scan_bwd_plain`` on the card,
+    fed the forward kernel's chunk states (held to the plain forward's),
+    inputs drawn as ``ssd_phase`` draws them and dy unit normals: at run
+    U's shape (Mamba-2-2.7B training: B 4, S 2048, H 80, P 64, G 1, N
+    128, chunk 128) in bf16, from no state and with no dstate as training
+    runs it; at S 1000 with an initial state and a nonzero dstate in bf16
+    and f32; and with 8 groups of 10 heads in bf16.  No PyTorch call
+    computes it (``library_ms`` null).  The kernels line carries run U's
+    case."""
+    ss = importlib.import_module("repro_torch.kernels.ssd_scan")
+    dev = torch.device("cuda")
+    H, P, N, chunk = 80, 64, 128, 128
+    row = {"name": "ssd_scan_bwd", "route": "cuda",
+           "source": "src/repro_torch/csrc/ssd_scan_bwd.cu",
+           "replaces": "src/repro/models/ssm.py:88",
+           "max_abs_err": 0.0, "library_ms": None}
+    # (name, B, S, G, dtype, initial state, dstate)
+    cases = [("U_B4_S2048", 4, 2048, 1, "bfloat16", False, False),
+             ("S1000_init_dstate", 1, 1000, 1, "bfloat16", True, True),
+             ("S1000_init_dstate", 1, 1000, 1, "float32", True, True),
+             ("S1000_G8", 2, 1000, 8, "bfloat16", False, True)]
+    for ci, (name, B, S, G, dt, with_init, with_ds) in enumerate(cases):
+        g = torch.Generator(device=dev).manual_seed(SEED + 400 + ci)
+        dtype = getattr(torch, dt)
+        x = torch.randn(B, S, H, P, generator=g, device=dev).to(dtype)
+        step = torch.exp(torch.rand(B, S, H, generator=g, device=dev)
+                         * np.log(100.0) + np.log(1e-3))
+        la = -step * torch.arange(1, H + 1, device=dev)
+        Bm, Cm = ((0.3 * torch.randn(B, S, G, N, generator=g,
+                                     device=dev)).to(dtype) for _ in "BC")
+        dy = torch.randn(B, S, H, P, generator=g, device=dev).to(dtype)
+        init = torch.randn(B, H, P, N, generator=g, device=dev) \
+            if with_init else None
+        dstate = torch.randn(B, H, P, N, generator=g, device=dev) \
+            if with_ds else None
+        _, _, cs = ss.ssd_scan_kernel(x, la, Bm, Cm, chunk=chunk,
+                                      initial_state=init,
+                                      return_chunk_states=True)
+        _, _, p_cs = ss.ssd_scan_plain(x, la, Bm, Cm, chunk=chunk,
+                                       initial_state=init,
+                                       return_chunk_states=True)
+        cs_err, cs_ratio = tol_ratio(cs, p_cs, SSD_F32_TOL)
+        check(cs_ratio <= 1, f"ssd backward {name}/{dt}: the forward's "
+              f"chunk states off the plain version's by {cs_err}")
+        del p_cs
+
+        def kernel():
+            return ss.ssd_scan_bwd_kernel(x, la, Bm, Cm, dy, dstate,
+                                          chunk=chunk, initial_state=init,
+                                          chunk_states=cs)
+
+        def plain():
+            return ss.ssd_scan_bwd_plain(x, la, Bm, Cm, dy, dstate,
+                                         chunk=chunk, initial_state=init)
+
+        got = kernel()
+        torch.cuda.synchronize()
+        want = plain()
+        errs = {}
+        for gname, a, b in zip(("dx", "dla", "dB", "dC", "dinit"), got,
+                               want):
+            check(a.shape == b.shape and a.dtype == b.dtype,
+                  f"ssd backward {name}/{dt}: {gname} {tuple(a.shape)} "
+                  f"{a.dtype}, not {tuple(b.shape)} {b.dtype}")
+            check(bool(torch.isfinite(a.float()).all()),
+                  f"ssd backward {name}/{dt}: non-finite {gname}")
+            errs[gname] = ssd_bwd_ratio(a, b, dt)
+            check(errs[gname][1] <= 1, f"ssd backward {name}/{dt}: "
+                  f"{gname} off the plain version by {errs[gname][0]} "
+                  f"(ratio {errs[gname][1]})")
+        del got, want
+        line = {"phase": "kernels", "kernel": "ssd_scan_bwd", "case": name,
+                "dtype": dt, "variant": ss.BWD_VARIANTS[dtype], "B": B,
+                "S": S, "H": H, "P": P, "G": G, "N": N, "chunk": chunk,
+                "initial_state": with_init, "dstate": with_ds,
+                "tolerance": f"{SSD_BWD_REL[dt]} x each gradient's "
+                             "largest |plain|",
+                "max_abs_err": {k: e for k, (e, _) in errs.items()},
+                "tol_ratio": {k: r for k, (_, r) in errs.items()},
+                "chunk_states_max_abs_err": cs_err,
+                "ms": time_ms(torch, kernel, 10, flush),
+                "ms_by_kernel": device_ms_by_kernel(
+                    torch, kernel, flush, names=("ssd_bwd",)),
+                "plain_ms": time_ms(torch, plain, 3, flush),
+                "library_ms": None,
+                "forward_ms": time_ms(torch, lambda: ss.ssd_scan_kernel(
+                    x, la, Bm, Cm, chunk=chunk, initial_state=init,
+                    return_chunk_states=True), 10, flush),
+                "forward_no_states_ms": time_ms(
+                    torch, lambda: ss.ssd_scan_kernel(
+                        x, la, Bm, Cm, chunk=chunk, initial_state=init), 10,
+                    flush),
+                "smem_bytes": ss.bwd_smem_bytes()}
+        line["bound_ms"], line["bound_by"] = ssd_bwd_bound(
+            B, S, H, P, G, N, chunk, dt, with_init, with_ds)
+        emit(line)
+        row["max_abs_err"] = max(row["max_abs_err"],
+                                 *line["max_abs_err"].values())
+        row.setdefault("shapes", {})[f"{name}/{dt}"] = {
+            k: line[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "forward_ms", "forward_no_states_ms")}
+        row["shapes"][f"{name}/{dt}"]["tol_ratio"] = max(
+            line["tol_ratio"].values())
+        if ci == 0:
+            row.update({k: line[k] for k in (
+                "ms", "ms_by_kernel", "plain_ms", "bound_ms", "bound_by")},
+                shape=f"{name}/{dt}")
+        del x, la, Bm, Cm, dy, init, dstate, cs
+        torch.cuda.empty_cache()
+    return {"ssd_scan_bwd": row}
+
+
 def slot_attention_phase(torch, flush):
     """The slots backend's decode attention (``models.attention.
     decode_attention``), then run L's (``slot_int8_case``) and run K's
@@ -1976,6 +2153,43 @@ def engine_phase(torch, kernel_rows):
             row["launches_by_pools"] = pools
 
 
+def examples_phase(torch):
+    """The port's engine examples run on the card through their
+    ``main()``: ``examples/quickstart_torch.py`` (MoPE trained, a reduced
+    Llama-2 served under Equinox: 12 requests of two clients) and
+    ``examples/serve_multiarch_torch.py`` (every registered architecture's
+    smoke config behind ``ServingEngine``, 6 requests each, the
+    encoder-decoder refused by the engine).  Each one's seconds and
+    launches go on the ``examples`` line (outside every run's counts)."""
+    import importlib.util
+
+    out = {}
+    for name in ("quickstart_torch", "serve_multiarch_torch"):
+        spec = importlib.util.spec_from_file_location(
+            name, ROOT / "examples" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        result = mod.main(["--device", "cuda"])
+        torch.cuda.synchronize()
+        SECONDS[f"examples/{name}"] = time.perf_counter() - t0
+        out[name] = {"seconds": SECONDS[f"examples/{name}"],
+                     "result": result,
+                     "launches": {k: v for k, v in launch_counts().items()
+                                  if v}}
+    quick = out["quickstart_torch"]["result"]
+    check(quick["requests"] == 12 and np.isfinite(quick["jain"]),
+          f"examples: quickstart_torch served {quick}")
+    multi = out["serve_multiarch_torch"]["result"]
+    skipped = [a for a, v in multi.items() if v is None]
+    check(skipped == ["whisper-large-v3"] and all(
+        ok == n for v in multi.values() if v is not None for ok, n in [v]),
+        f"examples: serve_multiarch_torch served {multi}")
+    emit({"phase": "examples", **out})
+    reset_launch_counts()
+
+
 def internvl_run(torch, vlm, slots_attn):
     """Run O: InternVL2-76B at full width (d_model 8192, 64 query heads
     over 8 kv heads of 128, d_ff 28 672, vocab 128 256, untied, bf16;
@@ -2022,32 +2236,55 @@ def internvl_run(torch, vlm, slots_attn):
 
 
 def train_launches(cfg, steps):
-    """The flash forward and backward launches ``steps`` training steps
-    of ``cfg`` make: each attention call of a layer once forward and once
+    """The flash and SSD-scan forward and backward launches ``steps``
+    training steps (or loss gradients) of ``cfg`` make: each attention
+    call of a layer, and each Mamba-2 layer's scan, once forward and once
     backward, a decoder layer's forward once more under remat (its
     recompute); an encoder-decoder's decoder layers attend twice (self
     and cross), its encoder layers once, without remat."""
-    from repro_torch.configs.base import ATTN, ATTN_LOCAL, ATTN_MLA
+    from repro_torch.configs.base import ATTN, ATTN_LOCAL, ATTN_MLA, MAMBA2
 
-    n_attn = sum(k in (ATTN, ATTN_LOCAL, ATTN_MLA)
-                 for k in cfg.layer_kinds())
+    kinds = cfg.layer_kinds()
+    n_attn = sum(k in (ATTN, ATTN_LOCAL, ATTN_MLA) for k in kinds)
     n_attn *= 2 if cfg.is_encoder_decoder else 1
     n_enc = cfg.n_encoder_layers if cfg.is_encoder_decoder else 0
-    fwd = steps * (n_enc + (2 if cfg.remat else 1) * n_attn)
+    n_ssd = sum(k == MAMBA2 for k in kinds)
+    per = 2 if cfg.remat else 1
+    fwd = steps * (n_enc + per * n_attn)
     bwd = steps * (n_enc + n_attn)
     return {"flash_attention": fwd, "flash_attention:mma": fwd,
-            "flash_attention_bwd": bwd, "flash_attention_bwd:mma": bwd}
+            "flash_attention_bwd": bwd, "flash_attention_bwd:mma": bwd,
+            "ssd_scan": steps * per * n_ssd,
+            "ssd_scan:mma": steps * per * n_ssd,
+            "ssd_scan_bwd": steps * n_ssd,
+            "ssd_scan_bwd:fma_bf16": steps * n_ssd}
+
+
+@contextlib.contextmanager
+def plain_ssd():
+    """Mamba-2 layers through the SSD scan's plain version (the step-0
+    loss check's reference, beside ``attn_impl="naive"``); nothing in
+    the package has a switch for it."""
+    ssm = importlib.import_module("repro_torch.models.ssm")
+    ss = importlib.import_module("repro_torch.kernels.ssd_scan")
+    kernel = ssm.ssd_scan_kernel
+    ssm.ssd_scan_kernel = ss.ssd_scan_plain
+    try:
+        yield
+    finally:
+        ssm.ssd_scan_kernel = kernel
 
 
 def train_check(torch, run, cfg, tc, reduced=None, aux=False):
     """One training run: weights drawn on the card from SEED,
     ``training.train`` over ``tc``, and its checks: step 0's loss within
     TRAIN_LOSS_TOL of ``loss_fn`` with the plain attention
-    (``attn_impl="naive"``) on the same weights and batch (an
-    encoder-decoder's with the frames ``train`` draws for step 0), the
-    loss after the last step below step 0's, the flash forward and
-    backward launched as ``train_launches`` derives and nothing else of
-    the port.  Emits the ``train`` line (step times, the median after the
+    (``attn_impl="naive"``) and the SSD scan's plain version
+    (``plain_ssd``) on the same weights and batch (an encoder-decoder's
+    with the frames ``train`` draws for step 0), the loss after the last
+    step below step 0's, the flash and SSD-scan forward and backward
+    launched as ``train_launches`` derives and nothing else of the
+    port.  Emits the ``train`` line (step times, the median after the
     first, tokens/s, peak memory; ``aux``: step 0's MoE load-balance loss
     from ``forward_hidden``).  Returns (params, launches, step 0's batch
     on the card)."""
@@ -2079,7 +2316,7 @@ def train_check(torch, run, cfg, tc, reduced=None, aux=False):
         b0[stub] = stub_embeddings(cfg, tc, 0)
     data_s = time.perf_counter() - t0
     b0 = {k: torch.from_numpy(v).to("cuda") for k, v in b0.items()}
-    with torch.no_grad():
+    with torch.no_grad(), plain_ssd():
         plain_loss = float(loss_fn(params, b0, dataclasses.replace(
             cfg, attn_impl="naive")))
         aux0 = float(forward_hidden(params, b0, cfg)[1]) if aux else None
@@ -2232,7 +2469,14 @@ def stack_train_run(torch, run):
     T  RecurrentGemma-2B, all 26 layers (3.31 B parameters), 2 x 4096
        tokens, so the 2048 window cuts; 8 local-attention layers at head
        dim 256: flash 64, backward 32 (the 18 RG-LRU layers launch no
-       kernel of the port).
+       kernel of the port);
+    U  Mamba-2-2.7B, all 64 layers (2.83 B parameters), 4 x 2048 tokens:
+       the SSD scan 2 x 64 x 4 = 512 (the forward and its recompute under
+       remat, each writing its chunk states), the SSD backward kernel
+       64 x 4 = 256, no flash; step 0's loss against the plain scan's.
+       Also whether two gradients of one batch are equal bit for bit (the
+       backward has no atomics), with those two gradients' launches
+       (2 x 128 forward, 2 x 64 backward) checked as derived.
 
     Returns the run's launch counts."""
     from repro_torch.configs import get_config
@@ -2260,20 +2504,33 @@ def stack_train_run(torch, run):
     tc = TrainConfig(**dict(TRAIN_QT, batch=batch, seq_len=seq_len))
     params, launches, b0 = train_check(torch, run, cfg, tc, reduced,
                                        aux=cfg.moe is not None)
-    if cfg.moe is not None:
+    ssm = cfg.ssm is not None
+    if cfg.moe is not None or ssm:
         # two gradients of one loss on one batch, bit for bit
         leaves = list(_leaves(params))
         first = None
+        reset_launch_counts()
         for _ in range(2):
             loss = loss_fn(params, b0, cfg)
             grads = torch.autograd.grad(loss, leaves)
             if first is None:
                 first = (loss.detach(), grads)
+        torch.cuda.synchronize()
+        counts = launch_counts()
         same = [bool(torch.equal(a, b)) for a, b in zip(first[1], grads)]
-        emit({"phase": "train", "run": run, "check": "determinism",
-              "loss_bitwise_equal": bool(torch.equal(first[0], loss)),
-              "grad_leaves": len(same), "grad_leaves_bitwise_equal":
-                  sum(same)})
+        line = {"phase": "train", "run": run, "check": "determinism",
+                "loss_bitwise_equal": bool(torch.equal(first[0], loss)),
+                "grad_leaves": len(same), "grad_leaves_bitwise_equal":
+                    sum(same)}
+        if ssm:
+            line["launches"] = {k: v for k, v in counts.items() if v}
+        emit(line)
+        if ssm:
+            want = {name: 0 for name in counts}
+            want.update(train_launches(cfg, 2))
+            check(counts == want, f"run {run}: two gradients launched "
+                  f"{line['launches']}, not "
+                  f"{ {k: v for k, v in want.items() if v} }")
         del first, grads, loss
     del params, b0
     gc.collect()

@@ -3,13 +3,18 @@
 while a new phase is brought up.
 
     python3 scripts/chip_phases.py bwd,ops,P,Q,R,S,T,O
+    python3 scripts/chip_phases.py ssd_bwd,U,examples
 
-``bwd``: the flash backward kernel lines (``flash_bwd_phase``); ``ops``:
+``bwd``: the flash backward kernel lines (``flash_bwd_phase``);
+``ssd_bwd``: the SSD scan's backward kernel lines (``ssd_bwd_phase``);
+``ops``:
 ``kernels.ops.paged_attention_splitk``'s line (``ops_splitk_phase``);
 ``P``: Granite-3-2B training (``train_run``); ``Q``-``T``: training
-DeepSeek-MoE-16B (7 layers), MiniCPM3-4B, Whisper large-v3 and
-RecurrentGemma-2B (``stack_train_run``); ``O``: InternVL2-76B through the
-slots engine (``internvl_run``, without its profile window).  Builds the
+DeepSeek-MoE-16B (7 layers), MiniCPM3-4B, Whisper large-v3,
+RecurrentGemma-2B and Mamba-2-2.7B (``U``; ``stack_train_run``); ``O``:
+InternVL2-76B through the slots engine (``internvl_run``, without its
+profile window); ``examples``: the port's engine examples
+(``examples_phase``).  Builds the
 kernels first, prints chip_smoke's JSON lines and the seconds each phase
 took, and last the ``kernels`` rows of the phases run with the launches
 of the runs run.  Exits non-zero on any failed check, as chip_smoke does.
@@ -50,6 +55,10 @@ def main(argv) -> int:
     if "bwd" in which:
         rows.update(cs.flash_bwd_phase(torch, flush))
         cs.emit({"phase": "seconds", "bwd": time.perf_counter() - t0})
+    if "ssd_bwd" in which:
+        t0 = time.perf_counter()
+        rows.update(cs.ssd_bwd_phase(torch, flush))
+        cs.emit({"phase": "seconds", "ssd_bwd": time.perf_counter() - t0})
     if "ops" in which:
         t0 = time.perf_counter()
         cs.ops_splitk_phase(torch, flush)
@@ -75,6 +84,10 @@ def main(argv) -> int:
         vlm = cs.setup(torch, "internvl2-76b", n_layers=cs.INTERNVL_LAYERS)
         runs["O"] = cs.internvl_run(torch, vlm, slots_attn)
         cs.emit({"phase": "seconds", "O": time.perf_counter() - t0})
+    if "examples" in which:
+        t0 = time.perf_counter()
+        cs.examples_phase(torch)
+        cs.emit({"phase": "seconds", "examples": time.perf_counter() - t0})
     for name, row in rows.items():
         row["launches"] = sum(r[name] for r in runs.values())
     print(json.dumps({"kernels": list(rows.values())}), flush=True)

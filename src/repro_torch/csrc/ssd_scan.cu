@@ -15,7 +15,10 @@
 // the exponent is positive and may overflow, and inf * 0 is NaN.
 // Positions at or past S read as x = 0, la = 0, B = C = 0, which leaves
 // the state unchanged.  y is rounded once to x's type; the final state is
-// f32.
+// f32.  Training also asks for the state entering each chunk (B, n_chunks,
+// H, P, N) f32, S_{c-1} (zeros or the initial state for chunk 0), which
+// the backward (ssd_scan_bwd.cu) reads; serving passes a null pointer and
+// writes nothing more.
 //
 // Two kernels, chosen by x's type:
 //
@@ -65,8 +68,8 @@
 //   sequence base, chunk c publishes base + c + 1, so a flag of an earlier
 //   call is never taken for a fresh one and no memset is launched per
 //   call.  Shared memory: 90,112 bytes of dynamic shared memory per
-//   block; 252 registers per thread (254 with 8-byte copies); 2 blocks
-//   (8 warps) per SM.  What still holds it back (PERF.md,
+//   block; 255 registers per thread (252, and 254 with 8-byte copies,
+//   before the chunk-state store); 2 blocks (8 warps) per SM.  What still holds it back (PERF.md,
 //   scripts/ssd_phases.py): a block spends a fifth of its time getting
 //   its 80 KB (B and C are read again for every head) and a sixth in the
 //   hand-off's trips to L2, and its mma.sync products run far below the
@@ -158,7 +161,8 @@ __global__ void __launch_bounds__(kThreads)
 ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ la,
                 const T* __restrict__ Bm, const T* __restrict__ Cm,
                 const float* __restrict__ init, T* __restrict__ y,
-                float* __restrict__ state_out, Shape P) {
+                float* __restrict__ state_out, float* __restrict__ chunk_states,
+                Shape P) {
   extern __shared__ float4 smem_raw[];
   float* B_s = reinterpret_cast<float*>(smem_raw);
   float* C_s = B_s + kMaxQ * kBStride;
@@ -209,6 +213,14 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ la,
       for (int i = lo; i < hi; ++i) cum_s[i] += base;
     }
     __syncthreads();
+    if (chunk_states) {                    // S_{c-1}, as it enters this chunk
+      float* dst = chunk_states + ((static_cast<int64_t>(b) * ((P.S + Q - 1) / Q) + t0 / Q) *
+                                       P.H + h) * P.P * P.N;
+      for (int idx = threadIdx.x; idx < P.P * P.N; idx += kThreads) {
+        const int p = idx / P.N, n = idx - p * P.N;
+        dst[idx] = st_s[p * kBStride + n];
+      }
+    }
     const float la_tot = cum_s[Q - 1];
     for (int i = threadIdx.x; i < Q; i += kThreads) {
       ecum_s[i] = expf(cum_s[i]);
@@ -368,7 +380,8 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ la,
 
 template <typename T>
 int launch(const void* x, const float* la, const void* Bm, const void* Cm,
-           const float* init, void* y, float* state, const Shape& P, cudaStream_t stream) {
+           const float* init, void* y, float* state, float* chunk_states, const Shape& P,
+           cudaStream_t stream) {
   static bool configured = false;          // opt in to > 48 KiB once per type
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -380,7 +393,7 @@ int launch(const void* x, const float* la, const void* Bm, const void* Cm,
   const dim3 grid(P.H, P.B);
   ssd_scan_kernel<T><<<grid, kThreads, kSmemBytes, stream>>>(
       static_cast<const T*>(x), la, static_cast<const T*>(Bm), static_cast<const T*>(Cm),
-      init, static_cast<T*>(y), state, P);
+      init, static_cast<T*>(y), state, chunk_states, P);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -492,7 +505,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 ssd_scan_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ la,
                     const bf16* __restrict__ Bm, const bf16* __restrict__ Cm,
                     const float* __restrict__ init, bf16* __restrict__ y,
-                    float* __restrict__ state_out, Chain ch, Shape P) {
+                    float* __restrict__ state_out, float* __restrict__ chunk_states,
+                    Chain ch, Shape P) {
   extern __shared__ float4 smem_raw[];
   bf16* x_s = reinterpret_cast<bf16*>(smem_raw);
   bf16* B_s = x_s + kQ * kXS;
@@ -735,6 +749,20 @@ ssd_scan_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ la,
     __threadfence();
     st_release(ch.flags + bh, ch.seq_base + c + 1);
   }
+  // training: S_{c-1} as it enters this chunk, off the chain's path
+  if (chunk_states) {
+    float* cs = chunk_states + (static_cast<int64_t>(b) * n_chunks + c) * P.H * P.P * P.N +
+                static_cast<int64_t>(h) * P.P * P.N;
+#pragma unroll
+    for (int n8 = 0; n8 < kN / 8; ++n8)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int p = p0 + gq + 8 * half;
+        const int n = n8 * 8 + 2 * tq;
+        if (p < P.P && n < P.N)
+          *reinterpret_cast<float2*>(cs + static_cast<int64_t>(p) * P.N + n) = sp[n8][half];
+      }
+  }
   // then S_{c-1} as hi + lo bf16 for (f), off the chain's path
   if (carry) {
 #pragma unroll
@@ -820,7 +848,8 @@ int configure() {
 }
 
 int launch(const void* x, const float* la, const void* Bm, const void* Cm,
-           const float* init, void* y, float* state, unsigned* ws, long long slots_offset,
+           const float* init, void* y, float* state, float* chunk_states, unsigned* ws,
+           long long slots_offset,
            unsigned ticket_base, unsigned seq_base, const Shape& P, cudaStream_t stream) {
   const int rc = configure();
   if (rc) return rc;
@@ -836,7 +865,7 @@ int launch(const void* x, const float* la, const void* Bm, const void* Cm,
                           : ssd_scan_mma_kernel<4>;    // 8-byte copies
   kernel<<<static_cast<unsigned>(grid), kThreads, kSmemBytes, stream>>>(
       static_cast<const bf16*>(x), la, static_cast<const bf16*>(Bm),
-      static_cast<const bf16*>(Cm), init, static_cast<bf16*>(y), state, ch, P);
+      static_cast<const bf16*>(Cm), init, static_cast<bf16*>(y), state, chunk_states, ch, P);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -862,10 +891,11 @@ int attrs(int* out) {
 extern "C" {
 
 // x, Bm, Cm, y contiguous in one dtype (0 = f32, 1 = bf16); la, init (may
-// be null) and state f32.
+// be null), state and chunk_states (may be null; else B x n_chunks x H x P
+// x N) f32.
 int ssd_scan_fwd(const void* x, const void* la, const void* Bm, const void* Cm,
-                 const void* init, void* y, void* state, int B, int S, int H, int P,
-                 int G, int N, int chunk, int dtype, void* stream) {
+                 const void* init, void* y, void* state, void* chunk_states, int B, int S,
+                 int H, int P, int G, int N, int chunk, int dtype, void* stream) {
   if (B < 1 || S < 1 || G < 1 || H % G != 0 || P % 4 || N % 4 || P < 4 || N < 4 ||
       P > kMaxP || N > kMaxN || chunk < 1 || chunk > kMaxQ)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -874,12 +904,14 @@ int ssd_scan_fwd(const void* x, const void* la, const void* Bm, const void* Cm,
   const auto* laf = static_cast<const float*>(la);
   const auto* initf = static_cast<const float*>(init);
   auto* sf = static_cast<float*>(state);
-  if (dtype == 0) return launch<float>(x, laf, Bm, Cm, initf, y, sf, shp, st);
-  if (dtype == 1) return launch<__nv_bfloat16>(x, laf, Bm, Cm, initf, y, sf, shp, st);
+  auto* cs = static_cast<float*>(chunk_states);
+  if (dtype == 0) return launch<float>(x, laf, Bm, Cm, initf, y, sf, cs, shp, st);
+  if (dtype == 1) return launch<__nv_bfloat16>(x, laf, Bm, Cm, initf, y, sf, cs, shp, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// bf16 x, Bm, Cm and y, f32 la, init (may be null) and state, all
+// bf16 x, Bm, Cm and y, f32 la, init (may be null), state and
+// chunk_states (may be null; else B x n_chunks x H x P x N), all
 // contiguous, 8-byte aligned (16 for 16-byte copies).  `workspace` is
 // kFlagsOffset words (the ticket first), then one flag per (b, h), then
 // `slots` (16-byte aligned; room for 2 B H P N floats) at word offset
@@ -887,7 +919,8 @@ int ssd_scan_fwd(const void* x, const void* la, const void* Bm, const void* Cm,
 // seq_base the sequence base, both advanced by the caller (by the grid and
 // by the number of chunks).
 int ssd_scan_mma_fwd(const void* x, const void* la, const void* Bm, const void* Cm,
-                     const void* init, void* y, void* state, void* workspace,
+                     const void* init, void* y, void* state, void* chunk_states,
+                     void* workspace,
                      long long slots_offset, unsigned ticket_base, unsigned seq_base,
                      int B, int S, int H, int P, int G, int N, int chunk, void* stream) {
   if (B < 1 || S < 1 || G < 1 || H % G != 0 || P % 4 || N % 4 || P < 4 || N < 4 ||
@@ -895,7 +928,8 @@ int ssd_scan_mma_fwd(const void* x, const void* la, const void* Bm, const void* 
     return static_cast<int>(cudaErrorInvalidValue);
   return ssd_mma::launch(x, static_cast<const float*>(la), Bm, Cm,
                          static_cast<const float*>(init), y, static_cast<float*>(state),
-                         static_cast<unsigned*>(workspace), slots_offset, ticket_base,
+                         static_cast<float*>(chunk_states), static_cast<unsigned*>(workspace),
+                         slots_offset, ticket_base,
                          seq_base, Shape{B, S, H, P, G, N, chunk},
                          static_cast<cudaStream_t>(stream));
 }

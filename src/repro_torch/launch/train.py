@@ -3,14 +3,15 @@
 Port of ``repro/launch/train.py``: AdamW steps (``training.train``) on
 the synthetic Markov corpus, on the card by default.  ``--smoke`` takes
 the reduced config; without it the registered one at full width, where
-it fits the card (the port trains every ``--arch`` but Mamba-2-2.7B,
-which is refused by its ROADMAP item, 11d: dense GQA, MoE, MLA, RG-LRU,
-the vision prefix and Whisper's encoder-decoder over stubbed frames).
-Sharded training (``--production``, a device mesh) is ROADMAP.md Queue A
-item 12.
+it fits the card (the port trains every ``--arch``: dense GQA, MoE, MLA,
+RG-LRU, Mamba-2 through the SSD scan's backward kernel, the vision prefix
+and Whisper's encoder-decoder over stubbed frames).  Sharded training
+(``--production``, a device mesh) is ROADMAP.md Queue A item 12.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \
         --steps 8 --batch 4 --seq 2048
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-2.7b \
+        --steps 4 --batch 4 --seq 2048
     PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm3-4b \
         --smoke --device cpu --steps 20 --batch 4 --seq 64
 """

@@ -44,9 +44,9 @@ decoder layer bodies under ``torch.utils.checkpoint`` when ``cfg.remat``
 reference's ``jax.checkpoint``; an encoder runs without it, as the
 reference's), the loss by ``chunked_ce_loss`` plus
 ``router_aux_coef`` times the MoE load-balance loss summed over the
-layers.  It trains every stack the port runs but Mamba-2, whose SSD
-kernel has no backward (``check_trainable`` refuses it by its ROADMAP
-item).  The serving entry points run under ``torch.no_grad``.
+layers; Mamba-2 layers through the SSD scan's autograd Function (its
+backward kernel).  It trains every stack the port runs.  The serving
+entry points run under ``torch.no_grad``.
 """
 from __future__ import annotations
 
@@ -77,14 +77,8 @@ def check_ported(cfg: ModelConfig) -> None:
 
 
 def check_trainable(cfg: ModelConfig) -> None:
-    """Training takes every stack the port runs but Mamba-2, which raises
-    ``NotImplementedError`` naming the ROADMAP.md Queue A item that ports
-    its gradient."""
+    """Training takes every stack the port runs (``check_ported``)."""
     check_ported(cfg)
-    if MAMBA2 in cfg.layer_kinds():
-        raise NotImplementedError(
-            f"{cfg.name}: training Mamba-2 (its SSD kernel has no backward) "
-            "is not ported (ROADMAP.md Queue A item 11d)")
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,10 @@
 Port of ``repro/models/ssm.py``.  Prefill runs the chunked dual form
 [arXiv:2405.21060 §6]: on CUDA tensors ``ssd_chunked`` launches the
 hand-written SSD-scan kernel (``repro_torch.kernels.ssd_scan``, the port
-of ``ssd_scan_pallas``), on CPU tensors its plain version.  Decode runs
+of ``ssd_scan_pallas``), on CPU tensors its plain version; when a
+gradient is wanted it goes through ``SSDScanFunction``, whose backward is
+the hand-written SSD-scan backward kernel (the plain backward on CPU
+tensors).  Decode runs
 the O(1)-per-token diagonal recurrence.  Plain functions over the
 reference's parameter layout; f32 wherever the reference computes in f32.
 """
@@ -14,7 +17,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.ssd_scan import ssd_scan_kernel
+from repro_torch.kernels.ssd_scan import ssd_scan_kernel, ssd_scan_train
 from repro_torch.models.layers import dense_init, rmsnorm
 
 
@@ -94,7 +97,14 @@ def conv_step(x1, conv_state, w, b):
 def ssd_chunked(x, la, Bm, Cm, chunk, initial_state=None):
     """SSD dual form.  x: (B,S,H,P); la: (B,S,H) log-decay (<=0);
     Bm/Cm: (B,S,G,N).  Returns (y, final_state (B,H,P,N) f32).  CUDA
-    tensors launch the SSD-scan kernel, initial state included."""
+    tensors launch the SSD-scan kernel, initial state included; with grad
+    mode on and an input that requires a gradient, through its autograd
+    Function (the backward kernel)."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, la, Bm, Cm, initial_state)):
+        return ssd_scan_train(x, la, Bm, Cm, chunk=chunk,
+                              initial_state=initial_state)
     return ssd_scan_kernel(x, la, Bm, Cm, chunk=chunk,
                            initial_state=initial_state)
 

@@ -7,8 +7,8 @@ kernel's autograd Function, chunked cross-entropy), its gradient by
 update in place.  The weights are drawn by ``weights.init_params`` from
 ``TrainConfig.seed`` on the device (``cuda`` unless the caller asks for
 the CPU), or handed in (``params=``: the tests bridge the reference's).
-A ``mesh`` is refused: sharding is ROADMAP.md Queue A item 12, and
-Mamba-2 stacks by ``check_trainable`` (item 11d).  A vision stack's
+A ``mesh`` is refused: sharding is ROADMAP.md Queue A item 12.  Mamba-2
+stacks train through the SSD scan's backward kernel.  A vision stack's
 batches carry stubbed patch embeddings (``patch_embeds``), an
 encoder-decoder's (``audio_stub``, Whisper) stubbed frame embeddings
 (``frames``), each (batch, ``n_frontend_tokens``, d_model) standard

@@ -767,3 +767,175 @@ def test_flash_backward_refuses_and_runs_no_plain_version(cuda,
     q = torch.zeros((1, 16, 2, 64), device=cuda, dtype=torch.float16)
     with pytest.raises(ValueError, match="dtype"):
         fa.flash_attention_bwd_kernel(q, q, q, q, lse, q)
+
+
+# ---------------------------------------------------------------------------
+# the SSD scan's backward (csrc/ssd_scan_bwd.cu): f32 FMA for both types
+# ---------------------------------------------------------------------------
+# kernel vs plain backward, each gradient's max |d| within a share of its
+# largest |plain|: f32 sums in other orders and compensated la_cum (1e-4);
+# bf16 dx, dB, dC rounded once each (2**-7: one bf16 step at the top)
+SSD_BWD_REL = {torch.float32: 1e-4, torch.bfloat16: 2 ** -7}
+SSD_BWD = {
+    # (B, S, H, P, G, N, chunk, with initial state, with dstate)
+    "mamba2_heads": (1, 300, 80, 64, 1, 128, 128, False, False),
+    "ragged_init_dstate": (2, 1001, 8, 64, 1, 128, 128, True, True),
+    "groups_chunk50": (2, 257, 6, 12, 3, 20, 50, True, False),
+    "chunk_past_S": (1, 40, 4, 32, 2, 16, 128, False, True),
+    "short_chunk16": (2, 70, 4, 16, 4, 8, 16, True, True),
+}
+
+
+def ssd_bwd_inputs(device, dtype, Bsz, S, H, P, G, N, with_state,
+                   with_dstate, seed):
+    """x, B, C, dy in ``dtype`` and f32 decays as ``ssd_inputs`` draws
+    them; an optional initial state and dstate, f32 unit normals."""
+    rng = np.random.default_rng(seed)
+    x, dy = (rng.standard_normal((Bsz, S, H, P)) for _ in range(2))
+    dt = np.exp(rng.random((Bsz, S, H)) * np.log(100.0) + np.log(1e-3))
+    la = -dt * np.arange(1, H + 1)
+    Bm, Cm = (0.3 * rng.standard_normal((Bsz, S, G, N)) for _ in range(2))
+    init, dstate = (rng.standard_normal((Bsz, H, P, N)) if on else None
+                    for on in (with_state, with_dstate))
+    x, dy, Bm, Cm = (torch.from_numpy(a.astype(np.float32)).to(device, dtype)
+                     for a in (x, dy, Bm, Cm))
+    la, init, dstate = (None if a is None else torch.from_numpy(
+        a.astype(np.float32)).to(device) for a in (la, init, dstate))
+    return x, la, Bm, Cm, dy, init, dstate
+
+
+def ssd_bwd_ratios(got, want, dtype):
+    """Each gradient's max |got - want| over SSD_BWD_REL of its largest
+    |want| (at most 1 within tolerance)."""
+    out = []
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert torch.isfinite(g.float()).all()
+        top = max(w.float().abs().max().item(), 1e-30)
+        out.append((g.float() - w.float()).abs().max().item()
+                   / (SSD_BWD_REL[dtype] * top))
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(SSD_BWD))
+def test_ssd_backward_kernel_matches_plain(cuda, case, dtype):
+    Bsz, S, H, P, G, N, chunk, with_state, with_dstate = SSD_BWD[case]
+    x, la, Bm, Cm, dy, init, dstate = ssd_bwd_inputs(
+        cuda, dtype, Bsz, S, H, P, G, N, with_state, with_dstate, S + P)
+    _, _, cs = ss.ssd_scan_kernel(x, la, Bm, Cm, chunk=chunk,
+                                  initial_state=init,
+                                  return_chunk_states=True)
+    _, _, p_cs = ss.ssd_scan_plain(x, la, Bm, Cm, chunk=chunk,
+                                   initial_state=init,
+                                   return_chunk_states=True)
+    ok, err = within(cs, p_cs, (0.0, 5e-4))
+    assert ok, err
+    before = dict(ss.LAUNCHES)
+    got = ss.ssd_scan_bwd_kernel(x, la, Bm, Cm, dy, dstate, chunk=chunk,
+                                 initial_state=init, chunk_states=cs)
+    torch.cuda.synchronize()
+    variant = ss.BWD_VARIANTS[dtype]
+    assert ss.LAUNCHES["ssd_scan_bwd"] == before["ssd_scan_bwd"] + 1
+    assert ss.LAUNCHES[f"ssd_scan_bwd:{variant}"] == \
+        before[f"ssd_scan_bwd:{variant}"] + 1
+    assert ss.LAUNCHES["ssd_scan"] == before["ssd_scan"]
+    want = ss.ssd_scan_bwd_plain(x, la, Bm, Cm, dy, dstate, chunk=chunk,
+                                 initial_state=init)
+    ratios = ssd_bwd_ratios(got, want, dtype)
+    assert max(ratios) <= 1, dict(zip(("dx", "dla", "dB", "dC", "dinit"),
+                                      ratios))
+
+
+def test_ssd_backward_launch_counts_per_variant(cuda):
+    """One call, one count under its input type's variant and none under
+    the other's; the forward's counts do not move."""
+    for dtype in (torch.bfloat16, torch.float32, torch.bfloat16):
+        x, la, Bm, Cm, dy, _, _ = ssd_bwd_inputs(
+            cuda, dtype, 1, 64, 4, 16, 1, 8, False, False, 1)
+        _, _, cs = ss.ssd_scan_kernel(x, la, Bm, Cm, chunk=32,
+                                      return_chunk_states=True)
+        before = dict(ss.LAUNCHES)
+        ss.ssd_scan_bwd_kernel(x, la, Bm, Cm, dy, None, chunk=32,
+                               chunk_states=cs)
+        torch.cuda.synchronize()
+        moved = {k: ss.LAUNCHES[k] - before[k] for k in ss.LAUNCHES
+                 if ss.LAUNCHES[k] != before[k]}
+        assert moved == {"ssd_scan_bwd": 1,
+                         f"ssd_scan_bwd:{ss.BWD_VARIANTS[dtype]}": 1}
+
+
+def test_ssd_autograd_runs_no_plain_version(cuda, monkeypatch):
+    """Autograd through the SSD scan on CUDA tensors launches the forward
+    kernel (writing the chunk states) and the backward kernel, with both
+    plain versions made to raise; its gradients are the plain backward's,
+    and the backward refuses what it does not take."""
+    x, la, Bm, Cm, dy, init, dstate = ssd_bwd_inputs(
+        cuda, torch.bfloat16, 2, 200, 8, 64, 2, 32, True, True, 5)
+    want = ss.ssd_scan_bwd_plain(x, la, Bm, Cm, dy, dstate, chunk=64,
+                                 initial_state=init)
+
+    def boom(*a, **k):
+        raise AssertionError("a plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(ss, "ssd_scan_plain", boom)
+    monkeypatch.setattr(ss, "ssd_scan_bwd_plain", boom)
+    leaves = [t.detach().requires_grad_() for t in (x, la, Bm, Cm, init)]
+    before = dict(ss.LAUNCHES)
+    y, st = ss.ssd_scan_train(*leaves[:4], chunk=64, initial_state=leaves[4])
+    got = torch.autograd.grad((y, st), leaves, (dy, dstate))
+    torch.cuda.synchronize()
+    assert ss.LAUNCHES["ssd_scan:mma"] == before["ssd_scan:mma"] + 1
+    assert ss.LAUNCHES["ssd_scan_bwd:fma_bf16"] == \
+        before["ssd_scan_bwd:fma_bf16"] + 1
+    assert max(ssd_bwd_ratios(got, want, torch.bfloat16)) <= 1
+    with pytest.raises(ValueError, match="chunk_states"):
+        ss.ssd_scan_bwd_kernel(x, la, Bm, Cm, dy, None, chunk=64)
+    with pytest.raises(ValueError, match="dy must be"):
+        ss.ssd_scan_bwd_kernel(x, la, Bm, Cm, dy.float(), None, chunk=64)
+
+
+def test_ssd_backward_bf16_repeats_bit_for_bit(cuda):
+    """No atomics: two backward calls on one input give the same bits, dB
+    and dC summed over 80 heads of one group included."""
+    x, la, Bm, Cm, dy, _, _ = ssd_bwd_inputs(
+        cuda, torch.bfloat16, 2, 520, 80, 64, 1, 128, False, False, 9)
+    _, _, cs = ss.ssd_scan_kernel(x, la, Bm, Cm, chunk=128,
+                                  return_chunk_states=True)
+    first = ss.ssd_scan_bwd_kernel(x, la, Bm, Cm, dy, None, chunk=128,
+                                   chunk_states=cs)
+    again = ss.ssd_scan_bwd_kernel(x, la, Bm, Cm, dy, None, chunk=128,
+                                   chunk_states=cs)
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+def test_serving_prefill_launches_no_backward(cuda, monkeypatch):
+    """A Mamba-2 prefill without a gradient (serving) launches the
+    forward kernel once a layer, asks it for no chunk states and launches
+    no backward."""
+    from repro_torch.configs import SMOKE_FACTORIES
+    from repro_torch.models import model as tm
+    from repro_torch.weights import init_params
+
+    asked = []
+    cuda_fwd = ss._ssd_cuda
+
+    def spy(*args, **kw):
+        asked.append(args[6] if len(args) > 6 else kw.get("chunk_states",
+                                                          False))
+        return cuda_fwd(*args, **kw)
+
+    monkeypatch.setattr(ss, "_ssd_cuda", spy)
+    cfg = SMOKE_FACTORIES["mamba2-2.7b"]()
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 40), device=cuda)
+    before = dict(ss.LAUNCHES)
+    logits, _ = tm.prefill(params, {"tokens": tokens}, cfg, max_len=64)
+    torch.cuda.synchronize()
+    assert torch.isfinite(logits.float()).all()
+    assert asked == [False] * cfg.n_layers
+    assert ss.LAUNCHES["ssd_scan"] == before["ssd_scan"] + cfg.n_layers
+    assert ss.LAUNCHES["ssd_scan_bwd"] == before["ssd_scan_bwd"]

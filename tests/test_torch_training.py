@@ -19,10 +19,9 @@ CPU, weights bridged from the reference's):
   within 1e-5 relative, the final parameters within 1e-5 absolute;
 - checkpoints: f32 from the reference into the port and back, a bf16
   tree bit for bit, the reference's bf16 file read bit for bit;
-- the stack and option training refuses, by their ROADMAP item
-  (Mamba-2, whose SSD kernel has no backward; a mesh).  MoE, MLA,
-  Whisper and RG-LRU training have files of their own
-  (``tests/test_torch_train_*.py``)."""
+- ``check_trainable`` takes every registered config; training refuses
+  a mesh, by its ROADMAP item.  MoE, MLA, Whisper, RG-LRU and Mamba-2
+  training have files of their own (``tests/test_torch_train_*.py``)."""
 import dataclasses
 
 import jax
@@ -294,17 +293,14 @@ def test_checkpoint_round_trips(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# what training refuses
+# what training takes and refuses
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("arch,item", [("mamba2-2.7b", "11d")])
-def test_training_refuses_unported_stacks(arch, item):
-    cfg = port_config(SMOKE_FACTORIES[arch]())
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP.md Queue A item {item}"):
-        tm.loss_fn({}, {}, cfg)
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP.md Queue A item {item}"):
-        T.train(cfg, T.TrainConfig(steps=1), device="cpu")
+@pytest.mark.parametrize("arch", tbase.list_archs())
+def test_check_trainable_accepts_every_registered_config(arch):
+    """Every registered config trains (Mamba-2 since its SSD scan has a
+    backward kernel), as registered and as its smoke config."""
+    tm.check_trainable(tbase.get_config(arch))
+    tm.check_trainable(port_config(SMOKE_FACTORIES[arch]()))
 
 
 def test_train_refuses_a_mesh():
