@@ -54,7 +54,8 @@ The quickest proof that the port builds and serves on an NVIDIA H100:
      with bf16 x (2560 blocks, 32 chunks chained per head), and S = 1000
      bf16 from an initial state;
    - the SSD scan's backward (``csrc/ssd_scan_bwd.cu``: inject, chain,
-     chunk, group sum; f32 FMA for both types) at run U's shape
+     chunk, group sum; bf16 inject and chunk kernels on the tensor cores,
+     f32 on the FMA units) at run U's shape
      (Mamba-2-2.7B training: B 4, S 2048, H 80, P 64, G 1, N 128, chunk
      128) in bf16, at S 1000 from an initial state with a nonzero dstate
      in bf16 and f32, and with 8 groups of 10 heads in bf16, fed the
@@ -208,7 +209,8 @@ The quickest proof that the port builds and serves on an NVIDIA H100:
         trained as Q on 4 x 2048 tokens: the SSD scan forward twice a
         layer and step (remat), each time writing its chunk states, the
         SSD backward kernel once, no flash; two gradients of one batch
-        compared bit for bit, their launches checked;
+        compared bit for bit, their launches checked; then one profiled
+        step (device ms by kernel and by class of kernel, busy share);
      each of Q-U with P's checks (step 0's loss within 1e-2 of the plain
      attention's and the plain SSD scan's, the loss falling, the flash
      and SSD-scan forward and backward launched as derived from the
@@ -224,7 +226,7 @@ The quickest proof that the port builds and serves on an NVIDIA H100:
    configurations of runs A, D-H and K-O, prefill-heavy windows of A
    (iterations that carry 512-row chunks), D, E, G, K and M (the first
    iteration: the whole prompts of the requests it admits) and N (one
-   prefill call), and one training step of run P;
+   prefill call), and one training step of runs P and U;
    runs A, B and D-T must go through the tensor-core (``mma``) variants
    of their forward kernels and launch no ``fma`` variant, and no kernel
    a run does not expect (the backward kernels only in runs P-U);
@@ -401,6 +403,13 @@ def main() -> int:
     spilled = [k for k, v in bwd.items() if "mma" in k and "256" not in k
                and v["spill_stores"] + v["spill_loads"]]
     check(not spilled, f"build: backward kernels spill: {spilled}")
+    # the SSD backward's tensor-core kernels: no spills, two blocks an SM
+    ss = importlib.import_module("repro_torch.kernels.ssd_scan")
+    spilled = [k for k, v in ptxas["ssd_scan_bwd"].items() if "mma" in k
+               and v["spill_stores"] + v["spill_loads"]]
+    check(not spilled, f"build: SSD backward kernels spill: {spilled}")
+    check(ss.bwd_mma_attrs()["blocks_per_sm"] == 2,
+          f"build: SSD backward chunk kernel: {ss.bwd_mma_attrs()}")
     SECONDS["build"] = time.perf_counter() - t0
     emit({"phase": "build", "seconds": SECONDS["build"],
           "libraries": built, "ptxas_registers": regs,
@@ -408,8 +417,8 @@ def main() -> int:
           "ptxas_flash_attention_bwd": bwd,
           "ptxas_ssd_scan_bwd": ptxas["ssd_scan_bwd"],
           "tile_smem_bytes": tile_smem_bytes(),
-          "ssd_scan:mma": importlib.import_module(
-              "repro_torch.kernels.ssd_scan").mma_attrs()})
+          "ssd_scan:mma": ss.mma_attrs(),
+          "ssd_scan_bwd:mma": ss.bwd_mma_attrs()})
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
 
@@ -1311,6 +1320,37 @@ def ssd_bwd_ratio(got, want, dt):
     return err, err / (SSD_BWD_REL[dt] * top)
 
 
+# the SSD backward phase's cases: (name, B, S, G, dtype, initial state,
+# dstate); the first is run U's shape
+SSD_BWD_CASES = [("U_B4_S2048", 4, 2048, 1, "bfloat16", False, False),
+                 ("S1000_init_dstate", 1, 1000, 1, "bfloat16", True, True),
+                 ("S1000_init_dstate", 1, 1000, 1, "float32", True, True),
+                 ("S1000_G8", 2, 1000, 8, "bfloat16", False, True)]
+
+
+def ssd_bwd_inputs(torch, ci):
+    """(x, la, Bm, Cm, dy, initial state, dstate) of SSD_BWD_CASES[ci] on
+    the card (80 heads of 64, N 128), drawn as ``ssd_phase`` draws its
+    inputs, dy unit normals."""
+    _, B, S, G, dt, with_init, with_ds = SSD_BWD_CASES[ci]
+    H, P, N = 80, 64, 128
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 400 + ci)
+    dtype = getattr(torch, dt)
+    x = torch.randn(B, S, H, P, generator=g, device=dev).to(dtype)
+    step = torch.exp(torch.rand(B, S, H, generator=g, device=dev)
+                     * np.log(100.0) + np.log(1e-3))
+    la = -step * torch.arange(1, H + 1, device=dev)
+    Bm, Cm = ((0.3 * torch.randn(B, S, G, N, generator=g,
+                                 device=dev)).to(dtype) for _ in "BC")
+    dy = torch.randn(B, S, H, P, generator=g, device=dev).to(dtype)
+    init = torch.randn(B, H, P, N, generator=g, device=dev) \
+        if with_init else None
+    dstate = torch.randn(B, H, P, N, generator=g, device=dev) \
+        if with_ds else None
+    return x, la, Bm, Cm, dy, init, dstate
+
+
 def ssd_bwd_phase(torch, flush):
     """The SSD scan's backward kernels (``csrc/ssd_scan_bwd.cu``: inject,
     chain, chunk, group sum) against ``ssd_scan_bwd_plain`` on the card,
@@ -1321,33 +1361,20 @@ def ssd_bwd_phase(torch, flush):
     runs it; at S 1000 with an initial state and a nonzero dstate in bf16
     and f32; and with 8 groups of 10 heads in bf16.  No PyTorch call
     computes it (``library_ms`` null).  The kernels line carries run U's
-    case."""
+    case, with ``ms_by_kernel`` (inject, chain, chunk, group sum) and the
+    bf16 chunk and inject kernels' registers, shared memory, blocks per
+    SM and spill bytes (``mma_attrs``)."""
     ss = importlib.import_module("repro_torch.kernels.ssd_scan")
-    dev = torch.device("cuda")
     H, P, N, chunk = 80, 64, 128, 128
     row = {"name": "ssd_scan_bwd", "route": "cuda",
            "source": "src/repro_torch/csrc/ssd_scan_bwd.cu",
            "replaces": "src/repro/models/ssm.py:88",
-           "max_abs_err": 0.0, "library_ms": None}
-    # (name, B, S, G, dtype, initial state, dstate)
-    cases = [("U_B4_S2048", 4, 2048, 1, "bfloat16", False, False),
-             ("S1000_init_dstate", 1, 1000, 1, "bfloat16", True, True),
-             ("S1000_init_dstate", 1, 1000, 1, "float32", True, True),
-             ("S1000_G8", 2, 1000, 8, "bfloat16", False, True)]
-    for ci, (name, B, S, G, dt, with_init, with_ds) in enumerate(cases):
-        g = torch.Generator(device=dev).manual_seed(SEED + 400 + ci)
+           "max_abs_err": 0.0, "library_ms": None,
+           "mma_attrs": ss.bwd_mma_attrs()}
+    for ci, (name, B, S, G, dt, with_init, with_ds) in enumerate(
+            SSD_BWD_CASES):
         dtype = getattr(torch, dt)
-        x = torch.randn(B, S, H, P, generator=g, device=dev).to(dtype)
-        step = torch.exp(torch.rand(B, S, H, generator=g, device=dev)
-                         * np.log(100.0) + np.log(1e-3))
-        la = -step * torch.arange(1, H + 1, device=dev)
-        Bm, Cm = ((0.3 * torch.randn(B, S, G, N, generator=g,
-                                     device=dev)).to(dtype) for _ in "BC")
-        dy = torch.randn(B, S, H, P, generator=g, device=dev).to(dtype)
-        init = torch.randn(B, H, P, N, generator=g, device=dev) \
-            if with_init else None
-        dstate = torch.randn(B, H, P, N, generator=g, device=dev) \
-            if with_ds else None
+        x, la, Bm, Cm, dy, init, dstate = ssd_bwd_inputs(torch, ci)
         _, _, cs = ss.ssd_scan_kernel(x, la, Bm, Cm, chunk=chunk,
                                       initial_state=init,
                                       return_chunk_states=True)
@@ -1405,7 +1432,8 @@ def ssd_bwd_phase(torch, flush):
                     torch, lambda: ss.ssd_scan_kernel(
                         x, la, Bm, Cm, chunk=chunk, initial_state=init), 10,
                     flush),
-                "smem_bytes": ss.bwd_smem_bytes()}
+                "smem_bytes": ss.bwd_mma_attrs()["smem_bytes"]
+                if dt == "bfloat16" else ss.bwd_smem_bytes()}
         line["bound_ms"], line["bound_by"] = ssd_bwd_bound(
             B, S, H, P, G, N, chunk, dt, with_init, with_ds)
         emit(line)
@@ -2257,7 +2285,7 @@ def train_launches(cfg, steps):
             "ssd_scan": steps * per * n_ssd,
             "ssd_scan:mma": steps * per * n_ssd,
             "ssd_scan_bwd": steps * n_ssd,
-            "ssd_scan_bwd:fma_bf16": steps * n_ssd}
+            "ssd_scan_bwd:mma": steps * n_ssd}
 
 
 @contextlib.contextmanager
@@ -2389,9 +2417,7 @@ def train_run(torch):
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
-    from repro_torch.training import (AdamW, TrainConfig, cosine_schedule,
-                                      make_train_step)
-    from repro_torch.training.data import batches
+    from repro_torch.training import TrainConfig
 
     cfg = get_config("granite-3-2b")
     tc = TrainConfig(**TRAIN)
@@ -2399,6 +2425,46 @@ def train_run(torch):
     tokens = tc.batch * tc.seq_len
 
     # one more step under the profiler (a fresh optimizer state)
+    prof, wall_ms, opt, state = profiled_train_step(torch, cfg, tc, params)
+    # the optimizer's share, beside the backward's: the device time of
+    # the kernels launched under AdamW.update's record_function label,
+    # and the update alone, profiled by itself (the parameters stand in
+    # for their gradients: the same leaves, the same kernels).  The
+    # label's sum has read 177 to 328 ms between calls whose kernels
+    # summed the same, the update alone 177: the second is the measure.
+    adamw = adamw_label(prof)
+    summary = profile_summary(prof, 1, wall_ms)
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof_alone:
+        opt.update(params, state, params)
+        torch.cuda.synchronize()
+    alone = profile_summary(prof_alone, 1, (time.perf_counter() - t0) * 1e3)
+    emit({"phase": "profile", "run": "P", "window": "train_step",
+          "iterations": 1, "rows_per_iteration": tokens, **summary,
+          "adamw_update_device_ms": adamw_ms(adamw),
+          "adamw_update_alone_device_ms": alone["device_ms_per_iteration"],
+          "adamw_update_alone_launches": alone[
+              "kernel_launches_per_iteration"],
+          "flash_bwd_device_ms": sum(
+              ms for name, ms in summary[
+                  "port_kernels_ms_per_iteration"].items()
+              if "flash_bwd" in name)})
+    check(adamw, "run P: no adamw_update label in the profiled step")
+    del params, state, opt, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def profiled_train_step(torch, cfg, tc, params):
+    """One more AdamW step of ``cfg`` after a run of ``tc`` (a fresh
+    optimizer state, the batch of seed ``tc.seed + 1``) under the
+    profiler: (profiler, host ms of the step, optimizer, its state)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.training import AdamW, cosine_schedule, make_train_step
+    from repro_torch.training.data import batches
+
     opt = AdamW(lr=cosine_schedule(tc.peak_lr, tc.warmup, tc.steps),
                 weight_decay=tc.weight_decay, grad_clip=tc.grad_clip)
     state = opt.init(params)
@@ -2412,38 +2478,43 @@ def train_run(torch):
         step_fn(params, state, b1)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # the optimizer's share, beside the backward's: the device time of
-    # the kernels launched under AdamW.update's record_function label,
-    # and the update alone, profiled by itself (the parameters stand in
-    # for their gradients: the same leaves, the same kernels).  The
-    # label's sum has read 177 to 328 ms between calls whose kernels
-    # summed the same, the update alone 177: the second is the measure.
-    adamw = [e for e in prof.key_averages() if e.key == "adamw_update"
-             and str(e.device_type).endswith("CPU")]
-    summary = profile_summary(prof, 1, wall_ms)
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof_alone:
-        opt.update(params, state, params)
-        torch.cuda.synchronize()
-    alone = profile_summary(prof_alone, 1, (time.perf_counter() - t0) * 1e3)
-    emit({"phase": "profile", "run": "P", "window": "train_step",
-          "iterations": 1, "rows_per_iteration": tokens, **summary,
-          "adamw_update_device_ms": sum(
-              getattr(e, "device_time_total", getattr(e, "cuda_time_total",
-                                                      0.0))
-              for e in adamw) / 1e3,
-          "adamw_update_alone_device_ms": alone["device_ms_per_iteration"],
-          "adamw_update_alone_launches": alone[
-              "kernel_launches_per_iteration"],
-          "flash_bwd_device_ms": sum(
-              ms for name, ms in summary[
-                  "port_kernels_ms_per_iteration"].items()
-              if "flash_bwd" in name)})
-    check(adamw, "run P: no adamw_update label in the profiled step")
-    del params, state, step_fn, opt, b1
-    gc.collect()
-    torch.cuda.empty_cache()
-    return launches
+    return prof, wall_ms, opt, state
+
+
+def adamw_label(prof):
+    """The host events of ``AdamW.update``'s record_function label."""
+    return [e for e in prof.key_averages() if e.key == "adamw_update"
+            and str(e.device_type).endswith("CPU")]
+
+
+def adamw_ms(events):
+    """Device ms of the kernels launched under the label's events."""
+    return sum(getattr(e, "device_time_total",
+                       getattr(e, "cuda_time_total", 0.0))
+               for e in events) / 1e3
+
+
+# classes of device kernels by name (the first class whose key is in a
+# kernel's name takes it), for a profiled step's breakdown
+KERNEL_CLASSES = (("ssd_backward", ("ssd_bwd",)),
+                  ("ssd_forward", ("ssd_scan",)),
+                  ("gemm", ("gemm", "nvjet", "xmma", "cutlass")),
+                  ("copy", ("copy", "Memcpy", "Memset", "CatArray")),
+                  ("conv", ("conv",)), ("reduce", ("reduce",)),
+                  ("elementwise", ("elementwise",)))
+
+
+def device_ms_by_class(prof, steps=1):
+    """A profiled window's device ms per iteration by KERNEL_CLASSES
+    (``other`` for the rest), with the number of kernels of each."""
+    out = defaultdict(lambda: [0.0, 0.0])
+    for e in device_kernels(prof):
+        cls = next((c for c, keys in KERNEL_CLASSES
+                    if any(k in e.key for k in keys)), "other")
+        out[cls][0] += device_us(e) / 1e3 / steps
+        out[cls][1] += e.count / steps
+    return {c: {"ms": v[0], "launches": v[1]}
+            for c, v in sorted(out.items(), key=lambda kv: -kv[1][0])}
 
 
 def stack_train_run(torch, run):
@@ -2476,7 +2547,9 @@ def stack_train_run(torch, run):
        64 x 4 = 256, no flash; step 0's loss against the plain scan's.
        Also whether two gradients of one batch are equal bit for bit (the
        backward has no atomics), with those two gradients' launches
-       (2 x 128 forward, 2 x 64 backward) checked as derived.
+       (2 x 128 forward, 2 x 64 backward) checked as derived; then one
+       more step profiled (a fresh optimizer state): device ms by kernel
+       and by class of kernel, the busy share.
 
     Returns the run's launch counts."""
     from repro_torch.configs import get_config
@@ -2532,6 +2605,20 @@ def stack_train_run(torch, run):
                   f"{line['launches']}, not "
                   f"{ {k: v for k, v in want.items() if v} }")
         del first, grads, loss
+    if ssm:
+        # one more step under the profiler: where the step's time goes
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        prof, wall_ms, opt, state = profiled_train_step(torch, cfg, tc,
+                                                        params)
+        summary = profile_summary(prof, 1, wall_ms)
+        emit({"phase": "profile", "run": run, "window": "train_step",
+              "iterations": 1, "rows_per_iteration": tc.batch * tc.seq_len,
+              **summary, "device_ms_by_class": device_ms_by_class(prof),
+              "adamw_update_device_ms": adamw_ms(adamw_label(prof)),
+              "profile_s": time.perf_counter() - t0})
+        del prof, opt, state
     del params, b0
     gc.collect()
     torch.cuda.empty_cache()
@@ -3101,30 +3188,35 @@ def profile_window(torch, run, eng, reqs, window="decode"):
     return line
 
 
+def device_kernels(prof):
+    """A profile's device kernels; a record_function label's span on the
+    device timeline (a user annotation) is not one."""
+    return [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) is not None
+            and str(e.device_type).endswith("CUDA")
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def device_us(e):
+    """An event's own device µs."""
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
 def profile_summary(prof, steps, wall_ms):
     """A profiled window's device time, busy share, launches, the port's
     kernels and the top device kernels, per iteration (``steps`` of them,
     ``wall_ms`` each on the host clock)."""
-    # device kernels; a record_function label's span on the device
-    # timeline (a user annotation) is not one
-    events = [e for e in prof.key_averages()
-              if getattr(e, "device_type", None) is not None
-              and str(e.device_type).endswith("CUDA")
-              and not getattr(e, "is_user_annotation", False)]
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    device_ms = sum(dev_us(e) for e in events) / 1e3 / steps
-    top = sorted(events, key=dev_us, reverse=True)[:8]
+    events = device_kernels(prof)
+    device_ms = sum(device_us(e) for e in events) / 1e3 / steps
+    top = sorted(events, key=device_us, reverse=True)[:8]
     ours = defaultdict(lambda: [0.0, 0.0])        # the port's own kernels
     for e in events:
         if any(n in e.key for n in ("paged_attention", "paged_plan",
                                     "flash_attention", "flash_bwd",
-                                    "ssd_scan")):
+                                    "ssd_scan", "ssd_bwd")):
             name = e.key[:80]
-            ours[name][0] += dev_us(e) / 1e3 / steps
+            ours[name][0] += device_us(e) / 1e3 / steps
             ours[name][1] += e.count / steps
     return {"wall_ms_per_iteration": wall_ms,
             "device_ms_per_iteration": device_ms,
@@ -3137,7 +3229,7 @@ def profile_summary(prof, steps, wall_ms):
                 k: v[1] for k, v in sorted(ours.items())},
             "top_device_kernels": [
                 {"name": e.key[:80],
-                 "ms_per_iteration": dev_us(e) / 1e3 / steps,
+                 "ms_per_iteration": device_us(e) / 1e3 / steps,
                  "calls_per_iteration": e.count / steps} for e in top]}
 
 

@@ -16,9 +16,11 @@ kernels and measures:
   each call after an L2 flush; where the wrapper's host work outlasts
   the flush, it counts too): flash S1024 causal, split-K
   mixed512+8_w32 and decode8_w32 (run A's launches), serial
-  mixed48+8_w4 (run C's) and the SSD scan at S1024 (Mamba-2-2.7B's
-  heads, run E's launches), bf16; for the SSD scan also its device ms
-  from the profiler;
+  mixed48+8_w4 (run C's), the SSD scan at S1024 (Mamba-2-2.7B's heads,
+  run E's launches) and its backward at run U's shape (B 4, S 2048, 80
+  heads, chunk 128: chip_smoke's ``U_B4_S2048`` inputs, fed the
+  forward's chunk states), bf16; for the SSD kernels also their device
+  ms from the profiler, the backward's by kernel;
 - each wrapper's host µs per call: 50 calls enqueued behind a device
   sleep that outlasts them, so that no call waits for the card;
 - the runs of ``chip_smoke.py`` named by ``--runs`` (A, C, D: full-width
@@ -91,7 +93,13 @@ def kernel_calls(torch, cs):
     Bm, Cm = (0.3 * randn(1, 1024, 1, 128) for _ in range(2))
     calls["ssd_S1024_bf16"] = lambda: ss.ssd_scan_kernel(x, la, Bm, Cm,
                                                          chunk=128)
-    for name, ctx_l, rmap_l, n_tab, W in cs.kernel_cases():
+    # the SSD backward at run U's shape, on chip_smoke's inputs
+    ux, ula, uB, uC, udy, _, _ = cs.ssd_bwd_inputs(torch, 0)
+    _, _, ucs = ss.ssd_scan_kernel(ux, ula, uB, uC, chunk=128,
+                                   return_chunk_states=True)
+    calls["ssd_bwd_U_B4_S2048_bf16"] = lambda: ss.ssd_scan_bwd_kernel(
+        ux, ula, uB, uC, udy, None, chunk=128, chunk_states=ucs)
+    for name, ctx_l, rmap_l, n_tab, W, *_ in cs.kernel_cases():
         if name not in PAGED_CASES:
             continue
         n_pool = n_tab * W + 1
@@ -134,9 +142,13 @@ def one(tree: pathlib.Path, tag: str, runs) -> dict:
         res["kernels"][name] = {"ms": cs.time_ms(torch, fn, 20, flush),
                                 "host_us": host_us(torch, fn)}
         if name.startswith("ssd"):
-            res["kernels"][name]["device_ms"] = sum(
-                cs.device_ms_by_kernel(torch, fn, flush,
-                                       names=("ssd_scan",)).values())
+            by = cs.device_ms_by_kernel(torch, fn, flush,
+                                        names=("ssd_scan", "ssd_bwd"))
+            res["kernels"][name]["device_ms"] = sum(by.values())
+            if name.startswith("ssd_bwd"):
+                res["kernels"][name]["device_ms_by_kernel"] = {
+                    k.replace("(anonymous namespace)::", "").split("(")[0]
+                    [:48]: v for k, v in by.items()}
     del flush
     keys = ("iterations", "wall_s", "iter_ms_median", "iter_ms_p90",
             "model_step_ms_median", "prefill_step_ms_median",

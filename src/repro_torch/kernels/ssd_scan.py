@@ -33,14 +33,18 @@ the state entering each chunk, (B, n_chunks, H, P, N) f32
 kernel (``csrc/ssd_scan_bwd.cu``): the chunks' state-gradient injections
 in parallel, the state gradient's chain walked last chunk first, then
 every chunk's dx, dla, dB, dC in parallel, dB and dC summed over the heads
-of a group in order; f32 FMA for both types, no atomics.  Its plain
-version is ``ssd_scan_bwd_plain``.
+of a group in order; no atomics.  Its variants, chosen by dtype: ``mma``
+for bf16, the inject and chunk kernels on the tensor cores (bf16 tiles by
+cp.async, ``mma.sync`` products, the f32 operands as hi + lo bf16 terms,
+two blocks an SM: ``bwd_mma_attrs``), and ``fma_f32`` for f32, on the
+FMA units.  Its plain version is ``ssd_scan_bwd_plain``.
 
 A wrapper runs the plain version only when its tensors lie on the CPU
 (the tests).  On CUDA tensors it launches the kernel or raises; there is
 no fallback.  ``LAUNCHES`` counts kernel launches, in all and per variant
 (``ssd_scan:mma``; a backward call, its four kernels, once as
-``ssd_scan_bwd`` and once by input type, ``ssd_scan_bwd:fma_bf16``).
+``ssd_scan_bwd`` and once by variant, ``ssd_scan_bwd:mma`` or
+``ssd_scan_bwd:fma_f32``).
 """
 from __future__ import annotations
 
@@ -57,11 +61,11 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE = 128, 64, 128
 
 VARIANTS = {torch.bfloat16: "mma", torch.float32: "fma"}
-# the backward: f32 FMA kernels for both input types
-BWD_VARIANTS = {torch.bfloat16: "fma_bf16", torch.float32: "fma_f32"}
+# the backward: bf16 on the tensor cores, f32 on the FMA units
+BWD_VARIANTS = {torch.bfloat16: "mma", torch.float32: "fma_f32"}
 LAUNCHES: Dict[str, int] = {"ssd_scan": 0, "ssd_scan:mma": 0,
                             "ssd_scan:fma": 0, "ssd_scan_bwd": 0,
-                            "ssd_scan_bwd:fma_bf16": 0,
+                            "ssd_scan_bwd:mma": 0,
                             "ssd_scan_bwd:fma_f32": 0}
 
 
@@ -423,12 +427,29 @@ def _bwd_lib() -> ctypes.CDLL:
         lib.ssd_scan_bwd.restype = _I
         lib.ssd_scan_bwd_smem_bytes.argtypes = []
         lib.ssd_scan_bwd_smem_bytes.restype = ctypes.c_size_t
+        lib.ssd_scan_bwd_mma_attrs.argtypes = [ctypes.POINTER(_I)]
+        lib.ssd_scan_bwd_mma_attrs.restype = _I
     return lib
 
 
 def bwd_smem_bytes() -> int:
-    """Dynamic shared memory of one block of the backward's chunk kernel."""
+    """Dynamic shared memory of one block of the f32 backward's chunk
+    kernel."""
     return int(_bwd_lib().ssd_scan_bwd_smem_bytes())
+
+
+def bwd_mma_attrs() -> Dict[str, int]:
+    """The bf16 backward's chunk kernel's registers per thread, dynamic
+    shared memory per block, resident blocks per SM and spill bytes per
+    thread, and the same of its inject kernel (``inject_*``), as the
+    CUDA runtime reports them for the current card."""
+    out = (_I * 8)()
+    rc = _bwd_lib().ssd_scan_bwd_mma_attrs(out)
+    if rc != 0:
+        raise RuntimeError(f"ssd_scan_bwd_mma_attrs: CUDA error {rc}")
+    keys = ("registers", "smem_bytes", "blocks_per_sm", "spill_bytes")
+    return {**dict(zip(keys, out[:4])),
+            **{f"inject_{k}": v for k, v in zip(keys, out[4:])}}
 
 
 def _ssd_bwd_cuda(x, la, Bm, Cm, dy, dstate, chunk, chunk_states):

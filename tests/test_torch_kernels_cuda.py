@@ -770,7 +770,8 @@ def test_flash_backward_refuses_and_runs_no_plain_version(cuda,
 
 
 # ---------------------------------------------------------------------------
-# the SSD scan's backward (csrc/ssd_scan_bwd.cu): f32 FMA for both types
+# the SSD scan's backward (csrc/ssd_scan_bwd.cu): bf16 on the tensor cores
+# (``mma``), f32 on the FMA units (``fma_f32``)
 # ---------------------------------------------------------------------------
 # kernel vs plain backward, each gradient's max |d| within a share of its
 # largest |plain|: f32 sums in other orders and compensated la_cum (1e-4);
@@ -783,6 +784,10 @@ SSD_BWD = {
     "groups_chunk50": (2, 257, 6, 12, 3, 20, 50, True, False),
     "chunk_past_S": (1, 40, 4, 32, 2, 16, 128, False, True),
     "short_chunk16": (2, 70, 4, 16, 4, 8, 16, True, True),
+    # the narrowest shapes, one position a chunk; widths that are not
+    # multiples of 8 (8-byte copies) at a chunk of 100
+    "tiny_p4_n4_chunk1": (1, 5, 2, 4, 1, 4, 1, True, True),
+    "p60_n124_chunk100": (1, 333, 4, 60, 2, 124, 100, True, True),
 }
 
 
@@ -886,13 +891,44 @@ def test_ssd_autograd_runs_no_plain_version(cuda, monkeypatch):
     got = torch.autograd.grad((y, st), leaves, (dy, dstate))
     torch.cuda.synchronize()
     assert ss.LAUNCHES["ssd_scan:mma"] == before["ssd_scan:mma"] + 1
-    assert ss.LAUNCHES["ssd_scan_bwd:fma_bf16"] == \
-        before["ssd_scan_bwd:fma_bf16"] + 1
+    assert ss.LAUNCHES["ssd_scan_bwd:mma"] == \
+        before["ssd_scan_bwd:mma"] + 1
     assert max(ssd_bwd_ratios(got, want, torch.bfloat16)) <= 1
     with pytest.raises(ValueError, match="chunk_states"):
         ss.ssd_scan_bwd_kernel(x, la, Bm, Cm, dy, None, chunk=64)
     with pytest.raises(ValueError, match="dy must be"):
         ss.ssd_scan_bwd_kernel(x, la, Bm, Cm, dy.float(), None, chunk=64)
+
+
+@pytest.mark.parametrize("case", sorted(SSD_BWD))
+def test_ssd_backward_bf16_launches_no_fma_variant(cuda, case):
+    """Every shape the backward takes in bf16 (chunks up to 128, P up to
+    64 and N up to 128 in multiples of 4, G | H, a ragged tail) goes to
+    the tensor-core kernels: no FMA variant's count moves."""
+    Bsz, S, H, P, G, N, chunk, with_state, with_dstate = SSD_BWD[case]
+    x, la, Bm, Cm, dy, init, dstate = ssd_bwd_inputs(
+        cuda, torch.bfloat16, Bsz, S, H, P, G, N, with_state, with_dstate,
+        3)
+    _, _, cs = ss.ssd_scan_kernel(x, la, Bm, Cm, chunk=chunk,
+                                  initial_state=init,
+                                  return_chunk_states=True)
+    before = dict(ss.LAUNCHES)
+    ss.ssd_scan_bwd_kernel(x, la, Bm, Cm, dy, dstate, chunk=chunk,
+                           initial_state=init, chunk_states=cs)
+    torch.cuda.synchronize()
+    moved = {k: ss.LAUNCHES[k] - before[k] for k in ss.LAUNCHES
+             if ss.LAUNCHES[k] != before[k]}
+    assert moved == {"ssd_scan_bwd": 1, "ssd_scan_bwd:mma": 1}
+
+
+def test_ssd_backward_mma_attrs(cuda):
+    """The bf16 backward's chunk kernel as its source note states it: no
+    spills, two blocks an SM (at most 255 registers and ~113 KB of shared
+    memory a block); the inject kernel spills nothing either."""
+    a = ss.bwd_mma_attrs()
+    assert a["spill_bytes"] == 0 and a["inject_spill_bytes"] == 0, a
+    assert a["blocks_per_sm"] == 2, a
+    assert a["registers"] <= 255 and a["smem_bytes"] <= 113 * 1024, a
 
 
 def test_ssd_backward_bf16_repeats_bit_for_bit(cuda):
