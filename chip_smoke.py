@@ -216,6 +216,20 @@ The quickest proof that the port builds and serves on an NVIDIA H100:
      and SSD-scan forward and backward launched as derived from the
      stack and nothing else of the port), step times, tokens/s and peak
      memory;
+     V  run P through ``training.train(cfg, tc, mesh=make_host_mesh())``:
+        a (1, 1) ("data", "model") DeviceMesh over NCCL at world size 1,
+        the parameters placed by ``param_specs`` (DTensor), the batch
+        rows by ``batch_specs``, the gradients and the loss all-reduced
+        before the update; its losses equal P's bit for bit, its
+        launches P's, its step time, tokens/s and peak beside P's;
+   then ring attention (``models.ring_attention``) in bf16 at
+   Llama-2-7B's attention (S 32 768, 32 heads of 128, causal) and
+   Granite-3-2B's GQA (S 16 384, 32 query heads over 8 kv heads of 64,
+   causal and full): through the host mesh (n = 1) bit for bit one flash
+   call, and the ring's steps and merge over 8 shards in one process
+   (one flash call with lse a step: 36 causal, 64 full, counted) within
+   3 x 2**-8 max|v| of one flash call and of the f32 plain ring, their ms
+   beside the single call's;
    runs D, F, G, L, M and O decode over their slot caches through the
    split-K paged kernels (once per attention layer and decode step,
    asserted), and their decode steps, and K's, take less extra memory
@@ -227,15 +241,20 @@ The quickest proof that the port builds and serves on an NVIDIA H100:
    (iterations that carry 512-row chunks), D, E, G, K and M (the first
    iteration: the whole prompts of the requests it admits) and N (one
    prefill call), and one training step of runs P and U;
-   runs A, B and D-T must go through the tensor-core (``mma``) variants
+   runs A, B and D-V must go through the tensor-core (``mma``) variants
    of their forward kernels and launch no ``fma`` variant, and no kernel
-   a run does not expect (the backward kernels only in runs P-U);
+   a run does not expect (the backward kernels only in runs P-V);
 4. the port's engine examples through their ``main()`` on the card:
    ``examples/quickstart_torch.py`` (MoPE, a reduced Llama-2 under
    Equinox) and ``examples/serve_multiarch_torch.py`` (every registered
    architecture's smoke config, the encoder-decoder refused by the
    engine), each one's seconds on the ``examples`` line;
-5. a ``seconds`` line (wall time of each phase), the nvidia-smi line, a
+5. the dry-run (``python -m repro_torch.launch.dryrun --arch llama2-7b
+   --shape train_4k --mesh both``) in a subprocess that sees no card
+   (fake process groups of 256 and 512 ranks): one device's argument and
+   output bytes and FLOPs; and ``launch.train --production`` on this one
+   card, which must refuse with the world-size message;
+6. a ``seconds`` line (wall time of each phase), the nvidia-smi line, a
    ``kernels`` JSON line (the four ports of the Pallas kernels and the
    flash and SSD-scan backward kernels; launches per variant beside the
    totals), and last the result line ``{"ok": true, "device":
@@ -255,6 +274,7 @@ import dataclasses
 import gc
 import importlib
 import json
+import os
 import pathlib
 import statistics
 import subprocess
@@ -343,12 +363,26 @@ TRAIN_RUNS = {
 BWD_F32_REL = 1e-4
 BWD_BF16_STEPS = 1
 LSE_TOL = 2e-5                     # f32 lse: |d| <= tol (1 + max |lse|)
+# the ring phase: bf16 at two full-width attention shapes (name, S, Hq,
+# Hkv, D, causal): Llama-2-7B's and Granite-3-2B's GQA, causal and full;
+# the ring over RING_SHARDS sequence shards in one process
+RING_SHARDS = 8
+RING_CASES = [("llama2_S32768_h32_d128", 32768, 32, 32, 128, True),
+              ("granite_S16384_gqa4_d64", 16384, 32, 8, 64, True),
+              ("granite_S16384_gqa4_d64_full", 16384, 32, 8, 64, False)]
+# the dry-run line: the CLI in a subprocess on the CPU (a fake process
+# group of 256 and 512 ranks), held to this many seconds
+DRYRUN_ARGS = ("--arch", "llama2-7b", "--shape", "train_4k", "--mesh",
+               "both")
+DRYRUN_TIMEOUT_S = 300
 
 
 # wall seconds: each phase of main, each run group of the engine phase
 # (``engine/<runs>``), and the profile windows and reference checks summed
 # over all runs; printed as the ``seconds`` line
 SECONDS: Dict[str, float] = defaultdict(float)
+# each training run's ``train`` line (run V is held to run P's)
+TRAIN_LINES: Dict[str, dict] = {}
 
 
 def fail(msg: str):
@@ -439,6 +473,7 @@ def main() -> int:
         timed("ops_splitk", ops_splitk_phase, flush)
     timed("engine_runs", engine_phase, kernel_rows)
     timed("examples", examples_phase)
+    timed("dryrun", dryrun_phase)
     SECONDS["total"] = time.perf_counter() - t0
 
     emit({"phase": "seconds", **SECONDS})
@@ -2166,6 +2201,14 @@ def engine_phase(torch, kernel_rows):
     for run in TRAIN_RUNS:
         runs[run] = stack_train_run(torch, run)
         lap(run)
+    # run V: run P through train(mesh=...) on a (1, 1) DeviceMesh over
+    # NCCL; then the ring over that mesh and over 8 shards in one process
+    runs["V"] = mesh_train_run(torch)
+    lap("V")
+    runs["ring"], kernel_rows["flash_attention"]["ring_shapes"] = \
+        ring_phase(torch)
+    torch.distributed.destroy_process_group()
+    lap("ring")
 
     emit({"phase": "engine", "launches_by_run": {
         run: {k: n for k, n in r.items() if n} for run, r in runs.items()}})
@@ -2386,6 +2429,7 @@ def train_check(torch, run, cfg, tc, reduced=None, aux=False):
         line["step0_aux"] = aux0
     if reduced:
         line["reduced"] = reduced
+    TRAIN_LINES[run] = line
     emit(line)
     check(len(loss) == tc.steps and all(np.isfinite(loss)),
           f"run {run}: losses {loss}")
@@ -2623,6 +2667,200 @@ def stack_train_run(torch, run):
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+def mesh_train_run(torch):
+    """Run V: run P (Granite-3-2B, TRAIN's 8 steps of 4 x 2048, the same
+    weights from SEED and the same batches) through
+    ``training.train(cfg, tc, mesh=make_host_mesh())``: a (1, 1)
+    ``("data", "model")`` DeviceMesh over NCCL at world size 1 (the
+    process group started from an in-process store), the parameters
+    placed by ``param_specs`` (``distribute_tensor``, then their local
+    tensors), each batch's rows by ``batch_specs``, the gradients and the
+    loss all-reduced before the update.  Its losses must equal P's bit
+    for bit and its launches P's (``train_launches``); the ``train`` line
+    carries P's step time, tokens/s and peak beside V's.  Returns the
+    run's launch counts."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.training import TrainConfig, train
+    from repro_torch.weights import init_params
+
+    p_line = TRAIN_LINES["P"]
+    cfg = get_config("granite-3-2b")
+    tc = TrainConfig(**TRAIN)
+    mesh = make_host_mesh()
+    mesh_desc = {"shape": list(mesh.shape),
+                 "axes": list(mesh.mesh_dim_names),
+                 "backend": dist.get_backend(),
+                 "world_size": dist.get_world_size()}
+    check(mesh_desc == {"shape": [1, 1], "axes": ["data", "model"],
+                        "backend": "nccl", "world_size": 1},
+          f"run V: host mesh {mesh_desc}")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED), "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    stamps = []
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    params, losses = train(cfg, tc, mesh=mesh, params=params, device="cuda",
+                           log=lambda msg: stamps.append(time.perf_counter()))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = np.diff([t0] + stamps) * 1e3
+    want = {name: 0 for name in launches}
+    want.update(train_launches(cfg, tc.steps))
+    loss = [v for _, v in losses]
+    median = float(np.median(steps[1:]))
+    emit({"phase": "train", "run": "V", "model": cfg.name,
+          "entry": "training.train(mesh=launch.mesh.make_host_mesh())",
+          "mesh": mesh_desc, "n_layers": cfg.n_layers, "batch": tc.batch,
+          "seq_len": tc.seq_len, "steps": tc.steps, "losses": loss,
+          "losses_bitwise_equal_P": loss == p_line["losses"],
+          "wall_s": wall, "step_ms": list(steps),
+          "step_ms_median_after_first": median,
+          "tokens_per_s": tc.batch * tc.seq_len / median * 1e3,
+          "peak_mem_gib": peak,
+          "launches": {k: v for k, v in launches.items() if v},
+          "P": {k: p_line[k] for k in ("step_ms_median_after_first",
+                                       "tokens_per_s", "peak_mem_gib")}})
+    check(loss == p_line["losses"], f"run V: losses {loss} are not run "
+          f"P's {p_line['losses']} bit for bit")
+    check(launches == want, f"run V: launches "
+          f"{ {k: v for k, v in launches.items() if v} }, not "
+          f"{ {k: v for k, v in want.items() if v} }")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def ring_phase(torch):
+    """Ring flash attention (``models.ring_attention``) at RING_CASES'
+    full-width bf16 shapes: ``ring_attention_sharded`` on the host mesh
+    (n = 1: one flash call and an NCCL all-gather), bit for bit one flash
+    call over the whole sequence; and the ring's steps and merge over
+    RING_SHARDS sequence shards in one process (``ring_attention_shards``:
+    every rank's flash calls with ``lse``, causal on the diagonal, full
+    below it, later shards skipped), within ``ring_tolerance`` (3 x 2**-8
+    max |v|: each step's output rounded to bf16 by the kernel, the
+    merge's and the single call's outputs rounded once) of one flash call
+    and of the f32 plain ring (``ring_attention_plain``: the reference's
+    (m, l, acc) arithmetic).  The ring path's flash launches are counted
+    (1 + n(n+1)/2 causal, 1 + n**2 full) and the comparisons' are not;
+    the ring's ms (8 shards in one process, and n = 1 through the mesh)
+    beside the single call's and its bound.  Returns (the launch counts,
+    the per-shape rows for the ``kernels`` line)."""
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    ra = importlib.import_module("repro_torch.models.ring_attention")
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_host_mesh()
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    n = RING_SHARDS
+    total, rows = Counter(), {}
+    for ci, (name, S, Hq, Hkv, D, causal) in enumerate(RING_CASES):
+        g = torch.Generator(device="cuda").manual_seed(SEED + 700 + ci)
+        q, k, v = (torch.randn(1, S, h, D, generator=g, device="cuda").to(
+            torch.bfloat16) for h in (Hq, Hkv, Hkv))
+        reset_launch_counts()
+        one = ra.ring_attention_sharded(q, k, v, mesh, causal=causal)
+        ring = ra.ring_attention_shards(q, k, v, n, causal=causal)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        total.update(counts)
+        want = 1 + (n * (n + 1) // 2 if causal else n * n)
+        single = fa.flash_attention_kernel(q, k, v, causal=causal)
+        plain = ra.ring_attention_plain(q, k, v, n, causal=causal)
+        tol = ra.ring_tolerance(v, torch.bfloat16)
+        err_single = float((ring.float() - single.float()).abs().max())
+        err_plain = float((ring.float() - plain).abs().max())
+        bound, bound_by = flash_bound(S, S, Hq, Hkv, D, causal, 0,
+                                      "bfloat16")
+        line = {"phase": "kernels", "kernel": "ring_attention", "case": name,
+                "dtype": "bfloat16", "B": 1, "S": S, "Hq": Hq, "Hkv": Hkv,
+                "D": D, "causal": causal, "shards": n,
+                "flash_launches": counts["flash_attention"],
+                "flash_launches_mma": counts["flash_attention:mma"],
+                "n1_bitwise_equal_single_call": bool(torch.equal(one,
+                                                                 single)),
+                "tol": tol, "max_abs_err_vs_single": err_single,
+                "max_abs_err_vs_plain_f32": err_plain,
+                "tol_ratio": max(err_single, err_plain) / tol,
+                "ms": time_ms(torch, lambda: ra.ring_attention_shards(
+                    q, k, v, n, causal=causal), 5, flush),
+                "n1_mesh_ms": time_ms(
+                    torch, lambda: ra.ring_attention_sharded(
+                        q, k, v, mesh, causal=causal), 5, flush),
+                "single_call_ms": time_ms(
+                    torch, lambda: fa.flash_attention_kernel(
+                        q, k, v, causal=causal), 10, flush),
+                "bound_ms": bound, "bound_by": bound_by}
+        emit(line)
+        check(counts["flash_attention"] == want == counts[
+            "flash_attention:mma"] and sum(counts.values()) == 2 * want,
+              f"ring {name}: launches {counts}, not {want} flash:mma")
+        check(line["n1_bitwise_equal_single_call"], f"ring {name}: n = 1 "
+              "through the mesh is not one flash call bit for bit")
+        check(line["tol_ratio"] <= 1 and bool(torch.isfinite(
+            ring.float()).all()), f"ring {name}: {err_single} from the "
+              f"single call, {err_plain} from the plain ring, tol {tol}")
+        rows[name] = {k: line[k] for k in (
+            "flash_launches", "ms", "n1_mesh_ms", "single_call_ms",
+            "bound_ms", "bound_by", "tol_ratio")}
+        del q, k, v, one, ring, single, plain
+        torch.cuda.empty_cache()
+    return dict(total), rows
+
+
+def dryrun_phase(torch):
+    """The dry-run CLI (``python -m repro_torch.launch.dryrun`` with
+    DRYRUN_ARGS) in a subprocess that sees no card: its fake process
+    groups of 256 and 512 ranks live there, never beside this process's;
+    a nonzero exit fails the run.  Prints one device's argument and
+    output bytes and FLOPs from its two result files.  Then
+    ``launch.train --production`` on this one card must refuse with the
+    world-size message, not train."""
+    from repro_torch.launch import train as launch_train
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
+                        *DRYRUN_ARGS], cwd=ROOT, env=env, capture_output=True,
+                       text=True, timeout=DRYRUN_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    check(r.returncode == 0, f"dry-run exited {r.returncode}: "
+          f"{r.stdout[-2000:]} {r.stderr[-2000:]}")
+    out_dir = ROOT / "experiments" / "dryrun_torch"
+    meshes = {}
+    for kind in ("single", "multi"):
+        res = json.loads((out_dir / f"llama2-7b__train_4k__{kind}.json")
+                         .read_text())
+        meshes[kind] = {"devices": res["devices"], **{
+            k: res["memory"][k] for k in ("argument_bytes", "output_bytes")},
+            "flops_per_device": res["cost"]["flops"],
+            "flops_global": res["cost"]["flops_global"],
+            "step_s": res["step_s"]}
+    emit({"phase": "dryrun", "args": list(DRYRUN_ARGS), "wall_s": wall,
+          "meshes": meshes})
+    try:
+        launch_train.main(["--arch", "granite-3-2b", "--production",
+                           "--steps", "1"])
+    except RuntimeError as e:
+        refused = str(e)
+    else:
+        fail("--production on one card did not refuse")
+    emit({"phase": "production", "refused": refused})
+    check("needs a process group of 256 ranks" in refused
+          and "found world size 1" in refused,
+          f"--production refused without the world-size message: {refused}")
 
 
 def whisper_run(torch):

@@ -4,6 +4,7 @@ while a new phase is brought up.
 
     python3 scripts/chip_phases.py bwd,ops,P,Q,R,S,T,O
     python3 scripts/chip_phases.py ssd_bwd,U,examples
+    python3 scripts/chip_phases.py P,V,ring,dryrun
 
 ``bwd``: the flash backward kernel lines (``flash_bwd_phase``);
 ``ssd_bwd``: the SSD scan's backward kernel lines (``ssd_bwd_phase``);
@@ -14,7 +15,10 @@ DeepSeek-MoE-16B (7 layers), MiniCPM3-4B, Whisper large-v3,
 RecurrentGemma-2B and Mamba-2-2.7B (``U``; ``stack_train_run``); ``O``:
 InternVL2-76B through the slots engine (``internvl_run``, without its
 profile window); ``examples``: the port's engine examples
-(``examples_phase``).  Builds the
+(``examples_phase``); ``V``: run P through ``train(mesh=...)``
+(``mesh_train_run``, held to P's losses: needs ``P``); ``ring``: ring
+attention (``ring_phase``); ``dryrun``: the dry-run CLI and the
+``--production`` refusal (``dryrun_phase``).  Builds the
 kernels first, prints chip_smoke's JSON lines and the seconds each phase
 took, and last the ``kernels`` rows of the phases run with the launches
 of the runs run.  Exits non-zero on any failed check, as chip_smoke does.
@@ -72,6 +76,20 @@ def main(argv) -> int:
             t0 = time.perf_counter()
             runs[run] = cs.stack_train_run(torch, run)
             cs.emit({"phase": "seconds", run: time.perf_counter() - t0})
+    if "V" in which:
+        t0 = time.perf_counter()
+        runs["V"] = cs.mesh_train_run(torch)
+        cs.emit({"phase": "seconds", "V": time.perf_counter() - t0})
+    if "ring" in which:
+        t0 = time.perf_counter()
+        runs["ring"], _ = cs.ring_phase(torch)
+        cs.emit({"phase": "seconds", "ring": time.perf_counter() - t0})
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
+    if "dryrun" in which:
+        t0 = time.perf_counter()
+        cs.dryrun_phase(torch)
+        cs.emit({"phase": "seconds", "dryrun": time.perf_counter() - t0})
     if "O" in which:
         t0 = time.perf_counter()
         paged = {name: False for name in cs.launch_counts()

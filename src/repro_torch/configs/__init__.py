@@ -6,7 +6,8 @@ Mixtral-8x7B, the latter with sliding-window attention, and the hybrid
 RecurrentGemma-2B: RG-LRU blocks beside local attention, the
 encoder-decoder Whisper large-v3 over stubbed audio frames, and the
 vision-language InternVL2-76B over stubbed patch embeddings)."""
-from repro_torch.configs.base import ModelConfig, get_config, list_archs
+from repro_torch.configs.base import (INPUT_SHAPES, ModelConfig, ShapeConfig,
+                                      get_config, list_archs)
 from repro_torch.configs import (deepseek_7b, deepseek_moe_16b, granite_3_2b,
                                  internvl2_76b, llama2_7b, mamba2_2_7b,
                                  minicpm3_4b, mixtral_8x7b, recurrentgemma_2b,
@@ -26,4 +27,13 @@ SMOKE_FACTORIES = {
     "whisper-large-v3": whisper_large_v3.smoke,
 }
 
-__all__ = ["ModelConfig", "get_config", "list_archs", "SMOKE_FACTORIES"]
+# the architectures the dry-run iterates (the registry also holds the
+# paper's Llama-2-7B testbed model)
+ASSIGNED_ARCHS = [
+    "deepseek-7b", "deepseek-moe-16b", "whisper-large-v3",
+    "recurrentgemma-2b", "mamba2-2.7b", "granite-3-2b", "starcoder2-7b",
+    "minicpm3-4b", "mixtral-8x7b", "internvl2-76b",
+]
+
+__all__ = ["INPUT_SHAPES", "ModelConfig", "ShapeConfig", "get_config",
+           "list_archs", "SMOKE_FACTORIES", "ASSIGNED_ARCHS"]

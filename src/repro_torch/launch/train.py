@@ -5,8 +5,11 @@ the synthetic Markov corpus, on the card by default.  ``--smoke`` takes
 the reduced config; without it the registered one at full width, where
 it fits the card (the port trains every ``--arch``: dense GQA, MoE, MLA,
 RG-LRU, Mamba-2 through the SSD scan's backward kernel, the vision prefix
-and Whisper's encoder-decoder over stubbed frames).  Sharded training
-(``--production``, a device mesh) is ROADMAP.md Queue A item 12.
+and Whisper's encoder-decoder over stubbed frames).  ``--production``
+(``--multi-pod``) trains on the reference's 16 x 16 (2 x 16 x 16) mesh
+(``launch.mesh.make_production_mesh``, then ``train(mesh=...)``): it needs
+a process group of 256 (512) ranks that a launcher such as ``torchrun``
+started, and refuses any other world size, one card's included.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \
         --steps 8 --batch 4 --seq 2048
@@ -20,6 +23,7 @@ from __future__ import annotations
 import argparse
 
 from repro_torch.configs import SMOKE_FACTORIES, get_config
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.training import TrainConfig, train
 
 
@@ -29,6 +33,10 @@ def main(argv=None):
                     choices=sorted(SMOKE_FACTORIES))
     ap.add_argument("--smoke", action="store_true",
                     help="reduced config (CPU-sized)")
+    ap.add_argument("--production", action="store_true",
+                    help="16x16 mesh (a process group of 256 ranks)")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="with --production: 2x16x16 (512 ranks)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=256)
@@ -41,9 +49,13 @@ def main(argv=None):
 
     cfg = (SMOKE_FACTORIES[args.arch]() if args.smoke
            else get_config(args.arch))
+    mesh = None
+    if args.production:
+        mesh = make_production_mesh(multi_pod=args.multi_pod,
+                                    device=args.device)
     tc = TrainConfig(batch=args.batch, seq_len=args.seq, steps=args.steps,
                      peak_lr=args.lr, ckpt_path=args.ckpt, seed=args.seed)
-    _, losses = train(cfg, tc, device=args.device)
+    _, losses = train(cfg, tc, mesh=mesh, device=args.device)
     print(f"final loss: {losses[-1][1]:.4f}")
     return losses
 

@@ -39,9 +39,11 @@ import math
 import torch
 
 from repro_torch.kernels.flash_attention import (flash_attention_kernel,
+                                                 flash_attention_plain,
                                                  flash_attention_train)
 from repro_torch.kernels.ops import paged_attention
-from repro_torch.models.layers import apply_rope, dense_init, rmsnorm
+from repro_torch.models.layers import (PLAIN_DEVICES, apply_rope, dense_init,
+                                       rmsnorm)
 
 NEG_INF = -1e30
 
@@ -115,9 +117,13 @@ def flash_attention(q, k, v, *, causal=True, window=0, block_q=512,
     Skv; cross-attention: Skv encoder frames).  CUDA tensors launch the
     flash kernel; CPU tensors run its plain version.  With a gradient
     wanted, through ``flash_attention_train`` (forward with lse, the
-    backward kernel)."""
+    backward kernel).  Meta tensors (the dry-run: shapes and operations
+    only) take the plain version, which autograd differentiates."""
     fn = flash_attention_kernel
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+    if q.device.type == "meta":
+        fn = flash_attention_plain
+    elif torch.is_grad_enabled() and any(t.requires_grad
+                                         for t in (q, k, v)):
         fn = flash_attention_train
     return fn(q, k, v, causal=causal, window=window,
               block_q=min(block_q, q.shape[1]),
@@ -163,7 +169,7 @@ def gqa_prefill_chunk(params, x, k_cache, v_cache, start: int, cfg):
     s0 = max(0, min(start, S_cache - C))
     k_cache[:, s0:s0 + C] = k.to(k_cache.dtype)
     v_cache[:, s0:s0 + C] = v.to(v_cache.dtype)
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         out = chunk_attention_plain(q, k_cache, v_cache, positions)
     else:
         out = chunk_attention_paged(q, k_cache, v_cache, positions)
@@ -325,7 +331,7 @@ def decode_attention(q, k_cache, v_cache, ctx, k_scale=None, v_scale=None):
     ctx[b]).  int8 caches come with their (B, S, Hkv) bf16 scales.  CUDA
     tensors go through ``decode_attention_paged`` (no copy of the
     caches); CPU tensors through ``decode_attention_plain``."""
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         valid = torch.arange(k_cache.shape[1], device=q.device)[None, :] \
             < ctx[:, None]
         return decode_attention_plain(q, k_cache, v_cache, valid,
@@ -441,7 +447,7 @@ def cross_decode_attention(q, enc_k, enc_v):
     tensors ``slot_cache_attention`` with ctx = T for every row (the
     frames viewed as pages of gcd(T, 16) slots; split-K at T = 1500:
     375 pages of 4), on CPU tensors ``naive_attention``."""
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return naive_attention(q, enc_k, enc_v, causal=False)
     B, _, H, hd = q.shape
     ctx = torch.full((B,), enc_k.shape[1], dtype=torch.int32,
@@ -545,7 +551,7 @@ def mla_decode_attention(q_lat, q_rope, c_cache, krope_cache, ctx, scale):
     attends slots [0, ctx[b]).  Returns ctx_lat (B, 1, H, r) in f32.
     CUDA tensors go through ``mla_decode_attention_bmm`` (no copy of the
     cache); CPU tensors through ``mla_decode_attention_plain``."""
-    if q_lat.device.type == "cpu":
+    if q_lat.device.type in PLAIN_DEVICES:
         return mla_decode_attention_plain(q_lat, q_rope, c_cache,
                                           krope_cache, ctx, scale)
     return mla_decode_attention_bmm(q_lat, q_rope, c_cache, krope_cache,

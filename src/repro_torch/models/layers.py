@@ -11,6 +11,11 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# devices on which the model layer takes a kernel's plain version: the
+# CPU (the tests) and ``meta`` (shapes only, no data: the dry-run counts a
+# step's operations on it; the kernel wrappers themselves refuse meta);
+# CUDA tensors go to the kernels
+PLAIN_DEVICES = ("cpu", "meta")
 
 
 def dtype_of(cfg) -> torch.dtype:

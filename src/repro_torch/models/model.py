@@ -314,7 +314,12 @@ def forward_hidden(params, batch, cfg, *, mode="train", want_cache=False):
     ``cfg.remat``; autograd records whatever needs a gradient.  ``aux``
     (f32, 0-d) is the MoE load-balance loss summed over the layers, which
     only training reads: computed under ``mode="train"``, zero in the
-    serving modes (and on stacks without MoE layers)."""
+    serving modes (and on stacks without MoE layers).
+
+    ``cfg.seq_parallel`` is the reference's sharding constraint on the
+    residual stream between blocks (its sequence over ``"model"``), which
+    changes no value; the port's layers run on local tensors with the
+    sequence whole, so it has no effect here."""
     check_ported(cfg)
     x, positions, n_prefix = _embed_inputs(params, batch, cfg)
     enc_out = None

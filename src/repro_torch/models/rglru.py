@@ -67,6 +67,15 @@ def _gates(params, u):
     return a, b
 
 
+def _pin_channel_sharding(t):
+    """The reference's layout pin of the recurrent branch (batch over
+    ``data``, channels over ``model``: a sharding constraint, no effect
+    on values).  The port's layers run on local tensors with the channels
+    whole (a ``"model"`` axis above 1 is refused by ``train(mesh=...)``),
+    so it returns ``t`` itself."""
+    return t
+
+
 def linear_scan(a, b, chunk=RGLRU_CHUNK):
     """h_t = a_t h_{t-1} + b_t from h_{-1} = 0 over axis 1 of (B, S, C)
     f32 tensors; returns h (B, S, C).  Tiles of ``chunk`` steps, padded
@@ -104,6 +113,8 @@ def rglru_prefill(params, x, cfg, initial=None, chunk=RGLRU_CHUNK):
     u = x @ params["w_branch_x"]
     # jax.nn.gelu is the tanh approximation
     gate = F.gelu(x @ params["w_branch_gate"], approximate="tanh")
+    u = _pin_channel_sharding(u)
+    gate = _pin_channel_sharding(gate)
     u_pre = u
     u = causal_conv(u, params["conv_w"], params["conv_b"])
     a, b = _gates(params, u)

@@ -17,7 +17,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.ssd_scan import ssd_scan_kernel, ssd_scan_train
+from repro_torch.kernels.ssd_scan import (ssd_scan_kernel, ssd_scan_plain,
+                                          ssd_scan_train)
 from repro_torch.models.layers import dense_init, rmsnorm
 
 
@@ -99,7 +100,12 @@ def ssd_chunked(x, la, Bm, Cm, chunk, initial_state=None):
     Bm/Cm: (B,S,G,N).  Returns (y, final_state (B,H,P,N) f32).  CUDA
     tensors launch the SSD-scan kernel, initial state included; with grad
     mode on and an input that requires a gradient, through its autograd
-    Function (the backward kernel)."""
+    Function (the backward kernel).  Meta tensors (the dry-run: shapes
+    and operations only) take the plain version, which autograd
+    differentiates."""
+    if x.device.type == "meta":
+        return ssd_scan_plain(x, la, Bm, Cm, chunk=chunk,
+                              initial_state=initial_state)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
             for t in (x, la, Bm, Cm, initial_state)):

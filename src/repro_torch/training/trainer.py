@@ -7,8 +7,21 @@ kernel's autograd Function, chunked cross-entropy), its gradient by
 update in place.  The weights are drawn by ``weights.init_params`` from
 ``TrainConfig.seed`` on the device (``cuda`` unless the caller asks for
 the CPU), or handed in (``params=``: the tests bridge the reference's).
-A ``mesh`` is refused: sharding is ROADMAP.md Queue A item 12.  Mamba-2
-stacks train through the SSD scan's backward kernel.  A vision stack's
+Mamba-2 stacks train through the SSD scan's backward kernel.
+
+With a ``mesh`` (a ``DeviceMesh`` over the default process group, e.g.
+``launch.mesh.make_host_mesh``) training is data-parallel, as the
+reference's ``train(mesh=...)`` with a model axis of 1: each parameter is
+placed by ``models.param_specs`` (``distribute_tensor``) and the step runs
+on its local tensor; each rank takes its block of every batch's rows by
+``batch_specs(..., include_model=cfg.train_batch_over_model)`` (in JAX's
+order, ``models.sharding.shard_index``); the gradients are averaged over
+the ranks by all-reduce before ``AdamW.update``, so the clip sees the
+global norm, and the logged loss is the ranks' mean.  At world size 1
+this is ``train()`` bit for bit.  A ``"model"`` axis above 1 and
+``cfg.fsdp`` need collectives inside the layers (tensor parallelism), and
+an MoE stack's capacity and load-balance loss are functions of the whole
+batch: these are refused by name (ROADMAP.md item 12b).  A vision stack's
 batches carry stubbed patch embeddings (``patch_embeds``), an
 encoder-decoder's (``audio_stub``, Whisper) stubbed frame embeddings
 (``frames``), each (batch, ``n_frontend_tokens``, d_model) standard
@@ -58,21 +71,37 @@ def stub_embeddings(cfg: ModelConfig, tc: TrainConfig, step: int):
         (tc.batch, cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32)
 
 
-def make_train_step(cfg: ModelConfig, opt: AdamW):
+def make_train_step(cfg: ModelConfig, opt: AdamW, ranks: int = None):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     loss)``; ``params`` are leaves that require a gradient, updated in
     place, and ``loss`` is a 0-d tensor on the device (read it to
-    synchronise)."""
+    synchronise).  ``ranks``: the data-parallel ranks of the default
+    process group (``train(mesh=...)``), over which the gradients and the
+    loss are averaged by all-reduce before the update."""
     def train_step(params, opt_state, batch):
         leaves = tree_leaves(params)
         loss = loss_fn(params, batch, cfg)
         grads = torch.autograd.grad(loss, leaves)
+        loss = loss.detach()
+        if ranks is not None:
+            loss = loss.clone()
+            _all_mean_([*grads, loss], ranks)
         it = iter(grads)
         grad_tree = _like(params, it)
         params, opt_state = opt.update(grad_tree, opt_state, params)
-        return params, opt_state, loss.detach()
+        return params, opt_state, loss
 
     return train_step
+
+
+def _all_mean_(tensors, ranks: int) -> None:
+    """Each tensor replaced in place by its mean over the default group's
+    ``ranks`` ranks (a sum by all-reduce, then / ranks: exact at 1)."""
+    import torch.distributed as dist
+
+    for t in tensors:
+        dist.all_reduce(t)
+        t.div_(ranks)
 
 
 def _like(tree, it):
@@ -86,22 +115,23 @@ def train(cfg: ModelConfig, tc: TrainConfig = TrainConfig(), mesh=None,
     """``tc.steps`` AdamW steps on ``training.data.batches``; returns
     (params, [(step, loss), ...] at every ``log_every``-th step and the
     last).  ``params``: a tree to start from (on ``device``), else
-    ``init_params`` from ``tc.seed``."""
-    if mesh is not None:
-        raise NotImplementedError("train: a device mesh (sharded training) "
-                                  "is not ported (ROADMAP.md Queue A item "
-                                  "12)")
+    ``init_params`` from ``tc.seed``.  ``mesh``: data-parallel over its
+    ranks (module docstring)."""
     check_trainable(cfg)
     device = resolve_device(device)
+    dp = DataParallel(cfg, tc, mesh) if mesh is not None else None
     opt = AdamW(lr=cosine_schedule(tc.peak_lr, tc.warmup, tc.steps),
                 weight_decay=tc.weight_decay, grad_clip=tc.grad_clip)
     if params is None:
         params = init_params(cfg, torch.Generator(device=device).manual_seed(
             tc.seed), device)
+    if dp is not None:
+        params = dp.place(params)
     for leaf in tree_leaves(params):
         leaf.requires_grad_(True)
     opt_state = opt.init(params)
-    step_fn = make_train_step(cfg, opt)
+    step_fn = make_train_step(cfg, opt,
+                              ranks=None if dp is None else dp.ranks)
 
     losses = []
     t0 = time.time()
@@ -110,6 +140,8 @@ def train(cfg: ModelConfig, tc: TrainConfig = TrainConfig(), mesh=None,
         stub = STUB_INPUTS.get(cfg.frontend)
         if stub:
             b[stub] = stub_embeddings(cfg, tc, i)
+        if dp is not None:
+            b = dp.rows(b)
         batch = {k: torch.from_numpy(v).to(device) for k, v in b.items()}
         params, opt_state, loss = step_fn(params, opt_state, batch)
         if i % tc.log_every == 0 or i == tc.steps - 1:
@@ -122,3 +154,74 @@ def train(cfg: ModelConfig, tc: TrainConfig = TrainConfig(), mesh=None,
     if tc.ckpt_path:
         ckpt.save(f"{tc.ckpt_path}/final.npz", params)
     return params, losses
+
+
+class DataParallel:
+    """``train(mesh=...)``'s placement of parameters and batch rows over a
+    ``DeviceMesh`` that spans the default process group; refuses what
+    needs more than data parallelism."""
+
+    def __init__(self, cfg: ModelConfig, tc: TrainConfig, mesh):
+        import torch.distributed as dist
+
+        from repro_torch.models.sharding import batch_axes, mesh_axes
+
+        axes = mesh_axes(mesh)
+        if axes.shape.get("model", 1) > 1:
+            raise NotImplementedError(
+                f"train(mesh=...): a 'model' axis of {axes.shape['model']} "
+                "needs tensor-parallel layers (collectives inside the "
+                "layers), which the port does not have (ROADMAP.md item "
+                "12b); use a model axis of 1")
+        if cfg.fsdp:
+            raise NotImplementedError(
+                f"train(mesh=...): {cfg.name}: cfg.fsdp shards the weights "
+                "over 'data' and needs them gathered inside the layers, "
+                "which the port does not do (ROADMAP.md item 12b)")
+        self.ranks = dist.get_world_size()
+        if axes.size != self.ranks:
+            raise ValueError(f"train(mesh=...): the mesh holds {axes.size} "
+                             f"of the group's {self.ranks} ranks")
+        if cfg.moe is not None and self.ranks > 1:
+            raise NotImplementedError(
+                f"train(mesh=...): {cfg.name} is an MoE stack: its expert "
+                "capacity and load-balance loss are functions of the whole "
+                "batch, so they would differ over "
+                f"{self.ranks} data ranks (ROADMAP.md item 12b)")
+        self.cfg, self.mesh, self.axes = cfg, mesh, axes
+        self.entry = batch_axes(tc.batch, axes,
+                                include_model=cfg.train_batch_over_model)
+        self.coords = {n: mesh.get_local_rank(n) for n in axes.axis_names}
+
+    def place(self, params):
+        """Each leaf placed by its ``param_specs`` entry and replaced, in
+        the tree, by its local tensor, one leaf at a time: a placement
+        that copies (``Shard`` scatters into a new tensor) frees the old
+        leaf at once, so the tree is never held twice."""
+        from torch.distributed.tensor import distribute_tensor
+
+        from repro_torch.models.sharding import param_specs, placements
+
+        def put(tree, specs):
+            for k, v in tree.items():
+                if isinstance(v, dict):
+                    put(v, specs[k])
+                else:
+                    tree[k] = distribute_tensor(
+                        v.detach(), self.mesh,
+                        placements(specs[k], self.axes)).to_local()
+                    del v
+
+        put(params, param_specs(params, self.cfg, self.axes))
+        return params
+
+    def rows(self, batch):
+        """This rank's block of every leaf's rows (numpy)."""
+        from repro_torch.models.sharding import shard_index
+
+        index, count = shard_index(self.entry, self.axes, self.coords)
+        out = {}
+        for k, v in batch.items():
+            n = v.shape[0] // count
+            out[k] = v[index * n:(index + 1) * n]
+        return out

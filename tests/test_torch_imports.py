@@ -30,11 +30,18 @@ for name in ("repro_torch.serving.prefix_cache", "repro_torch.core.simulator",
              "repro_torch.configs.internvl2_76b",
              "repro_torch.training.optim", "repro_torch.training.trainer",
              "repro_torch.training.checkpoint", "repro_torch.training.data",
-             "repro_torch.launch.train"):
+             "repro_torch.launch.train", "repro_torch.launch.mesh",
+             "repro_torch.launch.specs", "repro_torch.launch.dryrun",
+             "repro_torch.models.sharding",
+             "repro_torch.models.ring_attention"):
     assert name in names, name
 # the public entry points the reference's packages export
 from repro_torch.models import long_context_variant, loss_fn
 from repro_torch.kernels import paged_attention_splitk
+from repro_torch.models import batch_axes, batch_specs, cache_specs, param_specs
+from repro_torch.configs import ASSIGNED_ARCHS, INPUT_SHAPES
+import torch.distributed as dist
+assert not dist.is_initialized(), "a process group was started at import"
 assert not any(k == "jax" or k.startswith(("jax.", "repro."))
                for k, v in sys.modules.items() if v is not None)
 from repro_torch.kernels import _build

@@ -20,7 +20,8 @@ CPU, weights bridged from the reference's):
 - checkpoints: f32 from the reference into the port and back, a bf16
   tree bit for bit, the reference's bf16 file read bit for bit;
 - ``check_trainable`` takes every registered config; training refuses
-  a mesh, by its ROADMAP item.  MoE, MLA, Whisper, RG-LRU and Mamba-2
+  a tensor-parallel mesh, by its ROADMAP item (data-parallel meshes
+  train: ``tests/test_torch_train_mesh.py``).  MoE, MLA, Whisper, RG-LRU and Mamba-2
   training have files of their own (``tests/test_torch_train_*.py``)."""
 import dataclasses
 
@@ -304,7 +305,12 @@ def test_check_trainable_accepts_every_registered_config(arch):
 
 
 def test_train_refuses_a_mesh():
+    """A mesh with a model axis above 1 needs tensor-parallel layers."""
+    class Mesh:
+        shape = {"data": 1, "model": 2}
+        axis_names = ("data", "model")
+        size = 2
+
     cfg = port_config(SMOKE_FACTORIES["llama2-7b"]())
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue A item 12"):
-        T.train(cfg, T.TrainConfig(steps=1), mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item 12b"):
+        T.train(cfg, T.TrainConfig(steps=1), mesh=Mesh(), device="cpu")
