@@ -218,10 +218,35 @@ The quickest proof that the port builds and serves on an NVIDIA H100:
      memory;
      V  run P through ``training.train(cfg, tc, mesh=make_host_mesh())``:
         a (1, 1) ("data", "model") DeviceMesh over NCCL at world size 1,
-        the parameters placed by ``param_specs`` (DTensor), the batch
-        rows by ``batch_specs``, the gradients and the loss all-reduced
-        before the update; its losses equal P's bit for bit, its
-        launches P's, its step time, tokens/s and peak beside P's;
+        the parameters cut by ``param_specs`` (``ShardPlan``: nothing to
+        cut at world size 1), the batch rows by ``batch_specs``; its
+        losses equal P's bit for bit, its launches P's, its step time,
+        tokens/s and peak beside P's;
+     W  run P over a (1, 2) ("data", "model") mesh: two rank processes
+        on the one card (this script with ``--rank``, a group over a
+        ``FileStore`` in a temporary directory; gloo carries the
+        collectives, since NCCL refuses two ranks on one card), each
+        keeping half of every split weight and gathering a layer's
+        weights whole where it runs them (``models.sharding.
+        GatherAtUse``: once in the forward, once more under remat, the
+        gradient reduce-scattered back), each taking 2 of every batch's
+        4 rows; the vocab of 49 155 does not split over 2, so the table
+        stays whole.  Step 0's loss within 1e-3 relative of P's, every
+        step within 1e-2, flash 2 x 40 x 8 and its backward 40 x 8 on
+        each rank, all ``mma``; each rank's peak and step time beside
+        P's; the collectives the ranks counted, equal to the schedule's
+        (``launch.dryrun.step_collectives``) at every step, and each
+        kind's gloo rate alone on 256 MiB;
+     X  DeepSeek-MoE-16B at full width, 4 of 28 layers (``reduced``),
+        the capacity dispatch at 1.0 with ``fsdp=True`` over a (2, 1)
+        mesh of two rank processes on the card (as W): every weight split
+        over "data" and gathered at use, the MoE capacity, queue places
+        and load-balance loss over the whole batch (one all-gather of
+        routed-token counts per MoE layer and forward); TRAIN_QT's 4
+        steps against ``training.train`` of the same cut config and
+        weights in one process on the card: step 0 within 1e-3 relative,
+        every step within 1e-2; each rank's peak beside the single
+        process's;
    then ring attention (``models.ring_attention``) in bf16 at
    Llama-2-7B's attention (S 32 768, 32 heads of 128, causal) and
    Granite-3-2B's GQA (S 16 384, 32 query heads over 8 kv heads of 64,
@@ -238,12 +263,12 @@ The quickest proof that the port builds and serves on an NVIDIA H100:
    and ``torch.profiler`` windows (device busy share, kernel launches and
    device time by kernel per iteration): decode-heavy windows of the
    configurations of runs A, D-H and K-O, prefill-heavy windows of A
-   (iterations that carry 512-row chunks), D, E, G, K and M (the first
+   (iterations that carry 512-row chunks), D, E, G and M (the first
    iteration: the whole prompts of the requests it admits) and N (one
    prefill call), and one training step of runs P and U;
-   runs A, B and D-V must go through the tensor-core (``mma``) variants
+   runs A, B and D-X must go through the tensor-core (``mma``) variants
    of their forward kernels and launch no ``fma`` variant, and no kernel
-   a run does not expect (the backward kernels only in runs P-V);
+   a run does not expect (the backward kernels only in runs P-X);
 4. the port's engine examples through their ``main()`` on the card:
    ``examples/quickstart_torch.py`` (MoPE, a reduced Llama-2 under
    Equinox) and ``examples/serve_multiarch_torch.py`` (every registered
@@ -252,8 +277,9 @@ The quickest proof that the port builds and serves on an NVIDIA H100:
 5. the dry-run (``python -m repro_torch.launch.dryrun --arch llama2-7b
    --shape train_4k --mesh both``) in a subprocess that sees no card
    (fake process groups of 256 and 512 ranks): one device's argument and
-   output bytes and FLOPs; and ``launch.train --production`` on this one
-   card, which must refuse with the world-size message;
+   output bytes, FLOPs and collective bytes; and ``launch.train
+   --production`` on this one card, which must refuse with the
+   world-size message;
 6. a ``seconds`` line (wall time of each phase), the nvidia-smi line, a
    ``kernels`` JSON line (the four ports of the Pallas kernels and the
    flash and SSD-scan backward kernels; launches per variant beside the
@@ -265,6 +291,10 @@ Without a CUDA device it exits 2 before printing any result.  TF32 is
 switched off for matmuls and cuDNN, so f32 products are full f32.
 
     python3 chip_smoke.py
+
+``python3 chip_smoke.py --rank RUN RANK WORLD STORE OUT`` is one rank
+process of run W or X (``mesh_rank_main``), which the script starts
+itself.
 """
 from __future__ import annotations
 
@@ -356,6 +386,20 @@ TRAIN_RUNS = {
     "T": ("recurrentgemma-2b", None, 2, 4096),
     "U": ("mamba2-2.7b", None, 4, 2048),
 }
+# runs W and X: training over a mesh of two rank processes on the one
+# card (run -> arch, depth or None, (data, model) mesh, TrainConfig fields,
+# config fields replaced); each within TRAIN_LOSS_TOL of its baseline at
+# every step and MESH_STEP0_REL relative at step 0
+MESH_RUNS = {
+    "W": ("granite-3-2b", None, (1, 2), TRAIN, {}),
+    "X": ("deepseek-moe-16b", 4, (2, 1), TRAIN_QT, {"fsdp": True}),
+}
+MESH_STEP0_REL = 1e-3
+MESH_RANK_TIMEOUT_S = 420
+# run W's ranks also time each collective kind alone on bf16 CUDA tensors
+# of this many MiB of input, TRANSPORT_REPS calls after one warm-up
+TRANSPORT_MIB = 256
+TRANSPORT_REPS = 2
 # the flash backward kernel vs its plain version: f32 sums in other orders
 # (max |d| within 1e-4 of the largest |plain|); bf16: both widen the same
 # inputs to f32 and round once (max |d| within one bf16 step of the
@@ -400,6 +444,8 @@ def emit(obj):
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--rank"]:
+        return mesh_rank_main(sys.argv[2:])
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2139,8 +2185,6 @@ def engine_phase(torch, kernel_rows):
     check(line["wkv_b_slice_copies_per_iteration"] == 0, f"run K: a decode "
           f"iteration copied W_UK or W_UV "
           f"{line['wkv_b_slice_copies_per_iteration']} times")
-    profiled("K", minicpm, MAX_LEN_SLOTS, "prefill", backend="slots",
-             chunked=False)
     del minicpm
     gc.collect()
     torch.cuda.empty_cache()
@@ -2202,9 +2246,14 @@ def engine_phase(torch, kernel_rows):
         runs[run] = stack_train_run(torch, run)
         lap(run)
     # run V: run P through train(mesh=...) on a (1, 1) DeviceMesh over
-    # NCCL; then the ring over that mesh and over 8 shards in one process
+    # NCCL; runs W and X: two rank processes on the card, the weights
+    # gathered at use; then the ring over V's mesh and over 8 shards in
+    # one process
     runs["V"] = mesh_train_run(torch)
     lap("V")
+    for run in MESH_RUNS:
+        runs[run] = mesh_rank_run(torch, run)
+        lap(run)
     runs["ring"], kernel_rows["flash_attention"]["ring_shapes"] = \
         ring_phase(torch)
     torch.distributed.destroy_process_group()
@@ -2674,10 +2723,10 @@ def mesh_train_run(torch):
     weights from SEED and the same batches) through
     ``training.train(cfg, tc, mesh=make_host_mesh())``: a (1, 1)
     ``("data", "model")`` DeviceMesh over NCCL at world size 1 (the
-    process group started from an in-process store), the parameters
-    placed by ``param_specs`` (``distribute_tensor``, then their local
-    tensors), each batch's rows by ``batch_specs``, the gradients and the
-    loss all-reduced before the update.  Its losses must equal P's bit
+    process group started from an in-process store), the parameters cut
+    by ``param_specs`` (``ShardPlan``: at world size 1 every leaf stays
+    itself, nothing is gathered or reduced), each batch's rows by
+    ``batch_specs``.  Its losses must equal P's bit
     for bit and its launches P's (``train_launches``); the ``train`` line
     carries P's step time, tokens/s and peak beside V's.  Returns the
     run's launch counts."""
@@ -2739,6 +2788,279 @@ def mesh_train_run(torch):
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+def mesh_run_config(run):
+    """(cfg, TrainConfig, (data, model), reduced or None) of run W or
+    X."""
+    from repro_torch.configs import get_config
+    from repro_torch.training import TrainConfig
+
+    arch, n_layers, shape, train_kw, fields = MESH_RUNS[run]
+    cfg = get_config(arch)
+    reduced = None
+    if n_layers is not None:
+        full = cfg.n_params()
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        reduced = {"n_layers": [get_config(arch).n_layers, n_layers],
+                   "n_params": [full, cfg.n_params()],
+                   "why": "two rank processes and the single-process "
+                          "baseline share one card: run Q's 7 layers "
+                          "peaked at 65.8 GiB alone"}
+    return (dataclasses.replace(cfg, **fields), TrainConfig(**train_kw),
+            shape, reduced)
+
+
+def mesh_rank_main(argv) -> int:
+    """One rank process of run W or X (``--rank RUN RANK WORLD STORE
+    OUT``): joins the group over the ``FileStore`` STORE
+    (``launch.mesh.join_ranks``: gloo, the ranks sharing the card), trains
+    the run's config by ``training.train(cfg, tc, mesh=...)`` on its
+    (data, model) mesh from SEED's weights, and writes its losses, step
+    times, peak memory, launches, the transport, the collectives its
+    plan counted over the run (``ShardPlan.comm``, read from the
+    ``MeshTrainer`` that ``train`` made) beside the schedule's a step,
+    and, in run W, each collective kind's time alone (``transport_rates``)
+    to OUT (JSON)."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.dryrun import step_collectives
+    from repro_torch.launch.mesh import join_ranks, make_host_mesh
+    from repro_torch.training import train, trainer
+    from repro_torch.weights import init_params
+
+    made = []
+
+    class RecordedMeshTrainer(trainer.MeshTrainer):
+        """``train``'s MeshTrainer, kept so its plan's counts are read."""
+
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            made.append(self)
+
+    trainer.MeshTrainer = RecordedMeshTrainer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    run, rank, world, store, out = argv
+    rank, world = int(rank), int(world)
+    backend = join_ranks(store, rank, world, "cuda")
+    try:
+        cfg, tc, (_, model), _ = mesh_run_config(run)
+        mesh = make_host_mesh(model=model)
+        params = init_params(cfg, torch.Generator(
+            device="cuda").manual_seed(SEED), "cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        stamps = []
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        params, losses = train(
+            cfg, tc, mesh=mesh, params=params, device="cuda",
+            log=lambda msg: stamps.append(time.perf_counter()))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        steps = np.diff([t0] + stamps) * 1e3
+        coll = step_collectives(cfg, ShapeConfig(
+            "mesh", tc.seq_len, tc.batch, "train"), mesh)
+        comm = made[0].plan.comm
+        line = {"rank": rank, "backend": backend,
+                "mesh": {"shape": list(mesh.shape),
+                         "axes": list(mesh.mesh_dim_names)},
+                "losses": [v for _, v in losses], "wall_s": wall,
+                "step_ms": list(steps),
+                "step_ms_median_after_first": float(np.median(steps[1:])),
+                "shard_gib": sum(t.numel() * t.element_size()
+                                 for t in _leaves(params)) / 2 ** 30,
+                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                "launches": launches,
+                "collectives_counted": {"bytes": dict(comm.bytes),
+                                        "counts": dict(comm.counts)},
+                "schedule_per_step": {"bytes": coll["bytes"],
+                                      "counts": coll["counts"]}}
+        if run == "W":
+            line["transport_rates"] = transport_rates(torch, dist)
+        with open(out, "w") as f:
+            json.dump(line, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def transport_rates(torch, dist):
+    """Seconds a call and GB/s of input of the default group's
+    all_gather_into_tensor, reduce_scatter_tensor and all_reduce alone,
+    on bf16 CUDA tensors of TRANSPORT_MIB MiB of input (the mean of
+    TRANSPORT_REPS calls after one), every rank calling together."""
+    n = (TRANSPORT_MIB << 20) // 2
+    world = dist.get_world_size()
+    x = torch.ones(n, device="cuda", dtype=torch.bfloat16)
+    gathered = torch.empty(world * n, device="cuda", dtype=torch.bfloat16)
+    scattered = torch.empty(n // world, device="cuda", dtype=torch.bfloat16)
+    out = {}
+    for kind, call in (
+            ("all-gather", lambda: dist.all_gather_into_tensor(gathered, x)),
+            ("reduce-scatter",
+             lambda: dist.reduce_scatter_tensor(scattered, x)),
+            ("all-reduce", lambda: dist.all_reduce(x))):
+        call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TRANSPORT_REPS):
+            call()
+        torch.cuda.synchronize()
+        sec = (time.perf_counter() - t0) / TRANSPORT_REPS
+        out[kind] = {"input_mib": TRANSPORT_MIB, "s": sec,
+                     "gb_per_s_of_input": (TRANSPORT_MIB << 20) / sec / 1e9}
+    del x, gathered, scattered
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_rank_run(torch, run):
+    """Runs W and X: the run's rank processes (``mesh_rank_main``, this
+    script with ``--rank``) started together over a ``FileStore`` in a
+    temporary directory, waited for (MESH_RANK_TIMEOUT_S; a failed or
+    late rank fails the run, its output's tail printed), their lines
+    read.  W is held to run P's losses, X to ``training.train`` of the
+    same cut config and weights in this process, run after the ranks: the
+    losses of the ranks equal, step 0 within MESH_STEP0_REL relative and
+    every step within TRAIN_LOSS_TOL of the baseline; each rank launches
+    flash forward and backward as ``train_launches`` derives (all
+    ``mma``) and nothing else of the port; the collectives each rank's
+    plan counted over the run are the schedule's a step
+    (``launch.dryrun.step_collectives``) times the steps, kind for kind in
+    bytes and calls.  Emits the ``train`` line (each rank's step times,
+    peak and shard bytes, the transport, the counted collectives a step,
+    their bytes over the whole step time, compute included, and in W each
+    kind's rate alone; the baseline's beside them).  Returns the ranks'
+    launch counts, summed."""
+    import tempfile
+
+    from repro_torch.training import train
+    from repro_torch.weights import init_params
+
+    cfg, tc, (data, model), reduced = mesh_run_config(run)
+    if cfg.moe is not None:
+        check(cfg.moe_impl == "dispatch" and cfg.moe.capacity_factor == 1.0,
+              f"run {run}: {cfg.name} is not the dispatch at capacity 1.0")
+    world = data * model
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [os.path.join(tmp, f"rank{r}.json") for r in range(world)]
+        logs = [open(os.path.join(tmp, f"rank{r}.log"), "w+")
+                for r in range(world)]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--rank", run,
+             str(r), str(world), os.path.join(tmp, "store"), outs[r]],
+            cwd=ROOT, stdout=logs[r], stderr=subprocess.STDOUT)
+            for r in range(world)]
+        try:
+            for p in procs:
+                p.wait(timeout=max(1.0, MESH_RANK_TIMEOUT_S
+                                   - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        tails = []
+        for f in logs:
+            f.seek(0)
+            tails.append(f.read()[-3000:])
+            f.close()
+        codes = [p.returncode for p in procs]
+        check(codes == [0] * world, f"run {run}: rank processes exited "
+              f"{codes} after {wall:.1f} s: {tails}")
+        ranks = [json.loads(pathlib.Path(o).read_text()) for o in outs]
+    loss = ranks[0]["losses"]
+    if run == "W":
+        base = {k: TRAIN_LINES["P"][k] for k in (
+            "losses", "step_ms_median_after_first", "peak_mem_gib")}
+        base["run"] = "P"
+    else:
+        params = init_params(cfg, torch.Generator(
+            device="cuda").manual_seed(SEED), "cuda")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        stamps = []
+        t0 = time.perf_counter()
+        params, losses = train(
+            cfg, tc, params=params, device="cuda",
+            log=lambda msg: stamps.append(time.perf_counter()))
+        torch.cuda.synchronize()
+        steps = np.diff([t0] + stamps) * 1e3
+        base = {"run": "training.train, one process",
+                "losses": [v for _, v in losses],
+                "step_ms_median_after_first": float(np.median(steps[1:])),
+                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    diffs = [abs(a - b) for a, b in zip(loss, base["losses"])]
+    counted = ranks[0]["collectives_counted"]
+    per_step = {k: {kind: v // tc.steps for kind, v in counted[k].items()}
+                for k in ("bytes", "counts")}
+    want = {name: 0 for name in ranks[0]["launches"]}
+    want.update(train_launches(cfg, tc.steps))
+    line = {"phase": "train", "run": run, "model": cfg.name,
+            "entry": "training.train(mesh=...), two rank processes",
+            "n_layers": cfg.n_layers, "fsdp": cfg.fsdp,
+            "moe_impl": cfg.moe_impl if cfg.moe is not None else None,
+            "batch": tc.batch, "seq_len": tc.seq_len, "steps": tc.steps,
+            "mesh": ranks[0]["mesh"], "transport": ranks[0]["backend"],
+            "losses": loss, "baseline": base,
+            "step0_rel_err": diffs[0] / abs(base["losses"][0]),
+            "max_abs_loss_diff": max(diffs), "wall_s": wall,
+            "collective_bytes_per_step": per_step["bytes"],
+            "collective_counts_per_step": per_step["counts"],
+            "collective_gb_per_s_over_whole_step": sum(
+                per_step["bytes"].values()) / 1e9 / (
+                    ranks[0]["step_ms_median_after_first"] / 1e3),
+            "ranks": [{k: r[k] for k in (
+                "rank", "step_ms", "step_ms_median_after_first",
+                "shard_gib", "peak_mem_gib", "wall_s")} for r in ranks],
+            "launches_per_rank": {k: v for k, v in ranks[0][
+                "launches"].items() if v}}
+    if "transport_rates" in ranks[0]:
+        line["transport_rates_alone"] = ranks[0]["transport_rates"]
+    if reduced:
+        line["reduced"] = reduced
+    emit(line)
+    check(len(loss) == tc.steps and all(np.isfinite(loss)),
+          f"run {run}: losses {loss}")
+    check(all(r["losses"] == loss for r in ranks),
+          f"run {run}: the ranks logged different losses")
+    check(line["step0_rel_err"] <= MESH_STEP0_REL, f"run {run}: step 0's "
+          f"loss {loss[0]} vs {base['losses'][0]}")
+    check(max(diffs) <= TRAIN_LOSS_TOL, f"run {run}: losses {loss} vs "
+          f"{base['losses']}")
+    for r in ranks:
+        sched = r["schedule_per_step"]
+        check(r["collectives_counted"] == {
+            k: {kind: v * tc.steps for kind, v in sched[k].items()}
+            for k in ("bytes", "counts")}, f"run {run}: rank {r['rank']} "
+              f"counted {r['collectives_counted']}, not {tc.steps} steps "
+              f"of the schedule's {sched}")
+        check(r["launches"] == want, f"run {run}: rank {r['rank']} "
+              f"launched { {k: v for k, v in r['launches'].items() if v} }, "
+              f"not { {k: v for k, v in want.items() if v} }")
+    total = Counter()
+    for r in ranks:
+        total.update(r["launches"])
+    return {name: total[name] for name in ranks[0]["launches"]}
 
 
 def ring_phase(torch):
@@ -2824,7 +3146,8 @@ def dryrun_phase(torch):
     DRYRUN_ARGS) in a subprocess that sees no card: its fake process
     groups of 256 and 512 ranks live there, never beside this process's;
     a nonzero exit fails the run.  Prints one device's argument and
-    output bytes and FLOPs from its two result files.  Then
+    output bytes, FLOPs and collective bytes by kind (the port's
+    schedule) from its two result files.  Then
     ``launch.train --production`` on this one card must refuse with the
     world-size message, not train."""
     from repro_torch.launch import train as launch_train
@@ -2847,6 +3170,7 @@ def dryrun_phase(torch):
             k: res["memory"][k] for k in ("argument_bytes", "output_bytes")},
             "flops_per_device": res["cost"]["flops"],
             "flops_global": res["cost"]["flops_global"],
+            "collective_bytes": res["collectives"]["bytes"],
             "step_s": res["step_s"]}
     emit({"phase": "dryrun", "args": list(DRYRUN_ARGS), "wall_s": wall,
           "meshes": meshes})
@@ -3317,8 +3641,9 @@ def profile_window(torch, run, eng, reqs, window="decode"):
     requests arrive at once.
 
     ``decode``: 14 iterations run the prompts in, then 10 iterations are
-    timed on the host clock and 10 more under ``torch.profiler`` for
-    device time by kernel.  ``prefill``: iterations that carry prompt
+    timed on the host clock and 5 more under ``torch.profiler`` for
+    device time by kernel (the trace's processing takes most of a
+    window's wall time).  ``prefill``: iterations that carry prompt
     tokens, profiled, their host time read under the profiler: run A's
     iterations 2-4 (the first runs unprofiled; the two requests admitted
     first have 1726 prompt tokens, so these carry 512, 512 and 190 prompt
@@ -3331,8 +3656,9 @@ def profile_window(torch, run, eng, reqs, window="decode"):
     from torch.profiler import ProfilerActivity, profile
 
     t_window = time.perf_counter()
-    warm, steps = {"decode": (14, 10), "prefill": (1, 3) if run == "A"
-                   else (0, 1)}[window]
+    warm, timed, steps = {"decode": (14, 10, 5),
+                          "prefill": (1, 0, 3) if run == "A"
+                          else (0, 0, 1)}[window]
     for r in reqs:
         r.arrival = 0.0
         eng.submit(r)
@@ -3342,11 +3668,11 @@ def profile_window(torch, run, eng, reqs, window="decode"):
     rows = 0
     if window == "decode":
         t0 = time.perf_counter()
-        for _ in range(steps):
+        for _ in range(timed):
             rows += len(eng.running)
             eng.step()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+        wall_ms = (time.perf_counter() - t0) * 1e3 / timed
     n_log = len(eng.iter_log)
     shapes = window == "decode" and eng.cfg.mla is not None
     # CPU-side operator events only where a line reads them (an MLA
@@ -3366,7 +3692,8 @@ def profile_window(torch, run, eng, reqs, window="decode"):
             wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     logged = eng.iter_log[n_log:]
     line = {"phase": "profile", "run": run, "window": window,
-            "iterations": steps, "rows_per_iteration": rows / steps,
+            "iterations": steps, "rows_per_iteration": rows / (timed
+                                                               or steps),
             **profile_summary(prof, steps, wall_ms)}
     # the device time of the kernels each batched product launched (MLA's
     # latent decode, MoE's experts)

@@ -5,6 +5,7 @@ while a new phase is brought up.
     python3 scripts/chip_phases.py bwd,ops,P,Q,R,S,T,O
     python3 scripts/chip_phases.py ssd_bwd,U,examples
     python3 scripts/chip_phases.py P,V,ring,dryrun
+    python3 scripts/chip_phases.py P,W,X
 
 ``bwd``: the flash backward kernel lines (``flash_bwd_phase``);
 ``ssd_bwd``: the SSD scan's backward kernel lines (``ssd_bwd_phase``);
@@ -16,7 +17,10 @@ RecurrentGemma-2B and Mamba-2-2.7B (``U``; ``stack_train_run``); ``O``:
 InternVL2-76B through the slots engine (``internvl_run``, without its
 profile window); ``examples``: the port's engine examples
 (``examples_phase``); ``V``: run P through ``train(mesh=...)``
-(``mesh_train_run``, held to P's losses: needs ``P``); ``ring``: ring
+(``mesh_train_run``, held to P's losses: needs ``P``); ``W``: run P
+over a (1, 2) mesh of two rank processes on the card (``mesh_rank_run``:
+needs ``P``); ``X``: DeepSeek-MoE-16B (4 layers) with fsdp over a (2, 1)
+mesh of two rank processes, held to one process; ``ring``: ring
 attention (``ring_phase``); ``dryrun``: the dry-run CLI and the
 ``--production`` refusal (``dryrun_phase``).  Builds the
 kernels first, prints chip_smoke's JSON lines and the seconds each phase
@@ -80,6 +84,11 @@ def main(argv) -> int:
         t0 = time.perf_counter()
         runs["V"] = cs.mesh_train_run(torch)
         cs.emit({"phase": "seconds", "V": time.perf_counter() - t0})
+    for run in cs.MESH_RUNS:
+        if run in which:
+            t0 = time.perf_counter()
+            runs[run] = cs.mesh_rank_run(torch, run)
+            cs.emit({"phase": "seconds", run: time.perf_counter() - t0})
     if "ring" in which:
         t0 = time.perf_counter()
         runs["ring"], _ = cs.ring_phase(torch)

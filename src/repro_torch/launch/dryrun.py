@@ -14,10 +14,19 @@ fake process group of 256 or 512 ranks in this one process
   whole step run on the meta tensors through the kernels' plain versions,
   divided by the number of devices (``flops_global`` keeps the total).
 
-XLA's partitioner is what the reference reads ``temp_bytes`` and the
-collectives from; the port has no counterpart, so both are written as
-``null`` with the reason (ROADMAP.md item 12b).  A step that needs a
-value on ``meta`` (``.item()``, a data-dependent shape) fails with the
+- ``collectives`` of a training shape: one device's bytes (each
+  collective's output, the reference's measure) and counts by kind, from
+  the port's own schedule, not XLA's: ``train(mesh=...)``'s
+  ``models.sharding.ShardPlan`` over meta parameters on the same mesh
+  (``ShardPlan.step_schedule``: the gathers at use in the forward and
+  again under remat, the gradients' reduce-scatters and replicate-axis
+  all-reduces, the loss's and the clip's all-reduces, an MoE layer's
+  count of routed tokens).
+
+XLA's partitioner is what the reference reads ``temp_bytes``, and a
+serving step's collectives, from; the port has no counterpart, so those
+are written as ``null`` with the reason.  A step that needs a value on
+``meta`` (``.item()``, a data-dependent shape) fails with the
 architecture named.
 
 Results land in experiments/dryrun_torch/<arch>__<shape>__<mesh>.json.
@@ -41,8 +50,10 @@ import torch
 
 from repro_torch.configs import ASSIGNED_ARCHS, INPUT_SHAPES, get_config
 from repro_torch.launch.mesh import make_production_mesh
-from repro_torch.launch.specs import build_step, out_specs, tree_placements
-from repro_torch.models.sharding import mesh_axes
+from repro_torch.launch.specs import (build_step, config_for, out_specs,
+                                     param_structs, tree_placements)
+from repro_torch.models.sharding import (ShardPlan, batch_axes, mesh_axes,
+                                         param_specs)
 
 OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                        "experiments", "dryrun_torch")
@@ -50,6 +61,9 @@ OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
 NO_PARTITIONER = ("no counterpart without XLA's partitioner: the port "
                   "places arguments and outputs; temporaries and "
                   "collectives are chosen by no compiler here")
+SCHEDULE = ("the port's train(mesh=...) schedule (weights gathered at use: "
+            "models.sharding.ShardPlan.step_schedule), not XLA's; bytes "
+            "are each collective's output on one device")
 
 
 def _pairs(tree, places):
@@ -91,6 +105,22 @@ def step_costs(cfg, shape, mesh):
             arg_bytes, local_bytes(outputs, out_pl, mesh))
 
 
+def step_collectives(cfg, shape, mesh):
+    """One device's collectives of one ``train(mesh=...)`` step of
+    ``shape`` (a training shape) on ``mesh``: {"bytes", "counts"} by
+    kind, "total_bytes" and the schedule's label."""
+    cfg = config_for(cfg, shape)
+    params = param_structs(cfg)
+    entry = batch_axes(shape.global_batch, mesh,
+                       include_model=cfg.train_batch_over_model)
+    plan = ShardPlan(mesh, entry)
+    plan.shard(params, param_specs(params, cfg, mesh))
+    out = plan.step_schedule(cfg, shape.global_batch * shape.seq_len,
+                             grad_clip=True)
+    return {**out, "total_bytes": sum(out["bytes"].values()),
+            "schedule": SCHEDULE}
+
+
 def run_pair(arch: str, shape_name: str, mesh_kind: str, verbose=True,
              fsdp=None, seq_parallel=None, remat_group=None):
     """None options resolve to the production policy: training shapes use
@@ -113,6 +143,8 @@ def run_pair(arch: str, shape_name: str, mesh_kind: str, verbose=True,
         t0 = time.time()
         try:
             _, _, flops, arg_bytes, out_bytes = step_costs(cfg, shape, mesh)
+            coll = step_collectives(cfg, shape, mesh) \
+                if shape.mode == "train" else None
         except (RuntimeError, NotImplementedError) as e:
             raise RuntimeError(f"dry-run of {arch} ({shape_name}, "
                                f"{mesh_kind}): the step does not run on "
@@ -142,16 +174,18 @@ def run_pair(arch: str, shape_name: str, mesh_kind: str, verbose=True,
                     "through the kernels' plain versions, divided by the "
                     "number of devices",
         },
-        "collectives": None,
-        "collectives_reason": NO_PARTITIONER,
+        "collectives": coll,
     }
+    if coll is None:
+        result["collectives_reason"] = NO_PARTITIONER
     if verbose:
         m = result["memory"]
         print(f"{arch:18s} {shape_name:12s} {mesh_kind:6s} "
               f"args={m['argument_bytes'] / 2**30:7.2f}GiB "
               f"out={m['output_bytes'] / 2**30:7.2f}GiB "
               f"flops={result['cost']['flops']:.3e} "
-              f"step={t_step:5.1f}s", flush=True)
+              + (f"coll={coll['total_bytes'] / 2**20:9.1f}MiB " if coll
+                 else "") + f"step={t_step:5.1f}s", flush=True)
     return result
 
 

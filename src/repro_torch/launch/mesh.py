@@ -8,7 +8,14 @@ group.
   the default process group.  Where no group exists it starts one at
   world size 1 from an in-process ``HashStore`` (no socket): ``nccl`` for
   the card, the default, ``gloo`` for the CPU.  A launcher (``torchrun``,
-  or a test's processes over a ``FileStore``) starts larger groups.
+  or ``join_ranks`` in each of a test's processes over a ``FileStore``)
+  starts larger groups.
+- ``join_ranks`` joins one rank process to a group over a ``FileStore``:
+  NCCL where every rank has a card of its own, else gloo, which carries
+  CUDA tensors too (NCCL refuses two ranks of one communicator on one
+  card, ``ncclInvalidUsage``), so two ranks can share one card: their
+  tensors and compute stay on it, and only the collectives' bytes pass
+  through the host.
 - ``make_production_mesh`` is the reference's 16 x 16 (or 2 x 16 x 16)
   ``("data", "model")`` (``("pod", "data", "model")``) mesh over a group
   of 256 (512) ranks that a launcher started; at any other world size it
@@ -48,6 +55,30 @@ def make_host_mesh(model: int = 1, device=None):
         torch.cuda.set_device(dist.get_rank() % torch.cuda.device_count())
     return init_device_mesh(device.type, (world // model, model),
                             mesh_dim_names=("data", "model"))
+
+
+def join_ranks(store_path, rank: int, world: int, device=None) -> str:
+    """Join this process, rank ``rank`` of ``world``, to the default group
+    over a ``FileStore`` at ``store_path`` (no socket); on the card, rank
+    r takes card r mod the card count.  Returns the backend: ``nccl``
+    where the ranks have a card each, ``gloo`` on the CPU or where ranks
+    share a card (module docstring)."""
+    import torch
+    import torch.distributed as dist
+
+    device = resolve_device(device)
+    if device.type not in BACKENDS:
+        raise ValueError(f"join_ranks: no process-group backend for "
+                         f"{device}")
+    backend = BACKENDS[device.type]
+    if device.type == "cuda":
+        cards = torch.cuda.device_count()
+        torch.cuda.set_device(rank % cards)
+        if world > cards:
+            backend = "gloo"
+    dist.init_process_group(backend, init_method=f"file://{store_path}",
+                            rank=rank, world_size=world)
+    return backend
 
 
 def make_production_mesh(*, multi_pod: bool = False, fake: bool = False,

@@ -46,7 +46,11 @@ reference's), the loss by ``chunked_ce_loss`` plus
 ``router_aux_coef`` times the MoE load-balance loss summed over the
 layers; Mamba-2 layers through the SSD scan's autograd Function (its
 backward kernel).  It trains every stack the port runs.  The serving
-entry points run under ``torch.no_grad``.
+entry points run under ``torch.no_grad``.  On a mesh
+(``train(mesh=...)``, ``models.sharding.ShardPlan``) the parameters are
+shards, gathered whole where they are used: each layer's leaves inside
+its (rematerialised) body, the embedding table for the inputs and the
+head (or tied table) for the loss.
 """
 from __future__ import annotations
 
@@ -60,6 +64,7 @@ from repro_torch.configs.base import (ATTN, ATTN_LOCAL, ATTN_MLA, MAMBA2,
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import sharding
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (chunked_ce_loss, dtype_of, embed, mlp,
                                        rmsnorm, unembed)
@@ -154,12 +159,14 @@ def ffn_forward(params, h, cfg, moe_flag):
 
 
 def _block_forward(lp, x, cfg, kind, moe_flag, positions, *, causal=True,
-                   enc_kv=None, want_cache=False, want_aux=False):
+                   enc_kv=None, want_cache=False, want_aux=False,
+                   rows=sharding.WHOLE_BATCH):
     """Returns (x, aux, cache_entry_or_None).  ``enc_kv``: the encoder's
     output, which a decoder layer of an encoder-decoder attends after its
     self-attention (its keys and values join the cache entry).  ``aux``:
     an MoE layer's load-balance loss when ``want_aux`` (training), else
-    None."""
+    None.  ``rows``: the batch's row split (``sharding.row_split``),
+    which an MoE layer's statistics span."""
     h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
     window = window_for(cfg, kind)
     cache = None
@@ -195,7 +202,8 @@ def _block_forward(lp, x, cfg, kind, moe_flag, positions, *, causal=True,
     if kind != MAMBA2:
         h2 = rmsnorm(lp["ln2"], x, cfg.norm_eps)
         if moe_flag:
-            f, aux = moe_mod.moe_ffn(lp["ffn"], h2, cfg, want_aux=want_aux)
+            f, aux = moe_mod.moe_ffn(lp["ffn"], h2, cfg, want_aux=want_aux,
+                                     rows=rows)
         else:
             f = mlp(lp["ffn"], h2, cfg.act)
         x = x + f
@@ -228,17 +236,22 @@ def _run_stage(stage_params, x, cfg, kind, moe_flag, count, positions, *,
     group of ``cfg.remat_group`` layers when the group divides the stage
     and is smaller than it (the reference's grouped remat), so the
     backward saves only the group's input and reruns its forward; the
-    checkpointed function returns (x, aux)."""
+    checkpointed function returns (x, aux).  On a mesh
+    (``train(mesh=...)``) each layer's leaves are gathered whole inside
+    that function (``sharding.layer_gatherer``), so the backward gathers
+    them again and no whole copy is kept between the passes."""
     per_layer = unbind_layers(stage_params)
+    gather = sharding.layer_gatherer(stage_params)
+    rows = sharding.row_split()
 
     def layers(x, lo, hi):
         aux, caches = None, []
         for i in range(lo, hi):
-            x, a, cache = _block_forward(per_layer[i], x, cfg,
+            x, a, cache = _block_forward(gather(per_layer[i]), x, cfg,
                                          kind, moe_flag, positions,
                                          causal=causal, enc_kv=enc_out,
                                          want_cache=want_cache,
-                                         want_aux=want_aux)
+                                         want_aux=want_aux, rows=rows)
             aux = a if aux is None else aux + a
             caches.append(cache)
         return x, aux, caches
@@ -292,7 +305,8 @@ def _embed_inputs(params, batch, cfg):
     ``patch_embeds`` (B, P, d) go first, then the token embeddings, and
     positions run 0..S-1 over both; n_prefix = P (0 without patches)."""
     dt = dtype_of(cfg)
-    x = embed(params["embed"], batch["tokens"]).to(dt)
+    table = sharding.gather_at_use({"table": params["embed"]["table"]})
+    x = embed(table, batch["tokens"]).to(dt)
     n_prefix = 0
     if cfg.frontend == "vision_stub":
         patches = batch["patch_embeds"].to(dt)
@@ -319,7 +333,8 @@ def forward_hidden(params, batch, cfg, *, mode="train", want_cache=False):
     ``cfg.seq_parallel`` is the reference's sharding constraint on the
     residual stream between blocks (its sequence over ``"model"``), which
     changes no value; the port's layers run on local tensors with the
-    sequence whole, so it has no effect here."""
+    sequence whole and the weights gathered, so it has no effect here
+    (a layout for speed: ROADMAP.md item 12c)."""
     check_ported(cfg)
     x, positions, n_prefix = _embed_inputs(params, batch, cfg)
     enc_out = None
@@ -350,8 +365,12 @@ def loss_fn(params, batch, cfg: ModelConfig):
                                               mode="train")
     if n_prefix:
         hidden = hidden[:, n_prefix:]
-    nll = chunked_ce_loss(params["embed"], hidden, batch["labels"],
-                          mask=batch.get("mask"))
+    # the leaf the logits read (the head, or the tied table: gathered a
+    # second time on a mesh, its gradient summed once)
+    emb = params["embed"]
+    head = {"head": emb["head"]} if "head" in emb else {"table": emb["table"]}
+    nll = chunked_ce_loss(sharding.gather_at_use(head), hidden,
+                          batch["labels"], mask=batch.get("mask"))
     coef = cfg.moe.router_aux_coef if cfg.moe is not None else 0.0
     return nll + coef * aux
 

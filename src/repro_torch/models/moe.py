@@ -25,6 +25,18 @@ Every function returns ``(out, aux)``.  ``aux``, the switch-style
 load-balance loss, is computed only for a caller that passes
 ``want_aux=True`` (training); the serving paths never read it, and it is
 ``None`` otherwise.
+
+``rows`` says which block of the batch's rows this process holds: a
+``sharding.RowSplit`` in training over several data ranks, else
+``sharding.WHOLE_BATCH`` (block 0 of 1), and each computes what one
+process computes over the whole batch.  The batch's token stream is the
+blocks in order; each block's routed tokens are counted per expert (and
+per chunk of ``DISPATCH_CHUNK_TOKENS`` tokens of the stream), and one
+gather of those counts gives the capacity's token count, each token's
+place in its expert's queue (the counts of the blocks before it added)
+and the load-balance loss's expert fractions.  A rank's ``aux`` is its
+own tokens' share, scaled so that the mean over the ranks is the loss
+over the whole batch.
 """
 from __future__ import annotations
 
@@ -32,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import dense_init, mlp
+from repro_torch.models.sharding import WHOLE_BATCH
 
 DISPATCH_CHUNK_TOKENS = 65_536
 
@@ -67,12 +80,26 @@ def _route(params, x, m):
     return weights.to(x.dtype), experts, probs
 
 
-def load_balance_loss(probs, experts, n_experts):
-    """Switch-transformer aux loss: E * sum_e f_e * P_e."""
-    onehot = F.one_hot(experts, n_experts).float()
-    frac = onehot.sum(-2).reshape(-1, n_experts).mean(0)
+def routed_counts(experts, n_experts):
+    """(E,) int64: the routed assignments ``experts`` (..., top_k) to each
+    expert (a scatter-add of ones: no host sync)."""
+    flat = experts.reshape(-1)
+    return torch.zeros(n_experts, dtype=torch.int64,
+                       device=flat.device).scatter_add_(
+                           0, flat, torch.ones_like(flat))
+
+
+def load_balance_loss(probs, counts, n_tokens, n_experts):
+    """Switch-transformer aux loss, E * sum_e f_e * P_e, over a batch of
+    ``n_tokens`` tokens: f_e the shares of ``counts`` (E,), the batch's
+    routed assignments to each expert, and P_e the router probabilities
+    ``probs`` (..., E) summed over the tokens here and divided by
+    ``n_tokens``.  Where ``probs`` are one rank's tokens of the batch,
+    this is that rank's share of the batch's loss: the shares add up to
+    it."""
+    frac = counts.float()
     frac = frac / frac.sum().clamp_min(1e-9)
-    imp = probs.reshape(-1, n_experts).mean(0)
+    imp = probs.reshape(-1, n_experts).sum(0) / n_tokens
     return n_experts * (frac * imp).sum()
 
 
@@ -82,13 +109,9 @@ def _expert_ffn(w_gate, w_in, w_out, x):
     return torch.bmm(h, w_out)
 
 
-def _aux(probs, experts, m, want_aux):
-    return load_balance_loss(probs, experts, m.n_experts) if want_aux \
-        else None
-
-
-def moe_dense(params, x, m, *, want_aux=False):
-    """O(E) masked dense evaluation (oracle / smoke path)."""
+def moe_dense(params, x, m, *, want_aux=False, rows=WHOLE_BATCH):
+    """O(E) masked dense evaluation (oracle / smoke path).  ``rows``: the
+    batch's row split (module docstring)."""
     weights, experts, probs = _route(params, x, m)
     xf = x.reshape(-1, x.shape[-1])                       # (n, d)
     n = xf.shape[0]
@@ -101,17 +124,35 @@ def moe_dense(params, x, m, *, want_aux=False):
         y = _expert_ffn(params["w_gate"][e:e + 1], params["w_in"][e:e + 1],
                         params["w_out"][e:e + 1], xf[None])[0]
         out = out + gate_full[:, e:e + 1] * y
-    return out.reshape(x.shape), _aux(probs, experts, m, want_aux)
+    if not want_aux:
+        return out.reshape(x.shape), None
+    total = rows.gather(routed_counts(experts, m.n_experts)[None]).sum(0)[0]
+    aux = load_balance_loss(probs, total, n * rows.count, m.n_experts)
+    return out.reshape(x.shape), aux * rows.count
+
+
+def _capacity(n, m):
+    return min(max(int(n * m.top_k / m.n_experts * m.capacity_factor), 1),
+               n)
 
 
 def moe_dispatch(params, x, m, *, want_aux=False):
-    """Sort-based capacity dispatch (the deployable path)."""
-    weights, experts, probs = _route(params, x, m)
-    d = x.shape[-1]
-    xf = x.reshape(-1, d)
+    """Sort-based capacity dispatch over all of ``x``'s tokens as one
+    chunk (the reference's ``moe_dispatch``)."""
+    return moe_dispatch_chunked(params, x, m, chunk=max(x[..., 0].numel(),
+                                                         1),
+                                want_aux=want_aux)
+
+
+def _dispatch(params, xf, weights, experts, m, capacity, before):
+    """The routed experts over the tokens ``xf`` (n, d): each expert's
+    first ``capacity`` assignments in token order run, the rest drop.
+    ``before`` (E,): assignments to each expert that precede these tokens
+    in the same chunk (on the ranks before this one), which take the
+    first places of its queue."""
+    d = xf.shape[-1]
     n, k, E = xf.shape[0], m.top_k, m.n_experts
-    capacity = min(max(int(n * k / E * m.capacity_factor), 1), n)
-    dev = x.device
+    dev = xf.device
 
     flat_e = experts.reshape(-1)                          # (n*k,)
     flat_w = weights.reshape(-1)
@@ -120,6 +161,7 @@ def moe_dispatch(params, x, m, *, want_aux=False):
     se, sw, st = flat_e[order], flat_w[order], flat_tok[order]
     # position of each assignment within its expert group
     pos_in_e = torch.arange(n * k, device=dev) - torch.searchsorted(se, se)
+    pos_in_e = pos_in_e + before[se]
     keep = pos_in_e < capacity
     # past capacity: the overflow row E*C, which is dropped
     slot = torch.where(keep, se * capacity + pos_in_e, E * capacity)
@@ -135,41 +177,76 @@ def moe_dispatch(params, x, m, *, want_aux=False):
     # reference's scatter-add over the expert-sorted assignments, with
     # no atomics (dropped ones add exact zeros)
     contrib = (y[torch.where(keep, slot, 0)] * (sw * keep)[:, None]).to(
-        x.dtype)
+        xf.dtype)
     by_token = contrib[torch.argsort(st * E + se)].reshape(n, k, d)
     out = by_token[:, 0]
     for j in range(1, k):
         out = out + by_token[:, j]
-    return out.reshape(x.shape), _aux(probs, experts, m, want_aux)
+    return out
 
 
-def moe_dispatch_chunked(params, x, m, chunk=DISPATCH_CHUNK_TOKENS, *,
-                         want_aux=False):
-    """The dispatch over token chunks of ``chunk`` rows (zero rows pad the
-    last), capacity enforced per chunk, as the reference's scan does; the
-    aux loss is the mean over chunks."""
-    d = x.shape[-1]
+def chunk_layout(n, chunk=None):
+    """(C, nc): the dispatch over ``n`` tokens runs ``nc`` chunks of ``C``
+    tokens, one chunk of all ``n`` where ``n <= chunk`` (default
+    ``DISPATCH_CHUNK_TOKENS``), else chunks of ``chunk``, zero rows
+    padding the last."""
+    chunk = DISPATCH_CHUNK_TOKENS if chunk is None else chunk
+    C = n if n <= chunk else chunk
+    return C, -(-n // C)
+
+
+def moe_dispatch_chunked(params, x, m, chunk=None, *, want_aux=False,
+                         rows=WHOLE_BATCH):
+    """The dispatch over token chunks of ``chunk`` rows (default
+    ``DISPATCH_CHUNK_TOKENS``; zero rows pad the last), capacity enforced
+    per chunk, as the reference's scan does; the aux loss is the mean over
+    chunks.  The token stream is the batch's: ``rows``' blocks in order
+    (module docstring), cut into chunks at its offsets, so a chunk may
+    span ranks; the zero rows pad its end on the last block's rank.  This
+    rank routes and dispatches its piece of each chunk it meets; one
+    gather of every block's counts per (chunk, expert) gives each
+    expert's queue ahead of a piece and the aux loss's fractions."""
+    d, E = x.shape[-1], m.n_experts
     xf = x.reshape(-1, d)
     n = xf.shape[0]
-    if n <= chunk:
-        return moe_dispatch(params, x, m, want_aux=want_aux)
-    xf = F.pad(xf, (0, 0, 0, (-n) % chunk))
-    ys, auxs = [], []
-    for xb in xf.split(chunk):
-        y, aux = moe_dispatch(params, xb, m, want_aux=want_aux)
-        ys.append(y)
-        auxs.append(aux)
+    C, nc = chunk_layout(n * rows.count, chunk)
+    start = rows.index * n
+    pad = nc * C - n * rows.count
+    if pad and rows.index == rows.count - 1:
+        xf = F.pad(xf, (0, 0, 0, pad))
+    pieces, lo = [], 0
+    while lo < xf.shape[0]:
+        c = (start + lo) // C
+        hi = min(xf.shape[0], (c + 1) * C - start)
+        pieces.append((c, lo, hi))
+        lo = hi
+    routed = [_route(params, xf[lo:hi], m) for _, lo, hi in pieces]
+    counts = torch.zeros((nc, E), dtype=torch.int64, device=x.device)
+    for (c, _, _), (_, experts, _) in zip(pieces, routed):
+        counts[c] += routed_counts(experts, E)
+    every = rows.gather(counts)                      # (blocks, nc, E)
+    before = every[:rows.index].sum(0)
+    capacity = _capacity(C, m)
+    ys = [_dispatch(params, xf[lo:hi], w, e, m, capacity, before[c])
+          for (c, lo, hi), (w, e, _) in zip(pieces, routed)]
     y = torch.cat(ys)[:n].reshape(x.shape)
-    return y, (torch.stack(auxs).mean() if want_aux else None)
+    if not want_aux:
+        return y, None
+    total = every.sum(0)
+    aux = sum(load_balance_loss(p, total[c], C, E)
+              for (c, _, _), (_, _, p) in zip(pieces, routed))
+    return y, aux * (rows.count / nc)
 
 
-def moe_ffn(params, x, cfg, *, want_aux=False):
-    """Full MoE FFN incl. DeepSeek-style shared experts.  Returns (y, aux)."""
+def moe_ffn(params, x, cfg, *, want_aux=False, rows=WHOLE_BATCH):
+    """Full MoE FFN incl. DeepSeek-style shared experts.  Returns (y, aux).
+    ``rows``: the batch's row split (module docstring)."""
     m = cfg.moe
     if cfg.moe_impl == "dense":
-        y, aux = moe_dense(params, x, m, want_aux=want_aux)
+        y, aux = moe_dense(params, x, m, want_aux=want_aux, rows=rows)
     else:
-        y, aux = moe_dispatch_chunked(params, x, m, want_aux=want_aux)
+        y, aux = moe_dispatch_chunked(params, x, m, want_aux=want_aux,
+                                      rows=rows)
     if m.n_shared_experts:
         y = y + mlp(params["shared"], x, "silu")
     return y, aux

@@ -71,8 +71,9 @@ def _pin_channel_sharding(t):
     """The reference's layout pin of the recurrent branch (batch over
     ``data``, channels over ``model``: a sharding constraint, no effect
     on values).  The port's layers run on local tensors with the channels
-    whole (a ``"model"`` axis above 1 is refused by ``train(mesh=...)``),
-    so it returns ``t`` itself."""
+    whole (``train(mesh=...)`` gathers the weights at use; the
+    channel-parallel layout is ROADMAP.md item 12c), so it returns ``t``
+    itself."""
     return t
 
 

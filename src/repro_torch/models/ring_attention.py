@@ -26,7 +26,8 @@ reference's 1e-5.
 process; ``ring_attention_plain`` is the reference's own arithmetic in
 f32 (one ``(m, l, acc)`` online softmax per query shard over the kv
 shards in ring order), the ring's plain version.  Forward only: nothing
-in the reference trains through the ring (ROADMAP.md item 12b).
+in the reference trains through the ring (its gradient: ROADMAP.md
+item 12c).
 """
 from __future__ import annotations
 

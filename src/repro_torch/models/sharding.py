@@ -30,11 +30,29 @@ entry lists its axes in mesh order, which is every spec here but the
 training batch's ``("data", "model", "pod")`` on a multi-pod mesh; there
 the same rows are spread over the same devices in another order.
 ``shard_index`` gives JAX's order, and ``train(mesh=...)`` takes its
-batch rows by it.
+batch rows and its parameters' shards by it.
+
+Training on a mesh (``ShardPlan``, the reference's account of model-axis
+training: "weights are gathered at use").  Each rank keeps only its shard
+of every parameter; a layer gathers its leaves whole just before it uses
+them (``GatherAtUse``: an all-gather over each mesh axis that splits the
+leaf, innermost first, in ``shard_index``'s order), and the backward
+reduce-scatters the whole leaf's gradient back to the shard, a sum over
+those axes.  Every layer then sees whole weights; only its rows differ
+from rank to rank.  The model reads the plan that ``activate`` sets
+(``gather_at_use``, ``layer_gatherer``, ``row_split``); with none
+active every call is the identity, so serving and ``train()`` run as
+without a mesh.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import itertools
 import math
+from typing import NamedTuple
+
+import torch
 
 from repro_torch.configs.base import ModelConfig
 
@@ -294,3 +312,439 @@ def shard_index(entry, mesh, coords: dict) -> tuple:
         index = index * mesh.shape[name] + coords[name]
         count *= mesh.shape[name]
     return index, count
+
+
+# ---------------------------------------------------------------------------
+# Training on a mesh: weights gathered at use
+# ---------------------------------------------------------------------------
+# the reference's collective kinds (``repro/launch/dryrun.py``); the port's
+# schedule uses the first three
+COLLECTIVE_KINDS = ("all-gather", "all-reduce", "reduce-scatter",
+                    "all-to-all", "collective-permute")
+
+
+def gather_steps(spec, sizes) -> tuple:
+    """The (tensor dim, mesh axis) all-gathers that make a leaf of spec
+    ``spec`` whole from its shard, in order: the last dimension first and,
+    within a dimension split over several axes, the innermost axis first
+    (``shard_index``'s order: the entry's first axis outermost).  Axes of
+    size 1 gather nothing."""
+    return tuple((d, name) for d in reversed(range(len(spec)))
+                 for name in reversed(_axis_names(spec[d]))
+                 if sizes.get(name, 1) > 1)
+
+
+def step_bytes(shard_shape, itemsize, steps, sizes):
+    """(bytes of each all-gather's output, bytes of each reduce-scatter's
+    output) when a shard of ``shard_shape`` is gathered by ``steps`` and
+    its gradient scattered back (the reverse order)."""
+    shape, gathers = list(shard_shape), []
+    for d, name in steps:
+        shape[d] *= sizes[name]
+        gathers.append(math.prod(shape) * itemsize)
+    scatters = []
+    for d, name in reversed(steps):
+        shape[d] //= sizes[name]
+        scatters.append(math.prod(shape) * itemsize)
+    return gathers, scatters
+
+
+class Collectives:
+    """The collectives of ``train(mesh=...)`` over a ``DeviceMesh``'s
+    axes, each counted by kind (``counts``) and by its output's bytes
+    (``bytes``: the gathered tensor, the scattered shard, the reduced
+    tensor), the measure of the reference's dry-run.  Native
+    ``all_gather_into_tensor`` / ``reduce_scatter_tensor`` /
+    ``all_reduce``: NCCL, and gloo on CPU and CUDA tensors alike."""
+
+    def __init__(self, mesh):
+        self.sizes = dict(mesh_axes(mesh).shape)
+        self.groups = {n: mesh.get_group(n) for n, size in self.sizes.items()
+                       if size > 1}
+        self.bytes = dict.fromkeys(COLLECTIVE_KINDS, 0)
+        self.counts = dict.fromkeys(COLLECTIVE_KINDS, 0)
+
+    def _count(self, kind, t):
+        self.bytes[kind] += t.numel() * t.element_size()
+        self.counts[kind] += 1
+
+    def all_gather(self, x, dim, axis):
+        """``x``'s blocks from every rank of ``axis``, concatenated along
+        ``dim`` in the axis' coordinate order."""
+        import torch.distributed as dist
+
+        n, x = self.sizes[axis], x.contiguous()
+        out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+        dist.all_gather_into_tensor(out, x, group=self.groups[axis])
+        out = out.view((n,) + tuple(x.shape)).movedim(0, dim).flatten(
+            dim, dim + 1)
+        self._count("all-gather", out)
+        return out
+
+    def reduce_scatter(self, g, dim, axis):
+        """This rank's block along ``dim`` of the sum over ``axis`` of
+        ``g``."""
+        import torch.distributed as dist
+
+        n = self.sizes[axis]
+        parts = g.unflatten(dim, (n, g.shape[dim] // n)).movedim(
+            dim, 0).contiguous()
+        out = parts.new_empty(parts.shape[1:])
+        dist.reduce_scatter_tensor(out, parts.flatten(0, 1),
+                                   group=self.groups[axis])
+        self._count("reduce-scatter", out)
+        return out
+
+    def gather(self, shard, steps):
+        for d, name in steps:
+            shard = self.all_gather(shard, d, name)
+        return shard
+
+    def scatter(self, grad, steps):
+        for d, name in reversed(steps):
+            grad = self.reduce_scatter(grad, d, name)
+        return grad
+
+    def all_reduce_(self, t, axes=None):
+        """``t`` summed in place over each of ``axes`` in turn (None: the
+        whole default group)."""
+        import torch.distributed as dist
+
+        for name in (axes if axes is not None else (None,)):
+            dist.all_reduce(t, group=None if name is None
+                            else self.groups[name])
+            self._count("all-reduce", t)
+        return t
+
+    def world_all_gather(self, t):
+        """(world, *t.shape): every rank's ``t``, by rank."""
+        import torch.distributed as dist
+
+        world, t = dist.get_world_size(), t.contiguous()
+        out = t.new_empty((world * t.shape[0],) + tuple(t.shape[1:]))
+        dist.all_gather_into_tensor(out, t)
+        self._count("all-gather", out)
+        return out.view((world,) + tuple(t.shape))
+
+
+class GatherAtUse(torch.autograd.Function):
+    """A parameter whole from this rank's shard, by ``steps``'
+    all-gathers; the backward reduce-scatters the whole leaf's gradient
+    (each rank's, from its own rows) back to the shard: the sum over the
+    axes that split the leaf."""
+
+    @staticmethod
+    def forward(ctx, shard, steps, comm):
+        ctx.steps, ctx.comm = steps, comm
+        return comm.gather(shard, steps)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.comm.scatter(grad, ctx.steps), None, None
+
+
+class RowSplit:
+    """Which block of every batch's rows this rank holds (``index`` of
+    ``count``, JAX's order over the batch entry's axes) and, for each
+    block, the world rank that holds it beside this one (the same
+    coordinates on the other axes: ``peers``)."""
+
+    def __init__(self, mesh, entry, coords, comm):
+        axes = mesh_axes(mesh)
+        self.index, self.count = shard_index(entry, axes, coords)
+        self.comm = comm
+        batch = set(_axis_names(entry))
+        grid = mesh.mesh
+        peers = {}
+        for pos in itertools.product(*(range(n) for n in grid.shape)):
+            at = dict(zip(axes.axis_names, pos))
+            if all(at[n] == coords[n] for n in axes.axis_names
+                   if n not in batch):
+                peers[shard_index(entry, axes, at)[0]] = int(grid[pos])
+        self.peers = [peers[i] for i in range(self.count)]
+
+    def gather(self, t):
+        """(count, *t.shape): every block's ``t``, in block order."""
+        return self.comm.world_all_gather(t)[self.peers]
+
+
+class WholeBatch:
+    """The row split of a batch that one process holds whole: block 0 of
+    1, whose gather is the block's own value."""
+    index, count = 0, 1
+
+    @staticmethod
+    def gather(t):
+        return t[None]
+
+
+WHOLE_BATCH = WholeBatch()
+
+
+class PlacedLeaf(NamedTuple):
+    """One parameter as ``ShardPlan.shard`` placed it: its tree path, this
+    rank's shard's shape and element size, its ``gather_steps``, the mesh
+    axes that split it and those (of size above 1) that replicate it."""
+    path: tuple
+    shape: tuple
+    itemsize: int
+    steps: tuple
+    split: tuple
+    replicated: tuple
+
+
+class ShardPlan:
+    """How ``train(mesh=...)`` splits the parameters over a ``DeviceMesh``
+    that spans the default group, and the step's collectives.
+
+    - ``shard`` replaces each leaf by this rank's slice under its
+      ``param_specs`` entry (``shard_index``'s block of each split
+      dimension; every rank drew the same tree, so nothing is sent) and
+      records the leaf's ``gather_steps``;
+    - ``gather`` / ``layer_gatherer`` make leaves whole at use
+      (``GatherAtUse``);
+    - ``reduce_grads_`` sums each gradient over the axes that replicate
+      its leaf (the gather's backward summed it over the others) and
+      divides by the world size, and ``mean_loss`` averages the loss: the
+      step's loss is the mean of the ranks' losses, whether their rows
+      are split or replicated;
+    - ``global_norm``: the clip's norm of the sharded tree, each leaf's
+      sum of squares summed over the axes that split it;
+    - ``rows``: the batch rows' split, for statistics over the whole
+      batch (the MoE layers').
+
+    A mesh axis of size 1 gathers, copies and reduces nothing."""
+
+    def __init__(self, mesh, batch_entry):
+        axes = mesh_axes(mesh)
+        self.axes, self.sizes = axes, dict(axes.shape)
+        self.world = axes.size
+        self.coords = {n: mesh.get_local_rank(n) for n in axes.axis_names}
+        self.comm = Collectives(mesh)
+        self.rows = RowSplit(mesh, batch_entry, self.coords, self.comm)
+        self._steps = {}          # id(shard) -> (shard, gather steps)
+        self.leaves = []          # a PlacedLeaf per leaf, in tree order
+
+    def _slice(self, leaf, spec, path):
+        for d, entry in enumerate(spec):
+            index, count = shard_index(entry, self.axes, self.coords)
+            if count == 1:
+                continue
+            if leaf.shape[d] % count:
+                raise ValueError(f"train(mesh=...): {'/'.join(path)} of "
+                                 f"shape {tuple(leaf.shape)} does not split "
+                                 f"evenly over {entry} ({count} blocks)")
+            n = leaf.shape[d] // count
+            leaf = leaf.narrow(d, index * n, n)
+        return leaf
+
+    def shard(self, params, specs):
+        """``params`` with each leaf replaced, in the tree, by this rank's
+        shard (a copy where the leaf is split, the leaf itself where not),
+        one leaf at a time, so the tree is never held twice."""
+        def put(tree, specs, path):
+            for k, v in tree.items():
+                if isinstance(v, dict):
+                    put(v, specs[k], path + (k,))
+                    continue
+                spec = specs[k]
+                piece = self._slice(v.detach(), spec, path + (k,))
+                if piece.shape != v.shape:
+                    piece = piece.clone()
+                tree[k] = piece
+                del v
+                steps = gather_steps(spec, self.sizes)
+                split = tuple(n for n in self.axes.axis_names
+                              if any(n == name for _, name in steps))
+                named = {n for e in spec for n in _axis_names(e)}
+                replicated = tuple(n for n in self.axes.axis_names
+                                   if self.sizes[n] > 1 and n not in named)
+                self._steps[id(piece)] = (piece, steps)
+                self.leaves.append(PlacedLeaf(
+                    path + (k,), tuple(piece.shape), piece.element_size(),
+                    steps, split, replicated))
+
+        put(params, specs, ())
+        return params
+
+    def _steps_of(self, leaf):
+        got = self._steps.get(id(leaf))
+        if got is None or got[0] is not leaf:
+            raise KeyError("ShardPlan: a leaf that train(mesh=...) did not "
+                           "place")
+        return got[1]
+
+    def gather(self, tree):
+        """``tree`` (parameters, not stacked) with its split leaves
+        gathered at use."""
+        if isinstance(tree, dict):
+            return {k: self.gather(v) for k, v in tree.items()}
+        steps = self._steps_of(tree)
+        return GatherAtUse.apply(tree, steps, self.comm) if steps else tree
+
+    def layer_gatherer(self, stage):
+        """A function of one layer's tree (``unbind_layers`` of the
+        stacked ``stage``) that gathers its split leaves; the stacked
+        layer dimension is never split."""
+        def shifted(tree):
+            if isinstance(tree, dict):
+                return {k: shifted(v) for k, v in tree.items()}
+            steps = self._steps_of(tree)
+            if any(d == 0 for d, _ in steps):
+                raise ValueError("ShardPlan: a stacked leaf split over its "
+                                 "layer dimension")
+            return tuple((d - 1, name) for d, name in steps)
+
+        steps = shifted(stage)
+
+        def gather(tree, steps):
+            if isinstance(tree, dict):
+                return {k: gather(v, steps[k]) for k, v in tree.items()}
+            return GatherAtUse.apply(tree, steps, self.comm) if steps \
+                else tree
+
+        return lambda layer: gather(layer, steps)
+
+    def reduce_grads_(self, grads):
+        """The gradients (in tree order), each summed in place over the
+        axes that replicate its leaf, then divided by the world size."""
+        for g, leaf in zip(grads, self.leaves, strict=True):
+            if leaf.replicated:
+                self.comm.all_reduce_(g, leaf.replicated)
+            if self.world > 1:
+                g.div_(self.world)
+
+    def mean_loss(self, loss):
+        """The mean over the ranks of each rank's loss."""
+        if self.world == 1:
+            return loss
+        return self.comm.all_reduce_(loss.clone()).div_(self.world)
+
+    def global_norm(self, leaves):
+        """sqrt of the sum of squares of the whole tree, in f32, from the
+        shards ``leaves`` (in tree order): the leaves split over the same
+        axes are summed locally, then over those axes."""
+        by_axes = {}
+        for leaf, placed in zip(leaves, self.leaves, strict=True):
+            sq = leaf.float().square().sum()
+            key = placed.split
+            by_axes[key] = sq if key not in by_axes else by_axes[key] + sq
+        total = None
+        for key, sq in by_axes.items():
+            if key:
+                sq = self.comm.all_reduce_(sq, key)
+            total = sq if total is None else total + sq
+        return torch.sqrt(total)
+
+    def step_schedule(self, cfg: ModelConfig, n_tokens: int,
+                      grad_clip: bool):
+        """One device's collectives of one ``train(mesh=...)`` step, from
+        this plan (``launch.dryrun``): {"bytes", "counts"} by kind.  Each
+        decoder layer's leaves are gathered once in the forward and once
+        more under remat, an encoder's once, the embedding table once for
+        the inputs and once more for a tied head, the head once; each use
+        scatters its gradient back once.  Then the gradients' all-reduces
+        over the axes that replicate them, the loss's, the clip's over the
+        axes that split leaves, and an MoE layer's count of routed tokens
+        per forward (``n_tokens`` of the whole batch reach it)."""
+        from repro_torch.models.model import model_stages
+        from repro_torch.models.moe import chunk_layout
+
+        out = {"bytes": dict.fromkeys(COLLECTIVE_KINDS, 0),
+               "counts": dict.fromkeys(COLLECTIVE_KINDS, 0)}
+
+        def add(kind, nbytes, times=1):
+            out["bytes"][kind] += nbytes * times
+            out["counts"][kind] += times
+
+        tied = not any(leaf.path == ("embed", "head")
+                       for leaf in self.leaves)
+        per_forward = 2 if cfg.remat else 1
+        clip_axes = []
+        for leaf in self.leaves:
+            layers = leaf.shape[0] if "stages" in leaf.path else 1
+            if leaf.path[0] == "stages":
+                uses, forwards = layers, layers * per_forward
+            elif leaf.path == ("embed", "table"):
+                uses = forwards = 2 if tied else 1
+            else:
+                uses = forwards = layers
+            gathers, scatters = step_bytes(leaf.shape, leaf.itemsize,
+                                           leaf.steps, self.sizes)
+            for nbytes in gathers:
+                add("all-gather", nbytes // layers, forwards)
+            for nbytes in scatters:
+                add("reduce-scatter", nbytes // layers, uses)
+            for _ in leaf.replicated:
+                add("all-reduce", math.prod(leaf.shape) * leaf.itemsize)
+            if leaf.split and leaf.split not in clip_axes:
+                clip_axes.append(leaf.split)
+        if self.world > 1:
+            add("all-reduce", 4)                       # the loss
+            if grad_clip:
+                for key in clip_axes:
+                    add("all-reduce", 4, len(key))
+        if cfg.moe is not None and self.rows.count > 1:
+            n_moe = sum(n for _, moe, n in model_stages(cfg) if moe)
+            chunks = 1 if cfg.moe_impl == "dense" else chunk_layout(
+                n_tokens)[1]
+            add("all-gather", self.world * chunks * cfg.moe.n_experts * 8,
+                n_moe * per_forward)
+        return out
+
+
+@torch.no_grad()
+def gather_tree(shards, specs, mesh):
+    """A new tree of whole leaves from this rank's ``shards`` of a tree
+    placed by ``specs`` (``ShardPlan.shard``'s cut); every rank of the
+    mesh calls it.  The checkpoint of ``train(mesh=...)`` and the tests
+    read whole trees by it."""
+    comm = Collectives(mesh)
+
+    def walk(tree, specs):
+        if isinstance(tree, dict):
+            return {k: walk(v, specs[k]) for k, v in tree.items()}
+        return comm.gather(tree, gather_steps(specs, comm.sizes))
+
+    return walk(shards, specs)
+
+
+_ACTIVE = contextvars.ContextVar("repro_torch_shard_plan", default=None)
+
+
+@contextlib.contextmanager
+def activate(plan):
+    """``plan`` (a ``ShardPlan``, or None) is the one the model reads
+    until the block ends."""
+    token = _ACTIVE.set(plan)
+    try:
+        yield plan
+    finally:
+        _ACTIVE.reset(token)
+
+
+def gather_at_use(tree):
+    """``tree`` (parameters, not stacked) whole, by the active plan's
+    gathers; ``tree`` itself with no plan active."""
+    plan = _ACTIVE.get()
+    return tree if plan is None else plan.gather(tree)
+
+
+def _same(tree):
+    return tree
+
+
+def layer_gatherer(stage):
+    """A function that makes one layer's tree (of the stacked ``stage``)
+    whole; the identity with no plan active."""
+    plan = _ACTIVE.get()
+    return _same if plan is None else plan.layer_gatherer(stage)
+
+
+def row_split():
+    """The active plan's ``RowSplit`` where the batch's rows are split
+    over several ranks, else ``WHOLE_BATCH``."""
+    plan = _ACTIVE.get()
+    if plan is None or plan.rows.count == 1:
+        return WHOLE_BATCH
+    return plan.rows

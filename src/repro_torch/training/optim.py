@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Union
+from typing import Callable, Optional, Union
 
 import torch
 
@@ -45,6 +45,9 @@ class AdamW:
     eps: float = 1e-8
     weight_decay: float = 0.0
     grad_clip: float = 0.0            # global-norm clip; 0 = off
+    # the clip's norm of the gradient leaves (a list, in tree order);
+    # None: ``global_norm``, the leaves being whole
+    norm: Optional[Callable[[list], torch.Tensor]] = None
 
     def init(self, params):
         zeros = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
@@ -67,7 +70,7 @@ class AdamW:
         g_leaves = tree_leaves(grads)
         scale = None
         if self.grad_clip:
-            gnorm = global_norm(g_leaves)
+            gnorm = (self.norm or global_norm)(g_leaves)
             scale = torch.clamp(self.grad_clip / (gnorm + 1e-9), max=1.0)
         # bias corrections in f32, as the reference's (step as f32)
         t = torch.tensor(float(step), dtype=torch.float32)

@@ -10,18 +10,20 @@ the CPU), or handed in (``params=``: the tests bridge the reference's).
 Mamba-2 stacks train through the SSD scan's backward kernel.
 
 With a ``mesh`` (a ``DeviceMesh`` over the default process group, e.g.
-``launch.mesh.make_host_mesh``) training is data-parallel, as the
-reference's ``train(mesh=...)`` with a model axis of 1: each parameter is
-placed by ``models.param_specs`` (``distribute_tensor``) and the step runs
-on its local tensor; each rank takes its block of every batch's rows by
+``launch.mesh.make_host_mesh``) training runs on every mesh the
+reference's ``train(mesh=...)`` takes: a ``"model"`` axis, ``cfg.fsdp``
+over ``"data"``, both, MoE stacks over several data ranks.  Each rank
+keeps only its shard of every parameter (``models.param_specs``, cut by
+``models.sharding.ShardPlan``), gathers it whole where a layer uses it
+and scatters the gradient back (the reference's "weights are gathered at
+use"); each rank takes its block of every batch's rows by
 ``batch_specs(..., include_model=cfg.train_batch_over_model)`` (in JAX's
-order, ``models.sharding.shard_index``); the gradients are averaged over
-the ranks by all-reduce before ``AdamW.update``, so the clip sees the
-global norm, and the logged loss is the ranks' mean.  At world size 1
-this is ``train()`` bit for bit.  A ``"model"`` axis above 1 and
-``cfg.fsdp`` need collectives inside the layers (tensor parallelism), and
-an MoE stack's capacity and load-balance loss are functions of the whole
-batch: these are refused by name (ROADMAP.md item 12b).  A vision stack's
+order, ``models.sharding.shard_index``); the gradients are summed over
+the ranks and divided by the world size before ``AdamW.update``, whose
+clip sees the whole tree's norm, and the logged loss is the ranks' mean.
+An MoE layer's capacity and load-balance loss span the whole batch
+(``models.moe``).  A checkpoint holds whole leaves, as ``train()``'s.  At
+world size 1 this is ``train()`` bit for bit.  A vision stack's
 batches carry stubbed patch embeddings (``patch_embeds``), an
 encoder-decoder's (``audio_stub``, Whisper) stubbed frame embeddings
 (``frames``), each (batch, ``n_frontend_tokens``, d_model) standard
@@ -38,6 +40,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.model import check_trainable, loss_fn
+from repro_torch.models.sharding import ShardPlan, activate, gather_tree
 from repro_torch.training import checkpoint as ckpt
 from repro_torch.training.data import batches
 from repro_torch.training.optim import AdamW, cosine_schedule, tree_leaves
@@ -71,37 +74,31 @@ def stub_embeddings(cfg: ModelConfig, tc: TrainConfig, step: int):
         (tc.batch, cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32)
 
 
-def make_train_step(cfg: ModelConfig, opt: AdamW, ranks: int = None):
+def make_train_step(cfg: ModelConfig, opt: AdamW, plan=None):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     loss)``; ``params`` are leaves that require a gradient, updated in
     place, and ``loss`` is a 0-d tensor on the device (read it to
-    synchronise).  ``ranks``: the data-parallel ranks of the default
-    process group (``train(mesh=...)``), over which the gradients and the
-    loss are averaged by all-reduce before the update."""
+    synchronise).  ``plan``: ``train(mesh=...)``'s ``ShardPlan`` (active
+    around the step), whose gradients are summed over the ranks, and the
+    loss averaged, before the update; over several ranks the clip reads
+    the plan's norm of the whole tree from the shards."""
+    if plan is not None and plan.world > 1:
+        opt = dataclasses.replace(opt, norm=plan.global_norm)
+
     def train_step(params, opt_state, batch):
         leaves = tree_leaves(params)
         loss = loss_fn(params, batch, cfg)
         grads = torch.autograd.grad(loss, leaves)
         loss = loss.detach()
-        if ranks is not None:
-            loss = loss.clone()
-            _all_mean_([*grads, loss], ranks)
+        if plan is not None:
+            plan.reduce_grads_(grads)
+            loss = plan.mean_loss(loss)
         it = iter(grads)
         grad_tree = _like(params, it)
         params, opt_state = opt.update(grad_tree, opt_state, params)
         return params, opt_state, loss
 
     return train_step
-
-
-def _all_mean_(tensors, ranks: int) -> None:
-    """Each tensor replaced in place by its mean over the default group's
-    ``ranks`` ranks (a sum by all-reduce, then / ranks: exact at 1)."""
-    import torch.distributed as dist
-
-    for t in tensors:
-        dist.all_reduce(t)
-        t.div_(ranks)
 
 
 def _like(tree, it):
@@ -115,51 +112,59 @@ def train(cfg: ModelConfig, tc: TrainConfig = TrainConfig(), mesh=None,
     """``tc.steps`` AdamW steps on ``training.data.batches``; returns
     (params, [(step, loss), ...] at every ``log_every``-th step and the
     last).  ``params``: a tree to start from (on ``device``), else
-    ``init_params`` from ``tc.seed``.  ``mesh``: data-parallel over its
-    ranks (module docstring)."""
+    ``init_params`` from ``tc.seed``.  ``mesh``: over its ranks (module
+    docstring); each rank returns its shards of the parameters."""
     check_trainable(cfg)
     device = resolve_device(device)
-    dp = DataParallel(cfg, tc, mesh) if mesh is not None else None
+    mt = MeshTrainer(cfg, tc, mesh) if mesh is not None else None
     opt = AdamW(lr=cosine_schedule(tc.peak_lr, tc.warmup, tc.steps),
                 weight_decay=tc.weight_decay, grad_clip=tc.grad_clip)
     if params is None:
         params = init_params(cfg, torch.Generator(device=device).manual_seed(
             tc.seed), device)
-    if dp is not None:
-        params = dp.place(params)
+    if mt is not None:
+        params = mt.place(params)
     for leaf in tree_leaves(params):
         leaf.requires_grad_(True)
     opt_state = opt.init(params)
-    step_fn = make_train_step(cfg, opt,
-                              ranks=None if dp is None else dp.ranks)
+    plan = None if mt is None else mt.plan
+    step_fn = make_train_step(cfg, opt, plan)
+
+    def save(name):
+        tree = params if mt is None else gather_tree(params, mt.specs,
+                                                     mesh)
+        if mt is None or mt.rank == 0:
+            ckpt.save(f"{tc.ckpt_path}/{name}", tree)
 
     losses = []
     t0 = time.time()
-    for i, b in enumerate(batches(cfg.vocab_size, tc.batch, tc.seq_len,
-                                  tc.steps, tc.seed)):
-        stub = STUB_INPUTS.get(cfg.frontend)
-        if stub:
-            b[stub] = stub_embeddings(cfg, tc, i)
-        if dp is not None:
-            b = dp.rows(b)
-        batch = {k: torch.from_numpy(v).to(device) for k, v in b.items()}
-        params, opt_state, loss = step_fn(params, opt_state, batch)
-        if i % tc.log_every == 0 or i == tc.steps - 1:
-            lv = float(loss)
-            losses.append((i, lv))
-            log(f"step {i:5d} loss {lv:.4f} "
-                f"({(time.time() - t0) / max(i, 1):.2f}s/step)")
-        if tc.ckpt_every and tc.ckpt_path and i and i % tc.ckpt_every == 0:
-            ckpt.save(f"{tc.ckpt_path}/step_{i}.npz", params)
+    with activate(plan):
+        for i, b in enumerate(batches(cfg.vocab_size, tc.batch, tc.seq_len,
+                                      tc.steps, tc.seed)):
+            stub = STUB_INPUTS.get(cfg.frontend)
+            if stub:
+                b[stub] = stub_embeddings(cfg, tc, i)
+            if mt is not None:
+                b = mt.rows(b)
+            batch = {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+            params, opt_state, loss = step_fn(params, opt_state, batch)
+            if i % tc.log_every == 0 or i == tc.steps - 1:
+                lv = float(loss)
+                losses.append((i, lv))
+                log(f"step {i:5d} loss {lv:.4f} "
+                    f"({(time.time() - t0) / max(i, 1):.2f}s/step)")
+            if tc.ckpt_every and tc.ckpt_path and i and \
+                    i % tc.ckpt_every == 0:
+                save(f"step_{i}.npz")
     if tc.ckpt_path:
-        ckpt.save(f"{tc.ckpt_path}/final.npz", params)
+        save("final.npz")
     return params, losses
 
 
-class DataParallel:
-    """``train(mesh=...)``'s placement of parameters and batch rows over a
-    ``DeviceMesh`` that spans the default process group; refuses what
-    needs more than data parallelism."""
+class MeshTrainer:
+    """``train(mesh=...)``'s placement of parameters (``ShardPlan``) and
+    of batch rows over a ``DeviceMesh`` that spans the default process
+    group."""
 
     def __init__(self, cfg: ModelConfig, tc: TrainConfig, mesh):
         import torch.distributed as dist
@@ -167,59 +172,25 @@ class DataParallel:
         from repro_torch.models.sharding import batch_axes, mesh_axes
 
         axes = mesh_axes(mesh)
-        if axes.shape.get("model", 1) > 1:
-            raise NotImplementedError(
-                f"train(mesh=...): a 'model' axis of {axes.shape['model']} "
-                "needs tensor-parallel layers (collectives inside the "
-                "layers), which the port does not have (ROADMAP.md item "
-                "12b); use a model axis of 1")
-        if cfg.fsdp:
-            raise NotImplementedError(
-                f"train(mesh=...): {cfg.name}: cfg.fsdp shards the weights "
-                "over 'data' and needs them gathered inside the layers, "
-                "which the port does not do (ROADMAP.md item 12b)")
-        self.ranks = dist.get_world_size()
-        if axes.size != self.ranks:
+        world = dist.get_world_size()
+        if axes.size != world:
             raise ValueError(f"train(mesh=...): the mesh holds {axes.size} "
-                             f"of the group's {self.ranks} ranks")
-        if cfg.moe is not None and self.ranks > 1:
-            raise NotImplementedError(
-                f"train(mesh=...): {cfg.name} is an MoE stack: its expert "
-                "capacity and load-balance loss are functions of the whole "
-                "batch, so they would differ over "
-                f"{self.ranks} data ranks (ROADMAP.md item 12b)")
-        self.cfg, self.mesh, self.axes = cfg, mesh, axes
-        self.entry = batch_axes(tc.batch, axes,
-                                include_model=cfg.train_batch_over_model)
-        self.coords = {n: mesh.get_local_rank(n) for n in axes.axis_names}
+                             f"of the group's {world} ranks")
+        self.cfg, self.axes, self.rank = cfg, axes, dist.get_rank()
+        self.plan = ShardPlan(mesh, batch_axes(
+            tc.batch, axes, include_model=cfg.train_batch_over_model))
 
     def place(self, params):
-        """Each leaf placed by its ``param_specs`` entry and replaced, in
-        the tree, by its local tensor, one leaf at a time: a placement
-        that copies (``Shard`` scatters into a new tensor) frees the old
-        leaf at once, so the tree is never held twice."""
-        from torch.distributed.tensor import distribute_tensor
+        """Each leaf replaced, in the tree, by this rank's shard under its
+        ``param_specs`` entry (``ShardPlan.shard``)."""
+        from repro_torch.models.sharding import param_specs
 
-        from repro_torch.models.sharding import param_specs, placements
-
-        def put(tree, specs):
-            for k, v in tree.items():
-                if isinstance(v, dict):
-                    put(v, specs[k])
-                else:
-                    tree[k] = distribute_tensor(
-                        v.detach(), self.mesh,
-                        placements(specs[k], self.axes)).to_local()
-                    del v
-
-        put(params, param_specs(params, self.cfg, self.axes))
-        return params
+        self.specs = param_specs(params, self.cfg, self.axes)
+        return self.plan.shard(params, self.specs)
 
     def rows(self, batch):
         """This rank's block of every leaf's rows (numpy)."""
-        from repro_torch.models.sharding import shard_index
-
-        index, count = shard_index(self.entry, self.axes, self.coords)
+        index, count = self.plan.rows.index, self.plan.rows.count
         out = {}
         for k, v in batch.items():
             n = v.shape[0] // count

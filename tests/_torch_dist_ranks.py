@@ -9,8 +9,18 @@ for the port's multi-rank tests.  The test starts one process per rank:
   ``ring_attention_shards`` over WORLD shards to OUT (``.npz``).
 - ``train``: smoke Llama-2 in f32, ``train(mesh=make_host_mesh(...))``
   for ``TRAIN_STEPS`` steps; rank 0 writes the losses to OUT (JSON).
-- ``train_moe``: the same for smoke DeepSeek-MoE, which must be refused;
-  rank 0 writes the refusal to OUT.
+- ``train_model_axis``: the same on a (1, WORLD) mesh: a ``"model"``
+  axis, the weights gathered at use.
+- ``train_moe``: the same for smoke DeepSeek-MoE over WORLD data ranks.
+- ``tp2`` / ``tp4``: every case of ``TP_CASES`` whose mesh holds WORLD
+  ranks; rank 0 writes each case's losses (and the clip case's step-0
+  gradient norm, the counted cases' collectives of one step as counted
+  and as ``ShardPlan.step_schedule`` derives them) to OUT (JSON) and each
+  case's final parameters, gathered whole, to ``OUT.<case>.npz`` (and
+  each rank its initial shards to ``OUT.<case>.shard<rank>.npz``); the
+  checkpoint case writes ``train``'s own file under ``OUT.ckpt``; a
+  ``reference`` case starts from the weights the test wrote beside OUT
+  (``<case>.weights.npz``: the reference's, drawn by JAX).
 Imports no JAX.
 """
 import json
@@ -40,9 +50,85 @@ def train_config():
                             warmup=1, log_every=1, seed=0)
 
 
-def run_ranks(job, world, tmp_path, timeout=240):
-    """Start ``world`` rank processes of ``job`` (PYTHONPATH=src), wait
-    for all, fail with their stderr if any fails; returns OUT's path."""
+# the weights-gathered-at-use cases: name -> (arch, (data, model) mesh,
+# config fields replaced, run options: ``grad_clip``, the MoE dispatch's
+# ``chunk`` (DISPATCH_CHUNK_TOKENS for the run), ``ckpt``, ``count``: one
+# step's collectives counted, ``shards``: every rank's initial shards
+# saved, ``reference``: from the reference's weights, held to its
+# ``train``)
+TP_CASES = {
+    "llama_model2": ("llama2-7b", (1, 2), {}, {}),
+    "granite_model2_remat": ("granite-3-2b", (1, 2), {"remat": True},
+                             {"ckpt": True}),
+    "llama_fsdp_data2": ("llama2-7b", (2, 1), {"fsdp": True}, {}),
+    "mamba2_model2": ("mamba2-2.7b", (1, 2), {}, {}),
+    "minicpm3_model2": ("minicpm3-4b", (1, 2), {}, {}),
+    "whisper_model2": ("whisper-large-v3", (1, 2), {}, {}),
+    "internvl2_model2": ("internvl2-76b", (1, 2), {}, {}),
+    "rgemma_model2_rows_replicated": ("recurrentgemma-2b", (1, 2),
+                                      {"train_batch_over_model": False}, {}),
+    "moe_dense_data2": ("deepseek-moe-16b", (2, 1), {"moe_impl": "dense"},
+                        {"count": True}),
+    "moe_dispatch_data2": ("deepseek-moe-16b", (2, 1),
+                           {"moe_impl": "dispatch", "capacity_factor": 1.0},
+                           {}),
+    # 128 tokens in chunks of 48: the second chunk spans both ranks, the
+    # third ends in 16 zero rows on the last rank
+    "moe_dispatch_chunk48_data2": ("deepseek-moe-16b", (2, 1),
+                                   {"moe_impl": "dispatch",
+                                    "capacity_factor": 1.0},
+                                   {"chunk": 48, "count": True}),
+    # a clip that binds at every step
+    "llama_model2_clip": ("llama2-7b", (1, 2), {}, {"grad_clip": 0.05}),
+    "llama_fsdp_2x2_remat": ("llama2-7b", (2, 2), {"fsdp": True,
+                                                   "remat": True},
+                             {"count": True, "shards": True}),
+    # the model axis with fsdp and remat, and the chunk that spans the
+    # ranks, from the reference's weights
+    "llama_fsdp_2x2_remat_ref": ("llama2-7b", (2, 2), {"fsdp": True,
+                                                       "remat": True},
+                                 {"reference": True}),
+    "moe_dispatch_chunk48_data2_ref": ("deepseek-moe-16b", (2, 1),
+                                       {"moe_impl": "dispatch",
+                                        "capacity_factor": 1.0},
+                                       {"chunk": 48, "reference": True}),
+}
+
+
+def tp_case(name):
+    """(cfg in f32, TrainConfig, (data, model), options) of a
+    ``TP_CASES`` entry."""
+    import dataclasses
+
+    from repro_torch.configs import SMOKE_FACTORIES
+
+    arch, shape, fields, opts = TP_CASES[name]
+    base = SMOKE_FACTORIES[arch]()
+    fields = dict(fields, dtype="float32")
+    cf = fields.pop("capacity_factor", None)
+    if cf is not None:
+        fields["moe"] = dataclasses.replace(base.moe, capacity_factor=cf)
+    cfg = dataclasses.replace(base, **fields)
+    tc = dataclasses.replace(train_config()[1],
+                             grad_clip=opts.get("grad_clip", 1.0))
+    return cfg, tc, shape, opts
+
+
+def moe_config():
+    """Smoke DeepSeek-MoE in f32 (``moe_impl="dense"``) and
+    ``train_config``'s TrainConfig."""
+    import dataclasses
+
+    from repro_torch.configs import SMOKE_FACTORIES
+
+    cfg = dataclasses.replace(SMOKE_FACTORIES["deepseek-moe-16b"](),
+                              dtype="float32")
+    return cfg, train_config()[1]
+
+
+def start_ranks(job, world, tmp_path):
+    """Start ``world`` rank processes of ``job`` (PYTHONPATH=src); returns
+    (the processes, OUT's path)."""
     import os
     import pathlib
     import subprocess
@@ -55,6 +141,12 @@ def run_ranks(job, world, tmp_path, timeout=240):
         [sys.executable, str(here), job, str(r), str(world), str(store),
          str(out)], env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True) for r in range(world)]
+    return procs, out
+
+
+def wait_ranks(procs, timeout=240):
+    """Wait for every rank process, fail with their stderr if any
+    fails."""
     errs = []
     try:
         for p in procs:
@@ -67,20 +159,168 @@ def run_ranks(job, world, tmp_path, timeout=240):
                 p.kill()
                 p.wait()
     assert not errs, "\n".join(errs)
+
+
+def run_ranks(job, world, tmp_path, timeout=240):
+    """``start_ranks``, then ``wait_ranks``; returns OUT's path."""
+    procs, out = start_ranks(job, world, tmp_path)
+    wait_ranks(procs, timeout)
     return out
+
+
+def flat(tree, prefix=""):
+    """{path: numpy array} of a tree of tensors."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v.detach().numpy()
+    return out
+
+
+def unflat(arrays):
+    """{path: array} -> the nested tree ``flat`` flattened."""
+    tree = {}
+    for path, a in arrays.items():
+        *keys, leaf = path.split("/")
+        node = tree
+        for k in keys:
+            node = node.setdefault(k, {})
+        node[leaf] = a
+    return tree
+
+
+def reference_weights_path(out, name):
+    """Where the test writes a ``reference`` case's initial weights."""
+    import pathlib
+
+    return pathlib.Path(out).with_name(f"{name}.weights.npz")
+
+
+def tp_run(name, world, out, rank):
+    """One ``TP_CASES`` case on this rank: ``train(mesh=...)``, its
+    losses and whole final parameters (and the options' extras) into
+    ``result``."""
+    from repro_torch.launch.mesh import join_ranks, make_host_mesh
+    from repro_torch.launch.specs import param_structs
+    from repro_torch.models import moe
+    from repro_torch.models.sharding import gather_tree, param_specs
+    from repro_torch.training import train
+
+    cfg, tc, (data, model), opts = tp_case(name)
+    assert data * model == world
+    mesh = make_host_mesh(model=model, device="cpu")
+    if opts.get("ckpt"):
+        import dataclasses
+        tc = dataclasses.replace(tc, ckpt_path=f"{out}.ckpt")
+    start = None
+    if opts.get("reference"):
+        from repro_torch.weights import params_from_numpy
+
+        with np.load(reference_weights_path(out, name)) as f:
+            start = params_from_numpy(unflat(dict(f)), "cpu")
+    chunk = moe.DISPATCH_CHUNK_TOKENS
+    moe.DISPATCH_CHUNK_TOKENS = opts.get("chunk", chunk)
+    try:
+        params, losses = train(cfg, tc, mesh=mesh, log=lambda m: None,
+                               device="cpu", params=start)
+    finally:
+        moe.DISPATCH_CHUNK_TOKENS = chunk
+    whole = gather_tree(params, param_specs(param_structs(cfg), cfg, mesh),
+                        mesh)
+    result = {"losses": losses}
+    if rank == 0:
+        np.savez(f"{out}.{name}.npz", **flat(whole))
+    if opts.get("grad_clip", 1.0) < 1.0:
+        result["step0_norm"] = float(step0_norm(cfg, tc, mesh))
+    if opts.get("shards"):
+        np.savez(f"{out}.{name}.shard{rank}.npz",
+                 **flat(_placed(cfg, tc, mesh)[1]))
+    if opts.get("count"):
+        moe.DISPATCH_CHUNK_TOKENS = opts.get("chunk", chunk)
+        try:
+            result["collectives"] = one_step_collectives(cfg, tc, mesh)
+        finally:
+            moe.DISPATCH_CHUNK_TOKENS = chunk
+    return result
+
+
+def _placed(cfg, tc, mesh):
+    """A ``MeshTrainer`` and the weights from ``tc.seed`` placed by it,
+    requiring gradients, and step 0's batch rows (this rank's)."""
+    import torch
+
+    from repro_torch.training.data import batches
+    from repro_torch.training.optim import tree_leaves
+    from repro_torch.training.trainer import MeshTrainer
+    from repro_torch.weights import init_params
+
+    mt = MeshTrainer(cfg, tc, mesh)
+    params = mt.place(init_params(cfg, torch.Generator().manual_seed(
+        tc.seed), "cpu"))
+    for leaf in tree_leaves(params):
+        leaf.requires_grad_(True)
+    b = mt.rows(next(batches(cfg.vocab_size, tc.batch, tc.seq_len, 1,
+                             tc.seed)))
+    return mt, params, {k: torch.from_numpy(v) for k, v in b.items()}
+
+
+def step0_norm(cfg, tc, mesh):
+    """The clip's norm of step 0's gradient, summed over the ranks, from
+    the shards (``ShardPlan.global_norm``, the norm ``make_train_step``
+    gives the clip)."""
+    import torch
+
+    from repro_torch.models.model import loss_fn
+    from repro_torch.models.sharding import activate
+    from repro_torch.training.optim import tree_leaves
+
+    mt, params, batch = _placed(cfg, tc, mesh)
+    with activate(mt.plan):
+        grads = torch.autograd.grad(loss_fn(params, batch, cfg),
+                                    tree_leaves(params))
+        mt.plan.reduce_grads_(grads)
+        return mt.plan.global_norm(list(grads))
+
+
+def one_step_collectives(cfg, tc, mesh):
+    """One ``train(mesh=...)`` step's collectives as this rank counted
+    them (``Collectives``), beside ``ShardPlan.step_schedule``'s."""
+    from repro_torch.models.sharding import activate
+    from repro_torch.training.optim import AdamW
+    from repro_torch.training.trainer import make_train_step
+
+    mt, params, batch = _placed(cfg, tc, mesh)
+    opt = AdamW(lr=1e-3, grad_clip=tc.grad_clip)
+    state = opt.init(params)
+    with activate(mt.plan):
+        make_train_step(cfg, opt, mt.plan)(params, state, batch)
+    comm = mt.plan.comm
+    return {"counted": {"bytes": comm.bytes, "counts": comm.counts},
+            "schedule": mt.plan.step_schedule(cfg, tc.batch * tc.seq_len,
+                                              bool(tc.grad_clip))}
 
 
 def main(job, rank, world, store, out):
     import torch
     import torch.distributed as dist
 
-    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.mesh import join_ranks, make_host_mesh
 
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"file://{store}",
-                            rank=rank, world_size=world)
+    assert join_ranks(store, rank, world, device="cpu") == "gloo"
     try:
-        mesh = make_host_mesh(device="cpu")
+        if job.startswith("tp"):
+            results = {name: tp_run(name, world, out, rank)
+                       for name, (_, (data, model), _, _) in TP_CASES.items()
+                       if data * model == world}
+            if rank == 0:
+                with open(out, "w") as f:
+                    json.dump(results, f)
+            return
+        mesh = make_host_mesh(model=world if job == "train_model_axis"
+                              else 1, device="cpu")
         if job == "ring":
             from repro_torch.models.ring_attention import (
                 ring_attention_shards, ring_attention_sharded)
@@ -96,7 +336,7 @@ def main(job, rank, world, store, out):
             if rank == 0:
                 with open(out, "wb") as f:
                     np.savez(f, **saved)
-        elif job == "train":
+        elif job in ("train", "train_model_axis"):
             from repro_torch.training import train
 
             cfg, tc = train_config()
@@ -106,22 +346,14 @@ def main(job, rank, world, store, out):
                 with open(out, "w") as f:
                     json.dump(losses, f)
         elif job == "train_moe":
-            import dataclasses
-
-            from repro_torch.configs import SMOKE_FACTORIES
             from repro_torch.training import train
 
-            cfg = dataclasses.replace(SMOKE_FACTORIES["deepseek-moe-16b"](),
-                                      dtype="float32")
-            tc = train_config()[1]
-            try:
-                train(cfg, tc, mesh=mesh, log=lambda m: None, device="cpu")
-                msg = "not refused"
-            except NotImplementedError as e:
-                msg = str(e)
+            cfg, tc = moe_config()
+            _, losses = train(cfg, tc, mesh=mesh, log=lambda m: None,
+                              device="cpu")
             if rank == 0:
                 with open(out, "w") as f:
-                    f.write(msg)
+                    json.dump(losses, f)
         else:
             raise SystemExit(f"unknown job {job!r}")
     finally:

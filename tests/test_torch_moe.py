@@ -159,8 +159,9 @@ def test_load_balance_loss_matches_reference():
     probs = np.asarray(jax.nn.softmax(jnp.asarray(logits), -1))
     experts = rng.integers(0, 8, (3, 7, 2)).astype(np.int32)
     want = jm.load_balance_loss(jnp.asarray(probs), jnp.asarray(experts), 8)
-    got = tmoe.load_balance_loss(torch.tensor(probs),
-                                 torch.tensor(experts).long(), 8)
+    counts = tmoe.routed_counts(torch.tensor(experts).long(), 8)
+    assert counts.tolist() == np.bincount(experts.ravel(), None, 8).tolist()
+    got = tmoe.load_balance_loss(torch.tensor(probs), counts, 21, 8)
     close(got, want)
 
 

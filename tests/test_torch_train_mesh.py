@@ -1,17 +1,20 @@
-"""Data-parallel training in the port (``train(mesh=...)``, CPU, f32):
+"""Training on a mesh in the port (``train(mesh=...)``, CPU, f32):
 
 - at world size 1 (a gloo host mesh in this process) ``train(mesh=...)``
   is ``train()`` bit for bit, losses and final parameters, from the
   reference's weights bridged (``params=``) and from the port's own draw;
 - over two gloo ranks (a process each, a ``FileStore``: no network) each
   rank takes half of every batch's rows, the gradients and the loss are
-  averaged by all-reduce: the losses step for step within 1e-6 relative
+  averaged over the ranks: the losses step for step within 1e-6 relative
   of ``train()`` (a mean of two half-batch means rounds apart from the
   whole batch's by an ulp or two of f32);
-- the refusals, by name and ROADMAP item 12b: a ``"model"`` axis above
-  1, ``cfg.fsdp``, and an MoE stack over two data ranks (its capacity and
-  load-balance loss are functions of the whole batch).  ``train()``
-  itself is held to the reference's ``train`` in
+- what the refusals of the data-parallel slice now run (their names
+  kept): a ``"model"`` axis of 2 over two gloo ranks, the weights
+  gathered at use, within 1e-6 of ``train()``; ``cfg.fsdp`` at world size
+  1, ``train()`` bit for bit; an MoE stack over two data ranks, its
+  capacity and load-balance loss over the whole batch, within 1e-6 of
+  ``train()``.  ``tests/test_torch_train_tp.py`` covers every mesh and
+  family.  ``train()`` itself is held to the reference's ``train`` in
   ``tests/test_torch_training.py``."""
 import dataclasses
 import json
@@ -28,7 +31,8 @@ from repro.models import init_params as j_init_params
 from repro_torch.training.optim import tree_leaves
 from repro_torch.weights import params_from_numpy
 
-from _torch_dist_ranks import TRAIN_STEPS, run_ranks, train_config
+from _torch_dist_ranks import (TRAIN_STEPS, moe_config, start_ranks,
+                               train_config, wait_ranks)
 from _torch_train_parity import port_config
 
 DP_LOSS_REL = 1e-6
@@ -36,6 +40,20 @@ DP_LOSS_REL = 1e-6
 
 def _quiet(_msg):
     pass
+
+
+@pytest.fixture(scope="module")
+def rank_losses(tmp_path_factory):
+    """The losses of the two-rank jobs ``train``, ``train_model_axis`` and
+    ``train_moe``, started together (each a process a rank over its own
+    ``FileStore``)."""
+    tmp = tmp_path_factory.mktemp("ranks")
+    jobs = {job: start_ranks(job, 2, tmp)
+            for job in ("train", "train_model_axis", "train_moe")}
+    for procs, _ in jobs.values():
+        wait_ranks(procs)
+    return {job: json.loads(out.read_text())
+            for job, (_, out) in jobs.items()}
 
 
 @pytest.fixture
@@ -76,9 +94,8 @@ def test_train_on_world_size_1_mesh_from_reference_weights(host_mesh):
         assert torch.equal(a, b)
 
 
-def test_train_over_two_data_ranks(tmp_path):
-    out = run_ranks("train", 2, tmp_path)
-    got = json.loads(out.read_text())
+def test_train_over_two_data_ranks(rank_losses):
+    got = rank_losses["train"]
     cfg, tc = train_config()
     _, want = T.train(cfg, tc, log=_quiet, device="cpu")
     assert [s for s, _ in got] == [s for s, _ in want]
@@ -86,31 +103,36 @@ def test_train_over_two_data_ranks(tmp_path):
         assert abs(a - b) <= DP_LOSS_REL * abs(b), (got, want)
 
 
-class _TensorParallelMesh:
-    shape = {"data": 1, "model": 2}
-    axis_names = ("data", "model")
-    size = 2
+def _losses_match_train(got, cfg, tc):
+    _, want = T.train(cfg, tc, log=_quiet, device="cpu")
+    assert [s for s, _ in got] == [s for s, _ in want]
+    for (_, a), (_, b) in zip(got, want):
+        assert abs(a - b) <= DP_LOSS_REL * abs(b), (got, want)
 
 
-def test_refuses_a_model_axis():
-    cfg, tc = train_config()
-    with pytest.raises(NotImplementedError,
-                       match=r"'model' axis of 2.*ROADMAP.md item 12b"):
-        T.train(cfg, tc, mesh=_TensorParallelMesh(), log=_quiet,
-                device="cpu")
+def test_refuses_a_model_axis(rank_losses):
+    """No longer refused: a (1, 2) mesh, a ``"model"`` axis of 2 over two
+    ranks (the weights gathered at use, the rows split over the model
+    axis), trains as ``train()``."""
+    _losses_match_train(rank_losses["train_model_axis"], *train_config())
 
 
 def test_refuses_fsdp(host_mesh):
+    """No longer refused: ``cfg.fsdp`` at world size 1 (a data axis of 1
+    shards nothing) is ``train()`` bit for bit, losses and parameters."""
     cfg, tc = train_config()
-    with pytest.raises(NotImplementedError,
-                       match=r"cfg.fsdp.*ROADMAP.md item 12b"):
-        T.train(dataclasses.replace(cfg, fsdp=True), tc, mesh=host_mesh,
-                log=_quiet, device="cpu")
+    cfg = dataclasses.replace(cfg, fsdp=True)
+    p0, l0 = T.train(cfg, tc, log=_quiet, device="cpu")
+    p1, l1 = T.train(cfg, tc, mesh=host_mesh, log=_quiet, device="cpu")
+    assert l1 == l0
+    for a, b in zip(tree_leaves(p0), tree_leaves(p1)):
+        assert torch.equal(a, b)
 
 
-def test_refuses_moe_over_two_data_ranks(tmp_path):
-    msg = run_ranks("train_moe", 2, tmp_path).read_text()
-    assert "MoE stack" in msg and "ROADMAP.md item 12b" in msg, msg
+def test_refuses_moe_over_two_data_ranks(rank_losses):
+    """No longer refused: smoke DeepSeek-MoE over two data ranks, its
+    load-balance loss over the whole batch, trains as ``train()``."""
+    _losses_match_train(rank_losses["train_moe"], *moe_config())
 
 
 def test_moe_on_world_size_1_mesh_is_train(host_mesh):

@@ -20,8 +20,9 @@ CPU, weights bridged from the reference's):
 - checkpoints: f32 from the reference into the port and back, a bf16
   tree bit for bit, the reference's bf16 file read bit for bit;
 - ``check_trainable`` takes every registered config; training refuses
-  a tensor-parallel mesh, by its ROADMAP item (data-parallel meshes
-  train: ``tests/test_torch_train_mesh.py``).  MoE, MLA, Whisper, RG-LRU and Mamba-2
+  a mesh whose size is not the process group's (meshes train:
+  ``tests/test_torch_train_mesh.py``, ``tests/test_torch_train_tp.py``).
+  MoE, MLA, Whisper, RG-LRU and Mamba-2
   training have files of their own (``tests/test_torch_train_*.py``)."""
 import dataclasses
 
@@ -305,12 +306,22 @@ def test_check_trainable_accepts_every_registered_config(arch):
 
 
 def test_train_refuses_a_mesh():
-    """A mesh with a model axis above 1 needs tensor-parallel layers."""
+    """A mesh whose size is not the process group's (a model axis of 2
+    over a group of one rank) is refused by name; a model axis itself
+    trains (tests/test_torch_train_tp.py)."""
+    from repro_torch.launch.mesh import make_host_mesh
+
     class Mesh:
         shape = {"data": 1, "model": 2}
         axis_names = ("data", "model")
         size = 2
 
     cfg = port_config(SMOKE_FACTORIES["llama2-7b"]())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 12b"):
-        T.train(cfg, T.TrainConfig(steps=1), mesh=Mesh(), device="cpu")
+    assert not torch.distributed.is_initialized()
+    make_host_mesh(device="cpu")
+    try:
+        with pytest.raises(ValueError,
+                           match="the mesh holds 2 of the group's 1 ranks"):
+            T.train(cfg, T.TrainConfig(steps=1), mesh=Mesh(), device="cpu")
+    finally:
+        torch.distributed.destroy_process_group()
