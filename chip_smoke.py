@@ -386,13 +386,20 @@ TRAIN_RUNS = {
     "T": ("recurrentgemma-2b", None, 2, 4096),
     "U": ("mamba2-2.7b", None, 4, 2048),
 }
-# runs W and X: training over a mesh of two rank processes on the one
+# runs W, X and Y: training over a mesh of two rank processes on the one
 # card (run -> arch, depth or None, (data, model) mesh, TrainConfig fields,
-# config fields replaced); each within TRAIN_LOSS_TOL of its baseline at
-# every step and MESH_STEP0_REL relative at step 0
+# config fields replaced, steps run: the first of TrainConfig's steps,
+# under its learning-rate schedule); each within TRAIN_LOSS_TOL of its
+# baseline at every step and MESH_STEP0_REL relative at step 0.  W runs
+# the first 4 of run P's 8 steps (held to P's first 4 losses); Y is
+# RecurrentGemma-2B with its RG-LRU branch channel-parallel over the
+# model axis (the config's train_batch_over_model=False), 6 of 26 layers
+# (two (rec, rec, attn) units) at run T's shape
 MESH_RUNS = {
-    "W": ("granite-3-2b", None, (1, 2), TRAIN, {}),
-    "X": ("deepseek-moe-16b", 4, (2, 1), TRAIN_QT, {"fsdp": True}),
+    "W": ("granite-3-2b", None, (1, 2), TRAIN, {}, 4),
+    "X": ("deepseek-moe-16b", 4, (2, 1), TRAIN_QT, {"fsdp": True}, 4),
+    "Y": ("recurrentgemma-2b", 6, (1, 2),
+          dict(TRAIN_QT, batch=2, seq_len=4096), {}, 4),
 }
 MESH_STEP0_REL = 1e-3
 MESH_RANK_TIMEOUT_S = 420
@@ -2246,16 +2253,17 @@ def engine_phase(torch, kernel_rows):
         runs[run] = stack_train_run(torch, run)
         lap(run)
     # run V: run P through train(mesh=...) on a (1, 1) DeviceMesh over
-    # NCCL; runs W and X: two rank processes on the card, the weights
-    # gathered at use; then the ring over V's mesh and over 8 shards in
-    # one process
+    # NCCL; runs W, X and Y: two rank processes on the card, the weights
+    # gathered at use (Y: the RG-LRU branch channel-parallel); then the
+    # ring, forward and backward, over V's mesh and over 8 shards in one
+    # process
     runs["V"] = mesh_train_run(torch)
     lap("V")
     for run in MESH_RUNS:
         runs[run] = mesh_rank_run(torch, run)
         lap(run)
-    runs["ring"], kernel_rows["flash_attention"]["ring_shapes"] = \
-        ring_phase(torch)
+    (runs["ring"], kernel_rows["flash_attention"]["ring_shapes"],
+     kernel_rows["flash_attention_bwd"]["ring_shapes"]) = ring_phase(torch)
     torch.distributed.destroy_process_group()
     lap("ring")
 
@@ -2791,37 +2799,56 @@ def mesh_train_run(torch):
 
 
 def mesh_run_config(run):
-    """(cfg, TrainConfig, (data, model), reduced or None) of run W or
-    X."""
+    """(cfg, TrainConfig, (data, model), reduced or None, steps run) of
+    run W, X or Y."""
     from repro_torch.configs import get_config
     from repro_torch.training import TrainConfig
 
-    arch, n_layers, shape, train_kw, fields = MESH_RUNS[run]
+    arch, n_layers, shape, train_kw, fields, steps = MESH_RUNS[run]
     cfg = get_config(arch)
     reduced = None
     if n_layers is not None:
         full = cfg.n_params()
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        alone = {"X": "run Q's 7 layers peaked at 65.8 GiB alone",
+                 "Y": "run T's 26 layers peaked at 52.09 GiB alone"}[run]
         reduced = {"n_layers": [get_config(arch).n_layers, n_layers],
                    "n_params": [full, cfg.n_params()],
                    "why": "two rank processes and the single-process "
-                          "baseline share one card: run Q's 7 layers "
-                          "peaked at 65.8 GiB alone"}
+                          f"baseline share one card: {alone}"}
     return (dataclasses.replace(cfg, **fields), TrainConfig(**train_kw),
-            shape, reduced)
+            shape, reduced, steps)
+
+
+@contextlib.contextmanager
+def first_steps(steps):
+    """``training.train`` runs only the first ``steps`` of its
+    TrainConfig's (the batches cut; the learning-rate schedule the whole
+    run's)."""
+    import itertools
+
+    trainer = importlib.import_module("repro_torch.training.trainer")
+    batches = trainer.batches
+    trainer.batches = lambda *a, **kw: itertools.islice(batches(*a, **kw),
+                                                        steps)
+    try:
+        yield
+    finally:
+        trainer.batches = batches
 
 
 def mesh_rank_main(argv) -> int:
-    """One rank process of run W or X (``--rank RUN RANK WORLD STORE
+    """One rank process of run W, X or Y (``--rank RUN RANK WORLD STORE
     OUT``): joins the group over the ``FileStore`` STORE
     (``launch.mesh.join_ranks``: gloo, the ranks sharing the card), trains
     the run's config by ``training.train(cfg, tc, mesh=...)`` on its
     (data, model) mesh from SEED's weights, and writes its losses, step
     times, peak memory, launches, the transport, the collectives its
-    plan counted over the run (``ShardPlan.comm``, read from the
-    ``MeshTrainer`` that ``train`` made) beside the schedule's a step,
-    and, in run W, each collective kind's time alone (``transport_rates``)
-    to OUT (JSON)."""
+    plan counted at every step (``ShardPlan.counted``, read from the
+    ``MeshTrainer`` that ``train`` made, at each step's log) beside the
+    schedule's a step, and, in run W, each collective kind's time alone
+    (``transport_rates``), in run Y the widths ``linear_scan`` saw and the
+    RG-LRU leaves' gathers and local splits, to OUT (JSON)."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2832,6 +2859,7 @@ def mesh_rank_main(argv) -> int:
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch.dryrun import step_collectives
     from repro_torch.launch.mesh import join_ranks, make_host_mesh
+    from repro_torch.models import rglru
     from repro_torch.training import train, trainer
     from repro_torch.weights import init_params
 
@@ -2850,26 +2878,43 @@ def mesh_rank_main(argv) -> int:
     run, rank, world, store, out = argv
     rank, world = int(rank), int(world)
     backend = join_ranks(store, rank, world, "cuda")
+    widths, scan = set(), rglru.linear_scan
+
+    def spy(a, b, *args, **kw):
+        widths.add(a.shape[-1])
+        return scan(a, b, *args, **kw)
+
+    rglru.linear_scan = spy
     try:
-        cfg, tc, (_, model), _ = mesh_run_config(run)
+        cfg, tc, (_, model), _, n_steps = mesh_run_config(run)
         mesh = make_host_mesh(model=model)
         params = init_params(cfg, torch.Generator(
             device="cuda").manual_seed(SEED), "cuda")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        stamps = []
+        stamps, counted = [], []
+
+        def log(msg):
+            stamps.append(time.perf_counter())
+            comm = made[0].plan.comm
+            counted.append({"bytes": dict(comm.bytes),
+                            "counts": dict(comm.counts)})
+
         reset_launch_counts()
         t0 = time.perf_counter()
-        params, losses = train(
-            cfg, tc, mesh=mesh, params=params, device="cuda",
-            log=lambda msg: stamps.append(time.perf_counter()))
+        with first_steps(n_steps):
+            params, losses = train(cfg, tc, mesh=mesh, params=params,
+                                   device="cuda", log=log)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = launch_counts()
         steps = np.diff([t0] + stamps) * 1e3
         coll = step_collectives(cfg, ShapeConfig(
             "mesh", tc.seq_len, tc.batch, "train"), mesh)
-        comm = made[0].plan.comm
+        zero = {k: dict.fromkeys(v, 0) for k, v in counted[0].items()}
+        per_step = [{k: {kind: b[k][kind] - a[k][kind] for kind in b[k]}
+                     for k in b} for a, b in zip([zero] + counted, counted)]
+        plan = made[0].plan
         line = {"rank": rank, "backend": backend,
                 "mesh": {"shape": list(mesh.shape),
                          "axes": list(mesh.mesh_dim_names)},
@@ -2880,15 +2925,31 @@ def mesh_rank_main(argv) -> int:
                                  for t in _leaves(params)) / 2 ** 30,
                 "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
                 "launches": launches,
-                "collectives_counted": {"bytes": dict(comm.bytes),
-                                        "counts": dict(comm.counts)},
+                "collectives_counted": {"bytes": dict(plan.comm.bytes),
+                                        "counts": dict(plan.comm.counts)},
+                "collectives_counted_by_step": per_step,
                 "schedule_per_step": {"bytes": coll["bytes"],
                                       "counts": coll["counts"]}}
+        if plan.channel_stages:
+            branch = [leaf for leaf in plan.leaves
+                      if leaf.path[1] in plan.channel_stages
+                      and leaf.path[2] == "attn"]
+            line["channel_parallel"] = {
+                "linear_scan_widths": sorted(widths),
+                "rglru_leaves": len(branch),
+                "rglru_leaves_gathered_over_model": [
+                    "/".join(leaf.path) for leaf in branch
+                    if any(axis == "model" for _, axis in leaf.steps)],
+                "rglru_leaves_local": sum(leaf.local == ("model",)
+                                          for leaf in branch),
+                "branch_schedule_per_step": plan.channel_schedule(
+                    tc.batch * tc.seq_len)}
         if run == "W":
             line["transport_rates"] = transport_rates(torch, dist)
         with open(out, "w") as f:
             json.dump(line, f)
     finally:
+        rglru.linear_scan = scan
         dist.destroy_process_group()
     return 0
 
@@ -2924,29 +2985,31 @@ def transport_rates(torch, dist):
 
 
 def mesh_rank_run(torch, run):
-    """Runs W and X: the run's rank processes (``mesh_rank_main``, this
-    script with ``--rank``) started together over a ``FileStore`` in a
-    temporary directory, waited for (MESH_RANK_TIMEOUT_S; a failed or
+    """Runs W, X and Y: the run's rank processes (``mesh_rank_main``,
+    this script with ``--rank``) started together over a ``FileStore`` in
+    a temporary directory, waited for (MESH_RANK_TIMEOUT_S; a failed or
     late rank fails the run, its output's tail printed), their lines
-    read.  W is held to run P's losses, X to ``training.train`` of the
-    same cut config and weights in this process, run after the ranks: the
-    losses of the ranks equal, step 0 within MESH_STEP0_REL relative and
-    every step within TRAIN_LOSS_TOL of the baseline; each rank launches
-    flash forward and backward as ``train_launches`` derives (all
-    ``mma``) and nothing else of the port; the collectives each rank's
-    plan counted over the run are the schedule's a step
-    (``launch.dryrun.step_collectives``) times the steps, kind for kind in
-    bytes and calls.  Emits the ``train`` line (each rank's step times,
-    peak and shard bytes, the transport, the counted collectives a step,
-    their bytes over the whole step time, compute included, and in W each
-    kind's rate alone; the baseline's beside them).  Returns the ranks'
-    launch counts, summed."""
+    read.  W is held to run P's first losses, X and Y to
+    ``training.train`` of the same cut config and weights in this
+    process, run after the ranks: the losses of the ranks equal, step 0
+    within MESH_STEP0_REL relative and every step within TRAIN_LOSS_TOL of
+    the baseline; each rank launches flash forward and backward as
+    ``train_launches`` derives (all ``mma``) and nothing else of the port;
+    the collectives each rank's plan counted at every step are the
+    schedule's (``launch.dryrun.step_collectives``), kind for kind in
+    bytes and calls.  Y's ranks run every RG-LRU recurrence on d_rnn / 2
+    channels (the widths ``linear_scan`` saw) and gather no RG-LRU leaf
+    over the model axis (each keeps its channel block).  Emits the
+    ``train`` line (each rank's step times, peak and shard bytes, the
+    transport, the counted collectives a step, their bytes over the whole
+    step time, compute included, and in W each kind's rate alone; the
+    baseline's beside them).  Returns the ranks' launch counts, summed."""
     import tempfile
 
     from repro_torch.training import train
     from repro_torch.weights import init_params
 
-    cfg, tc, (data, model), reduced = mesh_run_config(run)
+    cfg, tc, (data, model), reduced, n_steps = mesh_run_config(run)
     if cfg.moe is not None:
         check(cfg.moe_impl == "dispatch" and cfg.moe.capacity_factor == 1.0,
               f"run {run}: {cfg.name} is not the dispatch at capacity 1.0")
@@ -2987,7 +3050,8 @@ def mesh_rank_run(torch, run):
     loss = ranks[0]["losses"]
     if run == "W":
         base = {k: TRAIN_LINES["P"][k] for k in (
-            "losses", "step_ms_median_after_first", "peak_mem_gib")}
+            "step_ms_median_after_first", "peak_mem_gib")}
+        base["losses"] = TRAIN_LINES["P"]["losses"][:n_steps]
         base["run"] = "P"
     else:
         params = init_params(cfg, torch.Generator(
@@ -2997,9 +3061,10 @@ def mesh_rank_run(torch, run):
         torch.cuda.reset_peak_memory_stats()
         stamps = []
         t0 = time.perf_counter()
-        params, losses = train(
-            cfg, tc, params=params, device="cuda",
-            log=lambda msg: stamps.append(time.perf_counter()))
+        with first_steps(n_steps):
+            params, losses = train(
+                cfg, tc, params=params, device="cuda",
+                log=lambda msg: stamps.append(time.perf_counter()))
         torch.cuda.synchronize()
         steps = np.diff([t0] + stamps) * 1e3
         base = {"run": "training.train, one process",
@@ -3011,15 +3076,16 @@ def mesh_rank_run(torch, run):
         torch.cuda.empty_cache()
     diffs = [abs(a - b) for a, b in zip(loss, base["losses"])]
     counted = ranks[0]["collectives_counted"]
-    per_step = {k: {kind: v // tc.steps for kind, v in counted[k].items()}
+    per_step = {k: {kind: v // n_steps for kind, v in counted[k].items()}
                 for k in ("bytes", "counts")}
     want = {name: 0 for name in ranks[0]["launches"]}
-    want.update(train_launches(cfg, tc.steps))
+    want.update(train_launches(cfg, n_steps))
     line = {"phase": "train", "run": run, "model": cfg.name,
             "entry": "training.train(mesh=...), two rank processes",
             "n_layers": cfg.n_layers, "fsdp": cfg.fsdp,
             "moe_impl": cfg.moe_impl if cfg.moe is not None else None,
-            "batch": tc.batch, "seq_len": tc.seq_len, "steps": tc.steps,
+            "batch": tc.batch, "seq_len": tc.seq_len, "steps": n_steps,
+            "schedule_steps": tc.steps,
             "mesh": ranks[0]["mesh"], "transport": ranks[0]["backend"],
             "losses": loss, "baseline": base,
             "step0_rel_err": diffs[0] / abs(base["losses"][0]),
@@ -3036,11 +3102,23 @@ def mesh_rank_run(torch, run):
                 "launches"].items() if v}}
     if "transport_rates" in ranks[0]:
         line["transport_rates_alone"] = ranks[0]["transport_rates"]
+    if "channel_parallel" in ranks[0]:
+        line["channel_parallel"] = [r["channel_parallel"] for r in ranks]
     if reduced:
         line["reduced"] = reduced
     emit(line)
-    check(len(loss) == tc.steps and all(np.isfinite(loss)),
+    check(len(loss) == n_steps and all(np.isfinite(loss)),
           f"run {run}: losses {loss}")
+    if not cfg.train_batch_over_model and model > 1:
+        d_rnn = cfg.rglru.d_rnn or cfg.d_model
+        for r in ranks:
+            cp = r.get("channel_parallel", {})
+            check(cp.get("linear_scan_widths") == [d_rnn // model]
+                  and cp["rglru_leaves"] > 0
+                  and cp["rglru_leaves_local"] == cp["rglru_leaves"]
+                  and not cp["rglru_leaves_gathered_over_model"],
+                  f"run {run}: rank {r['rank']}'s RG-LRU branch is not "
+                  f"channel-parallel over {model} ranks: {cp}")
     check(all(r["losses"] == loss for r in ranks),
           f"run {run}: the ranks logged different losses")
     check(line["step0_rel_err"] <= MESH_STEP0_REL, f"run {run}: step 0's "
@@ -3049,11 +3127,10 @@ def mesh_rank_run(torch, run):
           f"{base['losses']}")
     for r in ranks:
         sched = r["schedule_per_step"]
-        check(r["collectives_counted"] == {
-            k: {kind: v * tc.steps for kind, v in sched[k].items()}
-            for k in ("bytes", "counts")}, f"run {run}: rank {r['rank']} "
-              f"counted {r['collectives_counted']}, not {tc.steps} steps "
-              f"of the schedule's {sched}")
+        by_step = r["collectives_counted_by_step"]
+        check(len(by_step) == n_steps and all(c == sched for c in by_step),
+              f"run {run}: rank {r['rank']} counted {by_step} a step, not "
+              f"the schedule's {sched}")
         check(r["launches"] == want, f"run {run}: rank {r['rank']} "
               f"launched { {k: v for k, v in r['launches'].items() if v} }, "
               f"not { {k: v for k, v in want.items() if v} }")
@@ -3063,22 +3140,45 @@ def mesh_rank_run(torch, run):
     return {name: total[name] for name in ranks[0]["launches"]}
 
 
+def ring_bwd_ratio(torch, got, want, tol):
+    """(max |got - want|, that over ``tol``)."""
+    err = float((got.float() - want.float()).abs().max())
+    return err, err / tol
+
+
 def ring_phase(torch):
     """Ring flash attention (``models.ring_attention``) at RING_CASES'
-    full-width bf16 shapes: ``ring_attention_sharded`` on the host mesh
-    (n = 1: one flash call and an NCCL all-gather), bit for bit one flash
-    call over the whole sequence; and the ring's steps and merge over
-    RING_SHARDS sequence shards in one process (``ring_attention_shards``:
-    every rank's flash calls with ``lse``, causal on the diagonal, full
-    below it, later shards skipped), within ``ring_tolerance`` (3 x 2**-8
-    max |v|: each step's output rounded to bf16 by the kernel, the
-    merge's and the single call's outputs rounded once) of one flash call
-    and of the f32 plain ring (``ring_attention_plain``: the reference's
-    (m, l, acc) arithmetic).  The ring path's flash launches are counted
-    (1 + n(n+1)/2 causal, 1 + n**2 full) and the comparisons' are not;
-    the ring's ms (8 shards in one process, and n = 1 through the mesh)
-    beside the single call's and its bound.  Returns (the launch counts,
-    the per-shape rows for the ``kernels`` line)."""
+    full-width bf16 shapes, forward and backward at a fixed output
+    gradient drawn from SEED:
+
+    - forward: ``ring_attention_sharded`` on the host mesh (n = 1: one
+      flash call and an NCCL all-gather), bit for bit one flash call over
+      the whole sequence; the ring's steps and merge over RING_SHARDS
+      sequence shards in one process (``ring_attention_shards``: every
+      rank's flash calls with ``lse``, causal on the diagonal, full below
+      it, later shards skipped), within ``ring_tolerance`` (3 x 2**-8 max
+      |v|) of one flash call and of the f32 plain ring;
+    - backward (``RingFlashAttentionFunction`` at n = 1 through the mesh:
+      dq, dk, dv bit for bit one ``flash_attention_bwd_kernel`` call; the
+      8 shards' backward, each step a backward call in the accumulate
+      mode, within ``ring_bwd_tolerance`` of one backward call given the
+      ring's output and L, and a planted fault, one step's dK/dV dropped
+      or the diagonal step's lse for L, outside it);
+    - the accumulate mode added into zeros and rounded once: the default
+      bf16 output bit for bit;
+    - at S = 4096 on Granite's heads, where the f32 plain ring's saved
+      scores fit: the f32 ring's gradient (the ``fma`` kernels) within
+      BWD_F32_REL of ``torch.autograd`` of ``ring_attention_plain``, and
+      the bf16 ring's distance from it (reported), and the f32 accumulate
+      mode from zeros bit for bit the default.
+
+    The ring paths' flash launches are counted (forward 1 + n(n+1)/2
+    causal, 1 + n**2 full; the backward runs the forward again and a
+    backward call per step not skipped, each three kernel launches, all
+    in the accumulate mode) and the comparisons' are not; the ring's ms
+    (8 shards in one process, n = 1 through the mesh) beside one call's
+    and the bound, forward and backward.  Returns (the launch counts, the
+    forward rows and the backward rows for the ``kernels`` line)."""
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
     ra = importlib.import_module("repro_torch.models.ring_attention")
     from repro_torch.launch.mesh import make_host_mesh
@@ -3086,23 +3186,28 @@ def ring_phase(torch):
     mesh = make_host_mesh()
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     n = RING_SHARDS
-    total, rows = Counter(), {}
+    total, rows, bwd_rows = Counter(), {}, {}
     for ci, (name, S, Hq, Hkv, D, causal) in enumerate(RING_CASES):
         g = torch.Generator(device="cuda").manual_seed(SEED + 700 + ci)
         q, k, v = (torch.randn(1, S, h, D, generator=g, device="cuda").to(
             torch.bfloat16) for h in (Hq, Hkv, Hkv))
+        do = torch.randn(1, S, Hq, D, generator=g, device="cuda").to(
+            torch.bfloat16)
         reset_launch_counts()
         one = ra.ring_attention_sharded(q, k, v, mesh, causal=causal)
         ring = ra.ring_attention_shards(q, k, v, n, causal=causal)
         torch.cuda.synchronize()
         counts = launch_counts()
         total.update(counts)
-        want = 1 + (n * (n + 1) // 2 if causal else n * n)
-        single = fa.flash_attention_kernel(q, k, v, causal=causal)
+        steps = n * (n + 1) // 2 if causal else n * n
+        want = 1 + steps
+        single, lse = fa.flash_attention_kernel(q, k, v, causal=causal,
+                                                return_lse=True)
         plain = ra.ring_attention_plain(q, k, v, n, causal=causal)
         tol = ra.ring_tolerance(v, torch.bfloat16)
         err_single = float((ring.float() - single.float()).abs().max())
         err_plain = float((ring.float() - plain).abs().max())
+        del plain
         bound, bound_by = flash_bound(S, S, Hq, Hkv, D, causal, 0,
                                       "bfloat16")
         line = {"phase": "kernels", "kernel": "ring_attention", "case": name,
@@ -3136,9 +3241,187 @@ def ring_phase(torch):
         rows[name] = {k: line[k] for k in (
             "flash_launches", "ms", "n1_mesh_ms", "single_call_ms",
             "bound_ms", "bound_by", "tol_ratio")}
-        del q, k, v, one, ring, single, plain
+        del one, ring
         torch.cuda.empty_cache()
-    return dict(total), rows
+        bwd_rows[name] = ring_bwd_case(torch, fa, ra, mesh, flush, total,
+                                       name, q, k, v, do, single, lse,
+                                       causal, steps)
+        del q, k, v, do, single, lse
+        torch.cuda.empty_cache()
+        if name.startswith("granite"):
+            bwd_rows[name].update(ring_bwd_plain_case(
+                torch, fa, ra, SEED + 710 + ci, Hq, Hkv, D, causal))
+    return dict(total), rows, bwd_rows
+
+
+def ring_bwd_case(torch, fa, ra, mesh, flush, total, name, q, k, v, do,
+                  single, lse, causal, steps):
+    """The ring's backward at one RING_CASES shape (``ring_phase``):
+    emits its line, adds the ring paths' launches to ``total`` and
+    returns its row."""
+    n = RING_SHARDS
+
+    def grads(fn):
+        qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        out = fn(qg, kg, vg)
+        return out, (qg, kg, vg), torch.autograd.grad(
+            out, (qg, kg, vg), do, retain_graph=True)
+
+    reset_launch_counts()
+    out1, in1, g1 = grads(lambda a, b, c: ra.ring_attention_sharded(
+        a, b, c, mesh, causal=causal))
+    out8, in8, g8 = grads(lambda a, b, c: ra.ring_attention_shards(
+        a, b, c, n, causal=causal))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    total.update(counts)
+    calls = 1 + steps
+    check(counts["flash_attention_bwd"] == calls == counts[
+        "flash_attention_bwd:mma"] == counts["flash_attention_bwd:acc"]
+        and counts["flash_attention"] == calls,
+          f"ring backward {name}: launches "
+          f"{ {k: c for k, c in counts.items() if c} }, not {calls} "
+          "backward calls (all mma, accumulate) and forward calls")
+    # n = 1: one backward call over the whole sequence, bit for bit
+    one = fa.flash_attention_bwd_kernel(q, k, v, single, lse, do,
+                                        causal=causal)
+    n1_equal = all(bool(torch.equal(a, b)) for a, b in zip(g1, one))
+    # the accumulate mode into zeros, rounded once: the default's bits
+    acc = tuple(torch.zeros(t.shape, device="cuda") for t in (q, k, v))
+    fa.flash_attention_bwd_kernel(q, k, v, single, lse, do, causal=causal,
+                                  accumulate=acc)
+    acc_equal = all(bool(torch.equal(a.to(torch.bfloat16), b))
+                    for a, b in zip(acc, one))
+    del acc
+    # 8 shards: one backward call given the ring's output and L
+    out_r, big_l = ra.ring_attention_shards(q, k, v, n, causal=causal,
+                                            return_lse=True)
+    want = fa.flash_attention_bwd_kernel(q, k, v, out_r, big_l, do,
+                                         causal=causal)
+    errs = {}
+    for gname, got, w in zip(("dq", "dk", "dv"), g8, want):
+        errs[gname] = ring_bwd_ratio(torch, got, w, ra.ring_bwd_tolerance(
+            w, torch.bfloat16))
+    # the planted faults: each must fall outside the tolerance
+    tol_k = ra.ring_bwd_tolerance(want[1], torch.bfloat16)
+    step_bwd, merge = ra.ring_step_bwd, ra.ring_merge
+
+    def drop_one(q_, k_t, v_t, o, l_, d_, idx, src, acc, causal=True):
+        if (idx, src) == (n - 1, 1):       # a step every mask keeps
+            acc = (acc[0], torch.zeros_like(acc[1]),
+                   torch.zeros_like(acc[2]))
+        return step_bwd(q_, k_t, v_t, o, l_, d_, idx, src, acc,
+                        causal=causal)
+
+    def partial_lse(parts, dtype):
+        return merge(parts, dtype)[0], parts[0][1]
+
+    faults = {}
+    for fault, attr, fn in (("one_step_dk_dropped", "ring_step_bwd",
+                             drop_one),
+                            ("partial_lse_for_L", "ring_merge",
+                             partial_lse)):
+        setattr(ra, attr, fn)
+        try:
+            bad = grads(lambda a, b, c: ra.ring_attention_shards(
+                a, b, c, n, causal=causal))[2][1]
+        finally:
+            ra.ring_step_bwd, ra.ring_merge = step_bwd, merge
+        faults[fault] = float((bad.float() - want[1].float()).abs().max()) \
+            / tol_k
+        del bad
+    bound, bound_by = flash_bwd_bound(q.shape[1], q.shape[1], q.shape[2],
+                                      k.shape[2], q.shape[3], v.shape[3],
+                                      causal, 0, "bfloat16")
+    line = {"phase": "kernels", "kernel": "ring_attention_bwd",
+            "case": name, "dtype": "bfloat16", "S": q.shape[1],
+            "shards": n, "backward_calls": counts["flash_attention_bwd"],
+            "backward_kernel_launches": 3 * counts["flash_attention_bwd"],
+            "backward_calls_accumulate": counts["flash_attention_bwd:acc"],
+            "forward_calls": counts["flash_attention"],
+            "n1_bitwise_equal_one_call": n1_equal,
+            "accumulate_from_zeros_bitwise_equal_default": acc_equal,
+            "tolerance": "one bf16 step of the largest |grad| "
+                         "(ring_bwd_tolerance)",
+            "max_abs_err_vs_one_call": {k: e for k, (e, _) in errs.items()},
+            "tol_ratio": max(r for _, r in errs.values()),
+            "planted_fault_tol_ratio": faults,
+            "ms": time_ms(torch, lambda: torch.autograd.grad(
+                out8, in8, do, retain_graph=True), 5, flush),
+            "n1_mesh_ms": time_ms(torch, lambda: torch.autograd.grad(
+                out1, in1, do, retain_graph=True), 5, flush),
+            "one_call_ms": time_ms(torch, lambda: fa.flash_attention_bwd_kernel(
+                q, k, v, single, lse, do, causal=causal), 5, flush),
+            "bound_ms": bound, "bound_by": bound_by}
+    emit(line)
+    check(n1_equal, f"ring backward {name}: n = 1 through the mesh is not "
+          "one backward call bit for bit")
+    check(acc_equal, f"ring backward {name}: the accumulate mode from "
+          "zeros is not the bf16 output bit for bit")
+    check(line["tol_ratio"] <= 1 and all(
+        bool(torch.isfinite(t.float()).all()) for t in g8),
+          f"ring backward {name}: {line['max_abs_err_vs_one_call']} from "
+          f"one backward call (ratio {line['tol_ratio']})")
+    check(all(r > 1 for r in faults.values()), f"ring backward {name}: a "
+          f"planted fault fell inside the tolerance: {faults}")
+    del out1, out8, in1, in8, g1, g8, one, want, out_r, big_l
+    return {k: line[k] for k in (
+        "backward_calls", "backward_kernel_launches", "ms", "n1_mesh_ms",
+        "one_call_ms", "bound_ms", "bound_by", "tol_ratio",
+        "planted_fault_tol_ratio")}
+
+
+def ring_bwd_plain_case(torch, fa, ra, seed, Hq, Hkv, D, causal, S=4096):
+    """At S = 4096 on ``Hq``/``Hkv`` heads of ``D``: the f32 ring's
+    gradient over RING_SHARDS shards (the ``fma`` kernels) against
+    ``torch.autograd`` of ``ring_attention_plain`` within BWD_F32_REL of
+    the largest |plain| (held), the bf16 ring's distance from it
+    (reported), and the f32 accumulate mode from zeros bit for bit the
+    default f32 output.  Launches here are comparisons: not counted."""
+    n = RING_SHARDS
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn(1, S, h, D, generator=g, device="cuda")
+                   for h in (Hq, Hkv, Hkv, Hq))
+
+    def grads(fn, dt):
+        ins = tuple(t.detach().to(dt).requires_grad_() for t in (q, k, v))
+        return torch.autograd.grad(fn(*ins), ins, do.to(dt))
+
+    plain = grads(lambda a, b, c: ra.ring_attention_plain(
+        a, b, c, n, causal=causal), torch.float32)
+    f32 = grads(lambda a, b, c: ra.ring_attention_shards(
+        a, b, c, n, causal=causal), torch.float32)
+    bf16 = grads(lambda a, b, c: ra.ring_attention_shards(
+        a, b, c, n, causal=causal), torch.bfloat16)
+    out = {"S4096_f32_vs_plain_rel": {}, "S4096_bf16_vs_plain_rel": {}}
+    for gname, p, a, b in zip(("dq", "dk", "dv"), plain, f32, bf16):
+        top = float(p.abs().max())
+        out["S4096_f32_vs_plain_rel"][gname] = float(
+            (a - p).abs().max()) / top
+        out["S4096_bf16_vs_plain_rel"][gname] = float(
+            (b.float() - p).abs().max()) / top
+    o, lse = fa.flash_attention_kernel(q, k, v, causal=causal,
+                                       return_lse=True)
+    default = fa.flash_attention_bwd_kernel(q, k, v, o, lse, do,
+                                            causal=causal)
+    acc = tuple(torch.zeros_like(t) for t in (q, k, v))
+    fa.flash_attention_bwd_kernel(q, k, v, o, lse, do, causal=causal,
+                                  accumulate=acc)
+    out["S4096_f32_accumulate_from_zeros_bitwise_equal_default"] = all(
+        bool(torch.equal(a, b)) for a, b in zip(acc, default))
+    emit({"phase": "kernels", "kernel": "ring_attention_bwd",
+          "case": f"S4096_h{Hq}_kv{Hkv}_d{D}_"
+                  f"{'causal' if causal else 'full'}",
+          "tolerance_f32": f"{BWD_F32_REL} x the largest |plain|", **out})
+    check(max(out["S4096_f32_vs_plain_rel"].values()) <= BWD_F32_REL,
+          f"ring backward f32 at S 4096: {out['S4096_f32_vs_plain_rel']} "
+          "of the largest |plain|")
+    check(out["S4096_f32_accumulate_from_zeros_bitwise_equal_default"],
+          "flash backward f32: the accumulate mode from zeros is not the "
+          "default output bit for bit")
+    del plain, f32, bf16, default, acc
+    torch.cuda.empty_cache()
+    return out
 
 
 def dryrun_phase(torch):
@@ -3641,7 +3924,7 @@ def profile_window(torch, run, eng, reqs, window="decode"):
     requests arrive at once.
 
     ``decode``: 14 iterations run the prompts in, then 10 iterations are
-    timed on the host clock and 5 more under ``torch.profiler`` for
+    timed on the host clock and 3 more under ``torch.profiler`` for
     device time by kernel (the trace's processing takes most of a
     window's wall time).  ``prefill``: iterations that carry prompt
     tokens, profiled, their host time read under the profiler: run A's
@@ -3656,7 +3939,7 @@ def profile_window(torch, run, eng, reqs, window="decode"):
     from torch.profiler import ProfilerActivity, profile
 
     t_window = time.perf_counter()
-    warm, timed, steps = {"decode": (14, 10, 5),
+    warm, timed, steps = {"decode": (14, 10, 3),
                           "prefill": (1, 0, 3) if run == "A"
                           else (0, 0, 1)}[window]
     for r in reqs:

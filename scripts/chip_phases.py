@@ -6,6 +6,7 @@ while a new phase is brought up.
     python3 scripts/chip_phases.py ssd_bwd,U,examples
     python3 scripts/chip_phases.py P,V,ring,dryrun
     python3 scripts/chip_phases.py P,W,X
+    python3 scripts/chip_phases.py ring,Y
 
 ``bwd``: the flash backward kernel lines (``flash_bwd_phase``);
 ``ssd_bwd``: the SSD scan's backward kernel lines (``ssd_bwd_phase``);
@@ -20,8 +21,10 @@ profile window); ``examples``: the port's engine examples
 (``mesh_train_run``, held to P's losses: needs ``P``); ``W``: run P
 over a (1, 2) mesh of two rank processes on the card (``mesh_rank_run``:
 needs ``P``); ``X``: DeepSeek-MoE-16B (4 layers) with fsdp over a (2, 1)
-mesh of two rank processes, held to one process; ``ring``: ring
-attention (``ring_phase``); ``dryrun``: the dry-run CLI and the
+mesh of two rank processes, held to one process; ``Y``: RecurrentGemma-2B
+(6 layers) over a (1, 2) mesh, its RG-LRU branch channel-parallel, held
+to one process; ``ring``: ring attention forward and backward
+(``ring_phase``); ``dryrun``: the dry-run CLI and the
 ``--production`` refusal (``dryrun_phase``).  Builds the
 kernels first, prints chip_smoke's JSON lines and the seconds each phase
 took, and last the ``kernels`` rows of the phases run with the launches
@@ -91,7 +94,7 @@ def main(argv) -> int:
             cs.emit({"phase": "seconds", run: time.perf_counter() - t0})
     if "ring" in which:
         t0 = time.perf_counter()
-        runs["ring"], _ = cs.ring_phase(torch)
+        runs["ring"], _, _ = cs.ring_phase(torch)
         cs.emit({"phase": "seconds", "ring": time.perf_counter() - t0})
     if torch.distributed.is_initialized():
         torch.distributed.destroy_process_group()

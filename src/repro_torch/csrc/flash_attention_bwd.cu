@@ -104,6 +104,15 @@
 // tile of 16 threads spans 128 columns); the wrapper refuses wider ones by
 // name.  P and dS are computed in f32 and used unrounded.
 //
+// Accumulate mode (both variants): the dQ and dK/dV kernels add their f32
+// accumulators into caller-given f32 dq, dk, dv (+=) in place of writing
+// them in the input type.  A ring of sequence shards runs one backward per
+// shard pair and sums the partials in f32 this way, rounding once at the
+// end, as one call over the whole sequence does; a tile of dQ (64 rows of
+// a head) or of dK/dV (64 keys of a kv head) belongs to one block, so the
+// add needs no atomics.  Added into zeros and rounded once, it gives the
+// default mode's bits.
+//
 // Plain C interface (loaded with ctypes); the three launches are on the
 // caller's stream, allocate nothing and return the first
 // cudaGetLastError() that is not cudaSuccess.
@@ -126,6 +135,7 @@ constexpr int kPStride = kT + 4;   // f32 row stride of the P and dS tiles
 struct Shape {
   int B, Sq, Skv, Hq, Hkv, G, D, Dv, causal, window;
   float sm_scale;
+  int accumulate;  // 1: add the f32 gradients into f32 dq, dk, dv (+=)
 };
 
 __device__ __forceinline__ float4 load4(const float* p) {
@@ -141,6 +151,16 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
 
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
+}
+
+// An f32 gradient's four values: written, or added to what is there
+// (accumulate mode; the block owns these rows, so no atomics)
+__device__ __forceinline__ void put4(float* p, float4 v, int accumulate) {
+  if (accumulate) {
+    const float4 o = *reinterpret_cast<const float4*>(p);
+    v = make_float4(o.x + v.x, o.y + v.y, o.z + v.z, o.w + v.w);
+  }
+  store4(p, v);
 }
 
 // Rows [row0, row0 + 64) of head h of a (B, S, H, width) tensor into a
@@ -357,15 +377,17 @@ flash_bwd_dkdv_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* dst_k = dk + row * P.D;
     T* dst_v = dv + row * P.Dv;
     if (tx * 4 < P.D)
-      store4(dst_k + tx * 4, make_float4(acc_k[i][0], acc_k[i][1], acc_k[i][2], acc_k[i][3]));
+      put4(dst_k + tx * 4, make_float4(acc_k[i][0], acc_k[i][1], acc_k[i][2], acc_k[i][3]),
+           P.accumulate);
     if (64 + tx * 4 < P.D)
-      store4(dst_k + 64 + tx * 4,
-             make_float4(acc_k[i][4], acc_k[i][5], acc_k[i][6], acc_k[i][7]));
+      put4(dst_k + 64 + tx * 4, make_float4(acc_k[i][4], acc_k[i][5], acc_k[i][6], acc_k[i][7]),
+           P.accumulate);
     if (tx * 4 < P.Dv)
-      store4(dst_v + tx * 4, make_float4(acc_v[i][0], acc_v[i][1], acc_v[i][2], acc_v[i][3]));
+      put4(dst_v + tx * 4, make_float4(acc_v[i][0], acc_v[i][1], acc_v[i][2], acc_v[i][3]),
+           P.accumulate);
     if (64 + tx * 4 < P.Dv)
-      store4(dst_v + 64 + tx * 4,
-             make_float4(acc_v[i][4], acc_v[i][5], acc_v[i][6], acc_v[i][7]));
+      put4(dst_v + 64 + tx * 4, make_float4(acc_v[i][4], acc_v[i][5], acc_v[i][6], acc_v[i][7]),
+           P.accumulate);
   }
 }
 
@@ -446,9 +468,10 @@ flash_bwd_dq_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (row >= P.Sq) continue;
     T* dst = dq + ((static_cast<int64_t>(b) * P.Sq + row) * P.Hq + h) * P.D;
     if (tx * 4 < P.D)
-      store4(dst + tx * 4, make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
+      put4(dst + tx * 4, make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]), P.accumulate);
     if (64 + tx * 4 < P.D)
-      store4(dst + 64 + tx * 4, make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]));
+      put4(dst + 64 + tx * 4, make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]),
+           P.accumulate);
   }
 }
 
@@ -608,24 +631,31 @@ __device__ __forceinline__ void accumulate_split(float acc[DP / 8][4], const flo
 }
 
 // The warp's rows `row0` + g and + g + 8 of a (B, S, H, width) output from
-// acc (C layout, columns below width), rounded once to bf16; rows at or
+// acc (C layout, columns below width): rounded once to bf16 into a bf16
+// `out`, or, in accumulate mode, added in f32 to an f32 `out`; rows at or
 // past S are not written.
 template <int DP>
-__device__ __forceinline__ void store_rows(bf16* __restrict__ out, const float acc[DP / 8][4],
+__device__ __forceinline__ void store_rows(void* __restrict__ out, const float acc[DP / 8][4],
                                            int b, int row0, int S, int H, int h, int width,
-                                           int lane) {
+                                           int accumulate, int lane) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int s = row0 + g + 8 * r;
     if (s >= S) continue;
-    bf16* dst = out + ((static_cast<int64_t>(b) * S + s) * H + h) * width;
+    const int64_t base = ((static_cast<int64_t>(b) * S + s) * H + h) * width;
 #pragma unroll
     for (int n = 0; n < DP / 8; ++n) {
       const int c = n * 8 + 2 * t;
-      if (c < width)
-        *reinterpret_cast<__nv_bfloat162*>(dst + c) =
+      if (c >= width) continue;
+      if (accumulate) {
+        float2* dst = reinterpret_cast<float2*>(static_cast<float*>(out) + base + c);
+        const float2 o = *dst;
+        *dst = make_float2(o.x + acc[n][2 * r], o.y + acc[n][2 * r + 1]);
+      } else {
+        *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(out) + base + c) =
             __floats2bfloat162_rn(acc[n][2 * r], acc[n][2 * r + 1]);
+      }
     }
   }
 }
@@ -639,7 +669,7 @@ __global__ void __launch_bounds__(kDkdvThreads, kDkdvMinBlocks<DP>)
 flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                           const bf16* __restrict__ v, const bf16* __restrict__ dout,
                           const float* __restrict__ lse, const float* __restrict__ delta,
-                          bf16* __restrict__ dk, bf16* __restrict__ dv, Shape P) {
+                          void* __restrict__ dk, void* __restrict__ dv, Shape P) {
   using Dm = at::Dims<DP>;
   constexpr int T = Dm::kTileElems;
   extern __shared__ __align__(16) unsigned char bwd_smem[];
@@ -760,7 +790,7 @@ flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   }
   at::cp_async_wait<0>();               // nothing in flight at exit (no query tile walked)
 
-  store_rows<DP>(p_warp ? dv : dk, acc, b, kw, P.Skv, P.Hkv, hk, width, lane);
+  store_rows<DP>(p_warp ? dv : dk, acc, b, kw, P.Skv, P.Hkv, hk, width, P.accumulate, lane);
 }
 
 // (c) dQ of one 64-row query tile of head h over the key tiles of its
@@ -770,7 +800,7 @@ __global__ void __launch_bounds__(kDqThreads, kDqMinBlocks<DP>)
 flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
                         const float* __restrict__ lse, const float* __restrict__ delta,
-                        bf16* __restrict__ dq, Shape P) {
+                        void* __restrict__ dq, Shape P) {
   using Dm = at::Dims<DP>;
   constexpr int T = Dm::kTileElems;
   extern __shared__ __align__(16) unsigned char bwd_smem[];
@@ -865,7 +895,7 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   at::cp_async_wait<0>();
 
-  store_rows<DP>(dq, acc, b, w0, P.Sq, P.Hq, h, P.D, lane);
+  store_rows<DP>(dq, acc, b, w0, P.Sq, P.Hq, h, P.D, P.accumulate, lane);
 }
 
 template <int DP>
@@ -895,13 +925,13 @@ int launch_mma(const void* q, const void* k, const void* v, const void* out, con
   // tiles on z, heads on x: the longest walks go out first across heads
   const dim3 grid_kv(P.Hkv, P.B, (P.Skv + kTileRows - 1) / kTileRows);
   flash_bwd_dkdv_mma_kernel<DP><<<grid_kv, kDkdvThreads, dkdv_smem_bytes<DP>(), stream>>>(
-      q_t, k_t, v_t, do_t, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), P);
+      q_t, k_t, v_t, do_t, lse, delta, dk, dv, P);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const dim3 grid_q(P.Hq, P.B, (P.Sq + kTileRows - 1) / kTileRows);
   flash_bwd_dq_mma_kernel<DP><<<grid_q, kDqThreads, dq_smem_bytes<DP>(), stream>>>(
-      q_t, k_t, v_t, do_t, lse, delta, static_cast<bf16*>(dq), P);
+      q_t, k_t, v_t, do_t, lse, delta, dq, P);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -969,19 +999,23 @@ size_t flash_attention_bwd_smem_bytes(int D, int Dv, int dtype, int kernel) {
 // (B, Sq, Hq, Dv) in one type (dtype 0 = f32: D, Dv multiples of 4 up to
 // 128, the FMA kernels; 1 = bf16: multiples of 8 up to 256, the tensor
 // cores), lse (B, Sq, Hq) f32 from the forward, delta an f32 (B, Sq, Hq)
-// scratch buffer; writes dq, dk, dv shaped and typed as q, k, v.  All
-// contiguous, 16-byte aligned.
+// scratch buffer; writes dq, dk, dv shaped and typed as q, k, v, or, with
+// accumulate = 1, adds the f32 gradients into f32 dq, dk, dv shaped as q,
+// k, v (each element once, by the one block that owns it: a ring of
+// shards sums its partials in f32 and rounds once).  All contiguous,
+// 16-byte aligned.
 int flash_attention_bwd(const void* q, const void* k, const void* v, const void* out,
                         const void* dout, const void* lse, void* delta, void* dq, void* dk,
                         void* dv, int B, int Sq, int Skv, int Hq, int Hkv, int D, int Dv,
-                        int causal, int window, int dtype, float sm_scale, void* stream) {
+                        int causal, int window, int accumulate, int dtype, float sm_scale,
+                        void* stream) {
   const int step = dtype == 1 ? 8 : 4;
   const int max_d = dtype == 1 ? 256 : kMaxD;
   if (B < 1 || Sq < 1 || Skv < 1 || Hkv < 1 || Hq % Hkv != 0 || D % step || Dv % step ||
       D < step || Dv < step || D > max_d || Dv > max_d || window < 0 || B > 65535 ||
-      Hq > 65535 || (dtype != 0 && dtype != 1))
+      Hq > 65535 || (dtype != 0 && dtype != 1) || (accumulate != 0 && accumulate != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Shape P{B, Sq, Skv, Hq, Hkv, Hq / Hkv, D, Dv, causal, window, sm_scale};
+  const Shape P{B, Sq, Skv, Hq, Hkv, Hq / Hkv, D, Dv, causal, window, sm_scale, accumulate};
   const auto st = static_cast<cudaStream_t>(stream);
   const float* lse_f = static_cast<const float*>(lse);
   float* delta_f = static_cast<float*>(delta);

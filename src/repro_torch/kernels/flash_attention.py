@@ -44,13 +44,19 @@ f32 FMA units, head dims up to 128.  Its plain version,
 ``O`` in delta is the output in q's dtype (the reference keeps
 its f32 output for it: the same in f32, one bf16 rounding apart in bf16).
 
+The backward has an accumulate mode (``accumulate=(dq, dk, dv)``, f32
+buffers shaped as q, k, v): the gradients are added into them in f32 in
+place of being rounded to the inputs' type, so the ring's steps
+(``models.ring_attention``) sum their partials in f32 and round once.
+
 A wrapper runs the plain version only when its tensors lie on the CPU
 (the tests).  On CUDA tensors it launches the kernel or raises; there is
 no fallback.  ``LAUNCHES`` counts kernel launches, in all and per variant
 (``flash_attention:mma``; a backward call, its three kernels, once as
 ``flash_attention_bwd`` and once by variant,
-``flash_attention_bwd:mma``), so a run can show that the prefill and
-training paths went through the kernels, and on which units.
+``flash_attention_bwd:mma``, and once more as ``flash_attention_bwd:acc``
+in the accumulate mode), so a run can show that the prefill and training
+paths went through the kernels, and on which units.
 """
 from __future__ import annotations
 
@@ -75,7 +81,8 @@ LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention:mma": 0,
                             "flash_attention:fma": 0,
                             "flash_attention_bwd": 0,
                             "flash_attention_bwd:mma": 0,
-                            "flash_attention_bwd:fma": 0}
+                            "flash_attention_bwd:fma": 0,
+                            "flash_attention_bwd:acc": 0}
 
 
 def reset_launch_counts() -> None:
@@ -286,14 +293,34 @@ def _validate_bwd(q, k, v, out, lse, dout):
                          "devices")
 
 
+def _validate_accumulate(q, k, v, accumulate):
+    """The accumulate mode's buffers: three f32 tensors shaped as q, k, v
+    on their device, contiguous."""
+    if len(accumulate) != 3:
+        raise ValueError("flash attention backward: accumulate takes "
+                         "(dq, dk, dv)")
+    for name, t, like in zip(("dq", "dk", "dv"), accumulate, (q, k, v)):
+        if t.dtype != torch.float32 or t.shape != like.shape or \
+                t.device != like.device or not t.is_contiguous():
+            raise ValueError(f"flash attention backward: accumulate's "
+                             f"{name} must be contiguous f32 "
+                             f"{tuple(like.shape)} on {like.device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
 def flash_attention_bwd_plain(q, k, v, out, lse, dout, *, causal=True,
-                              window=0, block_q=128, block_kv=128):
+                              window=0, block_q=128, block_kv=128,
+                              accumulate=None):
     """(dq, dk, dv) of ``flash_attention_plain`` at ``dout``, as the
     reference's ``_flash_core_bwd``: the static block pairs in order,
     P = exp(s - lse) under the mask, dS = P (dP - delta) scale, sums in
-    f32, each gradient rounded once to its input's dtype."""
+    f32, each gradient rounded once to its input's dtype; with
+    ``accumulate`` (f32 dq, dk, dv buffers) the f32 gradients are added
+    into them instead, and they are returned."""
     _validate(q, k, v, window, block_q, block_kv)
     _validate_bwd(q, k, v, out, lse, dout)
+    if accumulate is not None:
+        _validate_accumulate(q, k, v, accumulate)
     B, Sq, Hq, D = q.shape
     Skv, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
     G = Hq // Hkv
@@ -328,8 +355,12 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, *, causal=True,
         ds = p * (dp - delta[:, qs, ..., None]) * scale
         dq[:, qs] += torch.einsum("bskgt,btkd->bskgd", ds, kb)
         dk[:, ks] += torch.einsum("bskgt,bskgd->btkd", ds, qb)
-    return (dq.reshape(B, Sq, Hq, D).to(q.dtype), dk.to(k.dtype),
-            dv.to(v.dtype))
+    dq = dq.reshape(B, Sq, Hq, D)
+    if accumulate is not None:
+        for acc, g in zip(accumulate, (dq, dk, dv)):
+            acc += g
+        return tuple(accumulate)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -338,7 +369,7 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, *, causal=True,
 def _bwd_lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention_bwd")
     if lib.flash_attention_bwd.argtypes is None:
-        lib.flash_attention_bwd.argtypes = [_P] * 10 + [_I] * 10 \
+        lib.flash_attention_bwd.argtypes = [_P] * 10 + [_I] * 11 \
             + [ctypes.c_float, _P]
         lib.flash_attention_bwd.restype = _I
         lib.flash_attention_bwd_smem_bytes.argtypes = [_I] * 4
@@ -346,7 +377,7 @@ def _bwd_lib() -> ctypes.CDLL:
     return lib
 
 
-def _flash_bwd_cuda(q, k, v, out, lse, dout, causal, window):
+def _flash_bwd_cuda(q, k, v, out, lse, dout, causal, window, accumulate):
     D, Dv = q.shape[-1], v.shape[-1]
     top = MAX_BWD_HEAD_DIM.get(q.dtype)
     if top is not None and max(D, Dv) > top:
@@ -363,7 +394,13 @@ def _flash_bwd_cuda(q, k, v, out, lse, dout, causal, window):
                          f"dout {dout.dtype} must be q's {q.dtype}")
     B, Sq, Hq, _ = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
-    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if accumulate is None:
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    else:
+        dq, dk, dv = accumulate
+        if any(t.data_ptr() % 16 for t in accumulate):
+            raise ValueError("flash attention backward: accumulate's "
+                             "buffers must start on a 16-byte boundary")
     delta = torch.empty((B, Sq, Hq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -372,32 +409,42 @@ def _flash_bwd_cuda(q, k, v, out, lse, dout, causal, window):
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             B, Sq, Skv, Hq, Hkv, D, Dv, int(causal), int(window),
-            _DTYPE_CODE[q.dtype], D ** -0.5, stream)
+            int(accumulate is not None), _DTYPE_CODE[q.dtype], D ** -0.5,
+            stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_bwd ({BWD_VARIANTS[q.dtype]}): "
                            f"CUDA error {rc} "
                            f"({torch.cuda.get_device_name(q.device)})")
     LAUNCHES["flash_attention_bwd"] += 1
     LAUNCHES[f"flash_attention_bwd:{BWD_VARIANTS[q.dtype]}"] += 1
+    if accumulate is not None:
+        LAUNCHES["flash_attention_bwd:acc"] += 1
     return dq, dk, dv
 
 
 def flash_attention_bwd_kernel(q, k, v, out, lse, dout, *, causal=True,
-                               window=0, block_q=128, block_kv=128):
+                               window=0, block_q=128, block_kv=128,
+                               accumulate=None):
     """(dq, dk, dv).  CPU tensors run ``flash_attention_bwd_plain``; CUDA
     tensors the three backward kernels (``mma`` for bf16, head dims up to
     256; ``fma`` for f32, up to 128; ``block_q``/``block_kv`` steer the
-    plain version alone)."""
+    plain version alone).  ``accumulate``: f32 (dq, dk, dv) buffers shaped
+    as q, k, v, into which the f32 gradients are added (and which are
+    returned) in place of gradients rounded to the inputs' type."""
     _validate(q, k, v, window, block_q, block_kv)
     _validate_bwd(q, k, v, out, lse, dout)
+    if accumulate is not None:
+        _validate_accumulate(q, k, v, accumulate)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, lse, dout,
                                          causal=causal, window=window,
-                                         block_q=block_q, block_kv=block_kv)
+                                         block_q=block_q, block_kv=block_kv,
+                                         accumulate=accumulate)
     if q.device.type != "cuda":
         raise ValueError(f"flash attention backward: no kernel for "
                          f"{q.device}")
-    return _flash_bwd_cuda(q, k, v, out, lse, dout, causal, window)
+    return _flash_bwd_cuda(q, k, v, out, lse, dout, causal, window,
+                           accumulate)
 
 
 class FlashAttentionFunction(torch.autograd.Function):

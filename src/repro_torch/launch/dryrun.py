@@ -21,7 +21,8 @@ fake process group of 256 or 512 ranks in this one process
   (``ShardPlan.step_schedule``: the gathers at use in the forward and
   again under remat, the gradients' reduce-scatters and replicate-axis
   all-reduces, the loss's and the clip's all-reduces, an MoE layer's
-  count of routed tokens).
+  count of routed tokens, and a channel-parallel RG-LRU layer's
+  activation collectives: RecurrentGemma-2B's).
 
 XLA's partitioner is what the reference reads ``temp_bytes``, and a
 serving step's collectives, from; the port has no counterpart, so those
@@ -113,9 +114,9 @@ def step_collectives(cfg, shape, mesh):
     params = param_structs(cfg)
     entry = batch_axes(shape.global_batch, mesh,
                        include_model=cfg.train_batch_over_model)
-    plan = ShardPlan(mesh, entry)
+    plan = ShardPlan(mesh, entry, cfg)
     plan.shard(params, param_specs(params, cfg, mesh))
-    out = plan.step_schedule(cfg, shape.global_batch * shape.seq_len,
+    out = plan.step_schedule(shape.global_batch * shape.seq_len,
                              grad_clip=True)
     return {**out, "total_bytes": sum(out["bytes"].values()),
             "schedule": SCHEDULE}

@@ -160,13 +160,17 @@ def ffn_forward(params, h, cfg, moe_flag):
 
 def _block_forward(lp, x, cfg, kind, moe_flag, positions, *, causal=True,
                    enc_kv=None, want_cache=False, want_aux=False,
-                   rows=sharding.WHOLE_BATCH):
+                   rows=sharding.WHOLE_BATCH,
+                   channels=sharding.ALL_CHANNELS):
     """Returns (x, aux, cache_entry_or_None).  ``enc_kv``: the encoder's
     output, which a decoder layer of an encoder-decoder attends after its
     self-attention (its keys and values join the cache entry).  ``aux``:
     an MoE layer's load-balance loss when ``want_aux`` (training), else
     None.  ``rows``: the batch's row split (``sharding.row_split``),
-    which an MoE layer's statistics span."""
+    which an MoE layer's statistics span.  ``channels``: an RG-LRU
+    layer's ``sharding.ChannelSplit`` (``sharding.channel_split``) when
+    its leaves are this rank's channel block, else
+    ``sharding.ALL_CHANNELS``."""
     h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
     window = window_for(cfg, kind)
     cache = None
@@ -181,7 +185,8 @@ def _block_forward(lp, x, cfg, kind, moe_flag, positions, *, causal=True,
         if want_cache:
             cache = {"c": c, "k_rope": krope}
     elif kind == RGLRU:
-        y, st = rglru_mod.rglru_prefill(lp["attn"], h, cfg)
+        y, st = rglru_mod.rglru_prefill(lp["attn"], h, cfg,
+                                        channels=channels)
         if want_cache:
             cache = st
     elif kind == MAMBA2:
@@ -239,10 +244,15 @@ def _run_stage(stage_params, x, cfg, kind, moe_flag, count, positions, *,
     checkpointed function returns (x, aux).  On a mesh
     (``train(mesh=...)``) each layer's leaves are gathered whole inside
     that function (``sharding.layer_gatherer``), so the backward gathers
-    them again and no whole copy is kept between the passes."""
+    them again and no whole copy is kept between the passes; a
+    channel-parallel RG-LRU branch keeps its channel block instead
+    (``sharding.channel_split``).  The plan's pieces are taken here,
+    outside ``checkpoint``, whose recompute runs where no plan is
+    active."""
     per_layer = unbind_layers(stage_params)
     gather = sharding.layer_gatherer(stage_params)
     rows = sharding.row_split()
+    channels = sharding.channel_split(stage_params)
 
     def layers(x, lo, hi):
         aux, caches = None, []
@@ -251,7 +261,8 @@ def _run_stage(stage_params, x, cfg, kind, moe_flag, count, positions, *,
                                          kind, moe_flag, positions,
                                          causal=causal, enc_kv=enc_out,
                                          want_cache=want_cache,
-                                         want_aux=want_aux, rows=rows)
+                                         want_aux=want_aux, rows=rows,
+                                         channels=channels)
             aux = a if aux is None else aux + a
             caches.append(cache)
         return x, aux, caches

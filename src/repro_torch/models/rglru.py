@@ -13,6 +13,17 @@ the gates and the recurrence in f32, ``u``, ``gate`` and ``y`` in the
 activation dtype, the cached ``h`` rounded to it at the end of prefill
 and after every decode step, ``lam`` f32 in a bf16 model.
 
+Training on a mesh whose batch stays off the model axis
+(``cfg.train_batch_over_model=False``, the reference's "channel-parallel
+recurrence", which it pins with ``_pin_channel_sharding``) hands
+``rglru_prefill`` a ``sharding.ChannelSplit``: the leaves are this
+rank's channel block, the projections, the conv, the scan and
+``h * gate`` run on d_rnn / model channels, the gates take every channel
+of the conv output (``channels.gather``), and the output's partial sums
+are all-reduced (``channels.leave``).  Elsewhere (serving, ``train()``)
+``channels`` is ``sharding.ALL_CHANNELS``, whose calls return their
+input.
+
 Prefill runs the diagonal linear recurrence as the reference does, in
 tiles of ``chunk`` steps with the (B, d_rnn) boundary state carried from
 tile to tile; inside a tile a Hillis-Steele scan over (a, b) pairs takes
@@ -25,6 +36,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import sharding
 from repro_torch.models.layers import dense_init
 from repro_torch.models.ssm import _conv_tail, causal_conv, conv_step
 
@@ -56,25 +68,17 @@ def rglru_init(cfg, dtype, generator: torch.Generator, device):
     }
 
 
-def _gates(params, u):
-    """(a, b) of the recurrence, f32, from the conv output u."""
-    r_gate = torch.sigmoid((u @ params["w_gate_a"]).float())
-    i_gate = torch.sigmoid((u @ params["w_gate_i"]).float())
+def _gates(params, u, channels=sharding.ALL_CHANNELS):
+    """(a, b) of the recurrence, f32, from the conv output u (this rank's
+    channels under a ``ChannelSplit``, whose gates read every channel)."""
+    u_all = channels.gather(u)
+    r_gate = torch.sigmoid((u_all @ params["w_gate_a"]).float())
+    i_gate = torch.sigmoid((u_all @ params["w_gate_i"]).float())
     log_a = -_C * F.softplus(params["lam"]) * r_gate
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-9)) \
         * i_gate * u.float()
     return a, b
-
-
-def _pin_channel_sharding(t):
-    """The reference's layout pin of the recurrent branch (batch over
-    ``data``, channels over ``model``: a sharding constraint, no effect
-    on values).  The port's layers run on local tensors with the channels
-    whole (``train(mesh=...)`` gathers the weights at use; the
-    channel-parallel layout is ROADMAP.md item 12c), so it returns ``t``
-    itself."""
-    return t
 
 
 def linear_scan(a, b, chunk=RGLRU_CHUNK):
@@ -106,25 +110,27 @@ def linear_scan(a, b, chunk=RGLRU_CHUNK):
     return h.reshape(B, nc * chunk, C)[:, :S]
 
 
-def rglru_prefill(params, x, cfg, initial=None, chunk=RGLRU_CHUNK):
+def rglru_prefill(params, x, cfg, initial=None, chunk=RGLRU_CHUNK,
+                  channels=sharding.ALL_CHANNELS):
     """x: (B, S, d); ``initial``: a cache dict whose ``h`` (B, d_rnn) the
-    recurrence starts from (zeros without it).  Returns (y, cache
-    {conv_state, h})."""
+    recurrence starts from (zeros without it); ``channels``: a
+    ``sharding.ChannelSplit`` when ``params`` are this rank's channel
+    block (training on a mesh; the cache is then this rank's channels).
+    Returns (y, cache {conv_state, h})."""
     r = cfg.rglru
+    x = channels.enter(x)
     u = x @ params["w_branch_x"]
     # jax.nn.gelu is the tanh approximation
     gate = F.gelu(x @ params["w_branch_gate"], approximate="tanh")
-    u = _pin_channel_sharding(u)
-    gate = _pin_channel_sharding(gate)
     u_pre = u
     u = causal_conv(u, params["conv_w"], params["conv_b"])
-    a, b = _gates(params, u)
+    a, b = _gates(params, u, channels)
     if initial is not None:
         # fold the initial hidden state into the first step's offset
         b[:, 0] += a[:, 0] * initial["h"].float()
     h = linear_scan(a, b, chunk)
     y = h.to(x.dtype) * gate
-    out = y @ params["w_out"]
+    out = channels.leave(y @ params["w_out"])
     cache = {"conv_state": _conv_tail(u_pre, r.conv_width),
              "h": h[:, -1].to(x.dtype)}
     return out, cache

@@ -40,9 +40,23 @@ leaf, innermost first, in ``shard_index``'s order), and the backward
 reduce-scatters the whole leaf's gradient back to the shard, a sum over
 those axes.  Every layer then sees whole weights; only its rows differ
 from rank to rank.  The model reads the plan that ``activate`` sets
-(``gather_at_use``, ``layer_gatherer``, ``row_split``); with none
-active every call is the identity, so serving and ``train()`` run as
-without a mesh.
+(``gather_at_use``, ``layer_gatherer``, ``row_split``,
+``channel_split``); with none active every call is the identity, so
+serving and ``train()`` run as without a mesh.
+
+The one exception is the recurrent branch of a stack that keeps its batch
+off the model axis (``cfg.train_batch_over_model=False``, RecurrentGemma:
+the reference's "channel-parallel recurrence", batch over ``data`` x
+channels over ``model``).  On a model axis above 1 its RG-LRU leaves
+stay this rank's channel block (column shards, ``w_out`` a row shard):
+their ``model`` steps are dropped from the gathers (``data`` steps under
+fsdp stay), and the branch runs Megatron-style on d_rnn / model channels
+(``ChannelSplit``: an all-gather of the conv output's channels before the
+gates, which take every channel, and an all-reduce of the output's
+partial sums, with the all-reduce of the input's gradient at the branch's
+entry).  Such a leaf's gradient is then its block's whole gradient on
+every model rank, so ``reduce_grads_`` divides it by the world size over
+the model axis's size.
 """
 from __future__ import annotations
 
@@ -483,14 +497,114 @@ WHOLE_BATCH = WholeBatch()
 
 class PlacedLeaf(NamedTuple):
     """One parameter as ``ShardPlan.shard`` placed it: its tree path, this
-    rank's shard's shape and element size, its ``gather_steps``, the mesh
-    axes that split it and those (of size above 1) that replicate it."""
+    rank's shard's shape and element size, the all-gathers that make it
+    whole at use (``gather_steps``, less those over ``local``), the mesh
+    axes that split it, those (of size above 1) that replicate it, and
+    those whose split it keeps at use (the channel-parallel RG-LRU's
+    ``model``)."""
     path: tuple
     shape: tuple
     itemsize: int
     steps: tuple
     split: tuple
     replicated: tuple
+    local: tuple = ()
+
+
+def channel_parallel_stages(cfg: ModelConfig, sizes) -> tuple:
+    """The stages (``stage_i``) whose RG-LRU branch runs channel-parallel
+    over ``model`` (``ChannelSplit``): those of kind RGLRU when the batch
+    stays off the model axis (``cfg.train_batch_over_model=False``) and
+    that axis is above 1; a model axis that does not divide d_rnn is
+    refused."""
+    from repro_torch.configs.base import RGLRU
+    from repro_torch.models.model import model_stages
+
+    m = sizes.get("model", 1)
+    if cfg.train_batch_over_model or m <= 1 or cfg.rglru is None:
+        return ()
+    stages = tuple(f"stage_{i}" for i, (kind, _, _) in
+                   enumerate(model_stages(cfg)) if kind == RGLRU)
+    d_rnn = cfg.rglru.d_rnn or cfg.d_model
+    if stages and d_rnn % m:
+        raise ValueError(f"train(mesh=...): the channel-parallel RG-LRU "
+                         f"needs d_rnn {d_rnn} to split over the model "
+                         f"axis of {m} ranks")
+    return stages
+
+
+class _EnterChannels(torch.autograd.Function):
+    """The branch's input: itself forward; backward, the sum over the
+    model axis of each rank's partial gradient (from its channels)."""
+
+    @staticmethod
+    def forward(ctx, x, split):
+        ctx.split = split
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        split = ctx.split
+        return split.comm.all_reduce_(grad.contiguous().clone(),
+                                      (split.axis,)), None
+
+
+class _LeaveChannels(torch.autograd.Function):
+    """The branch's output: the sum over the model axis of each rank's
+    partial product (its rows of ``w_out``); backward, itself."""
+
+    @staticmethod
+    def forward(ctx, y, split):
+        return split.comm.all_reduce_(y.contiguous().clone(), (split.axis,))
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class ChannelSplit:
+    """The collectives of a recurrent branch whose channels are split over
+    ``axis`` (the plan's ``model``), taken with their group outside any
+    ``checkpoint`` (its recompute runs on autograd's thread):
+
+    - ``enter(x)``: the branch's input (identity; the gradient all-reduced);
+    - ``gather(u)``: (..., C / size) -> (..., C), every rank's channel
+      block in coordinate order (an all-gather; the gradient
+      reduce-scattered back);
+    - ``leave(y)``: the branch's output summed over the ranks (an
+      all-reduce; the gradient passes through)."""
+
+    def __init__(self, comm, axis="model"):
+        self.comm, self.axis = comm, axis
+
+    def enter(self, x):
+        return _EnterChannels.apply(x, self)
+
+    def gather(self, u):
+        return GatherAtUse.apply(u, ((u.ndim - 1, self.axis),), self.comm)
+
+    def leave(self, y):
+        return _LeaveChannels.apply(y, self)
+
+
+class AllChannels:
+    """The recurrent branch of a process that holds every channel:
+    ``enter``, ``gather`` and ``leave`` return their input."""
+
+    @staticmethod
+    def enter(x):
+        return x
+
+    @staticmethod
+    def gather(u):
+        return u
+
+    @staticmethod
+    def leave(y):
+        return y
+
+
+ALL_CHANNELS = AllChannels()
 
 
 class ShardPlan:
@@ -511,17 +625,24 @@ class ShardPlan:
     - ``global_norm``: the clip's norm of the sharded tree, each leaf's
       sum of squares summed over the axes that split it;
     - ``rows``: the batch rows' split, for statistics over the whole
-      batch (the MoE layers').
+      batch (the MoE layers');
+    - ``channel_split``: for ``cfg``'s ``channel_parallel_stages``, whose
+      RG-LRU leaves keep their ``model`` split (module docstring), the
+      branch's ``ChannelSplit``, counted on ``comm`` with the rest.
 
     A mesh axis of size 1 gathers, copies and reduces nothing."""
 
-    def __init__(self, mesh, batch_entry):
+    def __init__(self, mesh, batch_entry, cfg: ModelConfig):
         axes = mesh_axes(mesh)
+        self.cfg = cfg
         self.axes, self.sizes = axes, dict(axes.shape)
         self.world = axes.size
         self.coords = {n: mesh.get_local_rank(n) for n in axes.axis_names}
         self.comm = Collectives(mesh)
         self.rows = RowSplit(mesh, batch_entry, self.coords, self.comm)
+        self.channel_stages = channel_parallel_stages(cfg, self.sizes)
+        self._channels = ChannelSplit(self.comm)
+        self._branches = {}       # id(branch) -> a channel stage's "attn"
         self._steps = {}          # id(shard) -> (shard, gather steps)
         self.leaves = []          # a PlacedLeaf per leaf, in tree order
 
@@ -554,15 +675,25 @@ class ShardPlan:
                 tree[k] = piece
                 del v
                 steps = gather_steps(spec, self.sizes)
-                split = tuple(n for n in self.axes.axis_names
-                              if any(n == name for _, name in steps))
                 named = {n for e in spec for n in _axis_names(e)}
+                split = tuple(n for n in self.axes.axis_names
+                              if self.sizes[n] > 1 and n in named)
                 replicated = tuple(n for n in self.axes.axis_names
                                    if self.sizes[n] > 1 and n not in named)
+                local = ()
+                if len(path) == 3 and path[0] == "stages" and \
+                        path[1] in self.channel_stages and path[2] == "attn":
+                    if "model" not in split:
+                        raise ValueError(
+                            f"train(mesh=...): {'/'.join(path + (k,))} is "
+                            "not split over the model axis")
+                    local = ("model",)
+                    steps = tuple(st for st in steps if st[1] != "model")
+                    self._branches[id(tree)] = tree
                 self._steps[id(piece)] = (piece, steps)
                 self.leaves.append(PlacedLeaf(
                     path + (k,), tuple(piece.shape), piece.element_size(),
-                    steps, split, replicated))
+                    steps, split, replicated, local))
 
         put(params, specs, ())
         return params
@@ -605,14 +736,26 @@ class ShardPlan:
 
         return lambda layer: gather(layer, steps)
 
+    def channel_split(self, stage):
+        """The ``ChannelSplit`` of the stacked ``stage``'s RG-LRU branch
+        when its leaves keep their channel blocks, else ``ALL_CHANNELS``."""
+        branch = stage.get("attn")
+        if branch is not None and self._branches.get(id(branch)) is branch:
+            return self._channels
+        return ALL_CHANNELS
+
     def reduce_grads_(self, grads):
         """The gradients (in tree order), each summed in place over the
-        axes that replicate its leaf, then divided by the world size."""
+        axes that replicate its leaf, then divided by the world size (by
+        its quotient by the axes whose split the leaf keeps at use: each of
+        their ranks holds its block's whole gradient, where a gathered
+        leaf's reduce-scatter summed the ranks' copies)."""
         for g, leaf in zip(grads, self.leaves, strict=True):
             if leaf.replicated:
                 self.comm.all_reduce_(g, leaf.replicated)
-            if self.world > 1:
-                g.div_(self.world)
+            div = self.world // math.prod(self.sizes[n] for n in leaf.local)
+            if div > 1:
+                g.div_(div)
 
     def mean_loss(self, loss):
         """The mean over the ranks of each rank's loss."""
@@ -636,8 +779,7 @@ class ShardPlan:
             total = sq if total is None else total + sq
         return torch.sqrt(total)
 
-    def step_schedule(self, cfg: ModelConfig, n_tokens: int,
-                      grad_clip: bool):
+    def step_schedule(self, n_tokens: int, grad_clip: bool):
         """One device's collectives of one ``train(mesh=...)`` step, from
         this plan (``launch.dryrun``): {"bytes", "counts"} by kind.  Each
         decoder layer's leaves are gathered once in the forward and once
@@ -646,10 +788,13 @@ class ShardPlan:
         scatters its gradient back once.  Then the gradients' all-reduces
         over the axes that replicate them, the loss's, the clip's over the
         axes that split leaves, and an MoE layer's count of routed tokens
-        per forward (``n_tokens`` of the whole batch reach it)."""
+        per forward (``n_tokens`` of the whole batch reach it), and the
+        channel-parallel RG-LRU layers' activation collectives
+        (``channel_schedule``)."""
         from repro_torch.models.model import model_stages
         from repro_torch.models.moe import chunk_layout
 
+        cfg = self.cfg
         out = {"bytes": dict.fromkeys(COLLECTIVE_KINDS, 0),
                "counts": dict.fromkeys(COLLECTIVE_KINDS, 0)}
 
@@ -690,6 +835,43 @@ class ShardPlan:
                 n_tokens)[1]
             add("all-gather", self.world * chunks * cfg.moe.n_experts * 8,
                 n_moe * per_forward)
+        for key, by_kind in self.channel_schedule(n_tokens).items():
+            for kind, v in by_kind.items():
+                out[key][kind] += v
+        return out
+
+    def channel_schedule(self, n_tokens: int):
+        """The channel-parallel RG-LRU layers' share of ``step_schedule``:
+        per layer and forward
+        (twice under remat), the all-gather of its conv output (this
+        rank's rows by d_rnn) and the all-reduce of its output (rows by
+        d_model); per backward, the former's reduce-scatter (rows by d_rnn
+        / model) and the all-reduce of its input's gradient (rows by
+        d_model), in the activations' dtype."""
+        from repro_torch.models.layers import dtype_of
+        from repro_torch.models.model import model_stages
+
+        cfg = self.cfg
+        out = {"bytes": dict.fromkeys(COLLECTIVE_KINDS, 0),
+               "counts": dict.fromkeys(COLLECTIVE_KINDS, 0)}
+        if not self.channel_stages:
+            return out
+
+        def add(kind, nbytes, times):
+            out["bytes"][kind] += nbytes * times
+            out["counts"][kind] += times
+
+        n_rec = sum(n for i, (_, _, n) in enumerate(model_stages(cfg))
+                    if f"stage_{i}" in self.channel_stages)
+        per_forward = n_rec * (2 if cfg.remat else 1)
+        rows = n_tokens // self.rows.count
+        item = torch.empty((), dtype=dtype_of(cfg)).element_size()
+        d_rnn = cfg.rglru.d_rnn or cfg.d_model
+        add("all-gather", rows * d_rnn * item, per_forward)
+        add("all-reduce", rows * cfg.d_model * item, per_forward)
+        add("reduce-scatter", rows * d_rnn // self.sizes["model"] * item,
+            n_rec)
+        add("all-reduce", rows * cfg.d_model * item, n_rec)
         return out
 
 
@@ -739,6 +921,14 @@ def layer_gatherer(stage):
     whole; the identity with no plan active."""
     plan = _ACTIVE.get()
     return _same if plan is None else plan.layer_gatherer(stage)
+
+
+def channel_split(stage):
+    """The active plan's ``ChannelSplit`` for the stacked ``stage`` when
+    its RG-LRU branch runs channel-parallel, else ``ALL_CHANNELS`` (and
+    with no plan active)."""
+    plan = _ACTIVE.get()
+    return ALL_CHANNELS if plan is None else plan.channel_split(stage)
 
 
 def row_split():

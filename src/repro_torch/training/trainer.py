@@ -22,7 +22,14 @@ order, ``models.sharding.shard_index``); the gradients are summed over
 the ranks and divided by the world size before ``AdamW.update``, whose
 clip sees the whole tree's norm, and the logged loss is the ranks' mean.
 An MoE layer's capacity and load-balance loss span the whole batch
-(``models.moe``).  A checkpoint holds whole leaves, as ``train()``'s.  At
+(``models.moe``).  A stack that keeps its batch off the model axis
+(``train_batch_over_model=False``: RecurrentGemma-2B) runs its RG-LRU
+branch channel-parallel over ``"model"``, the reference's layout (batch
+over ``"data"`` x channels over ``"model"``): each model rank keeps its
+channel block of the branch's leaves, never gathers it, and runs the
+recurrence on d_rnn / model channels (``models.sharding.ChannelSplit``);
+that stack's attention and MLP layers gather their weights as the
+others do.  A checkpoint holds whole leaves, as ``train()``'s.  At
 world size 1 this is ``train()`` bit for bit.  A vision stack's
 batches carry stubbed patch embeddings (``patch_embeds``), an
 encoder-decoder's (``audio_stub``, Whisper) stubbed frame embeddings
@@ -164,7 +171,10 @@ def train(cfg: ModelConfig, tc: TrainConfig = TrainConfig(), mesh=None,
 class MeshTrainer:
     """``train(mesh=...)``'s placement of parameters (``ShardPlan``) and
     of batch rows over a ``DeviceMesh`` that spans the default process
-    group."""
+    group: weights gathered at use, and, for a stack with
+    ``train_batch_over_model=False``, the RG-LRU branch's leaves left in
+    their channel blocks over ``"model"`` (the channel-parallel layout;
+    a model axis that does not divide d_rnn is refused)."""
 
     def __init__(self, cfg: ModelConfig, tc: TrainConfig, mesh):
         import torch.distributed as dist
@@ -178,7 +188,7 @@ class MeshTrainer:
                              f"of the group's {world} ranks")
         self.cfg, self.axes, self.rank = cfg, axes, dist.get_rank()
         self.plan = ShardPlan(mesh, batch_axes(
-            tc.batch, axes, include_model=cfg.train_batch_over_model))
+            tc.batch, axes, include_model=cfg.train_batch_over_model), cfg)
 
     def place(self, params):
         """Each leaf replaced, in the tree, by this rank's shard under its

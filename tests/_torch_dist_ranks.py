@@ -5,8 +5,16 @@ for the port's multi-rank tests.  The test starts one process per rank:
 
 - ``ring``: the reference's three ring cases (``RING_CASES``) through
   ``ring_attention_sharded`` on a ``("data", "model")`` host mesh of WORLD
-  x 1; rank 0 saves every case's global output and the in-process
-  ``ring_attention_shards`` over WORLD shards to OUT (``.npz``).
+  x 1, forward and backward at ``ring_dout``; rank 0 saves every case's
+  global output and the in-process ``ring_attention_shards`` over WORLD
+  shards, forward and gradients, to OUT (``.npz``), and every rank the
+  gradients that reached its global q, k, v to ``OUT.rank<rank>.npz``.
+- ``channels``: the channel-parallel RG-LRU cases of ``CHANNEL_CASES``
+  whose mesh holds WORLD ranks: step 0's gradients (reduced as
+  ``train(mesh=...)`` reduces them, gathered whole), the widths
+  ``linear_scan`` saw, each RG-LRU leaf's gather steps and one step's
+  collectives as counted and as scheduled; rank 0 writes them to OUT
+  (JSON) and the gradients to ``OUT.<case>.grads.npz``.
 - ``train``: smoke Llama-2 in f32, ``train(mesh=make_host_mesh(...))``
   for ``TRAIN_STEPS`` steps; rank 0 writes the losses to OUT (JSON).
 - ``train_model_axis``: the same on a (1, WORLD) mesh: a ``"model"``
@@ -38,6 +46,15 @@ def ring_inputs(S, Hq, Hkv):
             for h in (Hq, Hkv, Hkv)]
 
 
+def ring_dout(S, Hq, Hkv):
+    """The output's gradient of a ring case: the next draw of
+    ``ring_inputs``' generator."""
+    rng = np.random.default_rng(0)
+    for h in (Hq, Hkv, Hkv):
+        rng.standard_normal((2, S, h, 16))
+    return rng.standard_normal((2, S, Hq, 16)).astype(np.float32)
+
+
 def train_config():
     import dataclasses
 
@@ -55,7 +72,8 @@ def train_config():
 # ``chunk`` (DISPATCH_CHUNK_TOKENS for the run), ``ckpt``, ``count``: one
 # step's collectives counted, ``shards``: every rank's initial shards
 # saved, ``reference``: from the reference's weights, held to its
-# ``train``)
+# ``train``: True, its losses and final parameters; ``"losses"``, its
+# losses alone)
 TP_CASES = {
     "llama_model2": ("llama2-7b", (1, 2), {}, {}),
     "granite_model2_remat": ("granite-3-2b", (1, 2), {"remat": True},
@@ -65,8 +83,22 @@ TP_CASES = {
     "minicpm3_model2": ("minicpm3-4b", (1, 2), {}, {}),
     "whisper_model2": ("whisper-large-v3", (1, 2), {}, {}),
     "internvl2_model2": ("internvl2-76b", (1, 2), {}, {}),
-    "rgemma_model2_rows_replicated": ("recurrentgemma-2b", (1, 2),
-                                      {"train_batch_over_model": False}, {}),
+    # the RG-LRU branch channel-parallel over the model axis (the batch
+    # kept off it); the same over (2, 2) with fsdp and remat, and from the
+    # reference's weights, held to the reference's losses (its final
+    # parameters to train()'s: from these weights train() in one process
+    # ends 1.07e-5 from the reference's at stages/stage_0/ffn/w_in, past
+    # the 1e-5 bound, Adam moving elements whose gradients sit at rounding
+    # level)
+    "rgemma_model2_channels": ("recurrentgemma-2b", (1, 2),
+                               {"train_batch_over_model": False}, {}),
+    "rgemma_fsdp_2x2_remat": ("recurrentgemma-2b", (2, 2),
+                              {"train_batch_over_model": False,
+                               "fsdp": True, "remat": True},
+                              {"count": True}),
+    "rgemma_model2_channels_ref": ("recurrentgemma-2b", (1, 2),
+                                   {"train_batch_over_model": False},
+                                   {"reference": "losses"}),
     "moe_dense_data2": ("deepseek-moe-16b", (2, 1), {"moe_impl": "dense"},
                         {"count": True}),
     "moe_dispatch_data2": ("deepseek-moe-16b", (2, 1),
@@ -93,6 +125,10 @@ TP_CASES = {
                                         "capacity_factor": 1.0},
                                        {"chunk": 48, "reference": True}),
 }
+
+
+# the channel-parallel RG-LRU cases of the ``channels`` job
+CHANNEL_CASES = ("rgemma_model2_channels", "rgemma_fsdp_2x2_remat")
 
 
 def tp_case(name):
@@ -296,10 +332,83 @@ def one_step_collectives(cfg, tc, mesh):
     state = opt.init(params)
     with activate(mt.plan):
         make_train_step(cfg, opt, mt.plan)(params, state, batch)
-    comm = mt.plan.comm
+    comm, n_tokens = mt.plan.comm, tc.batch * tc.seq_len
     return {"counted": {"bytes": comm.bytes, "counts": comm.counts},
-            "schedule": mt.plan.step_schedule(cfg, tc.batch * tc.seq_len,
-                                              bool(tc.grad_clip))}
+            "schedule": mt.plan.step_schedule(n_tokens, bool(tc.grad_clip)),
+            "channel_terms": mt.plan.channel_schedule(n_tokens)}
+
+
+def channel_run(name, mesh):
+    """One ``CHANNEL_CASES`` case on this rank: step 0's gradients (each
+    reduced by ``ShardPlan.reduce_grads_`` and gathered whole), the widths
+    of the (B, S, C) tensors ``linear_scan`` saw, the gather steps of the
+    RG-LRU leaves, and one step's collectives.  Returns (the JSON part,
+    the flat gradients)."""
+    import torch
+
+    from repro_torch.models import rglru
+    from repro_torch.models.model import loss_fn
+    from repro_torch.models.sharding import activate, gather_tree
+    from repro_torch.training.optim import tree_leaves
+
+    cfg, tc, _, _ = tp_case(name)
+    mt, params, batch = _placed(cfg, tc, mesh)
+    widths, scan = [], rglru.linear_scan
+
+    def spy(a, b, *args, **kw):
+        widths.append(a.shape[-1])
+        return scan(a, b, *args, **kw)
+
+    rglru.linear_scan = spy
+    try:
+        with activate(mt.plan):
+            grads = list(torch.autograd.grad(loss_fn(params, batch, cfg),
+                                             tree_leaves(params)))
+            mt.plan.reduce_grads_(grads)
+    finally:
+        rglru.linear_scan = scan
+    it = iter(grads)
+    whole = gather_tree(_like(params, it), mt.specs, mesh)
+    rec = {"/".join(leaf.path): [list(st) for st in leaf.steps]
+           for leaf in mt.plan.leaves if leaf.path[2:3] == ("attn",)
+           and leaf.path[1] in mt.plan.channel_stages}
+    return ({"scan_widths": widths, "rglru_steps": rec,
+             "local": sorted("/".join(leaf.path) for leaf in mt.plan.leaves
+                             if leaf.local),
+             "collectives": one_step_collectives(cfg, tc, mesh)},
+            flat(whole))
+
+
+def _like(tree, it):
+    if isinstance(tree, dict):
+        return {k: _like(v, it) for k, v in tree.items()}
+    return next(it)
+
+
+def ring_run(mesh, world, rank):
+    """The ``ring`` job: (rank 0's arrays, this rank's gradients)."""
+    import torch
+
+    from repro_torch.models.ring_attention import (ring_attention_shards,
+                                                   ring_attention_sharded)
+
+    saved, mine = {}, {}
+    for i, (S, Hq, Hkv, causal) in enumerate(RING_CASES):
+        q, k, v = (torch.from_numpy(a).requires_grad_()
+                   for a in ring_inputs(S, Hq, Hkv))
+        dout = torch.from_numpy(ring_dout(S, Hq, Hkv))
+        out = ring_attention_sharded(q, k, v, mesh, causal=causal)
+        out.backward(dout)
+        saved[f"ring{i}"] = out.detach().numpy()
+        for name, t in zip(("dq", "dk", "dv"), (q, k, v)):
+            mine[f"{name}{i}"] = t.grad.numpy()
+        q2, k2, v2 = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        shards = ring_attention_shards(q2, k2, v2, world, causal=causal)
+        shards.backward(dout)
+        saved[f"shards{i}"] = shards.detach().numpy()
+        for name, t in zip(("dq", "dk", "dv"), (q2, k2, v2)):
+            saved[f"shards_{name}{i}"] = t.grad.numpy()
+    return saved, mine
 
 
 def main(job, rank, world, store, out):
@@ -319,20 +428,25 @@ def main(job, rank, world, store, out):
                 with open(out, "w") as f:
                     json.dump(results, f)
             return
+        if job == "channels":
+            results = {}
+            for name in CHANNEL_CASES:
+                _, _, (data, model), _ = tp_case(name)
+                if data * model != world:
+                    continue
+                results[name], grads = channel_run(
+                    name, make_host_mesh(model=model, device="cpu"))
+                if rank == 0:
+                    np.savez(f"{out}.{name}.grads.npz", **grads)
+            if rank == 0:
+                with open(out, "w") as f:
+                    json.dump(results, f)
+            return
         mesh = make_host_mesh(model=world if job == "train_model_axis"
                               else 1, device="cpu")
         if job == "ring":
-            from repro_torch.models.ring_attention import (
-                ring_attention_shards, ring_attention_sharded)
-
-            saved = {}
-            for i, (S, Hq, Hkv, causal) in enumerate(RING_CASES):
-                q, k, v = (torch.from_numpy(a)
-                           for a in ring_inputs(S, Hq, Hkv))
-                saved[f"ring{i}"] = ring_attention_sharded(
-                    q, k, v, mesh, causal=causal).numpy()
-                saved[f"shards{i}"] = ring_attention_shards(
-                    q, k, v, world, causal=causal).numpy()
+            saved, mine = ring_run(mesh, world, rank)
+            np.savez(f"{out}.rank{rank}.npz", **mine)
             if rank == 0:
                 with open(out, "wb") as f:
                     np.savez(f, **saved)

@@ -7,7 +7,10 @@ the reference's own ring test holds itself to):
 - four gloo ranks (one process each, a ``FileStore``: no network) at the
   reference's three cases, (64, 4, 2, causal), (128, 8, 8, causal) and
   (64, 4, 4, full), head dim 16; every rank's ring equals
-  ``ring_attention_shards`` over four shards in one process, bit for bit;
+  ``ring_attention_shards`` over four shards in one process, bit for bit,
+  and so does its gradient (at ``ring_dout``): each rank's dq, dk and dv
+  of its own chunk, zeros elsewhere (``tests/test_torch_ring_backward.py``
+  holds the in-process gradient to the reference's);
 - the ring's steps and merge over 2, 4 and 8 shards in one process, and
   the ring's plain version (the reference's (m, l, acc) arithmetic);
 - bf16: the ring over 8 shards within ``ring_tolerance`` of one flash call
@@ -62,7 +65,13 @@ def test_ring_single_device_degenerate(host_mesh):
 
 @pytest.fixture(scope="module")
 def four_ranks(tmp_path_factory):
-    return np.load(run_ranks("ring", 4, tmp_path_factory.mktemp("ring")))
+    """Rank 0's arrays, and each rank's gradients as ``rank<r>_<name>``."""
+    out = run_ranks("ring", 4, tmp_path_factory.mktemp("ring"))
+    saved = dict(np.load(out))
+    for r in range(4):
+        saved.update({f"rank{r}_{k}": v for k, v in
+                      np.load(f"{out}.rank{r}.npz").items()})
+    return saved
 
 
 @pytest.mark.parametrize("case", range(len(RING_CASES)),
@@ -76,6 +85,26 @@ def test_ring_matches_naive_4ranks(four_ranks, case):
     err = float(np.abs(out - _naive(q, k, v, causal)).max())
     assert err < TOL, err
     assert np.array_equal(out, four_ranks[f"shards{case}"])
+
+
+@pytest.mark.parametrize("case", range(len(RING_CASES)),
+                         ids=[f"S{c[0]}_H{c[1]}_{c[2]}_"
+                              f"{'causal' if c[3] else 'full'}"
+                              for c in RING_CASES])
+def test_ring_backward_4ranks_is_in_process(four_ranks, case):
+    """Each rank's gradient of ``ring_attention_sharded`` reaches its own
+    chunk of the global q, k, v only, and equals the in-process
+    backward's there bit for bit."""
+    S = RING_CASES[case][0]
+    s = S // 4
+    for r in range(4):
+        for name in ("dq", "dk", "dv"):
+            got = four_ranks[f"rank{r}_{name}{case}"]
+            want = four_ranks[f"shards_{name}{case}"]
+            assert np.array_equal(got[:, r * s:(r + 1) * s],
+                                  want[:, r * s:(r + 1) * s]), (r, name)
+            rest = np.delete(got, np.s_[r * s:(r + 1) * s], axis=1)
+            assert not rest.any(), (r, name)
 
 
 @pytest.mark.parametrize("n", [2, 4, 8])
@@ -107,7 +136,8 @@ def test_ring_steps_skip_later_shards():
                           causal=False) for src in order]
         assert all(p is not None for p in full)
     o, lse = ring_step(q[:, :4], k[:, :4], v[:, :4], 0, 0)
-    assert torch.equal(ring_merge([(o, lse)], q.dtype), o)
+    out, big_l = ring_merge([(o, lse)], q.dtype)
+    assert torch.equal(out, o) and torch.equal(big_l, lse)
 
 
 @pytest.mark.parametrize("causal", [True, False])

@@ -11,18 +11,23 @@ ShardPlan``); rows are split over the batch's axes.  Against
   Granite-3-2B (GQA, tied embeddings, remat: the gathers inside the
   checkpointed layers), Mamba-2, MiniCPM3 (MLA), Whisper (the encoder's
   layers too), InternVL2 (the vision prefix) and RecurrentGemma with
-  ``train_batch_over_model=False`` (both model ranks hold the same rows);
+  ``train_batch_over_model=False`` (both model ranks hold the same rows,
+  and the RG-LRU branch runs channel-parallel: each rank keeps its
+  channel block of the branch's leaves; ``tests/test_torch_train_
+  channels.py`` holds its gradients and widths);
 - ``(2, 1)`` with ``fsdp=True``; ``(2, 2)`` with fsdp and remat, where a
-  weight is split over both axes;
+  weight is split over both axes (Llama-2, and RecurrentGemma
+  channel-parallel);
 - DeepSeek-MoE over ``(2, 1)``, ``moe_impl`` dense and dispatch (capacity
   factor 1.0: assignments drop), the dispatch once with chunks of 48 of
   the 128 tokens, so a chunk spans both ranks.
 
-Two cases start from the reference's weights (drawn by JAX, bridged)
+Three cases start from the reference's weights (drawn by JAX, bridged)
 and are also held to the reference's ``train`` itself, as
 ``tests/_torch_train_parity.py`` holds ``train()``: ``(2, 2)`` with fsdp
-and remat, and the MoE dispatch in chunks of 48 over ``(2, 1)`` (the
-reference's chunk set to 48 for the run).
+and remat, the MoE dispatch in chunks of 48 over ``(2, 1)`` (the
+reference's chunk set to 48 for the run), and channel-parallel
+RecurrentGemma over ``(1, 2)`` (its losses).
 
 The losses step for step within ``DP_LOSS_REL`` (1e-6) relative; the
 final parameters, gathered whole, within ``PARAM_REL`` (1e-5) of the
@@ -183,13 +188,17 @@ def test_case_matches_train(ranks, name):
 def test_case_matches_reference_train(ranks, name):
     """A reference case's losses within LOSS_REL (1e-5) relative of the
     reference's ``train`` step for step, and its final parameters,
-    gathered whole, within 1e-5 absolute (``check_train``'s bounds)."""
+    gathered whole, within 1e-5 absolute (``check_train``'s bounds; a
+    ``"losses"`` case's parameters are held to ``train()``'s by
+    ``test_case_matches_train``)."""
     res, out, _ = ranks[0][name]
     want_p, want = ranks[3][name]
     got = res["losses"]
     assert [s for s, _ in got] == [s for s, _ in want] == [0, 1, 2]
     for (_, a), (_, b) in zip(got, want):
         assert a == pytest.approx(b, rel=LOSS_REL), (name, got, want)
+    if TP_CASES[name][3]["reference"] == "losses":
+        return
     whole = np.load(f"{out}.{name}.npz")
     assert sorted(whole.files) == sorted(want_p)
     for k, w in want_p.items():
@@ -287,6 +296,17 @@ def test_dryrun_collectives_equal_a_2x2_step(ranks):
     assert counted["counts"]["all-gather"] > 0 and \
         counted["counts"]["reduce-scatter"] > 0
     assert "not XLA's" in got["schedule"]
+
+
+def test_channel_collectives_as_scheduled(ranks):
+    """Channel-parallel RecurrentGemma over (2, 2) with fsdp and remat:
+    one step's collectives, the branch's all-gathers, reduce-scatters and
+    all-reduces of activations included, as ``ShardPlan.step_schedule``
+    derives them."""
+    c = ranks[0]["rgemma_fsdp_2x2_remat"][0]["collectives"]
+    assert c["counted"] == c["schedule"]
+    branch = c["channel_terms"]["counts"]
+    assert branch["all-gather"] > 0 and branch["reduce-scatter"] > 0
 
 
 @pytest.mark.parametrize("name", ["moe_dense_data2",
