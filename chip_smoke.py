@@ -231,10 +231,10 @@ The quickest proof that the port builds and serves on an NVIDIA H100:
         GatherAtUse``: once in the forward, once more under remat, the
         gradient reduce-scattered back), each taking 2 of every batch's
         4 rows; the vocab of 49 155 does not split over 2, so the table
-        stays whole.  Step 0's loss within 1e-3 relative of P's, every
-        step within 1e-2, flash 2 x 40 x 8 and its backward 40 x 8 on
-        each rank, all ``mma``; each rank's peak and step time beside
-        P's; the collectives the ranks counted, equal to the schedule's
+        stays whole.  P's first 3 steps: step 0's loss within 1e-3
+        relative of P's, every step within 1e-2, flash 2 x 40 x 3 and its
+        backward 40 x 3 on each rank, all ``mma``; each rank's peak and
+        step time beside P's; the collectives the ranks counted, equal to the schedule's
         (``launch.dryrun.step_collectives``) at every step, and each
         kind's gloo rate alone on 256 MiB;
      X  DeepSeek-MoE-16B at full width, 4 of 28 layers (``reduced``),
@@ -242,11 +242,30 @@ The quickest proof that the port builds and serves on an NVIDIA H100:
         mesh of two rank processes on the card (as W): every weight split
         over "data" and gathered at use, the MoE capacity, queue places
         and load-balance loss over the whole batch (one all-gather of
-        routed-token counts per MoE layer and forward); TRAIN_QT's 4
-        steps against ``training.train`` of the same cut config and
-        weights in one process on the card: step 0 within 1e-3 relative,
-        every step within 1e-2; each rank's peak beside the single
-        process's;
+        routed-token counts per MoE layer and forward); the first 3 of
+        TRAIN_QT's 4 steps against ``training.train`` of the same cut
+        config and weights in one process on the card: step 0 within 1e-3
+        relative, every step within 1e-2; each rank's peak beside the
+        single process's;
+     Y  RecurrentGemma-2B, 6 of 26 layers (``reduced``), over a (1, 2)
+        mesh of two rank processes (as W), its RG-LRU branch
+        channel-parallel over "model", against one process;
+     Z  serving over a (1, 2) mesh of two rank processes on the card (as
+        W; ``models.sharding.ServePlan``: query and kv heads, experts,
+        the FFN hidden dim and the vocab over "model", only activations
+        moved): ``models.prefill`` of 4 prompts of 512 tokens, then 32
+        ``decode_step`` calls teacher-forced with one process's greedy
+        tokens over caches of 1024 slots, for Z1 Llama-2-7B as
+        registered, Z2 Mixtral-8x7B at 4 of 32 layers (4 of its 8 experts
+        a rank) and Z3 Llama-2-7B at 8 layers with int8 slot caches
+        (``reduced``); each rank launches flash once per layer on its 16
+        of 32 query heads and split-K once per layer and step on its kv
+        heads' cache shards (asserted, with the heads each launch saw),
+        counts its collectives (equal to ``serve_schedule``, asserted),
+        and every call's logits stay within 5e-2 of the largest of one
+        process's on the same weights and tokens, run first; each rank's
+        prefill and decode ms, the gloo transport's share of each, its
+        shard, cache and peak bytes;
    then ring attention (``models.ring_attention``) in bf16 at
    Llama-2-7B's attention (S 32 768, 32 heads of 128, causal) and
    Granite-3-2B's GQA (S 16 384, 32 query heads over 8 kv heads of 64,
@@ -262,10 +281,10 @@ The quickest proof that the port builds and serves on an NVIDIA H100:
    plus a check of run A's first-token logits against a dense forward,
    and ``torch.profiler`` windows (device busy share, kernel launches and
    device time by kernel per iteration): decode-heavy windows of the
-   configurations of runs A, D-H and K-O, prefill-heavy windows of A
-   (iterations that carry 512-row chunks), D, E, G and M (the first
-   iteration: the whole prompts of the requests it admits) and N (one
-   prefill call), and one training step of runs P and U;
+   configurations of runs A, D-H and K-O, prefill-heavy windows of E, G
+   and M (the first iteration: the whole prompts of the requests it
+   admits) and N (one prefill call), and one training step of runs P
+   and U;
    runs A, B and D-X must go through the tensor-core (``mma``) variants
    of their forward kernels and launch no ``fma`` variant, and no kernel
    a run does not expect (the backward kernels only in runs P-X);
@@ -275,9 +294,10 @@ The quickest proof that the port builds and serves on an NVIDIA H100:
    architecture's smoke config, the encoder-decoder refused by the
    engine), each one's seconds on the ``examples`` line;
 5. the dry-run (``python -m repro_torch.launch.dryrun --arch llama2-7b
-   --shape train_4k --mesh both``) in a subprocess that sees no card
-   (fake process groups of 256 and 512 ranks): one device's argument and
-   output bytes, FLOPs and collective bytes; and ``launch.train
+   --shape train_4k,decode_32k --mesh both``) in a subprocess that sees
+   no card (fake process groups of 256 and 512 ranks): one device's
+   argument and output bytes, FLOPs and collective bytes (training's
+   schedule and, for decode_32k, serving's); and ``launch.train
    --production`` on this one card, which must refuse with the
    world-size message;
 6. a ``seconds`` line (wall time of each phase), the nvidia-smi line, a
@@ -293,7 +313,8 @@ switched off for matmuls and cuDNN, so f32 products are full f32.
     python3 chip_smoke.py
 
 ``python3 chip_smoke.py --rank RUN RANK WORLD STORE OUT`` is one rank
-process of run W or X (``mesh_rank_main``), which the script starts
+process of run W, X or Y (``mesh_rank_main``), ``--rank Z RANK WORLD
+STORE OUT`` one of run Z (``serve_rank_main``), which the script starts
 itself.
 """
 from __future__ import annotations
@@ -390,19 +411,39 @@ TRAIN_RUNS = {
 # card (run -> arch, depth or None, (data, model) mesh, TrainConfig fields,
 # config fields replaced, steps run: the first of TrainConfig's steps,
 # under its learning-rate schedule); each within TRAIN_LOSS_TOL of its
-# baseline at every step and MESH_STEP0_REL relative at step 0.  W runs
-# the first 4 of run P's 8 steps (held to P's first 4 losses); Y is
-# RecurrentGemma-2B with its RG-LRU branch channel-parallel over the
-# model axis (the config's train_batch_over_model=False), 6 of 26 layers
-# (two (rec, rec, attn) units) at run T's shape
+# baseline at every step and MESH_STEP0_REL relative at step 0.  Each
+# runs its first 3 steps (cut from 4 for run Z's time): W the first 3 of
+# run P's 8 (held to P's first 3 losses), X and Y the first 3 of
+# TRAIN_QT's 4; Y is RecurrentGemma-2B with its RG-LRU branch
+# channel-parallel over the model axis (the config's
+# train_batch_over_model=False), 6 of 26 layers (two (rec, rec, attn)
+# units) at run T's shape
 MESH_RUNS = {
-    "W": ("granite-3-2b", None, (1, 2), TRAIN, {}, 4),
-    "X": ("deepseek-moe-16b", 4, (2, 1), TRAIN_QT, {"fsdp": True}, 4),
+    "W": ("granite-3-2b", None, (1, 2), TRAIN, {}, 3),
+    "X": ("deepseek-moe-16b", 4, (2, 1), TRAIN_QT, {"fsdp": True}, 3),
     "Y": ("recurrentgemma-2b", 6, (1, 2),
-          dict(TRAIN_QT, batch=2, seq_len=4096), {}, 4),
+          dict(TRAIN_QT, batch=2, seq_len=4096), {}, 3),
 }
 MESH_STEP0_REL = 1e-3
 MESH_RANK_TIMEOUT_S = 420
+# run Z: serving over a (1, 2) mesh of two rank processes on the card
+# (``models.sharding.ServePlan``: heads, experts, FFN hidden and vocab over
+# "model"), held to one process's prefill / decode_step on the same
+# weights and tokens: name -> (arch, n_layers or None: as registered,
+# config fields replaced); SERVE_PROMPTS prompts of SERVE_PROMPT_LEN
+# tokens, then SERVE_STEPS decode steps teacher-forced with the one
+# process's greedy tokens, caches of SERVE_MAX_LEN (64 pages of 16: the
+# split-K kernel); Z3 runs first: its calls warm each rank process (the
+# CUDA context, cuBLAS, the kernel libraries), so Z1's and Z2's times are
+# a warm process's
+SERVE_MESH_RUNS = {
+    "Z3": ("llama2-7b", 8, {"kv_quant": True}),
+    "Z1": ("llama2-7b", None, {}),
+    "Z2": ("mixtral-8x7b", 4, {}),
+}
+SERVE_MESH = (1, 2)
+SERVE_PROMPTS, SERVE_PROMPT_LEN = 4, 512
+SERVE_STEPS, SERVE_MAX_LEN = 32, 1024
 # run W's ranks also time each collective kind alone on bf16 CUDA tensors
 # of this many MiB of input, TRANSPORT_REPS calls after one warm-up
 TRANSPORT_MIB = 256
@@ -422,9 +463,11 @@ RING_CASES = [("llama2_S32768_h32_d128", 32768, 32, 32, 128, True),
               ("granite_S16384_gqa4_d64", 16384, 32, 8, 64, True),
               ("granite_S16384_gqa4_d64_full", 16384, 32, 8, 64, False)]
 # the dry-run line: the CLI in a subprocess on the CPU (a fake process
-# group of 256 and 512 ranks), held to this many seconds
-DRYRUN_ARGS = ("--arch", "llama2-7b", "--shape", "train_4k", "--mesh",
-               "both")
+# group of 256 and 512 ranks), a training and a serving shape, held to
+# this many seconds
+DRYRUN_SHAPES = ("train_4k", "decode_32k")
+DRYRUN_ARGS = ("--arch", "llama2-7b", "--shape", ",".join(DRYRUN_SHAPES),
+               "--mesh", "both")
 DRYRUN_TIMEOUT_S = 300
 
 
@@ -452,6 +495,8 @@ def emit(obj):
 
 def main() -> int:
     if sys.argv[1:2] == ["--rank"]:
+        if sys.argv[2] == "Z":
+            return serve_rank_main(sys.argv[3:])
         return mesh_rank_main(sys.argv[2:])
     import torch
     if not torch.cuda.is_available():
@@ -2085,12 +2130,10 @@ def engine_phase(torch, kernel_rows):
             device="cuda", **engine_kw), requests(False, long_prompts),
             window)
 
+    # (the prefill windows of A and D were cut for run Z's time)
     profiled("A", llama, 512, backend="paged")
-    profiled("A", llama, 512, "prefill", backend="paged")
     no_casts("D", profiled("D", llama, MAX_LEN_SLOTS, backend="slots",
                            chunked=False))
-    profiled("D", llama, MAX_LEN_SLOTS, "prefill", backend="slots",
-             chunked=False)
     no_casts("L", profiled("L", quant, MAX_LEN_SLOTS, backend="slots",
                            chunked=False))
     del llama, quant
@@ -2173,10 +2216,12 @@ def engine_phase(torch, kernel_rows):
     lap("H,I")
 
     # MiniCPM3-4B: MLA, whole-prompt prefill through flash at D = 96 /
-    # Dv = 64, absorbed latent decode (torch.bmm, no paged kernel)
+    # Dv = 64, absorbed latent decode (torch.bmm, no paged kernel); run
+    # C's short requests (prompts of 16-39 tokens, outputs under 64: cut
+    # for run Z's time), its decode window on the 12 long ones
     minicpm = setup(torch, "minicpm3-4b")
     _, first_k, runs["K"], _ = serve(
-        torch, "K", minicpm, MAX_LEN_SLOTS, False,
+        torch, "K", minicpm, MAX_LEN_SLOTS, True,
         dict(paged, flash_attention="per_layer_prefill",
              **{"flash_attention:mma": "per_layer_prefill"}),
         backend="slots", chunked=False)
@@ -2262,6 +2307,10 @@ def engine_phase(torch, kernel_rows):
     for run in MESH_RUNS:
         runs[run] = mesh_rank_run(torch, run)
         lap(run)
+    # run Z: serving over a (1, 2) mesh of two rank processes, heads,
+    # experts and vocab split over "model"
+    runs["Z"] = serve_mesh_run(torch)
+    lap("Z")
     (runs["ring"], kernel_rows["flash_attention"]["ring_shapes"],
      kernel_rows["flash_attention_bwd"]["ring_shapes"]) = ring_phase(torch)
     torch.distributed.destroy_process_group()
@@ -3140,6 +3189,346 @@ def mesh_rank_run(torch, run):
     return {name: total[name] for name in ranks[0]["launches"]}
 
 
+def serve_mesh_config(run):
+    """(cfg, reduced or None) of run Z1, Z2 or Z3."""
+    from repro_torch.configs import get_config
+
+    arch, n_layers, fields = SERVE_MESH_RUNS[run]
+    cfg = get_config(arch)
+    reduced = None
+    if n_layers is not None:
+        full = cfg.n_params()
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        reduced = {"n_layers": [get_config(arch).n_layers, n_layers],
+                   "n_params": [full, cfg.n_params()],
+                   "why": "two rank processes, each drawing the whole tree "
+                          "before it keeps its shards, and the one-process "
+                          "baseline share one card" if arch == "mixtral-8x7b"
+                          else "the smoke's time: Z1 serves the full depth; "
+                               "Z3 adds the int8 caches' route"}
+    return dataclasses.replace(cfg, **fields), reduced
+
+
+def serve_launches(cfg):
+    """A rank's launches in one Z run: flash once per layer in the prefill
+    (every prompt in one call), split-K once per layer and decode step
+    over its pools' dtype, nothing else of the port."""
+    L = cfg.n_layers
+    pools = "int8" if cfg.kv_quant else "bf16"
+    return {"flash_attention": L, "flash_attention:mma": L,
+            "paged_attention_splitk": L * SERVE_STEPS,
+            "paged_attention_splitk:mma": L * SERVE_STEPS,
+            f"paged_attention_splitk/{pools}": L * SERVE_STEPS}
+
+
+def serve_baseline(torch, run, path):
+    """One process's ``prefill`` and teacher-forced ``decode_step`` calls
+    of run ``run`` (its own greedy tokens) on the weights from SEED; the
+    prompts, the tokens fed and every call's logits (f32) saved to
+    ``path`` for the ranks and the checks.  Returns its times and peak."""
+    from repro_torch.models.model import decode_step, prefill
+    from repro_torch.weights import init_params
+
+    cfg, _ = serve_mesh_config(run)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED), "cuda")
+    prompts = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (SERVE_PROMPTS, SERVE_PROMPT_LEN))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, {"tokens": torch.from_numpy(
+        prompts).cuda()}, cfg, SERVE_MAX_LEN)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    calls, fed, step_ms = [logits.float().cpu()], [], []
+    for _ in range(SERVE_STEPS):
+        fed.append(calls[-1].argmax(-1))
+        t0 = time.perf_counter()
+        logits, cache = decode_step(params, fed[-1].cuda(), cache, cfg)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        calls.append(logits.float().cpu())
+    np.savez(path, prompts=prompts, fed=torch.stack(fed).numpy(),
+             logits=torch.stack(calls).numpy())
+    out = {"prefill_ms": prefill_ms,
+           "decode_ms_median": float(np.median(step_ms)),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    del params, cache, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_rank_main(argv) -> int:
+    """One rank process of run Z (``--rank Z RANK WORLD STORE OUT``): joins
+    the group over STORE (gloo, the ranks sharing the card), and for each
+    of Z1-Z3 draws the whole tree from SEED, keeps its shards
+    (``ServePlan.shard_params``; the rest freed), and under the plan
+    prefills its rows of the prompts and decodes SERVE_STEPS steps
+    teacher-forced with the one process's tokens (``serve_baseline``'s
+    file beside OUT).  Writes each run's times, peaks, shard bytes,
+    launches, the transport's time, the collectives counted per call
+    beside ``serve_schedule``'s to OUT (JSON), and rank 0 every call's
+    whole logits to ``OUT.<run>.npz``."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import join_ranks, make_host_mesh
+    from repro_torch.models.model import decode_step, prefill
+    from repro_torch.models.sharding import ServePlan, activate
+    from repro_torch.weights import init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, world, store, out = argv
+    rank, world = int(rank), int(world)
+    backend = join_ranks(store, rank, world, "cuda")
+    # the transport's wall time inside the timed calls: every collective
+    # from the card's queue drained to the call's return
+    transport = {"on": False, "s": 0.0}
+
+    def clocked(call):
+        def run(*args, **kw):
+            if not transport["on"]:
+                return call(*args, **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = call(*args, **kw)
+            torch.cuda.synchronize()
+            transport["s"] += time.perf_counter() - t0
+            return got
+        return run
+
+    dist.all_reduce = clocked(dist.all_reduce)
+    dist.all_gather_into_tensor = clocked(dist.all_gather_into_tensor)
+    # the (query heads, kv heads) each kernel launch of the layers saw
+    attn = importlib.import_module("repro_torch.models.attention")
+    heads = {"flash": set(), "paged": set()}
+
+    def spied(key, call, hq, hkv):
+        def run(*args, **kw):
+            heads[key].add((hq(args), hkv(args)))
+            return call(*args, **kw)
+        return run
+
+    attn.flash_attention_kernel = spied(
+        "flash", attn.flash_attention_kernel, lambda a: a[0].shape[2],
+        lambda a: a[1].shape[2])
+    attn.paged_attention = spied(
+        "paged", attn.paged_attention, lambda a: a[0].shape[1],
+        lambda a: a[1].shape[2])
+    lines = {}
+    try:
+        mesh = make_host_mesh(model=SERVE_MESH[1])
+        for run in SERVE_MESH_RUNS:
+            cfg, _ = serve_mesh_config(run)
+            with np.load(os.path.join(os.path.dirname(out),
+                                      f"{run}.npz")) as f:
+                prompts, fed = f["prompts"], f["fed"]
+            torch.cuda.reset_peak_memory_stats()
+            params = init_params(cfg, torch.Generator(
+                device="cuda").manual_seed(SEED), "cuda")
+            plan = ServePlan(mesh, cfg, SERVE_PROMPTS)
+            plan.shard_params(params)
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            draw_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            torch.cuda.reset_peak_memory_stats()
+            comm, calls, logits_all, step_ms, moved = plan.comm, [], [], [], []
+            reset_launch_counts()
+            for seen in heads.values():
+                seen.clear()
+
+            def call(fn, shape, cache_len):
+                before = {"bytes": dict(comm.bytes),
+                          "counts": dict(comm.counts)}
+                transport.update(on=True, s=0.0)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = fn()
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                transport["on"] = False
+                moved.append(transport["s"] * 1e3 / ms)
+                calls.append({
+                    "counted": {k: {kind: getattr(comm, k)[kind]
+                                    - before[k][kind] for kind in before[k]}
+                                for k in ("bytes", "counts")},
+                    "schedule": plan.serve_schedule(cfg, shape, cache_len)})
+                return got, ms
+
+            rows = plan.rows_of
+            with activate(plan):
+                (logits, cache), prefill_ms = call(lambda: prefill(
+                    params, {"tokens": rows(torch.from_numpy(prompts)
+                                            .cuda())}, cfg, SERVE_MAX_LEN),
+                    ShapeConfig("Z", SERVE_PROMPT_LEN, SERVE_PROMPTS,
+                                "prefill"), SERVE_MAX_LEN)
+                logits_all.append(plan.whole_logits(logits).float().cpu())
+                for toks in fed:
+                    (logits, cache), ms = call(lambda: decode_step(
+                        params, rows(torch.from_numpy(toks).cuda()), cache,
+                        cfg), ShapeConfig("Z", 1, SERVE_PROMPTS, "decode"),
+                        SERVE_MAX_LEN)
+                    step_ms.append(ms)
+                    logits_all.append(plan.whole_logits(logits)
+                                      .float().cpu())
+            launches = launch_counts()
+            if rank == 0:
+                np.savez(f"{out}.{run}.npz",
+                         logits=torch.stack(logits_all).numpy())
+            lines[run] = {
+                "rank": rank, "backend": backend, "layout": plan.layout,
+                "mesh": {"shape": list(mesh.shape),
+                         "axes": list(mesh.mesh_dim_names)},
+                "prefill_ms": prefill_ms,
+                "decode_ms_median": float(np.median(step_ms)),
+                "transport_share_prefill": moved[0],
+                "transport_share_decode_median": float(np.median(
+                    moved[1:])),
+                "shard_gib": sum(t.numel() * t.element_size()
+                                 for t in _leaves(params)) / 2 ** 30,
+                "cache_gib": sum(t.numel() * t.element_size()
+                                 for t in _leaves(cache)) / 2 ** 30,
+                "draw_peak_gib": draw_peak,
+                "serve_peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                "launches": launches, "calls": calls,
+                "heads": {k: sorted(v) for k, v in heads.items()}}
+            del params, cache, logits, plan
+            gc.collect()
+            torch.cuda.empty_cache()
+        with open(out, "w") as f:
+            json.dump(lines, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def serve_mesh_run(torch):
+    """Run Z: for each of Z1-Z3 one process's baseline first
+    (``serve_baseline``), then two rank processes (``serve_rank_main``,
+    this script with ``--rank Z``) over a (1, 2) mesh on the card, started
+    together over a ``FileStore`` and waited for (MESH_RANK_TIMEOUT_S, as
+    W-Y).  Holds every call's logits (rank 0's, gathered whole) within
+    DENSE_REL_TOL of the largest baseline logit and reports the greedy
+    agreement; each rank's launches equal ``serve_launches`` (flash on its
+    16 of 32 query heads, split-K on its kv heads' cache shards) and
+    nothing else of the port; each call's counted collectives equal
+    ``ServePlan.serve_schedule``.  Emits a ``serve_mesh`` line per run
+    (each rank's prefill and decode ms, the transport's share of each,
+    shard, cache and peak bytes; the baseline's times and peak beside).
+    Returns the ranks' launch counts, summed."""
+    import tempfile
+
+    world = SERVE_MESH[0] * SERVE_MESH[1]
+    total = Counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        base = {run: serve_baseline(torch, run, os.path.join(tmp,
+                                                              f"{run}.npz"))
+                for run in SERVE_MESH_RUNS}
+        out = os.path.join(tmp, "ranks.json")
+        logs = [open(os.path.join(tmp, f"rank{r}.log"), "w+")
+                for r in range(world)]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--rank", "Z",
+             str(r), str(world), os.path.join(tmp, "store"),
+             f"{out}.rank{r}"], cwd=ROOT, stdout=logs[r],
+            stderr=subprocess.STDOUT) for r in range(world)]
+        try:
+            for p in procs:
+                p.wait(timeout=max(1.0, MESH_RANK_TIMEOUT_S
+                                   - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        tails = []
+        for f in logs:
+            f.seek(0)
+            tails.append(f.read()[-3000:])
+            f.close()
+        codes = [p.returncode for p in procs]
+        check(codes == [0] * world, f"run Z: rank processes exited {codes} "
+              f"after {wall:.1f} s: {tails}")
+        ranks = [json.loads(pathlib.Path(f"{out}.rank{r}").read_text())
+                 for r in range(world)]
+        for run in SERVE_MESH_RUNS:
+            cfg, reduced = serve_mesh_config(run)
+            with np.load(os.path.join(tmp, f"{run}.npz")) as f:
+                want = f["logits"]
+            with np.load(f"{out}.rank0.{run}.npz") as f:
+                got = f["logits"]
+            rel = [float(np.abs(g - w).max() / np.abs(w).max())
+                   for g, w in zip(got, want)]
+            agree = float(np.mean(got.argmax(-1) == want.argmax(-1)))
+            lines = [r[run] for r in ranks]
+            expect = {name: 0 for name in lines[0]["launches"]}
+            expect.update(serve_launches(cfg))
+            line = {"phase": "serve_mesh", "run": run, "model": cfg.name,
+                    "entry": "models.prefill / decode_step under "
+                             "sharding.ServePlan, two rank processes",
+                    "n_layers": cfg.n_layers, "kv_quant": cfg.kv_quant,
+                    "moe_impl": cfg.moe_impl if cfg.moe else None,
+                    "layout": lines[0]["layout"], "mesh": lines[0]["mesh"],
+                    "transport": lines[0]["backend"],
+                    "prompts": SERVE_PROMPTS, "prompt_len": SERVE_PROMPT_LEN,
+                    "decode_steps": SERVE_STEPS, "max_len": SERVE_MAX_LEN,
+                    "logit_rel_err_by_call": rel,
+                    "max_logit_rel_err": max(rel),
+                    "greedy_agreement": agree,
+                    "baseline": dict(base[run], run="one process"),
+                    "collective_bytes_prefill": lines[0]["calls"][0][
+                        "counted"]["bytes"],
+                    "collective_bytes_decode_step": lines[0]["calls"][1][
+                        "counted"]["bytes"],
+                    "ranks": [{k: r[k] for k in (
+                        "rank", "prefill_ms", "decode_ms_median",
+                        "transport_share_prefill",
+                        "transport_share_decode_median", "shard_gib",
+                        "cache_gib", "draw_peak_gib", "serve_peak_gib")}
+                        for r in lines],
+                    "launches_per_rank": {k: v for k, v in lines[0][
+                        "launches"].items() if v},
+                    "heads_per_launch": lines[0]["heads"],
+                    "ranks_wall_s": wall}
+            if reduced:
+                line["reduced"] = reduced
+            emit(line)
+            check(np.isfinite(got).all() and got.shape == want.shape,
+                  f"run {run}: logits {got.shape} against {want.shape}")
+            check(max(rel) <= DENSE_REL_TOL, f"run {run}: logits off the "
+                  f"one process's by {max(rel)} of the largest")
+            local = [[cfg.n_heads // SERVE_MESH[1],
+                      cfg.n_kv_heads // SERVE_MESH[1]]]
+            for r in lines:
+                check(r["heads"] == {"flash": local, "paged": local},
+                      f"run {run}: rank {r['rank']}'s kernels saw (query, kv) "
+                      f"heads {r['heads']}, not this rank's {local}")
+                check(r["launches"] == expect, f"run {run}: rank "
+                      f"{r['rank']} launched "
+                      f"{ {k: v for k, v in r['launches'].items() if v} }, "
+                      f"not { {k: v for k, v in expect.items() if v} }")
+                check(all(c["counted"] == c["schedule"] for c in r["calls"]),
+                      f"run {run}: rank {r['rank']} counted collectives "
+                      f"other than the schedule's: {r['calls'][:2]}")
+                total.update(r["launches"])
+    return {name: total[name] for name in launch_counts()}
+
+
 def ring_bwd_ratio(torch, got, want, tol):
     """(max |got - want|, that over ``tol``)."""
     err = float((got.float() - want.float()).abs().max())
@@ -3429,8 +3818,9 @@ def dryrun_phase(torch):
     DRYRUN_ARGS) in a subprocess that sees no card: its fake process
     groups of 256 and 512 ranks live there, never beside this process's;
     a nonzero exit fails the run.  Prints one device's argument and
-    output bytes, FLOPs and collective bytes by kind (the port's
-    schedule) from its two result files.  Then
+    output bytes, FLOPs and collective bytes and counts by kind (the
+    port's schedules: training's and, for decode_32k, serving's) from its
+    four result files.  Then
     ``launch.train --production`` on this one card must refuse with the
     world-size message, not train."""
     from repro_torch.launch import train as launch_train
@@ -3446,15 +3836,20 @@ def dryrun_phase(torch):
           f"{r.stdout[-2000:]} {r.stderr[-2000:]}")
     out_dir = ROOT / "experiments" / "dryrun_torch"
     meshes = {}
-    for kind in ("single", "multi"):
-        res = json.loads((out_dir / f"llama2-7b__train_4k__{kind}.json")
-                         .read_text())
-        meshes[kind] = {"devices": res["devices"], **{
-            k: res["memory"][k] for k in ("argument_bytes", "output_bytes")},
-            "flops_per_device": res["cost"]["flops"],
-            "flops_global": res["cost"]["flops_global"],
-            "collective_bytes": res["collectives"]["bytes"],
-            "step_s": res["step_s"]}
+    for shape in DRYRUN_SHAPES:
+        for kind in ("single", "multi"):
+            res = json.loads((out_dir / f"llama2-7b__{shape}__{kind}.json")
+                             .read_text())
+            check(res["collectives"] is not None, f"dry-run {shape} "
+                  f"{kind}: no collectives: {res.get('collectives_reason')}")
+            meshes[f"{shape}/{kind}"] = {"devices": res["devices"], **{
+                k: res["memory"][k] for k in ("argument_bytes",
+                                              "output_bytes")},
+                "flops_per_device": res["cost"]["flops"],
+                "flops_global": res["cost"]["flops_global"],
+                "collective_bytes": res["collectives"]["bytes"],
+                "collective_counts": res["collectives"]["counts"],
+                "step_s": res["step_s"]}
     emit({"phase": "dryrun", "args": list(DRYRUN_ARGS), "wall_s": wall,
           "meshes": meshes})
     try:
@@ -3923,25 +4318,24 @@ def profile_window(torch, run, eng, reqs, window="decode"):
     """Where an iteration's time goes (the configuration of ``run``): all
     requests arrive at once.
 
-    ``decode``: 14 iterations run the prompts in, then 10 iterations are
-    timed on the host clock and 3 more under ``torch.profiler`` for
-    device time by kernel (the trace's processing takes most of a
-    window's wall time).  ``prefill``: iterations that carry prompt
-    tokens, profiled, their host time read under the profiler: run A's
-    iterations 2-4 (the first runs unprofiled; the two requests admitted
-    first have 1726 prompt tokens, so these carry 512, 512 and 190 prompt
-    rows beside the decode rows); the first iteration of runs D and E, the
-    whole prompts of the requests it admits (later iterations decode until
-    a request finishes).  Device busy share = device time per iteration / wall time
+    ``decode``: 14 iterations run the prompts in, then 5 iterations are
+    timed on the host clock and 3 more (1 for an MLA stack) under
+    ``torch.profiler`` for device time by kernel (the trace's processing
+    takes most of a window's wall time).  ``prefill``: the first iteration, profiled, its
+    host time read under the profiler: the whole prompts of the requests
+    it admits (later iterations decode until a request finishes).  The
+    line carries the window's wall seconds (``window_s``).  Device busy share = device time per iteration / wall time
     per iteration.  An MLA stack's decode window records each operator's
     input shapes in its profiled iterations (their host time is not the
     one reported) to count the copies made, by shape."""
     from torch.profiler import ProfilerActivity, profile
 
     t_window = time.perf_counter()
-    warm, timed, steps = {"decode": (14, 10, 3),
-                          "prefill": (1, 0, 3) if run == "A"
-                          else (0, 0, 1)}[window]
+    shapes = window == "decode" and eng.cfg.mla is not None
+    # the MLA window records CPU events: one profiled iteration (parsing
+    # them took most of its wall time at 3)
+    warm, timed, steps = {"decode": (14, 5, 1 if shapes else 3),
+                          "prefill": (0, 0, 1)}[window]
     for r in reqs:
         r.arrival = 0.0
         eng.submit(r)
@@ -3957,7 +4351,6 @@ def profile_window(torch, run, eng, reqs, window="decode"):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / timed
     n_log = len(eng.iter_log)
-    shapes = window == "decode" and eng.cfg.mla is not None
     # CPU-side operator events only where a line reads them (an MLA
     # stack's decode window: aten::bmm and the copies by shape): parsing
     # them took most of a window's wall time (7 of 13.6 minutes of the
@@ -4031,8 +4424,9 @@ def profile_window(torch, run, eng, reqs, window="decode"):
         line["model_step_ms_profiled"] = [s * 1e3 for s, _, _ in logged]
         check(sum(n for _, n, _ in logged) > 0,
               f"run {run}: the prefill window ran no prompt tokens")
+    line["window_s"] = time.perf_counter() - t_window
     emit(line)
-    SECONDS["profile_windows"] += time.perf_counter() - t_window
+    SECONDS["profile_windows"] += line["window_s"]
     return line
 
 

@@ -7,6 +7,7 @@ while a new phase is brought up.
     python3 scripts/chip_phases.py P,V,ring,dryrun
     python3 scripts/chip_phases.py P,W,X
     python3 scripts/chip_phases.py ring,Y
+    python3 scripts/chip_phases.py Z
 
 ``bwd``: the flash backward kernel lines (``flash_bwd_phase``);
 ``ssd_bwd``: the SSD scan's backward kernel lines (``ssd_bwd_phase``);
@@ -23,7 +24,10 @@ over a (1, 2) mesh of two rank processes on the card (``mesh_rank_run``:
 needs ``P``); ``X``: DeepSeek-MoE-16B (4 layers) with fsdp over a (2, 1)
 mesh of two rank processes, held to one process; ``Y``: RecurrentGemma-2B
 (6 layers) over a (1, 2) mesh, its RG-LRU branch channel-parallel, held
-to one process; ``ring``: ring attention forward and backward
+to one process; ``Z``: serving over a (1, 2) mesh of two rank processes
+(``serve_mesh_run``: Llama-2-7B, Mixtral-8x7B at 4 layers, Llama-2-7B
+at 8 layers with int8 slot caches), held to one process; ``ring``: ring
+attention forward and backward
 (``ring_phase``); ``dryrun``: the dry-run CLI and the
 ``--production`` refusal (``dryrun_phase``).  Builds the
 kernels first, prints chip_smoke's JSON lines and the seconds each phase
@@ -92,6 +96,10 @@ def main(argv) -> int:
             t0 = time.perf_counter()
             runs[run] = cs.mesh_rank_run(torch, run)
             cs.emit({"phase": "seconds", run: time.perf_counter() - t0})
+    if "Z" in which:
+        t0 = time.perf_counter()
+        runs["Z"] = cs.serve_mesh_run(torch)
+        cs.emit({"phase": "seconds", "Z": time.perf_counter() - t0})
     if "ring" in which:
         t0 = time.perf_counter()
         runs["ring"], _, _ = cs.ring_phase(torch)

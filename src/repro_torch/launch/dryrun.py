@@ -22,19 +22,24 @@ fake process group of 256 or 512 ranks in this one process
   again under remat, the gradients' reduce-scatters and replicate-axis
   all-reduces, the loss's and the clip's all-reduces, an MoE layer's
   count of routed tokens, and a channel-parallel RG-LRU layer's
-  activation collectives: RecurrentGemma-2B's).
+  activation collectives: RecurrentGemma-2B's);
+- ``collectives`` of a prefill or decode shape: the same measure from
+  the port's serving plan (``models.sharding.ServePlan.serve_schedule``:
+  tensor parallelism over ``"model"``, activations moved, no weight
+  gathered) for the GQA decoder stacks; the stacks that plan refuses on
+  a model axis above 1 (MLA, Mamba-2, RG-LRU, the encoder-decoder, the
+  vision prefix) keep ``null`` with the refusal as the reason.
 
-XLA's partitioner is what the reference reads ``temp_bytes``, and a
-serving step's collectives, from; the port has no counterpart, so those
-are written as ``null`` with the reason.  A step that needs a value on
-``meta`` (``.item()``, a data-dependent shape) fails with the
-architecture named.
+XLA's partitioner is what the reference reads ``temp_bytes`` from; the
+port has no counterpart, so it is written as ``null`` with the reason.
+A step that needs a value on ``meta`` (``.item()``, a data-dependent
+shape) fails with the architecture named.
 
 Results land in experiments/dryrun_torch/<arch>__<shape>__<mesh>.json.
 Needs no card:
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama2-7b \
-        --shape train_4k --mesh both
+        --shape train_4k,decode_32k --mesh both
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all
 """
 from __future__ import annotations
@@ -53,18 +58,22 @@ from repro_torch.configs import ASSIGNED_ARCHS, INPUT_SHAPES, get_config
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.specs import (build_step, config_for, out_specs,
                                      param_structs, tree_placements)
-from repro_torch.models.sharding import (ShardPlan, batch_axes, mesh_axes,
-                                         param_specs)
+from repro_torch.models.sharding import (ServePlan, ShardPlan, batch_axes,
+                                         mesh_axes, param_specs)
 
 OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                        "experiments", "dryrun_torch")
 
 NO_PARTITIONER = ("no counterpart without XLA's partitioner: the port "
-                  "places arguments and outputs; temporaries and "
-                  "collectives are chosen by no compiler here")
+                  "places arguments and outputs; temporaries are chosen "
+                  "by no compiler here")
 SCHEDULE = ("the port's train(mesh=...) schedule (weights gathered at use: "
             "models.sharding.ShardPlan.step_schedule), not XLA's; bytes "
             "are each collective's output on one device")
+SERVE_SCHEDULE = ("the port's serving schedule (tensor parallelism over "
+                  "\"model\", activations moved, no weight gathered: "
+                  "models.sharding.ServePlan.serve_schedule), not XLA's; "
+                  "bytes are each collective's output on one device")
 
 
 def _pairs(tree, places):
@@ -122,6 +131,21 @@ def step_collectives(cfg, shape, mesh):
             "schedule": SCHEDULE}
 
 
+def serve_collectives(cfg, shape, mesh):
+    """(one device's collectives of one ``prefill`` or ``decode_step`` of
+    ``shape`` on ``mesh`` under a ``ServePlan``, as ``step_collectives``
+    gives training's, None) or (None, the reason) for a stack the plan
+    refuses."""
+    cfg = config_for(cfg, shape)
+    try:
+        plan = ServePlan(mesh, cfg, shape.global_batch)
+    except (NotImplementedError, ValueError) as e:
+        return None, f"no serving plan: {e}"
+    out = plan.serve_schedule(cfg, shape)
+    return {**out, "total_bytes": sum(out["bytes"].values()),
+            "schedule": SERVE_SCHEDULE}, None
+
+
 def run_pair(arch: str, shape_name: str, mesh_kind: str, verbose=True,
              fsdp=None, seq_parallel=None, remat_group=None):
     """None options resolve to the production policy: training shapes use
@@ -144,8 +168,10 @@ def run_pair(arch: str, shape_name: str, mesh_kind: str, verbose=True,
         t0 = time.time()
         try:
             _, _, flops, arg_bytes, out_bytes = step_costs(cfg, shape, mesh)
-            coll = step_collectives(cfg, shape, mesh) \
-                if shape.mode == "train" else None
+            if shape.mode == "train":
+                coll, why = step_collectives(cfg, shape, mesh), None
+            else:
+                coll, why = serve_collectives(cfg, shape, mesh)
         except (RuntimeError, NotImplementedError) as e:
             raise RuntimeError(f"dry-run of {arch} ({shape_name}, "
                                f"{mesh_kind}): the step does not run on "
@@ -178,7 +204,7 @@ def run_pair(arch: str, shape_name: str, mesh_kind: str, verbose=True,
         "collectives": coll,
     }
     if coll is None:
-        result["collectives_reason"] = NO_PARTITIONER
+        result["collectives_reason"] = why
     if verbose:
         m = result["memory"]
         print(f"{arch:18s} {shape_name:12s} {mesh_kind:6s} "
@@ -200,7 +226,8 @@ def save_result(res: dict):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None)
-    ap.add_argument("--shape", default=None)
+    ap.add_argument("--shape", default=None,
+                    help="an input shape, or several joined by commas")
     ap.add_argument("--mesh", default="single", choices=["single", "multi",
                                                          "both"])
     ap.add_argument("--all", action="store_true")
@@ -213,7 +240,7 @@ def main(argv=None):
 
     archs = ASSIGNED_ARCHS if (args.all or args.arch is None) else [args.arch]
     shapes = list(INPUT_SHAPES) if (args.all or args.shape is None) \
-        else [args.shape]
+        else args.shape.split(",")
     meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
 
     failures = []

@@ -139,18 +139,108 @@ def attention(q, k, v, *, causal=True, window=0, impl="flash"):
 # ---------------------------------------------------------------------------
 # GQA forward (prefill) and decode step
 # ---------------------------------------------------------------------------
-def gqa_prefill(params, x, positions, cfg, *, window=0, causal=True):
+def gqa_prefill(params, x, positions, cfg, *, window=0, causal=True,
+                tp=None):
     """Self-attention over the prompt (causal; an encoder's is not).
-    Returns (out, (k_cache_entry, v_cache_entry))."""
+    Returns (out, (k_cache_entry, v_cache_entry)).
+
+    ``tp``: a serving plan that splits the layer over its model axis
+    (``sharding.ServePlan``; None: one process).  Split heads run the
+    layer on this rank's query and kv heads; a head-dim split all-gathers
+    the slices into whole heads (the rotary embedding pairs dims half a
+    head apart) for flash and keeps this rank's slice of k/v for the
+    cache.  Either way ``wo``'s partial products are summed over the
+    model axis."""
+    if tp is not None and tp.splits_dims:
+        return _gqa_prefill_dims(params, x, positions, cfg, window, causal,
+                                 tp)
     q = apply_rope(_project(x, params["wq"]), positions, cfg.rope_theta)
     k = apply_rope(_project(x, params["wk"]), positions, cfg.rope_theta)
     v = _project(x, params["wv"])
     out = attention(q, k, v, causal=causal, window=window,
                     impl=cfg.attn_impl)
-    return _out_project(out, params["wo"]), (k, v)
+    y = _out_project(out, params["wo"])
+    return (y if tp is None else tp.reduce(y)), (k, v)
 
 
-def gqa_prefill_chunk(params, x, k_cache, v_cache, start: int, cfg):
+def _qkv_dims(params, x, positions, cfg, tp):
+    """The projections of a layer whose k/v split the head dim: (q (B, T,
+    H, D): whole heads, every query head (``"dim"``, its slices gathered)
+    or this rank's (``"mixed"``); k (B, T, Hkv, D) whole; v (B, T, Hkv,
+    D / m) this rank's dims), the rotary embedding applied to whole
+    heads."""
+    theta = cfg.rope_theta
+    q = _project(x, params["wq"])
+    if tp.layout == "dim":
+        q = tp.gather_model(q, -1)
+    k = tp.gather_model(_project(x, params["wk"]), -1)
+    return (apply_rope(q, positions, theta), apply_rope(k, positions, theta),
+            _project(x, params["wv"]))
+
+
+def _gqa_prefill_dims(params, x, positions, cfg, window, causal, tp):
+    """``gqa_prefill`` with k/v over the head dim: flash over every query
+    head (``"dim"``) or over this rank's (``"mixed"``), on whole heads."""
+    q, k, v = _qkv_dims(params, x, positions, cfg, tp)
+    v = tp.gather_model(v, -1)
+    if tp.layout == "dim":
+        out = attention(q, k, v, causal=causal, window=window,
+                        impl=cfg.attn_impl)
+        y = _out_project(tp.dim_slice(out), params["wo"])
+    else:
+        out = attention(q, tp.kv_for_local_heads(k),
+                        tp.kv_for_local_heads(v), causal=causal,
+                        window=window, impl=cfg.attn_impl)
+        y = _out_project(out, params["wo"])
+    return tp.reduce(y), (tp.dim_slice(k), tp.dim_slice(v))
+
+
+def _q_at_my_dims(q, tp):
+    """Every query head at this rank's dims (B, T, Hq, D / m) from
+    ``_qkv_dims``' q (``"mixed"``: this rank's heads gathered first)."""
+    return tp.dim_slice(q if tp.layout == "dim" else tp.gather_model(q, 2))
+
+
+def _out_dims(out, params, tp):
+    """The layer's output from every query head's output at this rank's
+    dims (B, T, Hq, D / m): through ``wo``'s rows of those dims
+    (``"dim"``), or the heads' whole outputs gathered and this rank's
+    heads through its ``wo`` (``"mixed"``); summed over the model axis."""
+    if tp.layout == "dim":
+        return tp.reduce(_out_project(out, params["wo"]))
+    whole = tp.local_heads(tp.gather_model(out, -1))
+    return tp.reduce(_out_project(whole, params["wo"]))
+
+
+def split_dim_attention(q, k_cache, v_cache, valid, tp, head_dim,
+                        k_scale=None, v_scale=None):
+    """Attention over caches split over the head dim: q (B, T, Hq, D / m),
+    every query head at this rank's dims; caches (B, S, Hkv, D / m) this
+    rank's slices (int8 with whole (B, S, Hkv) scales, dequantized to q's
+    dtype as the reference's blocked route does); ``valid`` (B, T, S).
+    Each rank's partial scores over its dims are summed over the model
+    axis (f32) before the scale, mask and softmax; the weights are rounded
+    to the values' dtype before their product with this rank's slice of
+    V, as in the plain decode.  Returns (B, T, Hq, D / m): every head's
+    output at this rank's dims.  A plain route in PyTorch, no kernel: the
+    paged kernels take whole heads."""
+    B, T, Hq, _ = q.shape
+    Hkv = k_cache.shape[2]
+    if k_scale is not None:
+        k_cache = dequantize_kv(k_cache, k_scale, q.dtype)
+        v_cache = dequantize_kv(v_cache, v_scale, q.dtype)
+    qg = q.reshape(B, T, Hkv, Hq // Hkv, q.shape[-1])
+    s = torch.einsum("bskgd,btkd->bkgst", qg.float(), k_cache.float())
+    s = tp.reduce(s) * head_dim ** -0.5
+    s = torch.where(valid[:, None, None], s, torch.full_like(s, NEG_INF))
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", w.to(v_cache.dtype).float(),
+                       v_cache.float())
+    return out.reshape(B, T, Hq, -1).to(q.dtype)
+
+
+def gqa_prefill_chunk(params, x, k_cache, v_cache, start: int, cfg,
+                      tp=None):
     """Incremental (chunked) prefill step for full-attention dense GQA.
 
     x: (B, C, d), one prompt chunk whose prefix [0, start) is already in
@@ -159,21 +249,34 @@ def gqa_prefill_chunk(params, x, k_cache, v_cache, start: int, cfg):
     reference's ``dynamic_update_slice`` clamps) and attends each chunk
     token causally over prefix + chunk: through the paged kernels
     (``chunk_attention_paged``) on CUDA tensors, through
-    ``chunk_attention_plain`` on CPU tensors."""
+    ``chunk_attention_plain`` on CPU tensors.  ``tp``: as ``gqa_prefill``;
+    over a head-dim split the chunk attends through
+    ``split_dim_attention``."""
     B, C, _ = x.shape
     S_cache = k_cache.shape[1]
     positions = (start + torch.arange(C, device=x.device))[None].expand(B, C)
+    s0 = max(0, min(start, S_cache - C))
+    if tp is not None and tp.splits_dims:
+        q, k, v = _qkv_dims(params, x, positions, cfg, tp)
+        q = _q_at_my_dims(q, tp)
+        k_cache[:, s0:s0 + C] = tp.dim_slice(k).to(k_cache.dtype)
+        v_cache[:, s0:s0 + C] = v.to(v_cache.dtype)
+        valid = torch.arange(S_cache, device=x.device)[None, None, :] \
+            <= positions[:, :, None]
+        out = split_dim_attention(q, k_cache, v_cache, valid, tp,
+                                  cfg.resolved_head_dim())
+        return _out_dims(out, params, tp), (k_cache, v_cache)
     q = apply_rope(_project(x, params["wq"]), positions, cfg.rope_theta)
     k = apply_rope(_project(x, params["wk"]), positions, cfg.rope_theta)
     v = _project(x, params["wv"])
-    s0 = max(0, min(start, S_cache - C))
     k_cache[:, s0:s0 + C] = k.to(k_cache.dtype)
     v_cache[:, s0:s0 + C] = v.to(v_cache.dtype)
     if x.device.type in PLAIN_DEVICES:
         out = chunk_attention_plain(q, k_cache, v_cache, positions)
     else:
         out = chunk_attention_paged(q, k_cache, v_cache, positions)
-    return _out_project(out.to(x.dtype), params["wo"]), (k_cache, v_cache)
+    y = _out_project(out.to(x.dtype), params["wo"])
+    return (y if tp is None else tp.reduce(y)), (k_cache, v_cache)
 
 
 def chunk_attention_paged(q, k_cache, v_cache, positions):
@@ -210,7 +313,7 @@ def chunk_attention_plain(q, k_cache, v_cache, positions):
 
 
 def gqa_decode(params, x, k_cache, v_cache, pos, cfg, *, window=0,
-               k_scale=None, v_scale=None):
+               k_scale=None, v_scale=None, tp=None):
     """One-token decode.  x: (B, 1, d); caches (B, S_cache, Hkv, D),
     written in place; pos: (B,) int32 per-request positions (continuous
     batching).
@@ -219,14 +322,36 @@ def gqa_decode(params, x, k_cache, v_cache, pos, cfg, *, window=0,
     Windowed: circular write at ``pos[b] % S_cache``; valid = newest
     ``window`` entries.  With ``cfg.kv_quant`` the caches are int8 with
     per-(token, head) bf16 scales ``k_scale``/``v_scale`` (B, S_cache,
-    Hkv), written in place beside them."""
+    Hkv), written in place beside them.  ``tp``: as ``gqa_prefill``: on
+    split heads this rank's heads and cache shards through the paged
+    kernels; over a head-dim split ``split_dim_attention`` (the new
+    token's k whole for the rotary embedding and its scale, v's scale from
+    the absmax reduced over the model axis)."""
     S_cache = k_cache.shape[1]
     posv = pos[:, None]
+    slot = pos % S_cache if window else pos
+    quant = k_scale is not None
+    if tp is not None and tp.splits_dims:
+        q, k, v = _qkv_dims(params, x, posv, cfg, tp)
+        q = _q_at_my_dims(q, tp)
+        if quant:
+            kq, ks = quantize_kv(k[:, 0])
+            vq, vs = quantize_kv(v[:, 0], tp.reduce_max)
+            new = ((k_cache, tp.dim_slice(kq)), (v_cache, vq),
+                   (k_scale, ks), (v_scale, vs))
+        else:
+            new = ((k_cache, tp.dim_slice(k[:, 0])), (v_cache, v[:, 0]))
+        for cache, t in new:
+            _cache_write(cache, t, slot)
+        valid = torch.arange(S_cache, device=x.device)[None, None, :] \
+            < _decode_ctx(S_cache, pos)[:, None, None]
+        out = split_dim_attention(q, k_cache, v_cache, valid, tp,
+                                  cfg.resolved_head_dim(), k_scale, v_scale)
+        y = _out_dims(out, params, tp)
+        return y, tuple(cache for cache, _ in new)
     q = apply_rope(_project(x, params["wq"]), posv, cfg.rope_theta)
     k = apply_rope(_project(x, params["wk"]), posv, cfg.rope_theta)
     v = _project(x, params["wv"])
-    slot = pos % S_cache if window else pos
-    quant = k_scale is not None
     if quant:
         kq, ks = quantize_kv(k[:, 0])
         vq, vs = quantize_kv(v[:, 0])
@@ -239,6 +364,8 @@ def gqa_decode(params, x, k_cache, v_cache, pos, cfg, *, window=0,
     out = decode_attention(q, k_cache, v_cache, _decode_ctx(S_cache, pos),
                            k_scale=k_scale, v_scale=v_scale)
     y = _out_project(out, params["wo"])
+    if tp is not None:
+        y = tp.reduce(y)
     if quant:
         return y, (k_cache, v_cache, k_scale, v_scale)
     return y, (k_cache, v_cache)
@@ -247,12 +374,16 @@ def gqa_decode(params, x, k_cache, v_cache, pos, cfg, *, window=0,
 # ---------------------------------------------------------------------------
 # int8 KV-cache quantization (the paged backend's int8 pages)
 # ---------------------------------------------------------------------------
-def quantize_kv(x):
+def quantize_kv(x, reduce_amax=None):
     """x: (..., D) -> (int8 values, per-(...,) bf16 scales).  Values are
     quantized with the f32 scale (absmax / 127, round half to even, clip
-    to +-127); the scale is stored as bf16."""
+    to +-127); the scale is stored as bf16.  ``reduce_amax``: where ``x``
+    is a slice of each vector (a head-dim split), the reduction that makes
+    the slice's absmax the whole vector's."""
     xf = x.float()
     amax = xf.abs().amax(-1)
+    if reduce_amax is not None:
+        amax = reduce_amax(amax)
     scale = amax.clamp_min(1e-6) / 127.0
     q = torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8)
     return q, scale.to(torch.bfloat16)

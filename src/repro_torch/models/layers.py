@@ -55,14 +55,18 @@ def rmsnorm(params, x, eps=1e-6):
 # ---------------------------------------------------------------------------
 # MLP (SwiGLU for silu act, plain 2-layer for gelu)
 # ---------------------------------------------------------------------------
-def mlp(params, x, act):
+def mlp(params, x, act, tp=None):
+    """The FFN; under a serving plan that splits it (``tp``: this rank's
+    hidden block of ``w_in``/``w_gate`` columns and ``w_out`` rows) the
+    partial products are summed over the model axis."""
     h = x @ params["w_in"]
     if act == "silu":
         h = F.silu(x @ params["w_gate"]) * h
     else:
         # jax.nn.gelu defaults to the tanh approximation
         h = F.gelu(h, approximate="tanh")
-    return h @ params["w_out"]
+    out = h @ params["w_out"]
+    return out if tp is None else tp.reduce(out)
 
 
 # ---------------------------------------------------------------------------
@@ -90,11 +94,25 @@ def apply_rope(x, positions, theta):
 # ---------------------------------------------------------------------------
 # Token embedding / logits head
 # ---------------------------------------------------------------------------
-def embed(params, tokens):
-    return params["table"][tokens.long()]
+def embed(params, tokens, tp=None):
+    """The tokens' rows of the table.  Under a serving plan that splits
+    the vocab (``tp``, ``tp.vocab_split``) the table is this rank's block
+    of rows: tokens outside it look up zeros, and the rows are summed over
+    the model axis."""
+    table = params["table"]
+    if tp is None or not tp.vocab_split:
+        return table[tokens.long()]
+    n = table.shape[0]
+    local = tokens.long() - tp.r * n
+    mine = (local >= 0) & (local < n)
+    x = torch.where(mine[..., None], table[local.clamp(0, n - 1)],
+                    table.new_zeros(()))
+    return tp.reduce(x)
 
 
 def unembed(params, x):
+    """Logits from the head (or the tied table); under a serving plan that
+    splits the vocab, this rank's block of them."""
     if "head" in params:
         return x @ params["head"]
     return x @ params["table"].T

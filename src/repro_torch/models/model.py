@@ -51,6 +51,15 @@ entry points run under ``torch.no_grad``.  On a mesh
 shards, gathered whole where they are used: each layer's leaves inside
 its (rematerialised) body, the embedding table for the inputs and the
 head (or tied table) for the loss.
+
+Serving on a mesh (``prefill``, ``prefill_chunk``, ``decode_step`` under
+a ``models.sharding.ServePlan``, the reference's "plain TP+DP"): the
+parameters and caches are this rank's shards and stay so; the layers
+move activations only (``sharding.model_split`` hands them the plan as
+``tp``), the batch's rows are this rank's, and the logits its vocab
+block.  It serves the GQA decoder stacks (dense or MoE, full or windowed
+attention, bf16 or int8 caches); on a model axis above 1
+``check_ported`` refuses the other kinds by name.
 """
 from __future__ import annotations
 
@@ -70,15 +79,42 @@ from repro_torch.models.layers import (chunked_ce_loss, dtype_of, embed, mlp,
                                        rmsnorm, unembed)
 
 
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a stack the port cannot run yet."""
-    for kind in sorted(set(cfg.layer_kinds())):
+# what serving over a model axis above 1 (``sharding.ServePlan``) does not
+# take yet, and the ROADMAP.md Queue A item that would port it
+NOT_SPLIT_OVER_MODEL = {ATTN_MLA: ("multi-head latent attention", "12e"),
+                        MAMBA2: ("Mamba-2", "12f"),
+                        RGLRU: ("RG-LRU", "12g")}
+
+
+def check_ported(cfg: ModelConfig, model_axis: int = None) -> None:
+    """Raise ``NotImplementedError`` for a stack the port cannot run yet:
+    on a serving model axis above 1 (``model_axis``, by default the active
+    ``ServePlan``'s), only the GQA decoder stacks (dense or MoE, full or
+    windowed attention, a text frontend) run."""
+    kinds = sorted(set(cfg.layer_kinds()))
+    for kind in kinds:
         if kind not in (ATTN, ATTN_LOCAL, ATTN_MLA, MAMBA2, RGLRU):
             raise NotImplementedError(f"{cfg.name}: layer kind {kind!r} is "
                                       "not ported")
     if cfg.frontend not in ("text", "audio_stub", "vision_stub"):
         raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} frontend "
                                   "is not ported")
+    if model_axis is None:
+        plan = sharding.serving()
+        model_axis = plan.m if plan is not None else 1
+    if model_axis <= 1:
+        return
+    refused = [NOT_SPLIT_OVER_MODEL[k] for k in kinds
+               if k in NOT_SPLIT_OVER_MODEL]
+    if cfg.is_encoder_decoder:
+        refused.append(("the encoder-decoder", "12h"))
+    if cfg.frontend == "vision_stub":
+        refused.append(("the vision prefix", "12i"))
+    if refused:
+        what, item = refused[0]
+        raise NotImplementedError(
+            f"{cfg.name}: serving {what} over a model axis of {model_axis} "
+            f"ranks is not ported (ROADMAP.md Queue A item {item})")
 
 
 def check_trainable(cfg: ModelConfig) -> None:
@@ -151,17 +187,20 @@ def _stack(entries):
 # ---------------------------------------------------------------------------
 # Block forward (full sequence: prefill)
 # ---------------------------------------------------------------------------
-def ffn_forward(params, h, cfg, moe_flag):
-    """One layer's FFN: the MoE FFN on MoE layers, the MLP elsewhere."""
+def ffn_forward(params, h, cfg, moe_flag, rows=sharding.WHOLE_BATCH,
+                tp=None):
+    """One layer's FFN: the MoE FFN on MoE layers, the MLP elsewhere.
+    ``rows``: the batch's row split; ``tp``: the serving plan whose model
+    axis splits the layer (``sharding.model_split``), or None."""
     if moe_flag:
-        return moe_mod.moe_ffn(params, h, cfg)[0]
-    return mlp(params, h, cfg.act)
+        return moe_mod.moe_ffn(params, h, cfg, rows=rows, tp=tp)[0]
+    return mlp(params, h, cfg.act, tp=tp)
 
 
 def _block_forward(lp, x, cfg, kind, moe_flag, positions, *, causal=True,
                    enc_kv=None, want_cache=False, want_aux=False,
                    rows=sharding.WHOLE_BATCH,
-                   channels=sharding.ALL_CHANNELS):
+                   channels=sharding.ALL_CHANNELS, tp=None):
     """Returns (x, aux, cache_entry_or_None).  ``enc_kv``: the encoder's
     output, which a decoder layer of an encoder-decoder attends after its
     self-attention (its keys and values join the cache entry).  ``aux``:
@@ -170,13 +209,14 @@ def _block_forward(lp, x, cfg, kind, moe_flag, positions, *, causal=True,
     which an MoE layer's statistics span.  ``channels``: an RG-LRU
     layer's ``sharding.ChannelSplit`` (``sharding.channel_split``) when
     its leaves are this rank's channel block, else
-    ``sharding.ALL_CHANNELS``."""
+    ``sharding.ALL_CHANNELS``.  ``tp``: a serving plan that splits the
+    layer over its model axis (``sharding.model_split``), or None."""
     h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
     window = window_for(cfg, kind)
     cache = None
     if kind in (ATTN, ATTN_LOCAL):
         y, (k, v) = attn_mod.gqa_prefill(lp["attn"], h, positions, cfg,
-                                         window=window, causal=causal)
+                                         window=window, causal=causal, tp=tp)
         if want_cache:
             cache = {"k": k, "v": v}
     elif kind == ATTN_MLA:
@@ -208,9 +248,9 @@ def _block_forward(lp, x, cfg, kind, moe_flag, positions, *, causal=True,
         h2 = rmsnorm(lp["ln2"], x, cfg.norm_eps)
         if moe_flag:
             f, aux = moe_mod.moe_ffn(lp["ffn"], h2, cfg, want_aux=want_aux,
-                                     rows=rows)
+                                     rows=rows, tp=tp)
         else:
-            f = mlp(lp["ffn"], h2, cfg.act)
+            f = mlp(lp["ffn"], h2, cfg.act, tp=tp)
         x = x + f
     return x, aux, cache
 
@@ -246,13 +286,16 @@ def _run_stage(stage_params, x, cfg, kind, moe_flag, count, positions, *,
     that function (``sharding.layer_gatherer``), so the backward gathers
     them again and no whole copy is kept between the passes; a
     channel-parallel RG-LRU branch keeps its channel block instead
-    (``sharding.channel_split``).  The plan's pieces are taken here,
-    outside ``checkpoint``, whose recompute runs where no plan is
+    (``sharding.channel_split``).  Serving on a mesh
+    (``sharding.ServePlan``) gathers nothing: each layer runs on this
+    rank's shards (``sharding.model_split``).  The plan's pieces are taken
+    here, outside ``checkpoint``, whose recompute runs where no plan is
     active."""
     per_layer = unbind_layers(stage_params)
     gather = sharding.layer_gatherer(stage_params)
     rows = sharding.row_split()
     channels = sharding.channel_split(stage_params)
+    tp = sharding.model_split()
 
     def layers(x, lo, hi):
         aux, caches = None, []
@@ -262,7 +305,7 @@ def _run_stage(stage_params, x, cfg, kind, moe_flag, count, positions, *,
                                          causal=causal, enc_kv=enc_out,
                                          want_cache=want_cache,
                                          want_aux=want_aux, rows=rows,
-                                         channels=channels)
+                                         channels=channels, tp=tp)
             aux = a if aux is None else aux + a
             caches.append(cache)
         return x, aux, caches
@@ -317,7 +360,7 @@ def _embed_inputs(params, batch, cfg):
     positions run 0..S-1 over both; n_prefix = P (0 without patches)."""
     dt = dtype_of(cfg)
     table = sharding.gather_at_use({"table": params["embed"]["table"]})
-    x = embed(table, batch["tokens"]).to(dt)
+    x = embed(table, batch["tokens"], tp=sharding.model_split()).to(dt)
     n_prefix = 0
     if cfg.frontend == "vision_stub":
         patches = batch["patch_embeds"].to(dt)
@@ -435,8 +478,30 @@ def _stage_cache_zeros(cfg, kind, count, B, max_len, dt, device):
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
                pos: int = 0, *, device, enc_len: int = 0):
     """Zeroed caches; an encoder-decoder's cross caches hold ``enc_len``
-    frames."""
+    frames.  Under a ``sharding.ServePlan`` (for its batch) each leaf has
+    this rank's shape under ``cache_specs``, ``pos`` the whole batch's."""
     check_ported(cfg)
+    plan = sharding.serving()
+    if plan is None:
+        return _init_cache(cfg, batch_size, max_len, pos, device, enc_len)
+    if batch_size != plan.batch:
+        raise ValueError(f"init_cache: batch {batch_size} under a ServePlan "
+                         f"for batch {plan.batch}")
+    whole = _init_cache(cfg, batch_size, max_len, pos, "meta", enc_len)
+    specs = sharding.cache_specs(whole, cfg, plan.mesh, batch_size)
+
+    def local(tree, specs):
+        if isinstance(tree, dict):
+            return {k: local(v, specs[k]) for k, v in tree.items()}
+        return torch.zeros(sharding.local_shape(tree.shape, specs, plan.mesh),
+                           dtype=tree.dtype, device=device)
+
+    cache = local(whole, specs)
+    cache["pos"].fill_(pos)
+    return cache
+
+
+def _init_cache(cfg, batch_size, max_len, pos, device, enc_len):
     dt = dtype_of(cfg)
     cache = {"pos": torch.full((batch_size,), pos, dtype=torch.int32,
                                device=device), "stages": {}}
@@ -457,10 +522,20 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
 # ---------------------------------------------------------------------------
 @torch.no_grad()
 def prefill(params, batch, cfg: ModelConfig, max_len: int):
+    """(last-token logits, a new cache).  Under a ``sharding.ServePlan``
+    ``batch`` holds this rank's rows (``ServePlan.rows_of``), the logits
+    are this rank's rows and vocab block, the cache this rank's shards and
+    the whole batch's ``pos``."""
     hidden, _, caches, n_prefix = forward_hidden(
         params, batch, cfg, mode="prefill", want_cache=True)
     logits = unembed(params["embed"], hidden[:, -1])
-    B, S = hidden.shape[0], batch["tokens"].shape[1] + n_prefix
+    plan = sharding.serving()
+    B = hidden.shape[0] if plan is None else plan.batch
+    S = batch["tokens"].shape[1] + n_prefix
+    # an int8 cache's scales span each whole head: over a head-dim split
+    # the absmax is reduced over the model axis
+    amax = plan.reduce_max if plan is not None and plan.splits_dims \
+        else None
     cache = {"pos": torch.full((B,), S, dtype=torch.int32,
                                device=hidden.device), "stages": {}}
     for i, (kind, _moe, _count) in enumerate(model_stages(cfg)):
@@ -471,12 +546,13 @@ def prefill(params, batch, cfg: ModelConfig, max_len: int):
             if (kind in (ATTN, ATTN_LOCAL) and name in ("k", "v")) or \
                     (kind == ATTN_MLA and name in ("c", "k_rope")):
                 # (L, B, S, ...) -> fit each layer's (B, S, ...) slice
-                L = arr.shape[0]
-                fit = _fit_cache_seq(arr.reshape(L * B, *arr.shape[2:]), S_c)
-                fit = fit.reshape(L, B, *fit.shape[1:])
+                L, rows = arr.shape[:2]
+                fit = _fit_cache_seq(arr.reshape(L * rows, *arr.shape[2:]),
+                                     S_c)
+                fit = fit.reshape(L, rows, *fit.shape[1:])
                 if cfg.kv_quant and kind != ATTN_MLA:
                     fitted[name], fitted[name + "_s"] = \
-                        attn_mod.quantize_kv(fit)
+                        attn_mod.quantize_kv(fit, amax)
                 else:
                     fitted[name] = fit
             else:
@@ -510,13 +586,15 @@ def prefill_chunk(params, tokens, cfg: ModelConfig, cache):
     ``pos = cache["pos"]`` (all rows equal: the engine runs one request
     per call).  Returns (last-token logits (B, V), the cache advanced to
     pos+C).  ``prefill(p)`` equals any sequence of ``prefill_chunk`` calls
-    covering p."""
+    covering p.  Under a ``sharding.ServePlan`` as ``prefill``: this
+    rank's rows, shards and vocab block."""
     assert supports_chunked_prefill(cfg), \
         f"{cfg.name}: architecture has no incremental-prefill support"
     check_ported(cfg)
     start = int(cache["pos"][0])
     B, C = tokens.shape
-    x = embed(params["embed"], tokens).to(dtype_of(cfg))
+    tp, rows = sharding.model_split(), sharding.row_split()
+    x = embed(params["embed"], tokens, tp=tp).to(dtype_of(cfg))
     for i, (_kind, moe_flag, count) in enumerate(model_stages(cfg)):
         sp = params["stages"][f"stage_{i}"]
         sc = cache["stages"][f"stage_{i}"]
@@ -524,10 +602,10 @@ def prefill_chunk(params, tokens, cfg: ModelConfig, cache):
             lp = layer_params(sp, li)
             hn = rmsnorm(lp["ln1"], x, cfg.norm_eps)
             y, _ = attn_mod.gqa_prefill_chunk(lp["attn"], hn, sc["k"][li],
-                                              sc["v"][li], start, cfg)
+                                              sc["v"][li], start, cfg, tp=tp)
             x = x + y
             h2 = rmsnorm(lp["ln2"], x, cfg.norm_eps)
-            x = x + ffn_forward(lp["ffn"], h2, cfg, moe_flag)
+            x = x + ffn_forward(lp["ffn"], h2, cfg, moe_flag, rows, tp)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = unembed(params["embed"], x[:, -1])
     return logits, {"pos": cache["pos"] + C, "stages": cache["stages"]}
@@ -536,13 +614,14 @@ def prefill_chunk(params, tokens, cfg: ModelConfig, cache):
 # ---------------------------------------------------------------------------
 # Decode: one token through every layer
 # ---------------------------------------------------------------------------
-def _block_decode(lp, x1, c, pos, cfg, kind, moe_flag):
+def _block_decode(lp, x1, c, pos, cfg, kind, moe_flag,
+                  rows=sharding.WHOLE_BATCH, tp=None):
     h = rmsnorm(lp["ln1"], x1, cfg.norm_eps)
     window = window_for(cfg, kind)
     if kind in (ATTN, ATTN_LOCAL):
         y, _ = attn_mod.gqa_decode(lp["attn"], h, c["k"], c["v"], pos, cfg,
                                    window=window, k_scale=c.get("k_s"),
-                                   v_scale=c.get("v_s"))
+                                   v_scale=c.get("v_s"), tp=tp)
     elif kind == ATTN_MLA:
         y, _ = attn_mod.mla_decode(lp["attn"], h, c["c"], c["k_rope"], pos,
                                    cfg, window=window)
@@ -563,7 +642,7 @@ def _block_decode(lp, x1, c, pos, cfg, kind, moe_flag):
                                         c["cross_v"])
     if kind != MAMBA2:
         h2 = rmsnorm(lp["ln2"], x1, cfg.norm_eps)
-        x1 = x1 + ffn_forward(lp["ffn"], h2, cfg, moe_flag)
+        x1 = x1 + ffn_forward(lp["ffn"], h2, cfg, moe_flag, rows, tp)
     return x1, c
 
 
@@ -574,10 +653,15 @@ def decode_step(params, tokens, cache, cfg: ModelConfig):
 
     ``cache['pos']`` is a per-request (B,) position vector, so a decode
     batch may mix requests at different sequence offsets (continuous
-    batching)."""
+    batching).  Under a ``sharding.ServePlan`` ``tokens`` are this rank's
+    rows, the logits its rows and vocab block, and ``pos`` stays the whole
+    batch's (its spec is ``P()``), each rank reading its rows'."""
     check_ported(cfg)
-    pos = cache["pos"]
-    x = embed(params["embed"], tokens)[:, None].to(dtype_of(cfg))
+    plan = sharding.serving()
+    tp, rows = sharding.model_split(), sharding.row_split()
+    pos_all = cache["pos"]
+    pos = pos_all if plan is None else plan.rows_of(pos_all)
+    x = embed(params["embed"], tokens, tp=tp)[:, None].to(dtype_of(cfg))
     if cfg.is_encoder_decoder:
         x = x + _sinusoid(pos[:, None], cfg.d_model).to(x.dtype)
     for i, (kind, moe_flag, count) in enumerate(model_stages(cfg)):
@@ -586,10 +670,10 @@ def decode_step(params, tokens, cache, cfg: ModelConfig):
         for li in range(count):
             c = layer_params(sc, li)
             x, c_new = _block_decode(layer_params(sp, li), x, c, pos, cfg,
-                                     kind, moe_flag)
+                                     kind, moe_flag, rows, tp)
             for name, t in c_new.items():      # recurrent states are new
                 if t.data_ptr() != c[name].data_ptr():  # tensors: store
                     sc[name][li].copy_(t)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = unembed(params["embed"], x[:, 0])
-    return logits, {"pos": pos + 1, "stages": cache["stages"]}
+    return logits, {"pos": pos_all + 1, "stages": cache["stages"]}

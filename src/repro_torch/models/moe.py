@@ -37,6 +37,15 @@ place in its expert's queue (the counts of the blocks before it added)
 and the load-balance loss's expert fractions.  A rank's ``aux`` is its
 own tokens' share, scaled so that the mean over the ranks is the loss
 over the whole batch.
+
+Serving over a model axis (``tp``, a ``sharding.ServePlan``): when E
+divides the axis each rank holds E / m experts (expert parallelism),
+else every expert's block of the hidden dim; the router is whole.  Every
+rank routes every token of its rows and applies the same capacity rule;
+it gathers and runs only its experts' buffers (``held``), sums their
+gate-weighted share with the shared experts' partial product in f32,
+and one all-reduce over the model axis and one rounding give the
+layer's output.
 """
 from __future__ import annotations
 
@@ -109,9 +118,11 @@ def _expert_ffn(w_gate, w_in, w_out, x):
     return torch.bmm(h, w_out)
 
 
-def moe_dense(params, x, m, *, want_aux=False, rows=WHOLE_BATCH):
+def moe_dense(params, x, m, *, want_aux=False, rows=WHOLE_BATCH, held=None):
     """O(E) masked dense evaluation (oracle / smoke path).  ``rows``: the
-    batch's row split (module docstring)."""
+    batch's row split (module docstring).  ``held`` (first, count): the
+    experts whose weights this rank holds (module docstring): their
+    gate-weighted sum, in f32."""
     weights, experts, probs = _route(params, x, m)
     xf = x.reshape(-1, x.shape[-1])                       # (n, d)
     n = xf.shape[0]
@@ -119,11 +130,15 @@ def moe_dense(params, x, m, *, want_aux=False, rows=WHOLE_BATCH):
                             device=x.device)
     gate_full.scatter_add_(1, experts.reshape(n, m.top_k),
                            weights.reshape(n, m.top_k))
-    out = torch.zeros_like(xf)
-    for e in range(m.n_experts):
+    first, count = (0, m.n_experts) if held is None else held
+    out = torch.zeros_like(xf, dtype=x.dtype if held is None
+                           else torch.float32)
+    for e in range(count):
         y = _expert_ffn(params["w_gate"][e:e + 1], params["w_in"][e:e + 1],
                         params["w_out"][e:e + 1], xf[None])[0]
-        out = out + gate_full[:, e:e + 1] * y
+        out = out + (gate_full[:, first + e:first + e + 1] * y).to(out.dtype)
+    if held is not None:
+        return out.reshape(x.shape), None
     if not want_aux:
         return out.reshape(x.shape), None
     total = rows.gather(routed_counts(experts, m.n_experts)[None]).sum(0)[0]
@@ -144,12 +159,15 @@ def moe_dispatch(params, x, m, *, want_aux=False):
                                 want_aux=want_aux)
 
 
-def _dispatch(params, xf, weights, experts, m, capacity, before):
+def _dispatch(params, xf, weights, experts, m, capacity, before,
+              held=None):
     """The routed experts over the tokens ``xf`` (n, d): each expert's
     first ``capacity`` assignments in token order run, the rest drop.
     ``before`` (E,): assignments to each expert that precede these tokens
     in the same chunk (on the ranks before this one), which take the
-    first places of its queue."""
+    first places of its queue.  ``held`` (first, count): only those
+    experts' buffers are gathered and run (this rank's weights), and their
+    gate-weighted share of each token is returned in f32."""
     d = xf.shape[-1]
     n, k, E = xf.shape[0], m.top_k, m.n_experts
     dev = xf.device
@@ -163,21 +181,26 @@ def _dispatch(params, xf, weights, experts, m, capacity, before):
     pos_in_e = torch.arange(n * k, device=dev) - torch.searchsorted(se, se)
     pos_in_e = pos_in_e + before[se]
     keep = pos_in_e < capacity
-    # past capacity: the overflow row E*C, which is dropped
-    slot = torch.where(keep, se * capacity + pos_in_e, E * capacity)
-    buf_tok = torch.full((E * capacity + 1,), n, dtype=torch.long,
+    first, count = (0, E) if held is None else held
+    if held is not None:
+        keep = keep & (se >= first) & (se < first + count)
+    # past capacity (or another rank's): the overflow row, which is dropped
+    slot = torch.where(keep, (se - first) * capacity + pos_in_e,
+                       count * capacity)
+    buf_tok = torch.full((count * capacity + 1,), n, dtype=torch.long,
                          device=dev)
     buf_tok[slot] = st
     xf_pad = torch.cat([xf, xf.new_zeros((1, d))])        # row n: zeros
-    gathered = xf_pad[buf_tok[:-1]].reshape(E, capacity, d)
+    gathered = xf_pad[buf_tok[:-1]].reshape(count, capacity, d)
     y = _expert_ffn(params["w_gate"], params["w_in"], params["w_out"],
-                    gathered).reshape(E * capacity, d)
+                    gathered).reshape(count * capacity, d)
     # combine, weighted by the gate: each token's k contributions summed
-    # in increasing expert order in x's dtype, the order of the
-    # reference's scatter-add over the expert-sorted assignments, with
-    # no atomics (dropped ones add exact zeros)
-    contrib = (y[torch.where(keep, slot, 0)] * (sw * keep)[:, None]).to(
-        xf.dtype)
+    # in increasing expert order in x's dtype (f32 for ``held``), the
+    # order of the reference's scatter-add over the expert-sorted
+    # assignments, with no atomics (dropped ones add exact zeros)
+    y, gate = y[torch.where(keep, slot, 0)], (sw * keep)[:, None]
+    contrib = (y * gate).to(xf.dtype) if held is None \
+        else y.float() * gate.float()
     by_token = contrib[torch.argsort(st * E + se)].reshape(n, k, d)
     out = by_token[:, 0]
     for j in range(1, k):
@@ -196,7 +219,7 @@ def chunk_layout(n, chunk=None):
 
 
 def moe_dispatch_chunked(params, x, m, chunk=None, *, want_aux=False,
-                         rows=WHOLE_BATCH):
+                         rows=WHOLE_BATCH, held=None):
     """The dispatch over token chunks of ``chunk`` rows (default
     ``DISPATCH_CHUNK_TOKENS``; zero rows pad the last), capacity enforced
     per chunk, as the reference's scan does; the aux loss is the mean over
@@ -205,7 +228,8 @@ def moe_dispatch_chunked(params, x, m, chunk=None, *, want_aux=False,
     span ranks; the zero rows pad its end on the last block's rank.  This
     rank routes and dispatches its piece of each chunk it meets; one
     gather of every block's counts per (chunk, expert) gives each
-    expert's queue ahead of a piece and the aux loss's fractions."""
+    expert's queue ahead of a piece and the aux loss's fractions.
+    ``held``: as ``_dispatch`` (the result in f32)."""
     d, E = x.shape[-1], m.n_experts
     xf = x.reshape(-1, d)
     n = xf.shape[0]
@@ -227,7 +251,7 @@ def moe_dispatch_chunked(params, x, m, chunk=None, *, want_aux=False,
     every = rows.gather(counts)                      # (blocks, nc, E)
     before = every[:rows.index].sum(0)
     capacity = _capacity(C, m)
-    ys = [_dispatch(params, xf[lo:hi], w, e, m, capacity, before[c])
+    ys = [_dispatch(params, xf[lo:hi], w, e, m, capacity, before[c], held)
           for (c, lo, hi), (w, e, _) in zip(pieces, routed)]
     y = torch.cat(ys)[:n].reshape(x.shape)
     if not want_aux:
@@ -238,10 +262,20 @@ def moe_dispatch_chunked(params, x, m, chunk=None, *, want_aux=False,
     return y, aux * (rows.count / nc)
 
 
-def moe_ffn(params, x, cfg, *, want_aux=False, rows=WHOLE_BATCH):
+def moe_ffn(params, x, cfg, *, want_aux=False, rows=WHOLE_BATCH, tp=None):
     """Full MoE FFN incl. DeepSeek-style shared experts.  Returns (y, aux).
-    ``rows``: the batch's row split (module docstring)."""
+    ``rows``: the batch's row split (module docstring).  ``tp``: a serving
+    plan that splits the layer over its model axis (module docstring)."""
     m = cfg.moe
+    if tp is not None:
+        held = tp.experts_held(m.n_experts)
+        if cfg.moe_impl == "dense":
+            y, _ = moe_dense(params, x, m, held=held)
+        else:
+            y, _ = moe_dispatch_chunked(params, x, m, rows=rows, held=held)
+        if m.n_shared_experts:
+            y = y + mlp(params["shared"], x, "silu").float()
+        return tp.reduce(y).to(x.dtype), None
     if cfg.moe_impl == "dense":
         y, aux = moe_dense(params, x, m, want_aux=want_aux, rows=rows)
     else:

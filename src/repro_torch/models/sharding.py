@@ -328,6 +328,23 @@ def shard_index(entry, mesh, coords: dict) -> tuple:
     return index, count
 
 
+def shard_block(leaf, spec, mesh, coords, path=()):
+    """The block of ``leaf`` (a view) that the device at ``coords`` holds
+    under ``spec`` (``shard_index``'s block of each split dimension); a
+    dimension that does not split evenly is refused."""
+    for d, entry in enumerate(spec):
+        index, count = shard_index(entry, mesh, coords)
+        if count == 1:
+            continue
+        if leaf.shape[d] % count:
+            raise ValueError(f"{'/'.join(path)} of shape "
+                             f"{tuple(leaf.shape)} does not split evenly "
+                             f"over {entry} ({count} blocks)")
+        n = leaf.shape[d] // count
+        leaf = leaf.narrow(d, index * n, n)
+    return leaf
+
+
 # ---------------------------------------------------------------------------
 # Training on a mesh: weights gathered at use
 # ---------------------------------------------------------------------------
@@ -419,13 +436,14 @@ class Collectives:
             grad = self.reduce_scatter(grad, d, name)
         return grad
 
-    def all_reduce_(self, t, axes=None):
-        """``t`` summed in place over each of ``axes`` in turn (None: the
-        whole default group)."""
+    def all_reduce_(self, t, axes=None, op="sum"):
+        """``t`` summed (``op="max"``: its elementwise maximum) in place
+        over each of ``axes`` in turn (None: the whole default group)."""
         import torch.distributed as dist
 
+        reduce_op = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
         for name in (axes if axes is not None else (None,)):
-            dist.all_reduce(t, group=None if name is None
+            dist.all_reduce(t, op=reduce_op, group=None if name is None
                             else self.groups[name])
             self._count("all-reduce", t)
         return t
@@ -647,17 +665,7 @@ class ShardPlan:
         self.leaves = []          # a PlacedLeaf per leaf, in tree order
 
     def _slice(self, leaf, spec, path):
-        for d, entry in enumerate(spec):
-            index, count = shard_index(entry, self.axes, self.coords)
-            if count == 1:
-                continue
-            if leaf.shape[d] % count:
-                raise ValueError(f"train(mesh=...): {'/'.join(path)} of "
-                                 f"shape {tuple(leaf.shape)} does not split "
-                                 f"evenly over {entry} ({count} blocks)")
-            n = leaf.shape[d] // count
-            leaf = leaf.narrow(d, index * n, n)
-        return leaf
+        return shard_block(leaf, spec, self.axes, self.coords, path)
 
     def shard(self, params, specs):
         """``params`` with each leaf replaced, in the tree, by this rank's
@@ -875,6 +883,266 @@ class ShardPlan:
         return out
 
 
+# ---------------------------------------------------------------------------
+# Serving on a mesh: Megatron-style tensor parallelism, activations moved
+# ---------------------------------------------------------------------------
+def attention_split(cfg: ModelConfig, msize: int) -> str:
+    """How ``param_specs`` splits a GQA layer over ``msize`` model ranks:
+
+    - ``"heads"``: q/o over query heads and k/v over kv heads (or no
+      model axis: ``msize`` 1);
+    - ``"dim"``: every projection over the head dim (the query heads do
+      not divide the axis);
+    - ``"mixed"``: q/o over query heads, k/v over the head dim (the kv
+      heads do not divide the axis).
+
+    A layout that leaves k/v whole on every rank beside split query heads
+    (a head dim that does not divide the axis either) is refused."""
+    if msize <= 1:
+        return "heads"
+    q_ok, kv_ok = _div(cfg.n_heads, msize), _div(cfg.n_kv_heads, msize)
+    hd_ok = _div(cfg.resolved_head_dim(), msize)
+    if q_ok and kv_ok:
+        return "heads"
+    if hd_ok:
+        return "mixed" if q_ok else "dim"
+    raise NotImplementedError(
+        f"{cfg.name}: serving over a model axis of {msize} ranks with "
+        f"{cfg.n_heads} query heads, {cfg.n_kv_heads} kv heads and head dim "
+        f"{cfg.resolved_head_dim()} (k/v replicated beside split query "
+        "heads) is not ported")
+
+
+class ServePlan:
+    """Serving (``models.prefill``, ``prefill_chunk``, ``decode_step``) over
+    a ``DeviceMesh`` that spans the default group: Megatron-style tensor
+    parallelism over ``"model"``, the batch's rows over the data axes that
+    divide ``batch`` (the reference's "plain TP+DP" for inference shapes).
+
+    Each rank holds exactly its shard of every parameter under
+    ``param_specs`` and of every cache leaf under ``cache_specs``
+    (``shard``; ``models.init_cache`` under the plan makes this rank's
+    cache shapes); the model moves activations only, counted on ``comm``:
+
+    - the embedding: a masked lookup into this rank's vocab rows, then an
+      all-reduce over ``"model"``; the logits are this rank's vocab block
+      (``whole_logits`` gathers whole rows, outside any step);
+    - attention (``attention_split``): ``"heads"`` runs the layer on this
+      rank's query and kv heads (flash in prefill, the paged kernels in
+      decode and chunks), then the row-parallel ``wo`` and an all-reduce;
+      ``"dim"`` and ``"mixed"`` all-gather the head-dim slices into whole
+      heads for the rotary embedding and flash and keep this rank's slice
+      for the cache; decode and chunks form partial scores over the
+      cache's head-dim slice, all-reduced before the softmax (a plain
+      route, ``attention.split_dim_attention``); int8 caches' scales come
+      from the absmax all-reduced (max) over the slices;
+    - the dense FFN and shared experts column- then row-parallel, the MoE
+      routed experts over ``"model"`` when E divides it (every rank routes
+      every token, the same capacity rule, and combines its experts'
+      share), else over the expert hidden dim; the partial sums stay f32
+      until one all-reduce and one rounding;
+    - the batch's rows: ``rows`` (``RowSplit``), which an MoE dispatch's
+      capacity and queues span; ``cache["pos"]`` stays whole (its spec is
+      ``P()``), each rank reading its rows' positions.
+
+    ``serve_schedule`` derives one step's collectives from the config and
+    the mesh, kind for kind (the dry-run's serving ``collectives``).
+    Out-of-slice stacks (MLA, Mamba-2, RG-LRU, encoder-decoder, vision
+    prefix) are refused by name on a model axis above 1
+    (``models.model.check_ported``).  The hooks of training's plan are the
+    identity here: no weight is gathered."""
+
+    def __init__(self, mesh, cfg: ModelConfig, batch: int):
+        from repro_torch.models.model import check_ported
+
+        if cfg.fsdp:
+            raise ValueError(f"{cfg.name}: ServePlan serves with no weight "
+                             "gathered; cfg.fsdp splits weights over "
+                             "\"data\"")
+        axes = mesh_axes(mesh)
+        self.mesh, self.cfg, self.batch = mesh, cfg, batch
+        self.axes, self.sizes = axes, dict(axes.shape)
+        self.m = self.sizes.get("model", 1)
+        check_ported(cfg, model_axis=self.m)
+        self.coords = {n: mesh.get_local_rank(n) for n in axes.axis_names}
+        self.r = self.coords.get("model", 0)
+        self.comm = Collectives(mesh)
+        rows = RowSplit(mesh, batch_axes(batch, axes), self.coords,
+                        self.comm)
+        self.rows = rows if rows.count > 1 else WHOLE_BATCH
+        self.layout = attention_split(cfg, self.m)
+        self.vocab_split = self.m > 1 and _div(cfg.vocab_size, self.m)
+        self.expert_split = cfg.moe is not None and _div(cfg.moe.n_experts,
+                                                         self.m)
+
+    # -- placement ----------------------------------------------------------
+    def shard(self, tree, specs, path=()):
+        """``tree`` with each leaf replaced in place by this rank's block
+        under ``specs`` (a copy where split, the leaf itself where not; one
+        leaf at a time, so the whole tree is never held twice)."""
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                self.shard(v, specs[k], path + (k,))
+                continue
+            piece = shard_block(v, specs[k], self.axes, self.coords,
+                                path + (k,))
+            tree[k] = piece.clone() if piece.shape != v.shape else v
+            del v, piece
+        return tree
+
+    def shard_params(self, params):
+        """``shard`` under ``param_specs``."""
+        return self.shard(params, param_specs(params, self.cfg, self.mesh))
+
+    def rows_of(self, t):
+        """This rank's block of the batch's rows of ``t`` (dim 0)."""
+        n = t.shape[0] // self.rows.count
+        return t.narrow(0, self.rows.index * n, n)
+
+    def whole_logits(self, logits):
+        """Whole vocab rows from this rank's block: an all-gather over
+        ``"model"``, outside any step, so on a ``Collectives`` of its own
+        (not counted on ``comm``)."""
+        if not self.vocab_split:
+            return logits
+        return Collectives(self.mesh).all_gather(logits, logits.ndim - 1,
+                                                 "model")
+
+    # -- the model's collectives ------------------------------------------
+    def reduce(self, t):
+        """``t`` summed over ``"model"`` (in place when contiguous)."""
+        if self.m == 1:
+            return t
+        return self.comm.all_reduce_(t.contiguous(), ("model",))
+
+    def reduce_max(self, t):
+        """``t``'s elementwise maximum over ``"model"``."""
+        if self.m == 1:
+            return t
+        return self.comm.all_reduce_(t.contiguous(), ("model",), op="max")
+
+    def gather_model(self, t, dim):
+        """Every model rank's block of ``t`` along ``dim``, in order."""
+        if self.m == 1:
+            return t
+        return self.comm.all_gather(t, dim % t.ndim, "model")
+
+    @property
+    def splits_dims(self) -> bool:
+        """Whether k/v (and the caches) split their head dim."""
+        return self.layout in ("dim", "mixed")
+
+    def dim_slice(self, t):
+        """This rank's block of ``t``'s last dim (a head dim)."""
+        n = t.shape[-1] // self.m
+        return t[..., self.r * n:(self.r + 1) * n]
+
+    def local_heads(self, t):
+        """This rank's query heads of ``t`` (B, T, Hq, ...)."""
+        n = t.shape[2] // self.m
+        return t.narrow(2, self.r * n, n)
+
+    def kv_for_local_heads(self, t):
+        """The kv heads of ``t`` (B, S, Hkv, D) that this rank's query
+        heads (the ``"mixed"`` layout) attend, contiguous."""
+        cfg = self.cfg
+        n, G = cfg.n_heads // self.m, cfg.n_heads // cfg.n_kv_heads
+        a = self.r * n
+        if n % G == 0:
+            lo, hi = a // G, (a + n) // G
+        elif G % n == 0:
+            lo, hi = a // G, a // G + 1
+        else:
+            raise NotImplementedError(
+                f"{cfg.name}: {n} query heads a rank do not map onto whole "
+                f"groups of {G}")
+        return t[:, :, lo:hi].contiguous()
+
+    def experts_held(self, n_experts):
+        """(first, count) of the routed experts whose weights this rank
+        holds: E / m of them under expert parallelism, else all (their
+        hidden dim split)."""
+        if self.expert_split:
+            n = n_experts // self.m
+            return self.r * n, n
+        return 0, n_experts
+
+    # -- the hooks of training's plan: the identity ------------------------
+    def gather(self, tree):
+        return tree
+
+    def layer_gatherer(self, stage):
+        return _same
+
+    def channel_split(self, stage):
+        return ALL_CHANNELS
+
+    # -- the schedule -------------------------------------------------------
+    def serve_schedule(self, cfg: ModelConfig, shape, cache_len=None):
+        """One device's collectives of one serving step of ``shape`` on
+        this plan's mesh: {"bytes", "counts"} by kind, bytes of each
+        collective's output, as ``Collectives`` counts them.  ``shape``'s
+        mode: ``"prefill"`` (``seq_len`` tokens a row into caches of
+        ``cache_len``, ``prefill``'s ``max_len``), ``"decode"`` (one token a
+        row over caches of ``cache_len``) or ``"chunk"`` (``prefill_chunk``
+        of ``seq_len`` tokens a row into caches of ``cache_len``);
+        ``cache_len`` defaults to ``seq_len``."""
+        from repro_torch.configs.base import ATTN, ATTN_LOCAL
+        from repro_torch.models.layers import dtype_of
+        from repro_torch.models.model import _cache_seq_len, model_stages
+        from repro_torch.models.moe import chunk_layout
+
+        out = {"bytes": dict.fromkeys(COLLECTIVE_KINDS, 0),
+               "counts": dict.fromkeys(COLLECTIVE_KINDS, 0)}
+
+        def add(kind, nbytes, times=1):
+            out["bytes"][kind] += nbytes * times
+            out["counts"][kind] += times
+
+        m = self.m
+        entry = batch_axes(shape.global_batch, self.axes)
+        count = shard_index(entry, self.axes, self.coords)[1]
+        rows = shape.global_batch // count
+        T = 1 if shape.mode == "decode" else shape.seq_len
+        cache_len = cache_len or shape.seq_len
+        item = torch.empty((), dtype=dtype_of(cfg)).element_size()
+        d, Hq, Hkv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
+        D = cfg.resolved_head_dim()
+        act = rows * T * d * item
+        layout = attention_split(cfg, m)
+        if m > 1 and _div(cfg.vocab_size, m):
+            add("all-reduce", act)                          # the embedding
+        for kind, moe, n in model_stages(cfg):
+            if kind not in (ATTN, ATTN_LOCAL):
+                raise NotImplementedError(f"serve_schedule: layer kind "
+                                          f"{kind!r}")
+            S_c = _cache_seq_len(cfg, kind, cache_len)
+            if m > 1:
+                if layout != "heads":
+                    add("all-gather", rows * T * Hkv * D * item, n)  # k
+                    if shape.mode == "prefill":
+                        add("all-gather", rows * T * Hkv * D * item, n)  # v
+                    if layout == "dim" or shape.mode != "prefill":
+                        add("all-gather", rows * T * Hq * D * item, n)  # q
+                    if shape.mode != "prefill":
+                        # the partial scores; an int8 cache's v absmax
+                        add("all-reduce", rows * Hq * T * S_c * 4, n)
+                        if cfg.kv_quant:
+                            add("all-reduce", rows * T * Hkv * 4, n)
+                        if layout == "mixed":        # every head's output
+                            add("all-gather", rows * T * Hq * D * item, n)
+                    elif cfg.kv_quant:           # the caches' absmax
+                        add("all-reduce", n * rows * S_c * Hkv * 4, 2)
+                add("all-reduce", act, n)                 # wo's partials
+                # the FFN's partial sums: f32 for an MoE layer
+                add("all-reduce", rows * T * d * 4 if moe else act, n)
+            if moe and cfg.moe_impl == "dispatch" and count > 1:
+                nc = chunk_layout(rows * T * count)[1]
+                add("all-gather", self.axes.size * nc * cfg.moe.n_experts
+                    * 8, n)
+        return out
+
+
 @torch.no_grad()
 def gather_tree(shards, specs, mesh):
     """A new tree of whole leaves from this rank's ``shards`` of a tree
@@ -896,8 +1164,8 @@ _ACTIVE = contextvars.ContextVar("repro_torch_shard_plan", default=None)
 
 @contextlib.contextmanager
 def activate(plan):
-    """``plan`` (a ``ShardPlan``, or None) is the one the model reads
-    until the block ends."""
+    """``plan`` (a ``ShardPlan`` or a ``ServePlan``, or None) is the one
+    the model reads until the block ends."""
     token = _ACTIVE.set(plan)
     try:
         yield plan
@@ -938,3 +1206,16 @@ def row_split():
     if plan is None or plan.rows.count == 1:
         return WHOLE_BATCH
     return plan.rows
+
+
+def serving():
+    """The active ``ServePlan``, or None (no plan, or training's)."""
+    plan = _ACTIVE.get()
+    return plan if isinstance(plan, ServePlan) else None
+
+
+def model_split():
+    """The active ``ServePlan`` when its model axis is above 1, else None:
+    what the layers take as ``tp``."""
+    plan = serving()
+    return plan if plan is not None and plan.m > 1 else None

@@ -29,6 +29,15 @@ for the port's multi-rank tests.  The test starts one process per rank:
   checkpoint case writes ``train``'s own file under ``OUT.ckpt``; a
   ``reference`` case starts from the weights the test wrote beside OUT
   (``<case>.weights.npz``: the reference's, drawn by JAX).
+- ``serve_tp2`` / ``serve_tp4``: every case of ``SERVE_CASES`` whose mesh
+  holds WORLD ranks, under a ``ServePlan``: ``prefill``, ``SERVE_DECODE``
+  teacher-forced ``decode_step`` calls and, where the stack takes it, one
+  ``prefill_chunk`` (``serve_inputs``); each rank writes its rows' whole
+  logits of every call and its cache shards after the last to
+  ``OUT.rank<rank>.npz`` (``<case>/...``), and its shards' bytes and
+  each call's counted collectives beside ``serve_schedule``'s to
+  ``OUT.rank<rank>.json``; every rank draws the whole tree by
+  ``init_params`` at seed 0 and keeps its shards.
 Imports no JAX.
 """
 import json
@@ -125,6 +134,146 @@ TP_CASES = {
                                         "capacity_factor": 1.0},
                                        {"chunk": 48, "reference": True}),
 }
+
+
+# serving over a mesh (``ServePlan``): name -> (arch, (data, model) mesh,
+# config fields replaced); smoke configs in f32
+SERVE_CASES = {
+    "llama_model2": ("llama2-7b", (1, 2), {}),
+    # 8 query heads over 2 kv heads, tied embeddings
+    "granite_model2": ("granite-3-2b", (1, 2), {}),
+    # E = 4 over the model axis, window 32, a prompt past it
+    "mixtral_model2": ("mixtral-8x7b", (1, 2), {}),
+    # experts over the model axis (the dispatch), a shared expert, a
+    # dense first stage
+    "deepseek_moe_model2": ("deepseek-moe-16b", (1, 2),
+                            {"moe_impl": "dispatch"}),
+    "llama_model2_int8": ("llama2-7b", (1, 2), {"kv_quant": True}),
+    "llama_data2": ("llama2-7b", (2, 1), {}),
+    # 6 heads of 24 over 2 kv heads: every projection over the head dim
+    "starcoder_model4": ("starcoder2-7b", (1, 4), {}),
+    # q over heads, k/v over the head dim; the same with int8 caches
+    # (each scale from the absmax over the four ranks' slices)
+    "granite_model4": ("granite-3-2b", (1, 4), {}),
+    "granite_model4_int8": ("granite-3-2b", (1, 4), {"kv_quant": True}),
+    # 2 experts over 4 ranks: the expert hidden dim split, the dispatch
+    "mixtral_e2_model4": ("mixtral-8x7b", (1, 4),
+                          {"moe_impl": "dispatch", "n_experts": 2}),
+}
+SERVE_BATCH, SERVE_MAX_LEN, SERVE_DECODE, SERVE_CHUNK = 2, 64, 4, 6
+
+
+def serve_case(name):
+    """(cfg in f32, (data, model)) of a ``SERVE_CASES`` entry."""
+    import dataclasses
+
+    from repro_torch.configs import SMOKE_FACTORIES
+
+    arch, shape, fields = SERVE_CASES[name]
+    cfg = SMOKE_FACTORIES[arch]()
+    fields = dict(fields)
+    if "n_experts" in fields:
+        fields["moe"] = dataclasses.replace(
+            cfg.moe, n_experts=fields.pop("n_experts"))
+    return dataclasses.replace(cfg, dtype="float32", attn_impl="flash",
+                               **fields), shape
+
+
+def serve_inputs(cfg):
+    """(prompt tokens (B, S), the decode steps' tokens (SERVE_DECODE, B),
+    the chunk's tokens (B, SERVE_CHUNK) or None where the stack takes no
+    ``prefill_chunk``): S past a window where the stack has one."""
+    from repro_torch.models.model import supports_chunked_prefill
+
+    S = cfg.window + 8 if cfg.window else 24
+    rng = np.random.default_rng(7)
+    draw = rng.integers(0, cfg.vocab_size, (SERVE_BATCH, S + SERVE_DECODE
+                                            + SERVE_CHUNK)).astype(np.int64)
+    chunk = draw[:, S + SERVE_DECODE:] if supports_chunked_prefill(cfg) \
+        else None
+    return draw[:, :S], draw[:, S:S + SERVE_DECODE].T.copy(), chunk
+
+
+def serve_run(name, mesh):
+    """One ``SERVE_CASES`` case on this rank: (arrays, the JSON part)."""
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.dryrun import local_bytes
+    from repro_torch.launch.specs import param_structs, tree_placements
+    from repro_torch.models.model import (decode_step, init_cache, prefill,
+                                          prefill_chunk)
+    from repro_torch.models.sharding import (ServePlan, activate,
+                                             cache_specs, param_specs)
+    from repro_torch.weights import init_params
+
+    cfg, _ = serve_case(name)
+    prompt, steps, chunk = serve_inputs(cfg)
+    B, S = prompt.shape
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    plan = ServePlan(mesh, cfg, B)
+    plan.shard_params(params)
+    arrays, calls = {}, []
+    comm = plan.comm
+
+    def counted(fn, shape, cache_len=None):
+        before = {k: dict(v) for k, v in (("bytes", comm.bytes),
+                                          ("counts", comm.counts))}
+        got = fn()
+        calls.append({
+            "counted": {k: {kind: getattr(comm, k)[kind] - before[k][kind]
+                            for kind in before[k]}
+                        for k in ("bytes", "counts")},
+            "schedule": plan.serve_schedule(cfg, shape, cache_len)})
+        return got
+
+    rows = plan.rows_of
+    with activate(plan):
+        logits, cache = counted(lambda: prefill(
+            params, {"tokens": rows(torch.from_numpy(prompt))}, cfg,
+            SERVE_MAX_LEN), ShapeConfig("p", S, B, "prefill"), SERVE_MAX_LEN)
+        arrays["logits/prefill"] = plan.whole_logits(logits).numpy()
+        for i, toks in enumerate(steps):
+            logits, cache = counted(lambda: decode_step(
+                params, rows(torch.from_numpy(toks)), cache, cfg),
+                ShapeConfig("d", 1, B, "decode"), SERVE_MAX_LEN)
+            arrays[f"logits/decode{i}"] = plan.whole_logits(logits).numpy()
+        if chunk is not None:
+            logits, cache = counted(lambda: prefill_chunk(
+                params, rows(torch.from_numpy(chunk)), cfg, cache),
+                ShapeConfig("c", chunk.shape[1], B, "chunk"), SERVE_MAX_LEN)
+            arrays["logits/chunk"] = plan.whole_logits(logits).numpy()
+        zeros = init_cache(cfg, B, SERVE_MAX_LEN, device="cpu")
+    # int8 caches' bf16 scales saved in f32 (exact)
+    arrays.update({f"cache/{k}": v for k, v in flat(_tree_map(
+        lambda t: t.float() if t.dtype == torch.bfloat16 else t,
+        cache)).items()})
+    whole_cache = init_cache(cfg, B, SERVE_MAX_LEN, device="meta")
+    structs = param_structs(cfg)
+    nbytes = {
+        "params": _nbytes(params),
+        "params_placed": local_bytes(structs, tree_placements(
+            param_specs(structs, cfg, mesh), mesh), mesh),
+        "cache": _nbytes(cache),
+        "init_cache": _nbytes(zeros),
+        "cache_placed": local_bytes(whole_cache, tree_placements(
+            cache_specs(whole_cache, cfg, mesh, B), mesh), mesh)}
+    return arrays, {"bytes": nbytes, "calls": calls,
+                    "layout": plan.layout, "rows": [plan.rows.index,
+                                                    plan.rows.count]}
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _nbytes(tree):
+    """The bytes of a tree of tensors."""
+    if isinstance(tree, dict):
+        return sum(_nbytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
 
 
 # the channel-parallel RG-LRU cases of the ``channels`` job
@@ -420,6 +569,19 @@ def main(job, rank, world, store, out):
     torch.set_num_threads(1)
     assert join_ranks(store, rank, world, device="cpu") == "gloo"
     try:
+        if job.startswith("serve_tp"):
+            arrays, results = {}, {}
+            for name in SERVE_CASES:
+                _, (data, model) = serve_case(name)
+                if data * model != world:
+                    continue
+                got, results[name] = serve_run(
+                    name, make_host_mesh(model=model, device="cpu"))
+                arrays.update({f"{name}/{k}": v for k, v in got.items()})
+            np.savez(f"{out}.rank{rank}.npz", **arrays)
+            with open(f"{out}.rank{rank}.json", "w") as f:
+                json.dump(results, f)
+            return
         if job.startswith("tp"):
             results = {name: tp_run(name, world, out, rank)
                        for name, (_, (data, model), _, _) in TP_CASES.items()

@@ -188,8 +188,12 @@ def test_dryrun_cli_writes_both_meshes(tmp_path, monkeypatch):
                             "memory", "cost", "collectives"}
         m = res["memory"]
         assert m["argument_bytes"] > 0 and m["output_bytes"] > 0
-        assert m["temp_bytes"] is None and res["collectives"] is None
+        assert m["temp_bytes"] is None
         assert "partitioner" in m["temp_bytes_reason"]
+        # a decode step's collectives from the port's serving plan
+        assert "ServePlan.serve_schedule" in res["collectives"]["schedule"]
+        assert res["collectives"]["counts"]["all-reduce"] == \
+            1 + 2 * 32                       # the embedding; wo, the MLP
         assert res["cost"]["flops"] * devices == res["cost"]["flops_global"]
 
 

@@ -1,0 +1,322 @@
+"""Serving over a mesh (``models.sharding.ServePlan``; CPU, f32, smoke
+configs; gloo ranks, a process each over a ``FileStore``: no network).
+Each rank holds its shard of every parameter under ``param_specs`` and of
+every cache leaf under ``cache_specs``, and ``prefill``, ``decode_step``
+and ``prefill_chunk`` move activations only: the embedding's and each
+row-parallel product's all-reduce over ``"model"``, and over a head-dim
+split the k/q slices gathered and the partial scores all-reduced.  The
+cases (``SERVE_CASES``), one set of rank processes per mesh size:
+
+- ``(1, 2)``: Llama-2 (heads split), Granite-3-2B (8 query heads over 2
+  kv heads), Mixtral (E = 4 over the model axis, window 32, a prompt past
+  it), DeepSeek-MoE (experts over the model axis through the dispatch, a
+  shared expert, a dense first stage), Llama-2 with int8 slot caches;
+- ``(2, 1)``: Llama-2 with its batch over the data axis;
+- ``(1, 4)``: StarCoder2 (6 heads of 24 over 2 kv heads: every projection
+  over the head dim), Granite (q over heads, k/v over the head dim), the
+  same with int8 caches, and Mixtral with 2 experts (their hidden dim
+  split).
+
+Each case's prefill, ``SERVE_DECODE`` teacher-forced decode steps and one
+``prefill_chunk`` (where the stack takes it) against one process's on the
+same weights, logits within ``REL`` (1e-5) of the largest |logit|; each
+rank's cache shards after the last call against its slice of the one
+process's cache within ``REL`` of the leaf's largest; each rank's
+parameter and cache bytes equal the placements' local bytes exactly; each
+call's counted collectives equal ``ServePlan.serve_schedule``, kind for
+kind.  Llama-2 and Mixtral on ``(1, 2)`` are held against the
+reference's one-device ``prefill`` and ``decode_step`` too, on the same
+weights (the port's draw, handed to JAX leaf for leaf: the trees share
+the reference's layout), at ``LOGIT_TOL`` of
+``tests/test_torch_model.py``.
+The stacks outside the slice are refused by name on a model axis of 2,
+and the dry-run writes serving collectives from the plan's schedule."""
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+
+from repro.configs import SMOKE_FACTORIES as J_SMOKE
+from repro.models import decode_step as j_decode
+from repro.models import prefill as j_prefill
+from repro_torch.configs import SMOKE_FACTORIES
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch import dryrun
+from repro_torch.models import model as tm
+from repro_torch.models.sharding import ServePlan, cache_specs, shard_index
+from repro_torch.weights import init_params
+
+from _torch_dist_ranks import (SERVE_CASES, SERVE_MAX_LEN, flat, serve_case,
+                               serve_inputs, start_ranks, unflat,
+                               wait_ranks)
+from test_torch_model import LOGIT_TOL, port_config
+
+REL = 1e-5
+JAX_CASES = ("llama_model2", "mixtral_model2")
+WORLDS = sorted({d * m for _, (d, m), _ in SERVE_CASES.values()})
+
+
+def _jax_config(name):
+    import dataclasses
+
+    cfg, _ = serve_case(name)
+    jcfg = dataclasses.replace(J_SMOKE[SERVE_CASES[name][0]](),
+                               dtype="float32", attn_impl="flash")
+    assert port_config(jcfg) == cfg
+    return jcfg
+
+
+def _one_process(name, params):
+    """One process's logits of every call and its final cache."""
+    cfg, _ = serve_case(name)
+    prompt, steps, chunk = serve_inputs(cfg)
+    out = {}
+    logits, cache = tm.prefill(params, {"tokens": torch.from_numpy(prompt)},
+                               cfg, SERVE_MAX_LEN)
+    out["logits/prefill"] = logits.numpy()
+    for i, toks in enumerate(steps):
+        logits, cache = tm.decode_step(params, torch.from_numpy(toks), cache,
+                                       cfg)
+        out[f"logits/decode{i}"] = logits.numpy()
+    if chunk is not None:
+        logits, cache = tm.prefill_chunk(params, torch.from_numpy(chunk), cfg,
+                                         cache)
+        out["logits/chunk"] = logits.numpy()
+    return out, cache
+
+
+def _reference(name, params):
+    """The reference's one-device logits of the case's prefill and decode
+    steps, from the port's ``params``."""
+    jcfg = _jax_config(name)
+    jparams = jax.tree.map(jnp.asarray, unflat(flat(params)))
+    prompt, steps, _ = serve_inputs(serve_case(name)[0])
+    out = {}
+    logits, cache = j_prefill(jparams, {"tokens": jnp.asarray(
+        prompt, jnp.int32)}, jcfg, SERVE_MAX_LEN)
+    out["logits/prefill"] = np.asarray(logits)
+    for i, toks in enumerate(steps):
+        logits, cache = j_decode(jparams, jnp.asarray(toks, jnp.int32),
+                                 cache, jcfg)
+        out[f"logits/decode{i}"] = np.asarray(logits)
+    return out
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory):
+    """Both jobs started at once; while they run, each case in one process
+    (from ``init_params`` at seed 0, as the ranks draw it) and the
+    reference's steps.  Returns {case: (one process's logits, its cache,
+    [each rank's (arrays, JSON part)], the reference's logits or None)}."""
+    tmp = tmp_path_factory.mktemp("serve")
+    jobs = {world: start_ranks(f"serve_tp{world}", world, tmp)
+            for world in WORLDS}
+    try:
+        single, reference = {}, {}
+        for name in SERVE_CASES:
+            cfg, _ = serve_case(name)
+            params = init_params(cfg, torch.Generator().manual_seed(0),
+                                 "cpu")
+            single[name] = _one_process(name, params)
+            if name in JAX_CASES:
+                reference[name] = _reference(name, params)
+    finally:
+        for procs, _ in jobs.values():
+            wait_ranks(procs, timeout=240)
+    out = {}
+    for name, (_, (data, model), _) in SERVE_CASES.items():
+        path = jobs[data * model][1]
+        per_rank = []
+        for r in range(data * model):
+            with np.load(f"{path}.rank{r}.npz") as f:
+                arrays = {k[len(name) + 1:]: f[k] for k in f.files
+                          if k.startswith(f"{name}/")}
+            res = json.loads(open(f"{path}.rank{r}.json").read())[name]
+            per_rank.append((arrays, res))
+        out[name] = (*single[name], per_rank, reference.get(name))
+    return out
+
+
+def _rows(a, res):
+    """The block of ``a``'s rows (dim 0) a rank holds."""
+    index, count = res["rows"]
+    n = a.shape[0] // count
+    return a[index * n:(index + 1) * n]
+
+
+def _rel(got, want):
+    return np.abs(got - want).max() / np.abs(want).max()
+
+
+@pytest.mark.parametrize("name", SERVE_CASES)
+def test_logits_match_one_process(ranks, name):
+    want, _, per_rank, _ = ranks[name]
+    cfg, _ = serve_case(name)
+    assert ("logits/chunk" in want) == tm.supports_chunked_prefill(cfg)
+    for arrays, res in per_rank:
+        assert sorted(k for k in arrays if k.startswith("logits/")) == \
+            sorted(want)
+        for key, w in want.items():
+            assert _rel(arrays[key], _rows(w, res)) <= REL, (key, res)
+
+
+@pytest.mark.parametrize("name", SERVE_CASES)
+def test_cache_shards_match_one_process(ranks, name):
+    """Each rank's cache after the last call is its block, under
+    ``cache_specs``, of the one process's (``pos`` whole)."""
+    _, cache, per_rank, _ = ranks[name]
+    cfg, (data, model) = serve_case(name)
+
+    class Mesh:
+        axis_names, shape = ("data", "model"), {"data": data, "model": model}
+
+    specs = flat_specs(cache_specs(cache, cfg, Mesh, cache["pos"].shape[0]))
+    want = {k: v.float().numpy() for k, v in _flat_tensors(cache).items()}
+    for r, (arrays, res) in enumerate(per_rank):
+        coords = {"data": r // model, "model": r % model}
+        got = {k[len("cache/"):]: v for k, v in arrays.items()
+               if k.startswith("cache/")}
+        assert sorted(got) == sorted(want)
+        for path, w in want.items():
+            for d, entry in enumerate(specs[path]):
+                index, count = shard_index(entry, Mesh, coords)
+                n = w.shape[d] // count
+                w = w.take(range(index * n, (index + 1) * n), axis=d)
+            assert got[path].shape == w.shape, path
+            scale = max(np.abs(w).max(), 1e-30)
+            assert np.abs(got[path] - w).max() <= REL * scale, path
+
+
+def flat_specs(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_specs(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def _flat_tensors(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_tensors(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+@pytest.mark.parametrize("name", SERVE_CASES)
+def test_rank_bytes_equal_placements(ranks, name):
+    """What each rank holds is its placements' local bytes, exactly: the
+    parameters as ``ServePlan.shard_params`` cut them, the cache after the
+    last call and as ``init_cache`` made it under the plan; a model axis
+    above 1 holds less than one process."""
+    _, cache, per_rank, _ = ranks[name]
+    cfg, (data, model) = serve_case(name)
+    for _, res in per_rank:
+        b = res["bytes"]
+        assert b["params"] == b["params_placed"]
+        assert b["cache"] == b["init_cache"] == b["cache_placed"]
+        if model > 1:
+            whole = sum(t.numel() * t.element_size() for t in
+                        _flat_tensors(init_params(
+                            cfg, torch.Generator(), "meta")).values())
+            assert b["params"] < whole
+
+
+@pytest.mark.parametrize("name", SERVE_CASES)
+def test_counted_collectives_equal_schedule(ranks, name):
+    """Every call's collectives as the rank counted them equal
+    ``serve_schedule``'s, kind for kind in bytes and calls; a model axis
+    above 1 all-reduces in every call."""
+    _, _, per_rank, _ = ranks[name]
+    cfg, (_, model) = serve_case(name)
+    for _, res in per_rank:
+        calls = res["calls"]
+        assert len(calls) == 1 + 4 + tm.supports_chunked_prefill(cfg)
+        for call in calls:
+            assert call["counted"] == call["schedule"]
+            if model > 1:
+                assert call["counted"]["counts"]["all-reduce"] > 0
+
+
+def test_layouts(ranks):
+    """The attention layout each case takes."""
+    want = {"starcoder_model4": "dim", "granite_model4": "mixed",
+            "granite_model4_int8": "mixed", "mixtral_e2_model4": "mixed"}
+    for name in SERVE_CASES:
+        for _, res in ranks[name][2]:
+            assert res["layout"] == want.get(name, "heads"), name
+
+
+@pytest.mark.parametrize("name", JAX_CASES)
+def test_logits_match_reference(ranks, name):
+    """The ranks' logits against the reference's one-device ``prefill``
+    and ``decode_step`` on the same weights."""
+    _, _, per_rank, reference = ranks[name]
+    for arrays, _ in per_rank:
+        for key, w in reference.items():
+            np.testing.assert_allclose(arrays[key], w, atol=LOGIT_TOL,
+                                       rtol=LOGIT_TOL, err_msg=key)
+
+
+class _Mesh2:
+    axis_names, shape = ("data", "model"), {"data": 1, "model": 2}
+
+
+@pytest.mark.parametrize("arch,what", [
+    ("minicpm3-4b", "multi-head latent attention"),
+    ("mamba2-2.7b", "Mamba-2"),
+    ("recurrentgemma-2b", "RG-LRU"),
+    ("whisper-large-v3", "the encoder-decoder"),
+    ("internvl2-76b", "the vision prefix"),
+])
+def test_out_of_slice_stacks_refused(arch, what):
+    """On a model axis of 2 by name, from the plan and from
+    ``check_ported``; on one rank of model axis they are ported."""
+    cfg = SMOKE_FACTORIES[arch]()
+    match = f"serving {what} over a model axis of 2 ranks"
+    with pytest.raises(NotImplementedError, match=match):
+        ServePlan(_Mesh2, cfg, 2)
+    with pytest.raises(NotImplementedError, match=match):
+        tm.check_ported(cfg, model_axis=2)
+    tm.check_ported(cfg, model_axis=1)
+
+
+def _fake_mesh(shape):
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    assert not dist.is_initialized()
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=shape[0] * shape[1])
+    return init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
+
+
+def test_dryrun_serving_collectives(ranks):
+    """The dry-run's serving collectives on a fake (1, 2) group: a case's
+    decode step as its ranks counted it, labelled with the plan's
+    schedule; an MLA stack's ``null`` with the refusal."""
+    name = "llama_model2"
+    cfg, _ = serve_case(name)
+    counted = ranks[name][2][0][1]["calls"][1]["counted"]
+    try:
+        mesh = _fake_mesh((1, 2))
+        got, why = dryrun.serve_collectives(cfg, ShapeConfig(
+            "d", SERVE_MAX_LEN, 2, "decode"), mesh)
+        none, refused = dryrun.serve_collectives(
+            SMOKE_FACTORIES["minicpm3-4b"](),
+            ShapeConfig("d", SERVE_MAX_LEN, 2, "decode"), mesh)
+    finally:
+        dist.destroy_process_group()
+    assert why is None and none is None
+    assert {k: got[k] for k in ("bytes", "counts")} == counted
+    assert got["total_bytes"] == sum(counted["bytes"].values())
+    assert "serve_schedule" in got["schedule"]
+    assert "multi-head latent attention" in refused
