@@ -231,18 +231,18 @@ The quickest proof that the port builds and serves on an NVIDIA H100:
         GatherAtUse``: once in the forward, once more under remat, the
         gradient reduce-scattered back), each taking 2 of every batch's
         4 rows; the vocab of 49 155 does not split over 2, so the table
-        stays whole.  P's first 3 steps: step 0's loss within 1e-3
-        relative of P's, every step within 1e-2, flash 2 x 40 x 3 and its
-        backward 40 x 3 on each rank, all ``mma``; each rank's peak and
-        step time beside P's; the collectives the ranks counted, equal to the schedule's
-        (``launch.dryrun.step_collectives``) at every step, and each
-        kind's gloo rate alone on 256 MiB;
+        stays whole.  P's first 2 steps: step 0's loss within 1e-3
+        relative of P's, every step within 1e-2, flash 2 x 40 x 2 and its
+        backward 40 x 2 on each rank, all ``mma``; each rank's peak and
+        step time beside P's; the collectives the ranks counted, equal to
+        the schedule's (``launch.dryrun.step_collectives``) at every step,
+        and each kind's gloo rate alone on 64 MiB;
      X  DeepSeek-MoE-16B at full width, 4 of 28 layers (``reduced``),
         the capacity dispatch at 1.0 with ``fsdp=True`` over a (2, 1)
         mesh of two rank processes on the card (as W): every weight split
         over "data" and gathered at use, the MoE capacity, queue places
         and load-balance loss over the whole batch (one all-gather of
-        routed-token counts per MoE layer and forward); the first 3 of
+        routed-token counts per MoE layer and forward); the first 2 of
         TRAIN_QT's 4 steps against ``training.train`` of the same cut
         config and weights in one process on the card: step 0 within 1e-3
         relative, every step within 1e-2; each rank's peak beside the
@@ -252,15 +252,23 @@ The quickest proof that the port builds and serves on an NVIDIA H100:
         channel-parallel over "model", against one process;
      Z  serving over a (1, 2) mesh of two rank processes on the card (as
         W; ``models.sharding.ServePlan``: query and kv heads, experts,
-        the FFN hidden dim and the vocab over "model", only activations
-        moved): ``models.prefill`` of 4 prompts of 512 tokens, then 32
-        ``decode_step`` calls teacher-forced with one process's greedy
-        tokens over caches of 1024 slots, for Z1 Llama-2-7B as
-        registered, Z2 Mixtral-8x7B at 4 of 32 layers (4 of its 8 experts
-        a rank) and Z3 Llama-2-7B at 8 layers with int8 slot caches
-        (``reduced``); each rank launches flash once per layer on its 16
-        of 32 query heads and split-K once per layer and step on its kv
-        heads' cache shards (asserted, with the heads each launch saw),
+        the FFN hidden dim, MLA heads and latent rank, Mamba-2 heads and
+        channels, RG-LRU channels and the vocab over "model", only
+        activations moved): ``models.prefill`` of 4 prompts of 512
+        tokens, then 16 ``decode_step`` calls teacher-forced with one
+        process's greedy tokens over caches of 1024 slots, for Z1
+        Llama-2-7B as registered, Z2 Mixtral-8x7B at 4 of 32 layers (4 of
+        its 8 experts a rank), Z3 Llama-2-7B at 8 layers with int8 slot
+        caches, Z4 MiniCPM3-4B (31 of 62 layers, MLA: flash at D 96 / Dv
+        64 on 20 of 40 heads, the latent cache over its rank, the absorbed
+        decode's partial scores all-reduced), Z5 Mamba-2-2.7B (32 of 64
+        layers: the SSD scan on 40 of 80 heads; cuts in ``reduced``) and
+        Z6 RecurrentGemma-2B (26 layers: the RG-LRU branch
+        on 1280 of 2560 channels, local attention "mixed", flash on 5 of
+        10 query heads at D 256); each rank launches flash once per
+        attention layer on its heads, split-K once per GQA layer and step
+        on its kv heads' cache shards where they split, and the SSD scan
+        once per Mamba-2 layer (asserted, with the heads each launch saw),
         counts its collectives (equal to ``serve_schedule``, asserted),
         and every call's logits stay within 5e-2 of the largest of one
         process's on the same weights and tokens, run first; each rank's
@@ -313,7 +321,7 @@ switched off for matmuls and cuDNN, so f32 products are full f32.
     python3 chip_smoke.py
 
 ``python3 chip_smoke.py --rank RUN RANK WORLD STORE OUT`` is one rank
-process of run W, X or Y (``mesh_rank_main``), ``--rank Z RANK WORLD
+process of run W, X or Y (``mesh_rank_main``), ``--rank Z[:RUNS] RANK WORLD
 STORE OUT`` one of run Z (``serve_rank_main``), which the script starts
 itself.
 """
@@ -412,41 +420,56 @@ TRAIN_RUNS = {
 # config fields replaced, steps run: the first of TrainConfig's steps,
 # under its learning-rate schedule); each within TRAIN_LOSS_TOL of its
 # baseline at every step and MESH_STEP0_REL relative at step 0.  Each
-# runs its first 3 steps (cut from 4 for run Z's time): W the first 3 of
-# run P's 8 (held to P's first 3 losses), X and Y the first 3 of
-# TRAIN_QT's 4; Y is RecurrentGemma-2B with its RG-LRU branch
+# runs its first 2 steps (the smoke's time): W the first 2 of run P's 8
+# (held to P's first 2 losses), X and Y the first 2 of TRAIN_QT's 4; Y is RecurrentGemma-2B with its RG-LRU branch
 # channel-parallel over the model axis (the config's
 # train_batch_over_model=False), 6 of 26 layers (two (rec, rec, attn)
 # units) at run T's shape
 MESH_RUNS = {
-    "W": ("granite-3-2b", None, (1, 2), TRAIN, {}, 3),
-    "X": ("deepseek-moe-16b", 4, (2, 1), TRAIN_QT, {"fsdp": True}, 3),
+    "W": ("granite-3-2b", None, (1, 2), TRAIN, {}, 2),
+    "X": ("deepseek-moe-16b", 4, (2, 1), TRAIN_QT, {"fsdp": True}, 2),
     "Y": ("recurrentgemma-2b", 6, (1, 2),
-          dict(TRAIN_QT, batch=2, seq_len=4096), {}, 3),
+          dict(TRAIN_QT, batch=2, seq_len=4096), {}, 2),
 }
 MESH_STEP0_REL = 1e-3
 MESH_RANK_TIMEOUT_S = 420
 # run Z: serving over a (1, 2) mesh of two rank processes on the card
-# (``models.sharding.ServePlan``: heads, experts, FFN hidden and vocab over
-# "model"), held to one process's prefill / decode_step on the same
+# (``models.sharding.ServePlan``: heads, experts, FFN hidden, MLA heads
+# and latent rank, Mamba-2 heads and channels, RG-LRU channels and vocab
+# over "model"), held to one process's prefill / decode_step on the same
 # weights and tokens: name -> (arch, n_layers or None: as registered,
-# config fields replaced); SERVE_PROMPTS prompts of SERVE_PROMPT_LEN
-# tokens, then SERVE_STEPS decode steps teacher-forced with the one
-# process's greedy tokens, caches of SERVE_MAX_LEN (64 pages of 16: the
-# split-K kernel); Z3 runs first: its calls warm each rank process (the
-# CUDA context, cuBLAS, the kernel libraries), so Z1's and Z2's times are
-# a warm process's
+# config fields replaced, why the depth is cut or None); SERVE_PROMPTS
+# prompts of SERVE_PROMPT_LEN tokens, then SERVE_STEPS decode steps
+# teacher-forced with the one process's greedy tokens, caches of
+# SERVE_MAX_LEN (64 pages of 16: the split-K kernel); Z3 runs first: its calls warm each rank
+# process (the CUDA context, cuBLAS, the kernel libraries), so the
+# others' times are a warm process's
 SERVE_MESH_RUNS = {
-    "Z3": ("llama2-7b", 8, {"kv_quant": True}),
-    "Z1": ("llama2-7b", None, {}),
-    "Z2": ("mixtral-8x7b", 4, {}),
+    "Z3": ("llama2-7b", 8, {"kv_quant": True},
+           "the smoke's time: Z1 serves the full depth; Z3 adds the int8 "
+           "caches' route"),
+    "Z1": ("llama2-7b", None, {}, None),
+    "Z2": ("mixtral-8x7b", 4, {},
+           "two rank processes, each drawing the whole tree before it "
+           "keeps its shards, and the one-process baseline share one card"),
+    "Z4": ("minicpm3-4b", 31, {},
+           "the smoke's time: the 62-layer sub-run took 25-37 s (a decode "
+           "step makes 311 gloo calls: 5 a layer)"),
+    "Z5": ("mamba2-2.7b", 32, {},
+           "the smoke's time (the 64-layer sub-run took 25-30 s: 16 decode "
+           "steps of 257 gloo calls); and at 64 layers rounding order alone "
+           "moves one process's logits by 3.7e-2 (the gated norm's sum in "
+           "two halves) to 5.0e-2 (out_proj in two f32 halves) of the "
+           "largest, bf16 against f32 6.8e-2 (scripts/"
+           "rounding_sensitivity.py), the floor under DENSE_REL_TOL"),
+    "Z6": ("recurrentgemma-2b", None, {}, None),
 }
 SERVE_MESH = (1, 2)
 SERVE_PROMPTS, SERVE_PROMPT_LEN = 4, 512
-SERVE_STEPS, SERVE_MAX_LEN = 32, 1024
+SERVE_STEPS, SERVE_MAX_LEN = 16, 1024
 # run W's ranks also time each collective kind alone on bf16 CUDA tensors
 # of this many MiB of input, TRANSPORT_REPS calls after one warm-up
-TRANSPORT_MIB = 256
+TRANSPORT_MIB = 64
 TRANSPORT_REPS = 2
 # the flash backward kernel vs its plain version: f32 sums in other orders
 # (max |d| within 1e-4 of the largest |plain|); bf16: both widen the same
@@ -495,8 +518,8 @@ def emit(obj):
 
 def main() -> int:
     if sys.argv[1:2] == ["--rank"]:
-        if sys.argv[2] == "Z":
-            return serve_rank_main(sys.argv[3:])
+        if sys.argv[2].split(":")[0] == "Z":
+            return serve_rank_main(sys.argv[2].split(":")[1:] + sys.argv[3:])
         return mesh_rank_main(sys.argv[2:])
     import torch
     if not torch.cuda.is_available():
@@ -3190,35 +3213,70 @@ def mesh_rank_run(torch, run):
 
 
 def serve_mesh_config(run):
-    """(cfg, reduced or None) of run Z1, Z2 or Z3."""
+    """(cfg, reduced or None) of a Z run."""
     from repro_torch.configs import get_config
 
-    arch, n_layers, fields = SERVE_MESH_RUNS[run]
+    arch, n_layers, fields, why = SERVE_MESH_RUNS[run]
     cfg = get_config(arch)
     reduced = None
     if n_layers is not None:
         full = cfg.n_params()
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
         reduced = {"n_layers": [get_config(arch).n_layers, n_layers],
-                   "n_params": [full, cfg.n_params()],
-                   "why": "two rank processes, each drawing the whole tree "
-                          "before it keeps its shards, and the one-process "
-                          "baseline share one card" if arch == "mixtral-8x7b"
-                          else "the smoke's time: Z1 serves the full depth; "
-                               "Z3 adds the int8 caches' route"}
+                   "n_params": [full, cfg.n_params()], "why": why}
     return dataclasses.replace(cfg, **fields), reduced
 
 
 def serve_launches(cfg):
-    """A rank's launches in one Z run: flash once per layer in the prefill
-    (every prompt in one call), split-K once per layer and decode step
-    over its pools' dtype, nothing else of the port."""
-    L = cfg.n_layers
-    pools = "int8" if cfg.kv_quant else "bf16"
-    return {"flash_attention": L, "flash_attention:mma": L,
-            "paged_attention_splitk": L * SERVE_STEPS,
-            "paged_attention_splitk:mma": L * SERVE_STEPS,
-            f"paged_attention_splitk/{pools}": L * SERVE_STEPS}
+    """A rank's launches in one Z run, nothing else of the port: flash once per attention layer in the prefill
+    (every prompt in one call: GQA, MLA, RecurrentGemma's local
+    attention), the SSD scan once per Mamba-2 layer; split-K once per GQA
+    layer and decode step over its pools' dtype where the heads split
+    (over a head-dim split decode runs a plain route; MLA decodes through
+    ``torch.bmm``, Mamba-2 through its recurrence)."""
+    from repro_torch.configs.base import ATTN, ATTN_LOCAL, ATTN_MLA, MAMBA2
+    from repro_torch.models.sharding import serve_layouts
+
+    kinds = cfg.layer_kinds()
+    n_attn = sum(k in (ATTN, ATTN_LOCAL, ATTN_MLA) for k in kinds)
+    n_ssd = sum(k == MAMBA2 for k in kinds)
+    out = {}
+    if n_attn:
+        out.update({"flash_attention": n_attn, "flash_attention:mma": n_attn})
+    if n_ssd:
+        out.update({"ssd_scan": n_ssd, "ssd_scan:mma": n_ssd})
+    layouts = serve_layouts(cfg, SERVE_MESH[1])
+    if layouts.get(ATTN, layouts.get(ATTN_LOCAL)) == "heads":
+        pools = "int8" if cfg.kv_quant else "bf16"
+        n = sum(k in (ATTN, ATTN_LOCAL) for k in kinds) * SERVE_STEPS
+        out.update({"paged_attention_splitk": n,
+                    "paged_attention_splitk:mma": n,
+                    f"paged_attention_splitk/{pools}": n})
+    return out
+
+
+def serve_heads(cfg):
+    """The (query heads, kv heads) each flash and paged launch of a Z
+    run's rank sees, and the (heads, B/C groups) each SSD-scan launch
+    sees: this rank's heads (GQA, MLA: k carries every query head's
+    rotary part), the kv head its query heads attend (RecurrentGemma's
+    ``"mixed"``)."""
+    from repro_torch.configs.base import ATTN_MLA, MAMBA2
+    from repro_torch.models.ssm import mamba2_dims
+
+    m = SERVE_MESH[1]
+    kinds = set(cfg.layer_kinds())
+    if MAMBA2 in kinds:
+        nh = mamba2_dims(cfg)[1]
+        groups = max(1, cfg.ssm.n_groups // m)
+        return {"flash": [], "paged": [], "ssd": [[nh // m, groups]]}
+    if ATTN_MLA in kinds:
+        return {"flash": [[cfg.n_heads // m] * 2], "paged": [], "ssd": []}
+    n, G = cfg.n_heads // m, cfg.n_heads // cfg.n_kv_heads
+    if cfg.n_kv_heads % m == 0:
+        local = [[n, cfg.n_kv_heads // m]]
+        return {"flash": local, "paged": local, "ssd": []}
+    return {"flash": [[n, max(1, n // G)]], "paged": [], "ssd": []}
 
 
 def serve_baseline(torch, run, path):
@@ -3263,7 +3321,7 @@ def serve_baseline(torch, run, path):
 def serve_rank_main(argv) -> int:
     """One rank process of run Z (``--rank Z RANK WORLD STORE OUT``): joins
     the group over STORE (gloo, the ranks sharing the card), and for each
-    of Z1-Z3 draws the whole tree from SEED, keeps its shards
+    Z run draws the whole tree from SEED, keeps its shards
     (``ServePlan.shard_params``; the rest freed), and under the plan
     prefills its rows of the prompts and decodes SERVE_STEPS steps
     teacher-forced with the one process's tokens (``serve_baseline``'s
@@ -3286,8 +3344,9 @@ def serve_rank_main(argv) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    rank, world, store, out = argv
+    *names, rank, world, store, out = argv
     rank, world = int(rank), int(world)
+    names = names[0].split(",") if names else list(SERVE_MESH_RUNS)
     backend = join_ranks(store, rank, world, "cuda")
     # the transport's wall time inside the timed calls: every collective
     # from the card's queue drained to the call's return
@@ -3307,9 +3366,11 @@ def serve_rank_main(argv) -> int:
 
     dist.all_reduce = clocked(dist.all_reduce)
     dist.all_gather_into_tensor = clocked(dist.all_gather_into_tensor)
-    # the (query heads, kv heads) each kernel launch of the layers saw
+    # the (query heads, kv heads) each attention kernel launch of the
+    # layers saw, the (heads, groups) each SSD-scan launch saw
     attn = importlib.import_module("repro_torch.models.attention")
-    heads = {"flash": set(), "paged": set()}
+    ssm = importlib.import_module("repro_torch.models.ssm")
+    heads = {"flash": set(), "paged": set(), "ssd": set()}
 
     def spied(key, call, hq, hkv):
         def run(*args, **kw):
@@ -3323,10 +3384,13 @@ def serve_rank_main(argv) -> int:
     attn.paged_attention = spied(
         "paged", attn.paged_attention, lambda a: a[0].shape[1],
         lambda a: a[1].shape[2])
+    ssm.ssd_scan_kernel = spied(
+        "ssd", ssm.ssd_scan_kernel, lambda a: a[0].shape[2],
+        lambda a: a[2].shape[2])
     lines = {}
     try:
         mesh = make_host_mesh(model=SERVE_MESH[1])
-        for run in SERVE_MESH_RUNS:
+        for run in names:
             cfg, _ = serve_mesh_config(run)
             with np.load(os.path.join(os.path.dirname(out),
                                       f"{run}.npz")) as f:
@@ -3386,6 +3450,7 @@ def serve_rank_main(argv) -> int:
                          logits=torch.stack(logits_all).numpy())
             lines[run] = {
                 "rank": rank, "backend": backend, "layout": plan.layout,
+                "layouts": plan.layouts,
                 "mesh": {"shape": list(mesh.shape),
                          "axes": list(mesh.mesh_dim_names)},
                 "prefill_ms": prefill_ms,
@@ -3411,16 +3476,17 @@ def serve_rank_main(argv) -> int:
     return 0
 
 
-def serve_mesh_run(torch):
-    """Run Z: for each of Z1-Z3 one process's baseline first
-    (``serve_baseline``), then two rank processes (``serve_rank_main``,
-    this script with ``--rank Z``) over a (1, 2) mesh on the card, started
+def serve_mesh_run(torch, names=tuple(SERVE_MESH_RUNS)):
+    """Run Z (the runs ``names``, all by default): for each one process's
+    baseline first (``serve_baseline``), then two rank processes
+    (``serve_rank_main``, this script with ``--rank Z:<names>``) over a
+    (1, 2) mesh on the card, started
     together over a ``FileStore`` and waited for (MESH_RANK_TIMEOUT_S, as
     W-Y).  Holds every call's logits (rank 0's, gathered whole) within
     DENSE_REL_TOL of the largest baseline logit and reports the greedy
-    agreement; each rank's launches equal ``serve_launches`` (flash on its
-    16 of 32 query heads, split-K on its kv heads' cache shards) and
-    nothing else of the port; each call's counted collectives equal
+    agreement; each rank's launches equal ``serve_launches`` (flash, split-K
+    and the SSD scan on its heads, ``serve_heads``) and nothing else of
+    the port; each call's counted collectives equal
     ``ServePlan.serve_schedule``.  Emits a ``serve_mesh`` line per run
     (each rank's prefill and decode ms, the transport's share of each,
     shard, cache and peak bytes; the baseline's times and peak beside).
@@ -3434,14 +3500,15 @@ def serve_mesh_run(torch):
     with tempfile.TemporaryDirectory() as tmp:
         base = {run: serve_baseline(torch, run, os.path.join(tmp,
                                                               f"{run}.npz"))
-                for run in SERVE_MESH_RUNS}
+                for run in names}
         out = os.path.join(tmp, "ranks.json")
         logs = [open(os.path.join(tmp, f"rank{r}.log"), "w+")
                 for r in range(world)]
         t0 = time.perf_counter()
         procs = [subprocess.Popen(
-            [sys.executable, str(ROOT / "chip_smoke.py"), "--rank", "Z",
-             str(r), str(world), os.path.join(tmp, "store"),
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--rank",
+             ":".join(("Z", ",".join(names))), str(r), str(world),
+             os.path.join(tmp, "store"),
              f"{out}.rank{r}"], cwd=ROOT, stdout=logs[r],
             stderr=subprocess.STDOUT) for r in range(world)]
         try:
@@ -3466,7 +3533,7 @@ def serve_mesh_run(torch):
               f"after {wall:.1f} s: {tails}")
         ranks = [json.loads(pathlib.Path(f"{out}.rank{r}").read_text())
                  for r in range(world)]
-        for run in SERVE_MESH_RUNS:
+        for run in names:
             cfg, reduced = serve_mesh_config(run)
             with np.load(os.path.join(tmp, f"{run}.npz")) as f:
                 want = f["logits"]
@@ -3483,7 +3550,8 @@ def serve_mesh_run(torch):
                              "sharding.ServePlan, two rank processes",
                     "n_layers": cfg.n_layers, "kv_quant": cfg.kv_quant,
                     "moe_impl": cfg.moe_impl if cfg.moe else None,
-                    "layout": lines[0]["layout"], "mesh": lines[0]["mesh"],
+                    "layout": lines[0]["layout"],
+                    "layouts": lines[0]["layouts"], "mesh": lines[0]["mesh"],
                     "transport": lines[0]["backend"],
                     "prompts": SERVE_PROMPTS, "prompt_len": SERVE_PROMPT_LEN,
                     "decode_steps": SERVE_STEPS, "max_len": SERVE_MAX_LEN,
@@ -3512,12 +3580,11 @@ def serve_mesh_run(torch):
                   f"run {run}: logits {got.shape} against {want.shape}")
             check(max(rel) <= DENSE_REL_TOL, f"run {run}: logits off the "
                   f"one process's by {max(rel)} of the largest")
-            local = [[cfg.n_heads // SERVE_MESH[1],
-                      cfg.n_kv_heads // SERVE_MESH[1]]]
+            local = serve_heads(cfg)
             for r in lines:
-                check(r["heads"] == {"flash": local, "paged": local},
-                      f"run {run}: rank {r['rank']}'s kernels saw (query, kv) "
-                      f"heads {r['heads']}, not this rank's {local}")
+                check(r["heads"] == local,
+                      f"run {run}: rank {r['rank']}'s kernels saw heads "
+                      f"{r['heads']}, not this rank's {local}")
                 check(r["launches"] == expect, f"run {run}: rank "
                       f"{r['rank']} launched "
                       f"{ {k: v for k, v in r['launches'].items() if v} }, "
@@ -4319,10 +4386,11 @@ def profile_window(torch, run, eng, reqs, window="decode"):
     requests arrive at once.
 
     ``decode``: 14 iterations run the prompts in, then 5 iterations are
-    timed on the host clock and 3 more (1 for an MLA stack) under
-    ``torch.profiler`` for device time by kernel (the trace's processing
-    takes most of a window's wall time).  ``prefill``: the first iteration, profiled, its
-    host time read under the profiler: the whole prompts of the requests
+    timed on the host clock and 1 more under ``torch.profiler`` for device
+    time by kernel (the trace's processing takes most of a window's wall
+    time).
+    ``prefill``: the first iteration, profiled, its host time read under
+    the profiler: the whole prompts of the requests
     it admits (later iterations decode until a request finishes).  The
     line carries the window's wall seconds (``window_s``).  Device busy share = device time per iteration / wall time
     per iteration.  An MLA stack's decode window records each operator's
@@ -4332,9 +4400,7 @@ def profile_window(torch, run, eng, reqs, window="decode"):
 
     t_window = time.perf_counter()
     shapes = window == "decode" and eng.cfg.mla is not None
-    # the MLA window records CPU events: one profiled iteration (parsing
-    # them took most of its wall time at 3)
-    warm, timed, steps = {"decode": (14, 5, 1 if shapes else 3),
+    warm, timed, steps = {"decode": (14, 5, 1),
                           "prefill": (0, 0, 1)}[window]
     for r in reqs:
         r.arrival = 0.0

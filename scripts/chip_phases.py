@@ -8,6 +8,7 @@ while a new phase is brought up.
     python3 scripts/chip_phases.py P,W,X
     python3 scripts/chip_phases.py ring,Y
     python3 scripts/chip_phases.py Z
+    python3 scripts/chip_phases.py Z3,Z5
 
 ``bwd``: the flash backward kernel lines (``flash_bwd_phase``);
 ``ssd_bwd``: the SSD scan's backward kernel lines (``ssd_bwd_phase``);
@@ -26,7 +27,9 @@ mesh of two rank processes, held to one process; ``Y``: RecurrentGemma-2B
 (6 layers) over a (1, 2) mesh, its RG-LRU branch channel-parallel, held
 to one process; ``Z``: serving over a (1, 2) mesh of two rank processes
 (``serve_mesh_run``: Llama-2-7B, Mixtral-8x7B at 4 layers, Llama-2-7B
-at 8 layers with int8 slot caches), held to one process; ``ring``: ring
+at 8 layers with int8 slot caches, MiniCPM3-4B, Mamba-2-2.7B,
+RecurrentGemma-2B), held to one process; ``Z1``-``Z6``: those runs of
+Z alone, in the order given; ``ring``: ring
 attention forward and backward
 (``ring_phase``); ``dryrun``: the dry-run CLI and the
 ``--production`` refusal (``dryrun_phase``).  Builds the
@@ -96,9 +99,11 @@ def main(argv) -> int:
             t0 = time.perf_counter()
             runs[run] = cs.mesh_rank_run(torch, run)
             cs.emit({"phase": "seconds", run: time.perf_counter() - t0})
-    if "Z" in which:
+    zs = tuple(cs.SERVE_MESH_RUNS) if "Z" in which else tuple(
+        w for w in which if w in cs.SERVE_MESH_RUNS)
+    if zs:
         t0 = time.perf_counter()
-        runs["Z"] = cs.serve_mesh_run(torch)
+        runs["Z"] = cs.serve_mesh_run(torch, zs)
         cs.emit({"phase": "seconds", "Z": time.perf_counter() - t0})
     if "ring" in which:
         t0 = time.perf_counter()

@@ -27,7 +27,9 @@ tensors and, as the reference's decode, ``naive_attention`` on CPU
 tensors.  MLA decode attends in the latent space (``mla_decode``): its
 cache (the latent ``c`` and the shared rotary key) has no page layout
 the paged kernels take, so its products are ``torch.bmm`` calls with f32
-outputs over the cache in place on CUDA, f32 products on the CPU.  Slot
+outputs over the cache in place on CUDA, f32 products on the CPU (on a
+mesh, ``mla_decode``, each rank's partial scores over its slice of the
+latent rank, summed over the model axis before the softmax).  Slot
 caches are written in place (the reference returns updated copies); a
 write past the cache's length is dropped, as the reference's masked
 select drops it.
@@ -630,28 +632,42 @@ def _mla_qkv(params, x, positions, cfg):
     return q_nope, q_rope, c, k_rope
 
 
-def mla_prefill(params, x, positions, cfg, *, window=0):
+def mla_prefill(params, x, positions, cfg, *, window=0, tp=None):
     """Expanded (non-absorbed) MLA for prefill: q = [q_nope, q_rope] and
     k = [k_nope, k_rope broadcast to every head] (D = dn + dr), v (Dv =
     v_head_dim) through ``attention`` (the flash kernel on CUDA, whose
     scale D**-0.5 is the reference's).  Returns (out, (c, k_rope)), the
-    latent cache entry."""
+    latent cache entry.
+
+    ``tp``: a serving plan that splits the layer over its model axis
+    (``sharding.mla_split``).  ``c`` and ``k_rope`` are computed whole
+    (``wkv_a`` is whole) and the cache entry keeps this rank's slice of
+    ``c``'s latent rank; ``"heads"`` attends this rank's heads (``wq_b``,
+    ``wkv_b`` and ``wo`` its heads), ``"dim"`` every head, its output's
+    ``v_head_dim`` slice through ``wo``'s; ``wo``'s partial products are
+    summed over the model axis."""
     m = cfg.mla
     q_nope, q_rope, c, k_rope = _mla_qkv(params, x, positions, cfg)
     kv = _project(c, params["wkv_b"])
     k_nope = kv[..., :m.qk_nope_head_dim]
     # the kernel takes contiguous tensors only: one copy of the slice
     v = kv[..., m.qk_nope_head_dim:].contiguous()
-    H = cfg.n_heads
+    H = q_nope.shape[2]
     k_rope_h = k_rope[:, :, None, :].expand(*k_rope.shape[:2], H,
                                             m.qk_rope_head_dim)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope_h], dim=-1)
     out = attention(q, k, v, causal=True, window=window, impl=cfg.attn_impl)
-    return _out_project(out, params["wo"]), (c, k_rope)
+    if tp is None:
+        return _out_project(out, params["wo"]), (c, k_rope)
+    if tp.layout == "dim":
+        out = tp.dim_slice(out)
+    return tp.reduce(_out_project(out, params["wo"])), (tp.dim_slice(c),
+                                                         k_rope)
 
 
-def mla_decode(params, x, c_cache, krope_cache, pos, cfg, *, window=0):
+def mla_decode(params, x, c_cache, krope_cache, pos, cfg, *, window=0,
+               tp=None):
     """Absorbed MLA decode: attend in latent space.
 
     c_cache (B, S, r), krope_cache (B, S, dr), written in place; pos
@@ -659,34 +675,66 @@ def mla_decode(params, x, c_cache, krope_cache, pos, cfg, *, window=0):
     ``(q_lat . c^T + q_rope . k_rope^T) * (dn + dr)**-0.5`` and the
     softmax in f32; the weights rounded to the cache's dtype, ``w . c``
     in f32, cast to the model dtype, then ``. W_UV`` and ``wo``: the
-    reference's rounding points."""
+    reference's rounding points.
+
+    ``tp`` as ``mla_prefill``: c_cache is this rank's (B, S, r / m) slice.
+    Every head's ``q_lat`` (``"heads"``: gathered with ``q_rope`` over the
+    model axis) at this rank's slice of r forms partial scores, summed
+    over the axis (f32) before the rotary term, the scale and the softmax;
+    ``w . c`` is then this rank's exact slice of ``ctx_lat`` (the product
+    sums over slots, not r), gathered along r; ``"heads"`` keeps its
+    heads, ``"dim"`` the ``v_head_dim`` slice of ``W_UV`` that ``wo``'s
+    rows take; ``wo``'s partial products are summed over the axis.  A
+    plain route, as the reference's decode is ``einsum`` outside
+    Pallas."""
     m = cfg.mla
     S_cache = c_cache.shape[1]
     q_nope, q_rope, c_new, krope_new = _mla_qkv(params, x, pos[:, None], cfg)
     slot = pos % S_cache if window else pos
-    _cache_write(c_cache, c_new[:, 0], slot)
+    _cache_write(c_cache, c_new[:, 0] if tp is None
+                 else tp.dim_slice(c_new[:, 0]), slot)
     _cache_write(krope_cache, krope_new[:, 0], slot)
     w_uk = params["wkv_b"][..., :m.qk_nope_head_dim]       # (r, H, dn)
     q_lat = torch.einsum("bshk,rhk->bshr", q_nope, w_uk)
     scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
-    ctx_lat = mla_decode_attention(q_lat, q_rope, c_cache, krope_cache,
-                                   _decode_ctx(S_cache, pos), scale)
+    ctx = _decode_ctx(S_cache, pos)
     w_uv = params["wkv_b"][..., m.qk_nope_head_dim:]       # (r, H, dv)
-    v_out = torch.einsum("bshr,rhk->bshk", ctx_lat.to(x.dtype), w_uv)
-    return _out_project(v_out, params["wo"]), (c_cache, krope_cache)
+    if tp is None:
+        ctx_lat = mla_decode_attention(q_lat, q_rope, c_cache, krope_cache,
+                                       ctx, scale).to(x.dtype)
+    else:
+        r = q_lat.shape[-1]
+        if tp.layout == "heads":
+            q = tp.gather_model(torch.cat([q_lat, q_rope], dim=-1), 2)
+            q_lat, q_rope = q[..., :r], q[..., r:]
+        part = mla_decode_attention(tp.dim_slice(q_lat), q_rope, c_cache,
+                                    krope_cache, ctx, scale,
+                                    reduce=tp.reduce)
+        ctx_lat = tp.gather_model(part.to(x.dtype), -1)
+        if tp.layout == "heads":
+            ctx_lat = tp.local_heads(ctx_lat)
+        else:
+            w_uv = tp.dim_slice(w_uv)
+    v_out = torch.einsum("bshr,rhk->bshk", ctx_lat, w_uv)
+    y = _out_project(v_out, params["wo"])
+    return (y if tp is None else tp.reduce(y)), (c_cache, krope_cache)
 
 
-def mla_decode_attention(q_lat, q_rope, c_cache, krope_cache, ctx, scale):
+def mla_decode_attention(q_lat, q_rope, c_cache, krope_cache, ctx, scale,
+                         reduce=None):
     """Latent attention of one query per row: q_lat (B, 1, H, r), q_rope
     (B, 1, H, dr) over c_cache (B, S, r) and krope_cache (B, S, dr); row b
     attends slots [0, ctx[b]).  Returns ctx_lat (B, 1, H, r) in f32.
-    CUDA tensors go through ``mla_decode_attention_bmm`` (no copy of the
-    cache); CPU tensors through ``mla_decode_attention_plain``."""
+    ``reduce``: where q_lat and c_cache are one rank's slice of r, the sum
+    of the latent scores over the ranks (f32, before the rotary term);
+    ctx_lat is then that slice.  CUDA tensors go through
+    ``mla_decode_attention_bmm`` (no copy of the cache); CPU tensors
+    through ``mla_decode_attention_plain``."""
     if q_lat.device.type in PLAIN_DEVICES:
         return mla_decode_attention_plain(q_lat, q_rope, c_cache,
-                                          krope_cache, ctx, scale)
+                                          krope_cache, ctx, scale, reduce)
     return mla_decode_attention_bmm(q_lat, q_rope, c_cache, krope_cache,
-                                    ctx, scale)
+                                    ctx, scale, reduce)
 
 
 def _bmm_f32(a, b):
@@ -698,13 +746,15 @@ def _bmm_f32(a, b):
 
 
 def mla_decode_attention_bmm(q_lat, q_rope, c_cache, krope_cache, ctx,
-                             scale):
+                             scale, reduce=None):
     """``mla_decode_attention`` as cuBLAS products with f32 outputs over
     the caches in place: a batch over b is one stride of the cache and
     ``c^T`` a view, so no copy of the cache is made."""
     B, _, H, r = q_lat.shape
     S = c_cache.shape[1]
     s = _bmm_f32(q_lat.reshape(B, H, r), c_cache.transpose(1, 2))
+    if reduce is not None:
+        s = reduce(s)
     s.add_(_bmm_f32(q_rope.reshape(B, H, -1), krope_cache.transpose(1, 2)))
     s.mul_(scale)
     valid = torch.arange(S, device=ctx.device)[None, :] < ctx[:, None]
@@ -714,14 +764,16 @@ def mla_decode_attention_bmm(q_lat, q_rope, c_cache, krope_cache, ctx,
 
 
 def mla_decode_attention_plain(q_lat, q_rope, c_cache, krope_cache, ctx,
-                               scale):
+                               scale, reduce=None):
     """Plain version of ``mla_decode_attention``: f32 products over f32
     copies of the operands, the weights rounded to the cache's dtype
     before the product with ``c``, as in the reference."""
     S = c_cache.shape[1]
-    s = (torch.einsum("bshr,btr->bhst", q_lat.float(), c_cache.float())
-         + torch.einsum("bshk,btk->bhst", q_rope.float(),
-                        krope_cache.float())) * scale
+    s = torch.einsum("bshr,btr->bhst", q_lat.float(), c_cache.float())
+    if reduce is not None:
+        s = reduce(s)
+    s = (s + torch.einsum("bshk,btk->bhst", q_rope.float(),
+                          krope_cache.float())) * scale
     valid = torch.arange(S, device=ctx.device)[None, :] < ctx[:, None]
     s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
     w = torch.softmax(s, dim=-1)

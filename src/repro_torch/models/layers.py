@@ -45,11 +45,29 @@ def embed_init(shape, dtype, generator: torch.Generator, device):
 # ---------------------------------------------------------------------------
 # RMSNorm
 # ---------------------------------------------------------------------------
-def rmsnorm(params, x, eps=1e-6):
+def rmsnorm(params, x, eps=1e-6, tp=None):
+    """``tp``: a serving plan over whose model axis ``x`` and ``scale``
+    are split along the last dim (this rank's blocks): the f32 sum of
+    squares is all-reduced."""
     xf = x.float()
-    var = xf.square().mean(-1, keepdim=True)
+    if tp is None:
+        var = xf.square().mean(-1, keepdim=True)
+    else:
+        var = tp.reduce(xf.square().sum(-1, keepdim=True)) \
+            / (x.shape[-1] * tp.m)
     y = xf * torch.rsqrt(var + eps)
     return (y * params["scale"].float()).to(x.dtype)
+
+
+def matmul_f32(a, b):
+    """``a @ b`` for a (..., K) and b (K, N) with f32 products and sums and
+    the f32 result, not rounded to a's dtype: bf16 operands on CUDA take
+    ``torch.bmm(..., out_dtype=float32)``, the rest f32 copies."""
+    if a.dtype == torch.float32 or a.device.type in PLAIN_DEVICES:
+        return a.float() @ b.float()
+    out = torch.bmm(a.reshape(1, -1, a.shape[-1]), b[None],
+                    out_dtype=torch.float32)
+    return out.reshape(*a.shape[:-1], b.shape[-1])
 
 
 # ---------------------------------------------------------------------------

@@ -57,9 +57,12 @@ a ``models.sharding.ServePlan``, the reference's "plain TP+DP"): the
 parameters and caches are this rank's shards and stay so; the layers
 move activations only (``sharding.model_split`` hands them the plan as
 ``tp``), the batch's rows are this rank's, and the logits its vocab
-block.  It serves the GQA decoder stacks (dense or MoE, full or windowed
-attention, bf16 or int8 caches); on a model axis above 1
-``check_ported`` refuses the other kinds by name.
+block.  It serves every decoder-only stack: GQA (dense or MoE, full or
+windowed attention, bf16 or int8 caches), multi-head latent attention,
+Mamba-2 and RG-LRU beside local attention (``sharding.serve_layouts``
+names each kind's layout and refuses the shapes it does not take); on a
+model axis above 1 ``check_ported`` refuses the encoder-decoder and the
+vision prefix by name.
 """
 from __future__ import annotations
 
@@ -79,18 +82,12 @@ from repro_torch.models.layers import (chunked_ce_loss, dtype_of, embed, mlp,
                                        rmsnorm, unembed)
 
 
-# what serving over a model axis above 1 (``sharding.ServePlan``) does not
-# take yet, and the ROADMAP.md Queue A item that would port it
-NOT_SPLIT_OVER_MODEL = {ATTN_MLA: ("multi-head latent attention", "12e"),
-                        MAMBA2: ("Mamba-2", "12f"),
-                        RGLRU: ("RG-LRU", "12g")}
-
-
 def check_ported(cfg: ModelConfig, model_axis: int = None) -> None:
     """Raise ``NotImplementedError`` for a stack the port cannot run yet:
     on a serving model axis above 1 (``model_axis``, by default the active
-    ``ServePlan``'s), only the GQA decoder stacks (dense or MoE, full or
-    windowed attention, a text frontend) run."""
+    ``ServePlan``'s), the decoder-only stacks with a text frontend run;
+    the encoder-decoder and the vision prefix are refused, each with the
+    ROADMAP.md Queue A item that would port it."""
     kinds = sorted(set(cfg.layer_kinds()))
     for kind in kinds:
         if kind not in (ATTN, ATTN_LOCAL, ATTN_MLA, MAMBA2, RGLRU):
@@ -104,8 +101,7 @@ def check_ported(cfg: ModelConfig, model_axis: int = None) -> None:
         model_axis = plan.m if plan is not None else 1
     if model_axis <= 1:
         return
-    refused = [NOT_SPLIT_OVER_MODEL[k] for k in kinds
-               if k in NOT_SPLIT_OVER_MODEL]
+    refused = []
     if cfg.is_encoder_decoder:
         refused.append(("the encoder-decoder", "12h"))
     if cfg.frontend == "vision_stub":
@@ -208,9 +204,10 @@ def _block_forward(lp, x, cfg, kind, moe_flag, positions, *, causal=True,
     None.  ``rows``: the batch's row split (``sharding.row_split``),
     which an MoE layer's statistics span.  ``channels``: an RG-LRU
     layer's ``sharding.ChannelSplit`` (``sharding.channel_split``) when
-    its leaves are this rank's channel block, else
-    ``sharding.ALL_CHANNELS``.  ``tp``: a serving plan that splits the
-    layer over its model axis (``sharding.model_split``), or None."""
+    its leaves are this rank's channel block (training's channel-parallel
+    branch, or serving over a model axis), else ``sharding.ALL_CHANNELS``.
+    ``tp``: a serving plan that splits the layer over its model axis
+    (``sharding.model_split``), or None."""
     h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
     window = window_for(cfg, kind)
     cache = None
@@ -221,7 +218,7 @@ def _block_forward(lp, x, cfg, kind, moe_flag, positions, *, causal=True,
             cache = {"k": k, "v": v}
     elif kind == ATTN_MLA:
         y, (c, krope) = attn_mod.mla_prefill(lp["attn"], h, positions, cfg,
-                                             window=window)
+                                             window=window, tp=tp)
         if want_cache:
             cache = {"c": c, "k_rope": krope}
     elif kind == RGLRU:
@@ -230,7 +227,7 @@ def _block_forward(lp, x, cfg, kind, moe_flag, positions, *, causal=True,
         if want_cache:
             cache = st
     elif kind == MAMBA2:
-        y, st = ssm_mod.mamba2_prefill(lp["attn"], h, cfg)
+        y, st = ssm_mod.mamba2_prefill(lp["attn"], h, cfg, tp=tp)
         if want_cache:
             cache = st
     else:
@@ -615,7 +612,10 @@ def prefill_chunk(params, tokens, cfg: ModelConfig, cache):
 # Decode: one token through every layer
 # ---------------------------------------------------------------------------
 def _block_decode(lp, x1, c, pos, cfg, kind, moe_flag,
-                  rows=sharding.WHOLE_BATCH, tp=None):
+                  rows=sharding.WHOLE_BATCH, tp=None,
+                  channels=sharding.ALL_CHANNELS):
+    """One layer of a decode step; ``rows``, ``tp`` and ``channels`` as
+    ``_block_forward``'s."""
     h = rmsnorm(lp["ln1"], x1, cfg.norm_eps)
     window = window_for(cfg, kind)
     if kind in (ATTN, ATTN_LOCAL):
@@ -624,14 +624,16 @@ def _block_decode(lp, x1, c, pos, cfg, kind, moe_flag,
                                    v_scale=c.get("v_s"), tp=tp)
     elif kind == ATTN_MLA:
         y, _ = attn_mod.mla_decode(lp["attn"], h, c["c"], c["k_rope"], pos,
-                                   cfg, window=window)
+                                   cfg, window=window, tp=tp)
     elif kind == RGLRU:
         y, st = rglru_mod.rglru_decode(
-            lp["attn"], h, {k: c[k] for k in ("conv_state", "h")}, cfg)
+            lp["attn"], h, {k: c[k] for k in ("conv_state", "h")}, cfg,
+            channels=channels)
         c = dict(c, **st)
     elif kind == MAMBA2:
         y, st = ssm_mod.mamba2_decode(
-            lp["attn"], h, {k: c[k] for k in ("conv_state", "ssm_state")}, cfg)
+            lp["attn"], h, {k: c[k] for k in ("conv_state", "ssm_state")}, cfg,
+            tp=tp)
         c = dict(c, **st)
     else:
         raise NotImplementedError(f"layer kind {kind!r} is not ported")
@@ -667,10 +669,11 @@ def decode_step(params, tokens, cache, cfg: ModelConfig):
     for i, (kind, moe_flag, count) in enumerate(model_stages(cfg)):
         sp = params["stages"][f"stage_{i}"]
         sc = cache["stages"][f"stage_{i}"]
+        channels = sharding.channel_split(sp)
         for li in range(count):
             c = layer_params(sc, li)
             x, c_new = _block_decode(layer_params(sp, li), x, c, pos, cfg,
-                                     kind, moe_flag, rows, tp)
+                                     kind, moe_flag, rows, tp, channels)
             for name, t in c_new.items():      # recurrent states are new
                 if t.data_ptr() != c[name].data_ptr():  # tensors: store
                     sc[name][li].copy_(t)

@@ -20,9 +20,12 @@ recurrence", which it pins with ``_pin_channel_sharding``) hands
 rank's channel block, the projections, the conv, the scan and
 ``h * gate`` run on d_rnn / model channels, the gates take every channel
 of the conv output (``channels.gather``), and the output's partial sums
-are all-reduced (``channels.leave``).  Elsewhere (serving, ``train()``)
-``channels`` is ``sharding.ALL_CHANNELS``, whose calls return their
-input.
+are all-reduced (``channels.leave``).  Serving on a mesh
+(``sharding.ServePlan``, ``sharding.rglru_split``) hands ``rglru_prefill``
+and ``rglru_decode`` the same split, counted on the plan's collectives,
+the ``h`` and ``conv_state`` caches this rank's channels.  Elsewhere
+(``train()``, one process) ``channels`` is ``sharding.ALL_CHANNELS``,
+whose calls return their input.
 
 Prefill runs the diagonal linear recurrence as the reference does, in
 tiles of ``chunk`` steps with the (B, d_rnn) boundary state carried from
@@ -115,7 +118,7 @@ def rglru_prefill(params, x, cfg, initial=None, chunk=RGLRU_CHUNK,
     """x: (B, S, d); ``initial``: a cache dict whose ``h`` (B, d_rnn) the
     recurrence starts from (zeros without it); ``channels``: a
     ``sharding.ChannelSplit`` when ``params`` are this rank's channel
-    block (training on a mesh; the cache is then this rank's channels).
+    block (on a mesh; the cache is then this rank's channels).
     Returns (y, cache {conv_state, h})."""
     r = cfg.rglru
     x = channels.enter(x)
@@ -136,14 +139,15 @@ def rglru_prefill(params, x, cfg, initial=None, chunk=RGLRU_CHUNK,
     return out, cache
 
 
-def rglru_decode(params, x1, cache, cfg):
-    """x1: (B, 1, d).  Returns (y, new cache dict)."""
+def rglru_decode(params, x1, cache, cfg, channels=sharding.ALL_CHANNELS):
+    """x1: (B, 1, d); ``channels`` as ``rglru_prefill``.  Returns (y, new
+    cache dict)."""
     u = (x1 @ params["w_branch_x"])[:, 0]
     gate = F.gelu(x1 @ params["w_branch_gate"], approximate="tanh")[:, 0]
     u_c, conv_state = conv_step(u, cache["conv_state"], params["conv_w"],
                                 params["conv_b"])
-    a, b = _gates(params, u_c)
+    a, b = _gates(params, u_c, channels)
     h = a * cache["h"].float() + b
     y = h.to(x1.dtype) * gate
-    out = (y @ params["w_out"])[:, None]
+    out = channels.leave(y @ params["w_out"])[:, None]
     return out, {"conv_state": conv_state, "h": h.to(x1.dtype)}

@@ -68,7 +68,8 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import (ATTN, ATTN_LOCAL, ATTN_MLA, MAMBA2,
+                                      RGLRU, ModelConfig)
 
 
 class P(tuple):
@@ -535,7 +536,6 @@ def channel_parallel_stages(cfg: ModelConfig, sizes) -> tuple:
     stays off the model axis (``cfg.train_batch_over_model=False``) and
     that axis is above 1; a model axis that does not divide d_rnn is
     refused."""
-    from repro_torch.configs.base import RGLRU
     from repro_torch.models.model import model_stages
 
     m = sizes.get("model", 1)
@@ -886,6 +886,11 @@ class ShardPlan:
 # ---------------------------------------------------------------------------
 # Serving on a mesh: Megatron-style tensor parallelism, activations moved
 # ---------------------------------------------------------------------------
+def _refuse(cfg, msize, what):
+    raise NotImplementedError(f"{cfg.name}: serving over a model axis of "
+                              f"{msize} ranks with {what} is not ported")
+
+
 def attention_split(cfg: ModelConfig, msize: int) -> str:
     """How ``param_specs`` splits a GQA layer over ``msize`` model ranks:
 
@@ -906,11 +911,98 @@ def attention_split(cfg: ModelConfig, msize: int) -> str:
         return "heads"
     if hd_ok:
         return "mixed" if q_ok else "dim"
-    raise NotImplementedError(
-        f"{cfg.name}: serving over a model axis of {msize} ranks with "
-        f"{cfg.n_heads} query heads, {cfg.n_kv_heads} kv heads and head dim "
-        f"{cfg.resolved_head_dim()} (k/v replicated beside split query "
-        "heads) is not ported")
+    _refuse(cfg, msize, f"{cfg.n_heads} query heads, {cfg.n_kv_heads} kv "
+            f"heads and head dim {cfg.resolved_head_dim()} (k/v replicated "
+            "beside split query heads)")
+
+
+def mla_split(cfg: ModelConfig, msize: int) -> str:
+    """How ``param_specs`` splits a multi-head latent attention layer over
+    ``msize`` model ranks (``wq_a``, ``wkv_a`` and the norms whole; the
+    ``c`` cache over the latent rank r, ``k_rope`` whole):
+
+    - ``"heads"``: ``wq_b``, ``wkv_b`` and ``wo`` over heads (or no model
+      axis);
+    - ``"dim"``: ``wq_b`` and ``wkv_b`` whole, ``wo`` over ``v_head_dim``
+      (the heads do not divide the axis).
+
+    Refused: a latent rank that does not divide the axis (``c`` whole on
+    every rank), and heads that do not divide it beside a head dim or
+    ``v_head_dim`` that does not either (``wo`` whole or split
+    unevenly)."""
+    if msize <= 1:
+        return "heads"
+    m = cfg.mla
+    if not _div(m.kv_lora_rank, msize):
+        _refuse(cfg, msize, f"latent rank {m.kv_lora_rank} (the c cache "
+                "whole on every rank)")
+    if _div(cfg.n_heads, msize):
+        return "heads"
+    if _div(cfg.resolved_head_dim(), msize) and _div(m.v_head_dim, msize):
+        return "dim"
+    _refuse(cfg, msize, f"{cfg.n_heads} latent-attention heads, head dim "
+            f"{cfg.resolved_head_dim()} and v_head_dim {m.v_head_dim} (wo "
+            "whole or split unevenly)")
+
+
+def _group_block(n, n_heads, n_groups, r):
+    """[lo, hi) of the groups (of ``n_heads // n_groups`` heads each) that
+    the ``n`` heads of rank ``r`` fall in: whole groups, or one group
+    holding them all; None when the heads straddle groups."""
+    G, a = n_heads // n_groups, r * n
+    if n % G == 0:
+        return a // G, (a + n) // G
+    if G % n == 0:
+        return a // G, a // G + 1
+    return None
+
+
+def mamba2_split(cfg: ModelConfig, msize: int) -> str:
+    """How ``param_specs`` splits a Mamba-2 layer over ``msize`` model
+    ranks: ``"heads"``.  ``in_proj`` (z, x, B, C and dt packed), ``conv_w``
+    and ``conv_b`` are column blocks, which are not head-aligned;
+    ``A_log``, ``dt_bias``, ``D`` and ``ssm_state`` over heads, ``out_proj``
+    over its rows (those heads' channels), ``conv_state`` over channels,
+    the norm's ``scale`` whole.  Refused: heads, ``in_proj``'s columns or
+    the conv's channels that the axis does not divide (replicated or split
+    unevenly), and a rank's heads that straddle their B/C groups."""
+    if msize <= 1:
+        return "heads"
+    from repro_torch.models.ssm import mamba2_dims, proj_width
+
+    s = cfg.ssm
+    _, nh, conv_dim = mamba2_dims(cfg)
+    width = proj_width(cfg)
+    if not (_div(nh, msize) and _div(width, msize) and _div(conv_dim,
+                                                            msize)):
+        _refuse(cfg, msize, f"{nh} Mamba-2 heads, in_proj width {width} and "
+                f"conv width {conv_dim} (replicated or split unevenly)")
+    if _group_block(nh // msize, nh, s.n_groups, 0) is None:
+        _refuse(cfg, msize, f"{nh // msize} Mamba-2 heads a rank across "
+                f"{s.n_groups} B/C groups")
+    return "heads"
+
+
+def rglru_split(cfg: ModelConfig, msize: int) -> str:
+    """How ``param_specs`` splits an RG-LRU branch over ``msize`` model
+    ranks: ``"channels"``, training's ``ChannelSplit`` (every leaf and the
+    ``h`` and ``conv_state`` caches this rank's block of d_rnn, ``w_out``
+    its rows).  Refused: a d_rnn that the axis does not divide."""
+    d_rnn = cfg.rglru.d_rnn or cfg.d_model
+    if msize > 1 and not _div(d_rnn, msize):
+        _refuse(cfg, msize, f"RG-LRU width {d_rnn} (replicated)")
+    return "channels"
+
+
+def serve_layouts(cfg: ModelConfig, msize: int) -> dict:
+    """{layer kind: its layout} of every kind of ``cfg``'s stack
+    (``attention_split``, ``mla_split``, ``mamba2_split``,
+    ``rglru_split``); a shape that a kind's layout does not take is
+    refused by name."""
+    split = {ATTN: attention_split, ATTN_LOCAL: attention_split,
+             ATTN_MLA: mla_split, MAMBA2: mamba2_split, RGLRU: rglru_split}
+    return {kind: split[kind](cfg, msize)
+            for kind in sorted(set(cfg.layer_kinds()))}
 
 
 class ServePlan:
@@ -936,6 +1028,24 @@ class ServePlan:
       cache's head-dim slice, all-reduced before the softmax (a plain
       route, ``attention.split_dim_attention``); int8 caches' scales come
       from the absmax all-reduced (max) over the slices;
+    - multi-head latent attention (``mla_split``): every rank computes
+      ``c`` and ``k_rope`` whole and keeps its slice of ``c``'s latent rank
+      for the cache; prefill runs flash on this rank's heads (``"heads"``)
+      or on every head (``"dim"``, ``wo`` over ``v_head_dim``); the
+      absorbed decode sums every head's partial scores over the cache's
+      ``r`` slice (all-reduced, f32, before the softmax; ``"heads"``
+      gathers the query heads first), and all-gathers the latent context
+      along ``r``;
+    - Mamba-2 (``mamba2_split``): the packed projection's column blocks
+      all-gathered, the depthwise conv on this rank's channel block (its
+      ``conv_state``) and its output all-gathered, the SSD scan on this
+      rank's heads (its ``ssm_state``; B and C those heads' groups), the
+      gated norm's sum of squares all-reduced (f32), ``out_proj``'s rows
+      and an all-reduce of their f32 partial products;
+    - RG-LRU (``rglru_split``): training's ``ChannelSplit`` on ``comm``
+      (``channel_split``): the branch on d_rnn / m channels (its ``h`` and
+      ``conv_state``), the conv output all-gathered for the gates, the
+      output all-reduced;
     - the dense FFN and shared experts column- then row-parallel, the MoE
       routed experts over ``"model"`` when E divides it (every rank routes
       every token, the same capacity rule, and combines its experts'
@@ -946,11 +1056,11 @@ class ServePlan:
       ``P()``), each rank reading its rows' positions.
 
     ``serve_schedule`` derives one step's collectives from the config and
-    the mesh, kind for kind (the dry-run's serving ``collectives``).
-    Out-of-slice stacks (MLA, Mamba-2, RG-LRU, encoder-decoder, vision
-    prefix) are refused by name on a model axis above 1
-    (``models.model.check_ported``).  The hooks of training's plan are the
-    identity here: no weight is gathered."""
+    the mesh, kind for kind (the dry-run's serving ``collectives``).  The
+    encoder-decoder and the vision prefix are refused by name on a model
+    axis above 1 (``models.model.check_ported``), and so is a shape that a
+    layer kind's layout does not take (``serve_layouts``).  The hooks of
+    training's plan gather nothing here: no weight is gathered."""
 
     def __init__(self, mesh, cfg: ModelConfig, batch: int):
         from repro_torch.models.model import check_ported
@@ -964,13 +1074,17 @@ class ServePlan:
         self.axes, self.sizes = axes, dict(axes.shape)
         self.m = self.sizes.get("model", 1)
         check_ported(cfg, model_axis=self.m)
+        self.layouts = serve_layouts(cfg, self.m)
+        # the stack's attention layout (GQA or MLA; "heads" without one)
+        self.layout = next((v for k, v in self.layouts.items()
+                            if v != "channels"), "heads")
         self.coords = {n: mesh.get_local_rank(n) for n in axes.axis_names}
         self.r = self.coords.get("model", 0)
         self.comm = Collectives(mesh)
         rows = RowSplit(mesh, batch_axes(batch, axes), self.coords,
                         self.comm)
         self.rows = rows if rows.count > 1 else WHOLE_BATCH
-        self.layout = attention_split(cfg, self.m)
+        self._channels = ChannelSplit(self.comm)
         self.vocab_split = self.m > 1 and _div(cfg.vocab_size, self.m)
         self.expert_split = cfg.moe is not None and _div(cfg.moe.n_experts,
                                                          self.m)
@@ -1037,26 +1151,28 @@ class ServePlan:
         n = t.shape[-1] // self.m
         return t[..., self.r * n:(self.r + 1) * n]
 
-    def local_heads(self, t):
-        """This rank's query heads of ``t`` (B, T, Hq, ...)."""
-        n = t.shape[2] // self.m
-        return t.narrow(2, self.r * n, n)
+    def local_heads(self, t, dim=2):
+        """This rank's block of ``t``'s heads along ``dim`` (query heads of
+        (B, T, Hq, ...) by default)."""
+        n = t.shape[dim] // self.m
+        return t.narrow(dim, self.r * n, n)
+
+    def groups_for_local_heads(self, t, n_heads):
+        """The groups of ``t`` (..., G, N) that this rank's block of
+        ``n_heads`` heads use (GQA's kv heads under ``"mixed"``, Mamba-2's
+        B/C groups), contiguous."""
+        n = n_heads // self.m
+        block = _group_block(n, n_heads, t.shape[-2], self.r)
+        if block is None:
+            raise NotImplementedError(
+                f"{self.cfg.name}: {n} heads a rank do not map onto whole "
+                f"groups of {n_heads // t.shape[-2]}")
+        return t[..., block[0]:block[1], :].contiguous()
 
     def kv_for_local_heads(self, t):
         """The kv heads of ``t`` (B, S, Hkv, D) that this rank's query
         heads (the ``"mixed"`` layout) attend, contiguous."""
-        cfg = self.cfg
-        n, G = cfg.n_heads // self.m, cfg.n_heads // cfg.n_kv_heads
-        a = self.r * n
-        if n % G == 0:
-            lo, hi = a // G, (a + n) // G
-        elif G % n == 0:
-            lo, hi = a // G, a // G + 1
-        else:
-            raise NotImplementedError(
-                f"{cfg.name}: {n} query heads a rank do not map onto whole "
-                f"groups of {G}")
-        return t[:, :, lo:hi].contiguous()
+        return self.groups_for_local_heads(t, self.cfg.n_heads)
 
     def experts_held(self, n_experts):
         """(first, count) of the routed experts whose weights this rank
@@ -1075,6 +1191,12 @@ class ServePlan:
         return _same
 
     def channel_split(self, stage):
+        """The ``ChannelSplit`` on ``comm`` of a stacked RG-LRU stage (its
+        branch holds ``lam``) on a model axis above 1, else
+        ``ALL_CHANNELS``."""
+        branch = stage.get("attn")
+        if self.m > 1 and isinstance(branch, dict) and "lam" in branch:
+            return self._channels
         return ALL_CHANNELS
 
     # -- the schedule -------------------------------------------------------
@@ -1086,8 +1208,11 @@ class ServePlan:
         ``cache_len``, ``prefill``'s ``max_len``), ``"decode"`` (one token a
         row over caches of ``cache_len``) or ``"chunk"`` (``prefill_chunk``
         of ``seq_len`` tokens a row into caches of ``cache_len``);
-        ``cache_len`` defaults to ``seq_len``."""
-        from repro_torch.configs.base import ATTN, ATTN_LOCAL
+        ``cache_len`` defaults to ``seq_len``.  Per layer on a model axis
+        above 1, kind for kind (``ServePlan``'s account of each): the
+        attention's or the branch's own collectives, then the all-reduce
+        of its output projection's partial sums and, but on Mamba-2
+        layers, the FFN's."""
         from repro_torch.models.layers import dtype_of
         from repro_torch.models.model import _cache_seq_len, model_stages
         from repro_torch.models.moe import chunk_layout
@@ -1106,41 +1231,94 @@ class ServePlan:
         T = 1 if shape.mode == "decode" else shape.seq_len
         cache_len = cache_len or shape.seq_len
         item = torch.empty((), dtype=dtype_of(cfg)).element_size()
-        d, Hq, Hkv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
-        D = cfg.resolved_head_dim()
-        act = rows * T * d * item
-        layout = attention_split(cfg, m)
+        act = rows * T * cfg.d_model * item
+        layouts = serve_layouts(cfg, m)
         if m > 1 and _div(cfg.vocab_size, m):
             add("all-reduce", act)                          # the embedding
         for kind, moe, n in model_stages(cfg):
-            if kind not in (ATTN, ATTN_LOCAL):
-                raise NotImplementedError(f"serve_schedule: layer kind "
-                                          f"{kind!r}")
-            S_c = _cache_seq_len(cfg, kind, cache_len)
             if m > 1:
-                if layout != "heads":
-                    add("all-gather", rows * T * Hkv * D * item, n)  # k
-                    if shape.mode == "prefill":
-                        add("all-gather", rows * T * Hkv * D * item, n)  # v
-                    if layout == "dim" or shape.mode != "prefill":
-                        add("all-gather", rows * T * Hq * D * item, n)  # q
-                    if shape.mode != "prefill":
-                        # the partial scores; an int8 cache's v absmax
-                        add("all-reduce", rows * Hq * T * S_c * 4, n)
-                        if cfg.kv_quant:
-                            add("all-reduce", rows * T * Hkv * 4, n)
-                        if layout == "mixed":        # every head's output
-                            add("all-gather", rows * T * Hq * D * item, n)
-                    elif cfg.kv_quant:           # the caches' absmax
-                        add("all-reduce", n * rows * S_c * Hkv * 4, 2)
-                add("all-reduce", act, n)                 # wo's partials
-                # the FFN's partial sums: f32 for an MoE layer
-                add("all-reduce", rows * T * d * 4 if moe else act, n)
+                S_c = _cache_seq_len(cfg, kind, cache_len)
+                for coll, nbytes, times in _SERVE_TERMS[kind](
+                        cfg, layouts[kind], shape.mode, rows, T, S_c, item, n):
+                    add(coll, nbytes, times)
+                # the output's partial sums: f32 for a Mamba-2 layer
+                add("all-reduce", rows * T * cfg.d_model * 4
+                    if kind == MAMBA2 else act, n)
+                if kind in _FFN_KINDS:    # the FFN's: f32 for an MoE layer
+                    add("all-reduce", rows * T * cfg.d_model * 4 if moe
+                        else act, n)
             if moe and cfg.moe_impl == "dispatch" and count > 1:
                 nc = chunk_layout(rows * T * count)[1]
                 add("all-gather", self.axes.size * nc * cfg.moe.n_experts
                     * 8, n)
         return out
+
+
+# a stage's collectives on a model axis above 1 before its layers'
+# output all-reduces, by kind: (cfg, layout, mode, rows, T, cache slots,
+# item, layers) -> [(collective, bytes of its output, calls)]
+def _attention_terms(cfg, layout, mode, rows, T, S_c, item, n):
+    """GQA: over a head-dim split, k's slices gathered (and v's in
+    prefill), q's (``"dim"``, or outside prefill), the partial scores
+    all-reduced outside prefill (and an int8 cache's v absmax), every
+    head's output gathered (``"mixed"`` outside prefill); in prefill an
+    int8 cache's absmax of the stage's k and of its v, once each."""
+    Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim()
+    if layout == "heads":
+        return []
+    kv = rows * T * Hkv * D * item
+    terms = [("all-gather", kv, n)]                                # k
+    if mode == "prefill":
+        terms.append(("all-gather", kv, n))                        # v
+    if layout == "dim" or mode != "prefill":
+        terms.append(("all-gather", rows * T * Hq * D * item, n))  # q
+    if mode != "prefill":
+        terms.append(("all-reduce", rows * Hq * T * S_c * 4, n))
+        if cfg.kv_quant:
+            terms.append(("all-reduce", rows * T * Hkv * 4, n))
+        if layout == "mixed":
+            terms.append(("all-gather", rows * T * Hq * D * item, n))
+    elif cfg.kv_quant:
+        terms.append(("all-reduce", n * rows * S_c * Hkv * 4, 2))
+    return terms
+
+
+def _mla_terms(cfg, layout, mode, rows, T, S_c, item, n):
+    """MLA decode: the query heads' latent and rotary parts gathered
+    (``"heads"``), the partial scores all-reduced (f32), the latent
+    context gathered along r; prefill moves nothing here."""
+    if mode == "prefill":
+        return []
+    H, r = cfg.n_heads, cfg.mla.kv_lora_rank
+    terms = []
+    if layout == "heads":
+        terms.append(("all-gather", rows * T * H * (
+            r + cfg.mla.qk_rope_head_dim) * item, n))
+    return terms + [("all-reduce", rows * H * T * S_c * 4, n),
+                    ("all-gather", rows * T * H * r * item, n)]
+
+
+def _mamba2_terms(cfg, layout, mode, rows, T, S_c, item, n):
+    """Mamba-2: the projection's and the conv output's column blocks
+    gathered, the gated norm's sum of squares all-reduced (f32)."""
+    from repro_torch.models.ssm import mamba2_dims, proj_width
+
+    conv_dim = mamba2_dims(cfg)[2]
+    return [("all-gather", rows * T * proj_width(cfg) * item, n),
+            ("all-gather", rows * T * conv_dim * item, n),
+            ("all-reduce", rows * T * 4, n)]
+
+
+def _rglru_terms(cfg, layout, mode, rows, T, S_c, item, n):
+    """RG-LRU: the conv output's channels gathered for the gates."""
+    return [("all-gather", rows * T * (cfg.rglru.d_rnn or cfg.d_model)
+             * item, n)]
+
+
+_SERVE_TERMS = {ATTN: _attention_terms, ATTN_LOCAL: _attention_terms,
+                ATTN_MLA: _mla_terms, MAMBA2: _mamba2_terms,
+                RGLRU: _rglru_terms}
+_FFN_KINDS = (ATTN, ATTN_LOCAL, ATTN_MLA, RGLRU)
 
 
 @torch.no_grad()

@@ -149,6 +149,16 @@ SERVE_CASES = {
     "deepseek_moe_model2": ("deepseek-moe-16b", (1, 2),
                             {"moe_impl": "dispatch"}),
     "llama_model2_int8": ("llama2-7b", (1, 2), {"kv_quant": True}),
+    # MLA over heads (2 of 4 a rank), c over the latent rank
+    "minicpm3_model2": ("minicpm3-4b", (1, 2), {}),
+    # in_proj's 552 columns, 276 a rank (z and 20 of x on rank 0: not
+    # head-aligned), 4 of 8 heads a rank; the same with 2 B/C groups
+    # (each rank's heads in one group)
+    "mamba2_model2": ("mamba2-2.7b", (1, 2), {}),
+    "mamba2_groups2_model2": ("mamba2-2.7b", (1, 2), {"n_groups": 2}),
+    # the RG-LRU branch on 64 of 128 channels; local attention "mixed"
+    # (4 query heads, 1 kv head), window 32, a prompt past it
+    "rgemma_model2": ("recurrentgemma-2b", (1, 2), {}),
     "llama_data2": ("llama2-7b", (2, 1), {}),
     # 6 heads of 24 over 2 kv heads: every projection over the head dim
     "starcoder_model4": ("starcoder2-7b", (1, 4), {}),
@@ -159,6 +169,11 @@ SERVE_CASES = {
     # 2 experts over 4 ranks: the expert hidden dim split, the dispatch
     "mixtral_e2_model4": ("mixtral-8x7b", (1, 4),
                           {"moe_impl": "dispatch", "n_experts": 2}),
+    # 2 MLA heads over 4 ranks: wq_b/wkv_b whole, wo over v_head_dim
+    "minicpm3_h2_model4": ("minicpm3-4b", (1, 4), {"n_heads": 2,
+                                                   "n_kv_heads": 2}),
+    # 2 of 8 Mamba-2 heads a rank
+    "mamba2_model4": ("mamba2-2.7b", (1, 4), {}),
 }
 SERVE_BATCH, SERVE_MAX_LEN, SERVE_DECODE, SERVE_CHUNK = 2, 64, 4, 6
 
@@ -175,6 +190,9 @@ def serve_case(name):
     if "n_experts" in fields:
         fields["moe"] = dataclasses.replace(
             cfg.moe, n_experts=fields.pop("n_experts"))
+    if "n_groups" in fields:
+        fields["ssm"] = dataclasses.replace(
+            cfg.ssm, n_groups=fields.pop("n_groups"))
     return dataclasses.replace(cfg, dtype="float32", attn_impl="flash",
                                **fields), shape
 

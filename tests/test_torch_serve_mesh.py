@@ -10,12 +10,17 @@ cases (``SERVE_CASES``), one set of rank processes per mesh size:
 - ``(1, 2)``: Llama-2 (heads split), Granite-3-2B (8 query heads over 2
   kv heads), Mixtral (E = 4 over the model axis, window 32, a prompt past
   it), DeepSeek-MoE (experts over the model axis through the dispatch, a
-  shared expert, a dense first stage), Llama-2 with int8 slot caches;
+  shared expert, a dense first stage), Llama-2 with int8 slot caches,
+  MiniCPM3 (MLA over heads, the latent cache over its rank), Mamba-2
+  (in_proj's 552 columns, 276 a rank, not head-aligned; 4 of 8 heads),
+  the same with 2 B/C groups, RecurrentGemma (the RG-LRU branch on 64 of
+  128 channels, local attention "mixed", window 32, a prompt past it);
 - ``(2, 1)``: Llama-2 with its batch over the data axis;
 - ``(1, 4)``: StarCoder2 (6 heads of 24 over 2 kv heads: every projection
   over the head dim), Granite (q over heads, k/v over the head dim), the
-  same with int8 caches, and Mixtral with 2 experts (their hidden dim
-  split).
+  same with int8 caches, Mixtral with 2 experts (their hidden dim
+  split), MiniCPM3 with 2 heads (``wq_b``/``wkv_b`` whole, ``wo`` over
+  ``v_head_dim``) and Mamba-2 (2 heads a rank).
 
 Each case's prefill, ``SERVE_DECODE`` teacher-forced decode steps and one
 ``prefill_chunk`` (where the stack takes it) against one process's on the
@@ -24,13 +29,14 @@ rank's cache shards after the last call against its slice of the one
 process's cache within ``REL`` of the leaf's largest; each rank's
 parameter and cache bytes equal the placements' local bytes exactly; each
 call's counted collectives equal ``ServePlan.serve_schedule``, kind for
-kind.  Llama-2 and Mixtral on ``(1, 2)`` are held against the
-reference's one-device ``prefill`` and ``decode_step`` too, on the same
-weights (the port's draw, handed to JAX leaf for leaf: the trees share
-the reference's layout), at ``LOGIT_TOL`` of
-``tests/test_torch_model.py``.
-The stacks outside the slice are refused by name on a model axis of 2,
-and the dry-run writes serving collectives from the plan's schedule."""
+kind.  Llama-2, Mixtral, MiniCPM3, Mamba-2 and RecurrentGemma on ``(1,
+2)`` are held against the reference's one-device ``prefill`` and
+``decode_step`` too, on the same weights (the port's draw, handed to JAX
+leaf for leaf: the trees share the reference's layout), at ``LOGIT_TOL``
+of ``tests/test_torch_model.py``.  The encoder-decoder and the vision
+prefix are refused by name on a model axis of 2, and so is each layout a
+layer kind does not take; the dry-run writes serving collectives from
+the plan's schedule."""
 import json
 
 import jax
@@ -44,10 +50,12 @@ from repro.configs import SMOKE_FACTORIES as J_SMOKE
 from repro.models import decode_step as j_decode
 from repro.models import prefill as j_prefill
 from repro_torch.configs import SMOKE_FACTORIES
-from repro_torch.configs.base import ShapeConfig
+from repro_torch.configs.base import (ATTN_LOCAL, ATTN_MLA, MAMBA2, RGLRU,
+                                      ShapeConfig)
 from repro_torch.launch import dryrun
 from repro_torch.models import model as tm
-from repro_torch.models.sharding import ServePlan, cache_specs, shard_index
+from repro_torch.models.sharding import (ServePlan, cache_specs,
+                                         serve_layouts, shard_index)
 from repro_torch.weights import init_params
 
 from _torch_dist_ranks import (SERVE_CASES, SERVE_MAX_LEN, flat, serve_case,
@@ -56,7 +64,8 @@ from _torch_dist_ranks import (SERVE_CASES, SERVE_MAX_LEN, flat, serve_case,
 from test_torch_model import LOGIT_TOL, port_config
 
 REL = 1e-5
-JAX_CASES = ("llama_model2", "mixtral_model2")
+JAX_CASES = ("llama_model2", "mixtral_model2", "minicpm3_model2",
+             "mamba2_model2", "rgemma_model2")
 WORLDS = sorted({d * m for _, (d, m), _ in SERVE_CASES.values()})
 
 
@@ -249,7 +258,8 @@ def test_counted_collectives_equal_schedule(ranks, name):
 def test_layouts(ranks):
     """The attention layout each case takes."""
     want = {"starcoder_model4": "dim", "granite_model4": "mixed",
-            "granite_model4_int8": "mixed", "mixtral_e2_model4": "mixed"}
+            "granite_model4_int8": "mixed", "mixtral_e2_model4": "mixed",
+            "rgemma_model2": "mixed", "minicpm3_h2_model4": "dim"}
     for name in SERVE_CASES:
         for _, res in ranks[name][2]:
             assert res["layout"] == want.get(name, "heads"), name
@@ -271,22 +281,72 @@ class _Mesh2:
 
 
 @pytest.mark.parametrize("arch,what", [
-    ("minicpm3-4b", "multi-head latent attention"),
-    ("mamba2-2.7b", "Mamba-2"),
-    ("recurrentgemma-2b", "RG-LRU"),
+    ("minicpm3-4b", {ATTN_MLA: "heads"}),
+    ("mamba2-2.7b", {MAMBA2: "heads"}),
+    ("recurrentgemma-2b", {RGLRU: "channels", ATTN_LOCAL: "mixed"}),
     ("whisper-large-v3", "the encoder-decoder"),
     ("internvl2-76b", "the vision prefix"),
 ])
 def test_out_of_slice_stacks_refused(arch, what):
-    """On a model axis of 2 by name, from the plan and from
-    ``check_ported``; on one rank of model axis they are ported."""
+    """The encoder-decoder and the vision prefix on a model axis of 2 by
+    name, from the plan and from ``check_ported``; MLA, Mamba-2 and
+    RG-LRU stacks taken there, each kind with its layout.  On one rank of
+    model axis every stack is ported."""
     cfg = SMOKE_FACTORIES[arch]()
+    tm.check_ported(cfg, model_axis=1)
+    if isinstance(what, dict):
+        tm.check_ported(cfg, model_axis=2)
+        assert serve_layouts(cfg, 2) == what
+        return
     match = f"serving {what} over a model axis of 2 ranks"
     with pytest.raises(NotImplementedError, match=match):
         ServePlan(_Mesh2, cfg, 2)
     with pytest.raises(NotImplementedError, match=match):
         tm.check_ported(cfg, model_axis=2)
-    tm.check_ported(cfg, model_axis=1)
+
+
+def _with(arch, **fields):
+    import dataclasses
+
+    cfg = SMOKE_FACTORIES[arch]()
+    for name, sub in (("ssm", ("n_groups", "head_dim", "d_state")),
+                      ("mla", ("kv_lora_rank", "v_head_dim")),
+                      ("rglru", ("d_rnn",))):
+        inner = {k: fields.pop(k) for k in sub if k in fields}
+        if inner:
+            fields[name] = dataclasses.replace(getattr(cfg, name), **inner)
+    return dataclasses.replace(cfg, **fields)
+
+
+@pytest.mark.parametrize("cfg,model,what", [
+    # 8 Mamba-2 heads over 3 ranks (in_proj, the conv and the heads split
+    # unevenly)
+    (_with("mamba2-2.7b"), 3, "8 Mamba-2 heads"),
+    # 4 heads a rank across groups of 3 (12 heads in 4 groups over 3
+    # ranks: in_proj's 492 columns and the conv's 288 channels divide)
+    (_with("mamba2-2.7b", head_dim=16, d_model=96, n_groups=4,
+           d_state=12), 3,
+     "4 Mamba-2 heads a rank across 4 B/C groups"),
+    # a latent rank of 30 over 4 ranks: c whole on every rank
+    (_with("minicpm3-4b", kv_lora_rank=30), 4, "latent rank 30"),
+    # 4 MLA heads over 8 ranks beside v_head_dim 12: wo split unevenly
+    (_with("minicpm3-4b", v_head_dim=12), 8,
+     "4 latent-attention heads, head dim 32 and v_head_dim 12"),
+    # an RG-LRU width of 100 over 8 ranks: replicated
+    (_with("recurrentgemma-2b", d_rnn=100), 8, "RG-LRU width 100"),
+])
+def test_layouts_refused_by_name(cfg, model, what):
+    """A shape that a layer kind's layout does not take (where the
+    reference's specs replicate a leaf or split it unevenly) is refused by
+    name, from the plan and from ``serve_layouts``."""
+    class Mesh:
+        axis_names, shape = ("data", "model"), {"data": 1, "model": model}
+
+    match = f"serving over a model axis of {model} ranks with {what}"
+    with pytest.raises(NotImplementedError, match=match):
+        serve_layouts(cfg, model)
+    with pytest.raises(NotImplementedError, match=match):
+        ServePlan(Mesh, cfg, 2)
 
 
 def _fake_mesh(shape):
@@ -300,23 +360,61 @@ def _fake_mesh(shape):
 
 
 def test_dryrun_serving_collectives(ranks):
-    """The dry-run's serving collectives on a fake (1, 2) group: a case's
-    decode step as its ranks counted it, labelled with the plan's
-    schedule; an MLA stack's ``null`` with the refusal."""
-    name = "llama_model2"
-    cfg, _ = serve_case(name)
-    counted = ranks[name][2][0][1]["calls"][1]["counted"]
+    """The dry-run's serving collectives on a fake (1, 2) group: a decode
+    step of the GQA and the Mamba-2 case as their ranks counted it,
+    labelled with the plan's schedule; an encoder-decoder's ``null`` with
+    the refusal."""
+    names = ("llama_model2", "mamba2_model2")
+    shape = ShapeConfig("d", SERVE_MAX_LEN, 2, "decode")
     try:
         mesh = _fake_mesh((1, 2))
-        got, why = dryrun.serve_collectives(cfg, ShapeConfig(
-            "d", SERVE_MAX_LEN, 2, "decode"), mesh)
+        got = {name: dryrun.serve_collectives(serve_case(name)[0], shape,
+                                              mesh) for name in names}
         none, refused = dryrun.serve_collectives(
-            SMOKE_FACTORIES["minicpm3-4b"](),
-            ShapeConfig("d", SERVE_MAX_LEN, 2, "decode"), mesh)
+            SMOKE_FACTORIES["whisper-large-v3"](), shape, mesh)
     finally:
         dist.destroy_process_group()
-    assert why is None and none is None
-    assert {k: got[k] for k in ("bytes", "counts")} == counted
-    assert got["total_bytes"] == sum(counted["bytes"].values())
-    assert "serve_schedule" in got["schedule"]
-    assert "multi-head latent attention" in refused
+    for name in names:
+        counted = ranks[name][2][0][1]["calls"][1]["counted"]
+        coll, why = got[name]
+        assert why is None
+        assert {k: coll[k] for k in ("bytes", "counts")} == counted
+        assert coll["total_bytes"] == sum(counted["bytes"].values())
+        assert "serve_schedule" in coll["schedule"]
+    assert none is None and "the encoder-decoder" in refused
+
+
+@pytest.mark.parametrize("arch,counts", [
+    # 40 MLA heads over 16: the head-dim layout (no query gather): per
+    # layer the partial scores, wo's and the MLP's all-reduces, the latent
+    # context's all-gather; the vocab (73 448) does not divide 16
+    ("minicpm3-4b", {"all-gather": 62, "all-reduce": 3 * 62}),
+    # per layer the projection's and the conv output's all-gathers, the
+    # norm's and out_proj's all-reduces; the vocab does not divide 16
+    ("mamba2-2.7b", {"all-gather": 2 * 64, "all-reduce": 2 * 64}),
+    # 18 RG-LRU layers (one all-gather, two all-reduces each) and 8 local
+    # attention layers over the head dim (k and q gathered; the scores,
+    # wo and the MLP all-reduced); the embedding's all-reduce
+    ("recurrentgemma-2b", {"all-gather": 18 + 2 * 8,
+                           "all-reduce": 1 + 2 * 18 + 3 * 8}),
+    ("whisper-large-v3", None),
+])
+def test_dryrun_production_serving_collectives(arch, counts):
+    """The dry-run's decode_32k collectives on the fake 16 x 16 production
+    group for the stacks this slice serves, from the plan's schedule; the
+    encoder-decoder's ``null`` with the refusal."""
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.launch.mesh import make_production_mesh
+
+    try:
+        mesh = make_production_mesh(fake=True)
+        got, why = dryrun.serve_collectives(
+            get_config(arch), INPUT_SHAPES["decode_32k"], mesh)
+    finally:
+        dist.destroy_process_group()
+    if counts is None:
+        assert got is None and "the encoder-decoder" in why
+        return
+    assert why is None
+    assert {k: v for k, v in got["counts"].items() if v} == counts
+    assert got["total_bytes"] == sum(got["bytes"].values()) > 0
