@@ -265,15 +265,23 @@ The quickest proof that the port builds and serves on an NVIDIA H100:
         layers: the SSD scan on 40 of 80 heads; cuts in ``reduced``) and
         Z6 RecurrentGemma-2B (26 layers: the RG-LRU branch
         on 1280 of 2560 channels, local attention "mixed", flash on 5 of
-        10 query heads at D 256); each rank launches flash once per
-        attention layer on its heads, split-K once per GQA layer and step
-        on its kv heads' cache shards where they split, and the SSD scan
-        once per Mamba-2 layer (asserted, with the heads each launch saw),
+        10 query heads at D 256), Z7 Whisper large-v3 (32 + 32 layers,
+        10 of 20 heads a rank in the encoder, the decoder and the
+        cross-attention: 4 prompts of 64 tokens over (4, 1500, 1280)
+        frames into caches of 448) and Z8 InternVL2-76B (8 of 80 layers,
+        ``reduced``: 256 patches ahead of 256 tokens); each rank launches
+        flash once per attention layer on its heads (Z7: per encoder
+        layer and per decoder layer's self- and cross-attention),
+        split-K once per GQA layer (Z7: and cross-attention) and step on
+        its heads' cache shards where they split, and the SSD scan once
+        per Mamba-2 layer (asserted, with the heads each launch saw),
         counts its collectives (equal to ``serve_schedule``, asserted),
         and every call's logits stay within 5e-2 of the largest of one
-        process's on the same weights and tokens, run first; each rank's
-        prefill and decode ms, the gloo transport's share of each, its
-        shard, cache and peak bytes;
+        process's on the same weights and inputs, run first, its greedy
+        tokens agreeing at 0.9 of the calls' rows or more (bf16 ties
+        counted as agreement; asserted); each rank's prefill and decode
+        ms, the gloo transport's share of each, its shard, cache and peak
+        bytes;
    then ring attention (``models.ring_attention``) in bf16 at
    Llama-2-7B's attention (S 32 768, 32 heads of 128, causal) and
    Granite-3-2B's GQA (S 16 384, 32 query heads over 8 kv heads of 64,
@@ -289,10 +297,10 @@ The quickest proof that the port builds and serves on an NVIDIA H100:
    plus a check of run A's first-token logits against a dense forward,
    and ``torch.profiler`` windows (device busy share, kernel launches and
    device time by kernel per iteration): decode-heavy windows of the
-   configurations of runs A, D-H and K-O, prefill-heavy windows of E, G
-   and M (the first iteration: the whole prompts of the requests it
-   admits) and N (one prefill call), and one training step of runs P
-   and U;
+   configurations of runs A, D-H and K-O (after at most 14 iterations
+   that run the prompts in), prefill-heavy windows of E, G and M (the
+   first iteration: the whole prompts of the requests it admits) and N
+   (one prefill call), and one training step of runs P and U;
    runs A, B and D-X must go through the tensor-core (``mma``) variants
    of their forward kernels and launch no ``fma`` variant, and no kernel
    a run does not expect (the backward kernels only in runs P-X);
@@ -302,8 +310,8 @@ The quickest proof that the port builds and serves on an NVIDIA H100:
    architecture's smoke config, the encoder-decoder refused by the
    engine), each one's seconds on the ``examples`` line;
 5. the dry-run (``python -m repro_torch.launch.dryrun --arch llama2-7b
-   --shape train_4k,decode_32k --mesh both``) in a subprocess that sees
-   no card (fake process groups of 256 and 512 ranks): one device's
+   --shape train_4k,decode_32k --mesh single``) in a subprocess that sees
+   no card (a fake process group of 256 ranks): one device's
    argument and output bytes, FLOPs and collective bytes (training's
    schedule and, for decode_32k, serving's); and ``launch.train
    --production`` on this one card, which must refuse with the
@@ -441,7 +449,8 @@ MESH_RANK_TIMEOUT_S = 420
 # config fields replaced, why the depth is cut or None); SERVE_PROMPTS
 # prompts of SERVE_PROMPT_LEN tokens, then SERVE_STEPS decode steps
 # teacher-forced with the one process's greedy tokens, caches of
-# SERVE_MAX_LEN (64 pages of 16: the split-K kernel); Z3 runs first: its calls warm each rank
+# SERVE_MAX_LEN (64 pages of 16: the split-K kernel) where
+# ``serve_mesh_inputs`` gives no other; Z3 runs first: its calls warm each rank
 # process (the CUDA context, cuBLAS, the kernel libraries), so the
 # others' times are a warm process's
 SERVE_MESH_RUNS = {
@@ -463,10 +472,27 @@ SERVE_MESH_RUNS = {
            "largest, bf16 against f32 6.8e-2 (scripts/"
            "rounding_sensitivity.py), the floor under DENSE_REL_TOL"),
     "Z6": ("recurrentgemma-2b", None, {}, None),
+    # Whisper's encoder-decoder: prompts of WHISPER_SOT and drawn tokens,
+    # SERVE_WHISPER_PROMPT_LEN in all, over (4, 1500, 1280) frames, caches
+    # of MAX_LEN_WHISPER (its own decoder context)
+    "Z7": ("whisper-large-v3", None, {}, None),
+    # InternVL2's vision prefix: 256 patches ahead of 256 tokens, the
+    # SERVE_PROMPT_LEN positions
+    "Z8": ("internvl2-76b", 8, {},
+           "two rank processes, each drawing the whole tree (about 18 GB "
+           "at 8 layers; the whole model about 152 GB) before it keeps its "
+           "shards, share one 80 GB card"),
 }
 SERVE_MESH = (1, 2)
 SERVE_PROMPTS, SERVE_PROMPT_LEN = 4, 512
 SERVE_STEPS, SERVE_MAX_LEN = 16, 1024
+SERVE_WHISPER_PROMPT_LEN = 64
+# the least greedy agreement of a Z run's ranks with one process, over
+# every call's argmax of the teacher-forced steps, a bf16 tie counted as
+# agreement (``greedy_flips``: with a vocab of 128 256 InternVL2's bf16
+# logits tie at the top, and each of Z8's flips sat at a margin of 0 or
+# one bf16 step)
+SERVE_GREEDY_MIN = 0.9
 # run W's ranks also time each collective kind alone on bf16 CUDA tensors
 # of this many MiB of input, TRANSPORT_REPS calls after one warm-up
 TRANSPORT_MIB = 64
@@ -486,11 +512,13 @@ RING_CASES = [("llama2_S32768_h32_d128", 32768, 32, 32, 128, True),
               ("granite_S16384_gqa4_d64", 16384, 32, 8, 64, True),
               ("granite_S16384_gqa4_d64_full", 16384, 32, 8, 64, False)]
 # the dry-run line: the CLI in a subprocess on the CPU (a fake process
-# group of 256 and 512 ranks), a training and a serving shape, held to
-# this many seconds
+# group of 256 ranks: the single-pod mesh; the CPU tests cover the
+# multi-pod one), a training and a serving shape, held to this many
+# seconds
 DRYRUN_SHAPES = ("train_4k", "decode_32k")
+DRYRUN_MESHES = ("single",)
 DRYRUN_ARGS = ("--arch", "llama2-7b", "--shape", ",".join(DRYRUN_SHAPES),
-               "--mesh", "both")
+               "--mesh", *DRYRUN_MESHES)
 DRYRUN_TIMEOUT_S = 300
 
 
@@ -3228,61 +3256,124 @@ def serve_mesh_config(run):
 
 
 def serve_launches(cfg):
-    """A rank's launches in one Z run, nothing else of the port: flash once per attention layer in the prefill
-    (every prompt in one call: GQA, MLA, RecurrentGemma's local
-    attention), the SSD scan once per Mamba-2 layer; split-K once per GQA
-    layer and decode step over its pools' dtype where the heads split
-    (over a head-dim split decode runs a plain route; MLA decodes through
-    ``torch.bmm``, Mamba-2 through its recurrence)."""
+    """A rank's launches in one Z run, nothing else of the port: flash once
+    per attention layer in the prefill (every prompt in one call: GQA,
+    MLA, RecurrentGemma's local attention; an encoder-decoder's encoder
+    layers and each decoder layer's cross-attention too), the SSD scan
+    once per Mamba-2 layer; split-K once per decode step and GQA layer
+    where the heads split, over its pools' dtype, and once per decode step
+    and decoder layer for the cross-attention over the frames where its
+    heads split (over a head-dim split decode runs a plain route; MLA
+    decodes through ``torch.bmm``, Mamba-2 through its recurrence)."""
     from repro_torch.configs.base import ATTN, ATTN_LOCAL, ATTN_MLA, MAMBA2
-    from repro_torch.models.sharding import serve_layouts
+    from repro_torch.models.sharding import cross_split, serve_layouts
 
+    m = SERVE_MESH[1]
     kinds = cfg.layer_kinds()
-    n_attn = sum(k in (ATTN, ATTN_LOCAL, ATTN_MLA) for k in kinds)
+    layouts = serve_layouts(cfg, m)
+    n_gqa = sum(k in (ATTN, ATTN_LOCAL) for k in kinds)
+    n_flash = n_gqa + sum(k == ATTN_MLA for k in kinds)
     n_ssd = sum(k == MAMBA2 for k in kinds)
+    decode = Counter()
+    if layouts.get(ATTN, layouts.get(ATTN_LOCAL)) == "heads":
+        decode["int8" if cfg.kv_quant else "bf16"] += n_gqa * SERVE_STEPS
+    if cfg.is_encoder_decoder:
+        n_flash += cfg.n_encoder_layers + cfg.n_layers
+        if cross_split(cfg, m) == "heads":
+            decode["bf16"] += cfg.n_layers * SERVE_STEPS
     out = {}
-    if n_attn:
-        out.update({"flash_attention": n_attn, "flash_attention:mma": n_attn})
+    if n_flash:
+        out.update({"flash_attention": n_flash,
+                    "flash_attention:mma": n_flash})
     if n_ssd:
         out.update({"ssd_scan": n_ssd, "ssd_scan:mma": n_ssd})
-    layouts = serve_layouts(cfg, SERVE_MESH[1])
-    if layouts.get(ATTN, layouts.get(ATTN_LOCAL)) == "heads":
-        pools = "int8" if cfg.kv_quant else "bf16"
-        n = sum(k in (ATTN, ATTN_LOCAL) for k in kinds) * SERVE_STEPS
+    if decode:
+        n = sum(decode.values())
         out.update({"paged_attention_splitk": n,
                     "paged_attention_splitk:mma": n,
-                    f"paged_attention_splitk/{pools}": n})
+                    **{f"paged_attention_splitk/{pools}": k
+                       for pools, k in decode.items()}})
     return out
 
 
 def serve_heads(cfg):
     """The (query heads, kv heads) each flash and paged launch of a Z
     run's rank sees, and the (heads, B/C groups) each SSD-scan launch
-    sees: this rank's heads (GQA, MLA: k carries every query head's
-    rotary part), the kv head its query heads attend (RecurrentGemma's
-    ``"mixed"``)."""
-    from repro_torch.configs.base import ATTN_MLA, MAMBA2
+    sees, over every attention path of the stack: this rank's heads (GQA
+    and an encoder's layers over heads; MLA, whose k carries every query
+    head's rotary part; an encoder-decoder's cross-attention over heads),
+    the kv heads its query heads attend (``"mixed"``: RecurrentGemma's
+    local attention), every head (a head-dim split gathers whole heads
+    for flash; its decode launches no kernel)."""
+    from repro_torch.configs.base import ATTN, ATTN_LOCAL, ATTN_MLA, MAMBA2
+    from repro_torch.models.sharding import cross_split, serve_layouts
     from repro_torch.models.ssm import mamba2_dims
 
     m = SERVE_MESH[1]
-    kinds = set(cfg.layer_kinds())
-    if MAMBA2 in kinds:
-        nh = mamba2_dims(cfg)[1]
-        groups = max(1, cfg.ssm.n_groups // m)
-        return {"flash": [], "paged": [], "ssd": [[nh // m, groups]]}
-    if ATTN_MLA in kinds:
-        return {"flash": [[cfg.n_heads // m] * 2], "paged": [], "ssd": []}
-    n, G = cfg.n_heads // m, cfg.n_heads // cfg.n_kv_heads
-    if cfg.n_kv_heads % m == 0:
-        local = [[n, cfg.n_kv_heads // m]]
-        return {"flash": local, "paged": local, "ssd": []}
-    return {"flash": [[n, max(1, n // G)]], "paged": [], "ssd": []}
+    layouts = serve_layouts(cfg, m)
+    H, Hkv = cfg.n_heads, cfg.n_kv_heads
+    n = H // m
+    heads = {"flash": set(), "paged": set(), "ssd": set()}
+    for kind, layout in layouts.items():
+        if kind == MAMBA2:
+            heads["ssd"].add((mamba2_dims(cfg)[1] // m,
+                              max(1, cfg.ssm.n_groups // m)))
+        elif kind == ATTN_MLA:
+            heads["flash"].add((n, n) if layout == "heads" else (H, H))
+        elif kind in (ATTN, ATTN_LOCAL):
+            if layout == "heads":
+                heads["flash"].add((n, Hkv // m))
+                heads["paged"].add((n, Hkv // m))
+            elif layout == "mixed":
+                heads["flash"].add((n, max(1, n // (H // Hkv))))
+            else:
+                heads["flash"].add((H, Hkv))
+    if cfg.is_encoder_decoder:
+        if cross_split(cfg, m) == "heads":
+            heads["flash"].add((n, n))
+            heads["paged"].add((n, n))
+        else:
+            heads["flash"].add((H, H))
+    return {k: sorted(list(pair) for pair in v) for k, v in heads.items()}
+
+
+def serve_mesh_inputs(run, cfg):
+    """(prompt tokens (SERVE_PROMPTS, L), the prefill batch's stubbed
+    frontend inputs, the caches' length) of a Z run, from SEED: prompts
+    of SERVE_PROMPT_LEN drawn tokens into caches of SERVE_MAX_LEN; an
+    encoder-decoder's WHISPER_SOT and drawn tokens,
+    SERVE_WHISPER_PROMPT_LEN in all, over standard-normal ``frames``
+    (n_frontend_tokens of them) into caches of MAX_LEN_WHISPER; a vision
+    stack's standard-normal ``patch_embeds`` ahead of drawn tokens, the
+    two SERVE_PROMPT_LEN positions in all."""
+    rng = np.random.default_rng(SEED)
+    B, P, d = SERVE_PROMPTS, cfg.n_frontend_tokens, cfg.d_model
+    if cfg.is_encoder_decoder:
+        prompts = np.concatenate([np.tile(WHISPER_SOT, (B, 1)), rng.integers(
+            0, WHISPER_SOT[0], (B, SERVE_WHISPER_PROMPT_LEN
+                                - len(WHISPER_SOT)))], axis=1)
+        frames = rng.standard_normal((B, P, d)).astype(np.float32)
+        return prompts, {"frames": frames}, MAX_LEN_WHISPER
+    if cfg.frontend == "vision_stub":
+        prompts = rng.integers(0, cfg.vocab_size, (B, SERVE_PROMPT_LEN - P))
+        patches = rng.standard_normal((B, P, d)).astype(np.float32)
+        return prompts, {"patch_embeds": patches}, SERVE_MAX_LEN
+    return (rng.integers(0, cfg.vocab_size, (B, SERVE_PROMPT_LEN)), {},
+            SERVE_MAX_LEN)
+
+
+def serve_batch(torch, prompts, stub, rows=lambda t: t):
+    """The prefill batch on the card: ``rows`` of the prompts and of the
+    stubbed frontend inputs."""
+    return {k: rows(torch.from_numpy(v).cuda())
+            for k, v in dict(stub, tokens=prompts).items()}
 
 
 def serve_baseline(torch, run, path):
     """One process's ``prefill`` and teacher-forced ``decode_step`` calls
-    of run ``run`` (its own greedy tokens) on the weights from SEED; the
-    prompts, the tokens fed and every call's logits (f32) saved to
+    of run ``run`` (its own greedy tokens) on the weights from SEED and
+    ``serve_mesh_inputs``; the prompts, the frames or patches, the caches'
+    length, the tokens fed and every call's logits (f32) saved to
     ``path`` for the ranks and the checks.  Returns its times and peak."""
     from repro_torch.models.model import decode_step, prefill
     from repro_torch.weights import init_params
@@ -3290,13 +3381,12 @@ def serve_baseline(torch, run, path):
     cfg, _ = serve_mesh_config(run)
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
         SEED), "cuda")
-    prompts = np.random.default_rng(SEED).integers(
-        0, cfg.vocab_size, (SERVE_PROMPTS, SERVE_PROMPT_LEN))
+    prompts, stub, max_len = serve_mesh_inputs(run, cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    logits, cache = prefill(params, {"tokens": torch.from_numpy(
-        prompts).cuda()}, cfg, SERVE_MAX_LEN)
+    logits, cache = prefill(params, serve_batch(torch, prompts, stub), cfg,
+                            max_len)
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
     calls, fed, step_ms = [logits.float().cpu()], [], []
@@ -3308,7 +3398,7 @@ def serve_baseline(torch, run, path):
         step_ms.append((time.perf_counter() - t0) * 1e3)
         calls.append(logits.float().cpu())
     np.savez(path, prompts=prompts, fed=torch.stack(fed).numpy(),
-             logits=torch.stack(calls).numpy())
+             logits=torch.stack(calls).numpy(), max_len=max_len, **stub)
     out = {"prefill_ms": prefill_ms,
            "decode_ms_median": float(np.median(step_ms)),
            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
@@ -3323,9 +3413,9 @@ def serve_rank_main(argv) -> int:
     the group over STORE (gloo, the ranks sharing the card), and for each
     Z run draws the whole tree from SEED, keeps its shards
     (``ServePlan.shard_params``; the rest freed), and under the plan
-    prefills its rows of the prompts and decodes SERVE_STEPS steps
-    teacher-forced with the one process's tokens (``serve_baseline``'s
-    file beside OUT).  Writes each run's times, peaks, shard bytes,
+    prefills its rows of the prompts (and of the frames or patches) and
+    decodes SERVE_STEPS steps teacher-forced with the one process's tokens
+    (``serve_baseline``'s file beside OUT).  Writes each run's times, peaks, shard bytes,
     launches, the transport's time, the collectives counted per call
     beside ``serve_schedule``'s to OUT (JSON), and rank 0 every call's
     whole logits to ``OUT.<run>.npz``."""
@@ -3395,6 +3485,11 @@ def serve_rank_main(argv) -> int:
             with np.load(os.path.join(os.path.dirname(out),
                                       f"{run}.npz")) as f:
                 prompts, fed = f["prompts"], f["fed"]
+                stub = {k: f[k] for k in ("frames", "patch_embeds")
+                        if k in f.files}
+                max_len = int(f["max_len"])
+            positions = prompts.shape[1] + sum(
+                v.shape[1] for k, v in stub.items() if k == "patch_embeds")
             torch.cuda.reset_peak_memory_stats()
             params = init_params(cfg, torch.Generator(
                 device="cuda").manual_seed(SEED), "cuda")
@@ -3431,16 +3526,15 @@ def serve_rank_main(argv) -> int:
             rows = plan.rows_of
             with activate(plan):
                 (logits, cache), prefill_ms = call(lambda: prefill(
-                    params, {"tokens": rows(torch.from_numpy(prompts)
-                                            .cuda())}, cfg, SERVE_MAX_LEN),
-                    ShapeConfig("Z", SERVE_PROMPT_LEN, SERVE_PROMPTS,
-                                "prefill"), SERVE_MAX_LEN)
+                    params, serve_batch(torch, prompts, stub, rows), cfg,
+                    max_len), ShapeConfig("Z", positions, SERVE_PROMPTS,
+                                          "prefill"), max_len)
                 logits_all.append(plan.whole_logits(logits).float().cpu())
                 for toks in fed:
                     (logits, cache), ms = call(lambda: decode_step(
                         params, rows(torch.from_numpy(toks).cuda()), cache,
                         cfg), ShapeConfig("Z", 1, SERVE_PROMPTS, "decode"),
-                        SERVE_MAX_LEN)
+                        max_len)
                     step_ms.append(ms)
                     logits_all.append(plan.whole_logits(logits)
                                       .float().cpu())
@@ -3450,7 +3544,9 @@ def serve_rank_main(argv) -> int:
                          logits=torch.stack(logits_all).numpy())
             lines[run] = {
                 "rank": rank, "backend": backend, "layout": plan.layout,
-                "layouts": plan.layouts,
+                "layouts": plan.layouts, "cross_layout": plan.cross_layout,
+                "prompt_len": prompts.shape[1], "positions": positions,
+                "max_len": max_len,
                 "mesh": {"shape": list(mesh.shape),
                          "axes": list(mesh.mesh_dim_names)},
                 "prefill_ms": prefill_ms,
@@ -3476,6 +3572,25 @@ def serve_rank_main(argv) -> int:
     return 0
 
 
+def greedy_flips(want, got):
+    """The positions where the mesh's greedy token differs from one
+    process's, over (calls, rows, vocab) logits: ([call, row, the one
+    process's margin of its argmax over the runner-up, the mesh's of its
+    own, both over the call's largest |logit|], how many of them are bf16
+    ties: the mesh's token within one bf16 step (of the row's largest
+    logit) of the one process's largest logit, which that process's bf16
+    logits cannot tell apart from its argmax)."""
+    flips, tied = [], 0
+    for c, r in zip(*np.nonzero(got.argmax(-1) != want.argmax(-1))):
+        scale = np.abs(want[c]).max()
+        w2, g2 = (np.sort(a[c, r])[-2:] for a in (want, got))
+        flips.append([int(c), int(r), float((w2[1] - w2[0]) / scale),
+                      float((g2[1] - g2[0]) / scale)])
+        step = 2.0 ** (np.floor(np.log2(np.abs(w2[1]))) - 7)
+        tied += bool(want[c, r, got[c, r].argmax()] >= w2[1] - step)
+    return flips, tied
+
+
 def serve_mesh_run(torch, names=tuple(SERVE_MESH_RUNS)):
     """Run Z (the runs ``names``, all by default): for each one process's
     baseline first (``serve_baseline``), then two rank processes
@@ -3483,10 +3598,11 @@ def serve_mesh_run(torch, names=tuple(SERVE_MESH_RUNS)):
     (1, 2) mesh on the card, started
     together over a ``FileStore`` and waited for (MESH_RANK_TIMEOUT_S, as
     W-Y).  Holds every call's logits (rank 0's, gathered whole) within
-    DENSE_REL_TOL of the largest baseline logit and reports the greedy
-    agreement; each rank's launches equal ``serve_launches`` (flash, split-K
-    and the SSD scan on its heads, ``serve_heads``) and nothing else of
-    the port; each call's counted collectives equal
+    DENSE_REL_TOL of the largest baseline logit and the greedy agreement,
+    bf16 ties of the one process's logits counted as agreement
+    (``greedy_flips``), at SERVE_GREEDY_MIN or above; each rank's launches equal
+    ``serve_launches`` (flash, split-K and the SSD scan on its heads,
+    ``serve_heads``) and nothing else of the port; each call's counted collectives equal
     ``ServePlan.serve_schedule``.  Emits a ``serve_mesh`` line per run
     (each rank's prefill and decode ms, the transport's share of each,
     shard, cache and peak bytes; the baseline's times and peak beside).
@@ -3542,6 +3658,9 @@ def serve_mesh_run(torch, names=tuple(SERVE_MESH_RUNS)):
             rel = [float(np.abs(g - w).max() / np.abs(w).max())
                    for g, w in zip(got, want)]
             agree = float(np.mean(got.argmax(-1) == want.argmax(-1)))
+            flips, tied = greedy_flips(want, got)
+            beyond_ties = 1.0 - (len(flips) - tied) / got.shape[0] \
+                / got.shape[1]
             lines = [r[run] for r in ranks]
             expect = {name: 0 for name in lines[0]["launches"]}
             expect.update(serve_launches(cfg))
@@ -3551,13 +3670,19 @@ def serve_mesh_run(torch, names=tuple(SERVE_MESH_RUNS)):
                     "n_layers": cfg.n_layers, "kv_quant": cfg.kv_quant,
                     "moe_impl": cfg.moe_impl if cfg.moe else None,
                     "layout": lines[0]["layout"],
-                    "layouts": lines[0]["layouts"], "mesh": lines[0]["mesh"],
+                    "layouts": lines[0]["layouts"],
+                    "cross_layout": lines[0]["cross_layout"],
+                    "mesh": lines[0]["mesh"],
                     "transport": lines[0]["backend"],
-                    "prompts": SERVE_PROMPTS, "prompt_len": SERVE_PROMPT_LEN,
-                    "decode_steps": SERVE_STEPS, "max_len": SERVE_MAX_LEN,
+                    "prompts": SERVE_PROMPTS,
+                    **{k: lines[0][k] for k in ("prompt_len", "positions",
+                                                "max_len")},
+                    "decode_steps": SERVE_STEPS,
                     "logit_rel_err_by_call": rel,
                     "max_logit_rel_err": max(rel),
                     "greedy_agreement": agree,
+                    "greedy_agreement_beyond_ties": beyond_ties,
+                    "greedy_flips": flips,
                     "baseline": dict(base[run], run="one process"),
                     "collective_bytes_prefill": lines[0]["calls"][0][
                         "counted"]["bytes"],
@@ -3580,6 +3705,9 @@ def serve_mesh_run(torch, names=tuple(SERVE_MESH_RUNS)):
                   f"run {run}: logits {got.shape} against {want.shape}")
             check(max(rel) <= DENSE_REL_TOL, f"run {run}: logits off the "
                   f"one process's by {max(rel)} of the largest")
+            check(beyond_ties >= SERVE_GREEDY_MIN, f"run {run}: greedy "
+                  f"agreement beyond bf16 ties {beyond_ties} with one "
+                  f"process, under {SERVE_GREEDY_MIN}: {flips}")
             local = serve_heads(cfg)
             for r in lines:
                 check(r["heads"] == local,
@@ -3883,11 +4011,11 @@ def ring_bwd_plain_case(torch, fa, ra, seed, Hq, Hkv, D, causal, S=4096):
 def dryrun_phase(torch):
     """The dry-run CLI (``python -m repro_torch.launch.dryrun`` with
     DRYRUN_ARGS) in a subprocess that sees no card: its fake process
-    groups of 256 and 512 ranks live there, never beside this process's;
-    a nonzero exit fails the run.  Prints one device's argument and
-    output bytes, FLOPs and collective bytes and counts by kind (the
-    port's schedules: training's and, for decode_32k, serving's) from its
-    four result files.  Then
+    group of 256 ranks lives there, never beside this process's; a
+    nonzero exit fails the run.  Prints one device's argument and output
+    bytes, FLOPs and collective bytes and counts by kind (the port's
+    schedules: training's and, for decode_32k, serving's) from its result
+    files.  Then
     ``launch.train --production`` on this one card must refuse with the
     world-size message, not train."""
     from repro_torch.launch import train as launch_train
@@ -3904,7 +4032,7 @@ def dryrun_phase(torch):
     out_dir = ROOT / "experiments" / "dryrun_torch"
     meshes = {}
     for shape in DRYRUN_SHAPES:
-        for kind in ("single", "multi"):
+        for kind in DRYRUN_MESHES:
             res = json.loads((out_dir / f"llama2-7b__{shape}__{kind}.json")
                              .read_text())
             check(res["collectives"] is not None, f"dry-run {shape} "
@@ -4385,17 +4513,17 @@ def profile_window(torch, run, eng, reqs, window="decode"):
     """Where an iteration's time goes (the configuration of ``run``): all
     requests arrive at once.
 
-    ``decode``: 14 iterations run the prompts in, then 5 iterations are
-    timed on the host clock and 1 more under ``torch.profiler`` for device
-    time by kernel (the trace's processing takes most of a window's wall
-    time).
+    ``decode``: iterations run the prompts in (``prompts_in``: at most
+    14), then 5 iterations are timed on the host clock and 1 more under
+    ``torch.profiler`` for device time by kernel (the trace's processing
+    takes most of a window's wall time).
     ``prefill``: the first iteration, profiled, its host time read under
     the profiler: the whole prompts of the requests
     it admits (later iterations decode until a request finishes).  The
     line carries the window's wall seconds (``window_s``).  Device busy share = device time per iteration / wall time
-    per iteration.  An MLA stack's decode window records each operator's
-    input shapes in its profiled iterations (their host time is not the
-    one reported) to count the copies made, by shape."""
+    per iteration.  An MLA stack's decode window counts the copies its
+    profiled iterations make, by shape, and its batched products through
+    ``OpCounts`` (their host time is not the one reported)."""
     from torch.profiler import ProfilerActivity, profile
 
     t_window = time.perf_counter()
@@ -4405,8 +4533,10 @@ def profile_window(torch, run, eng, reqs, window="decode"):
     for r in reqs:
         r.arrival = 0.0
         eng.submit(r)
-    for _ in range(warm):
+    warmed = 0
+    while warmed < warm and not prompts_in(eng):
         eng.step()
+        warmed += 1
     torch.cuda.synchronize()
     rows = 0
     if window == "decode":
@@ -4417,13 +4547,12 @@ def profile_window(torch, run, eng, reqs, window="decode"):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / timed
     n_log = len(eng.iter_log)
-    # CPU-side operator events only where a line reads them (an MLA
-    # stack's decode window: aten::bmm and the copies by shape): parsing
-    # them took most of a window's wall time (7 of 13.6 minutes of the
-    # smoke went to the windows with them on)
-    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU]
-                                            if shapes else [])
-    with profile(activities=activities, record_shapes=shapes) as prof:
+    # CUDA activity only: parsing CPU-side operator events took most of a
+    # window's wall time (7 of 13.6 minutes of the smoke went to the
+    # windows with them on; K's alone 13.8 s); an MLA stack's copies and
+    # batched products are counted at the dispatcher instead
+    ops = OpCounts(torch) if shapes else contextlib.nullcontext()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof, ops:
         t0 = time.perf_counter()
         for _ in range(steps):
             if window == "prefill":
@@ -4434,35 +4563,23 @@ def profile_window(torch, run, eng, reqs, window="decode"):
             wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     logged = eng.iter_log[n_log:]
     line = {"phase": "profile", "run": run, "window": window,
-            "iterations": steps, "rows_per_iteration": rows / (timed
-                                                               or steps),
+            "warmup_iterations": warmed, "iterations": steps,
+            "rows_per_iteration": rows / (timed or steps),
             **profile_summary(prof, steps, wall_ms)}
-    # the device time of the kernels each batched product launched (MLA's
-    # latent decode, MoE's experts)
-    bmm = [e for e in prof.key_averages() if e.key == "aten::bmm"]
-    if bmm:
-        line["aten_bmm_device_ms_per_iteration"] = sum(
-            getattr(e, "device_time_total", getattr(e, "cuda_time_total",
-                                                    0.0)) for e in bmm) \
-            / 1e3 / steps
-        line["aten_bmm_calls_per_iteration"] = sum(e.count
-                                                   for e in bmm) / steps
     if shapes:
-        # the copies a decode iteration makes, by the shapes copied (dst,
-        # src), and those of W_UK or W_UV, the slices of wkv_b that the
-        # absorbed decode multiplies by
-        copies = sorted((e for e in prof.key_averages(
-            group_by_input_shape=True) if e.key == "aten::copy_"),
-            key=lambda e: -e.count)
+        # the copies a decode iteration makes, by the shapes copied (the
+        # source's first), and those of W_UK or W_UV, the slices of wkv_b
+        # that the absorbed decode multiplies by; the latent products
+        line["aten_bmm_calls_per_iteration"] = ops.bmm / steps
         line["copies_per_iteration_by_shape"] = [
-            {"shapes": e.input_shapes[:2], "calls": e.count / steps}
-            for e in copies[:8]]
+            {"shapes": [list(t) for t in key], "calls": n / steps}
+            for key, n in ops.copies.most_common(8)]
         m = eng.cfg.mla
         w = {tuple(sorted((m.kv_lora_rank, eng.cfg.n_heads, d)))
              for d in (m.qk_nope_head_dim, m.v_head_dim)}
         line["wkv_b_slice_copies_per_iteration"] = sum(
-            e.count for e in copies if e.input_shapes
-            and tuple(sorted(e.input_shapes[0])) in w) / steps
+            n for key, n in ops.copies.items()
+            if tuple(sorted(key[0])) in w) / steps
     if reduced_of(eng.cfg):
         line["reduced"] = reduced_of(eng.cfg)
     if window == "decode" and eng.backend == "slots":
@@ -4494,6 +4611,48 @@ def profile_window(torch, run, eng, reqs, window="decode"):
     emit(line)
     SECONDS["profile_windows"] += line["window_s"]
     return line
+
+
+class OpCounts:
+    """A context that counts, at the dispatcher, the copies made
+    (``aten.copy_``, ``clone`` and ``_to_copy``, by the source's and the
+    result's shapes) and the ``aten.bmm`` calls of what runs inside it."""
+
+    def __init__(self, torch):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        aten = torch.ops.aten
+        copies = (aten.copy_, aten.clone, aten._to_copy)
+        counts = self
+        self.copies, self.bmm = Counter(), 0
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                packet = func.overloadpacket
+                if packet in copies:
+                    src = args[1] if packet is aten.copy_ else args[0]
+                    counts.copies[(tuple(src.shape), tuple(out.shape))] += 1
+                elif packet is aten.bmm:
+                    counts.bmm += 1
+                return out
+
+        self.mode = Mode()
+
+    def __enter__(self):
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self.mode.__exit__(*exc)
+
+
+def prompts_in(eng):
+    """Whether a decode window may start: every running request past its
+    prompt, and every slot taken or none waiting."""
+    return bool(eng.running) and all(
+        r.prefill_done >= r.prompt_len for r in eng.running) and (
+        len(eng.running) >= eng.max_slots or not eng.sched.has_waiting())
 
 
 def device_kernels(prof):

@@ -9,6 +9,7 @@ while a new phase is brought up.
     python3 scripts/chip_phases.py ring,Y
     python3 scripts/chip_phases.py Z
     python3 scripts/chip_phases.py Z3,Z5
+    python3 scripts/chip_phases.py Z7,Z8
 
 ``bwd``: the flash backward kernel lines (``flash_bwd_phase``);
 ``ssd_bwd``: the SSD scan's backward kernel lines (``ssd_bwd_phase``);
@@ -28,8 +29,9 @@ mesh of two rank processes, held to one process; ``Y``: RecurrentGemma-2B
 to one process; ``Z``: serving over a (1, 2) mesh of two rank processes
 (``serve_mesh_run``: Llama-2-7B, Mixtral-8x7B at 4 layers, Llama-2-7B
 at 8 layers with int8 slot caches, MiniCPM3-4B, Mamba-2-2.7B,
-RecurrentGemma-2B), held to one process; ``Z1``-``Z6``: those runs of
-Z alone, in the order given; ``ring``: ring
+RecurrentGemma-2B, Whisper large-v3's encoder-decoder over 1500 frames,
+InternVL2-76B at 8 layers behind 256 patches), held to one process;
+``Z1``-``Z8``: those runs of Z alone, in the order given; ``ring``: ring
 attention forward and backward
 (``ring_phase``); ``dryrun``: the dry-run CLI and the
 ``--production`` refusal (``dryrun_phase``).  Builds the

@@ -2,8 +2,8 @@
 """How far rounding alone moves a full-width stack's logits on one card:
 the floor under run Z's comparison of a (1, 2) mesh with one process.
 
-For each stack (and depth), one process's ``models.prefill`` of 4 prompts
-of 512 tokens into caches of 1024 (weights from seed 0, bf16) against:
+For each stack (and depth), one process's prefill forward of 4 prompts
+(run Z's: 512 positions) (weights from seed 0, bf16) against:
 
 - the same call again (``repeat``: the card's determinism);
 - the same stack in f32 from the same seed, its attention through the
@@ -16,13 +16,23 @@ of 512 tokens into caches of 1024 (weights from seed 0, bf16) against:
   two halves added in f32 (``norm_halves``), ``out_proj`` as two f32
   partial products added and rounded once (``out_proj_f32_halves``), or
   each rounded to bf16 before the sum (``out_proj_bf16_halves``), and
-  all three of the mesh's (``mesh_order``).
+  all three of the mesh's (``mesh_order``);
+- on stacks of GQA attention with a dense MLP (and an encoder-decoder's
+  cross-attention), the row-parallel products that ``ServePlan`` splits
+  over a model axis of 2 (``wo`` over the heads, the MLP's ``w_out`` over
+  its hidden dim), each as two partial products rounded to bf16 and
+  added in bf16 (``row_parallel_bf16_halves``) or added in f32 and
+  rounded once (``row_parallel_f32_halves``).
 
-Each value is the largest |difference| over the largest |logit| of the
-first call.  One JSON line per stack and depth:
+The prompts, and a vision stack's patches or an encoder-decoder's frames,
+are run Z's (``chip_smoke.serve_mesh_inputs``).  Each value is the
+largest |difference| over the largest |logit| of the first call's last
+tokens; each ``greedy_*`` is the share of the prompt's token positions
+(all of them, not only the last) whose argmax equals the first call's.
+One JSON line per stack and depth:
 
     python3 scripts/rounding_sensitivity.py mamba2-2.7b:64,32 \\
-        minicpm3-4b recurrentgemma-2b
+        minicpm3-4b recurrentgemma-2b internvl2-76b:8
 """
 from __future__ import annotations
 
@@ -34,11 +44,47 @@ import sys
 import numpy as np
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 
-PROMPTS, PROMPT_LEN, MAX_LEN, SEED = 4, 512, 1024, 0
+SEED = 0
 VARIANTS = ("in_proj_blocks", "norm_halves", "out_proj_f32_halves",
             "out_proj_bf16_halves", "mesh_order")
+ROW_PARALLEL = ("row_parallel_bf16_halves", "row_parallel_f32_halves")
+
+
+def _row_parallel(variant):
+    """(``attention._out_project``, ``layers.mlp``) in one process with
+    their contraction split in two as a model axis of 2 splits it: each
+    half's product rounded to bf16 and the two added in bf16, or both in
+    f32 and the sum rounded once (module docstring)."""
+    import torch.nn.functional as F
+
+    from repro_torch.models.layers import matmul_f32
+
+    f32 = variant == "row_parallel_f32_halves"
+
+    def halves(a, w):
+        n = a.shape[-1] // 2
+        lo, hi = a[..., :n], a[..., n:]
+        if f32:
+            return (matmul_f32(lo, w[:n]) + matmul_f32(hi, w[n:])).to(
+                a.dtype)
+        return lo @ w[:n] + hi @ w[n:]
+
+    def out_project(out, wo):
+        B, S, H, k = out.shape
+        return halves(out.reshape(B, S, H * k), wo.reshape(H * k, -1))
+
+    def mlp_halves(params, x, act, tp=None):
+        h = x @ params["w_in"]               # layers.mlp's hidden
+        if act == "silu":
+            h = F.silu(x @ params["w_gate"]) * h
+        else:
+            h = F.gelu(h, approximate="tanh")
+        return halves(h, params["w_out"])
+
+    return out_project, mlp_halves
 
 
 def _mamba2_prefill(variant):
@@ -100,49 +146,69 @@ def _mamba2_prefill(variant):
 def measure(arch, n_layers):
     import torch
 
+    from chip_smoke import serve_batch, serve_mesh_inputs
     from repro_torch.configs import get_config
-    from repro_torch.configs.base import MAMBA2
+    from repro_torch.configs.base import ATTN, ATTN_LOCAL, MAMBA2
+    from repro_torch.models import attention as attn_mod
     from repro_torch.models import model as tm
     from repro_torch.models import ssm
+    from repro_torch.models.layers import unembed
     from repro_torch.weights import init_params
 
     cfg = get_config(arch)
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
-    tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
-        0, cfg.vocab_size, (PROMPTS, PROMPT_LEN))).cuda()
+    prompts, stub, max_len = serve_mesh_inputs(None, cfg)
+    batch = serve_batch(torch, prompts, stub)
 
-    def logits(c, params):
-        return tm.prefill(params, {"tokens": tokens}, c, MAX_LEN)[0].float()
+    @torch.no_grad()
+    def run(c, params):
+        """(the last tokens' logits in f32, every token position's
+        argmax)."""
+        hidden, _, _, n_prefix = tm.forward_hidden(params, batch, c,
+                                                   mode="prefill")
+        hidden = hidden[:, n_prefix:]
+        top = torch.cat([unembed(params["embed"], h).argmax(-1)
+                         for h in hidden.split(64, dim=1)], dim=1)
+        return unembed(params["embed"], hidden[:, -1]).float(), top
 
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
         SEED), "cuda")
-    base = logits(cfg, params)
+    base, base_top = run(cfg, params)
     top = float(base.abs().max())
-
-    def rel(other):
-        return float((other - base).abs().max()) / top
-
     out = {"phase": "rounding_sensitivity", "model": cfg.name,
-           "n_layers": cfg.n_layers, "prompts": PROMPTS,
-           "prompt_len": PROMPT_LEN, "repeat": rel(logits(cfg, params))}
+           "n_layers": cfg.n_layers, "prompts": prompts.shape[0],
+           "prompt_len": prompts.shape[1], "max_len": max_len,
+           "stub": {k: list(v.shape) for k, v in stub.items()}}
+
+    def record(name, got):
+        logits, argmax = got
+        out[name] = float((logits - base).abs().max()) / top
+        out[f"greedy_{name}"] = float((argmax == base_top).float().mean())
+
+    record("repeat", run(cfg, params))
     if MAMBA2 in cfg.layer_kinds():
         plain = ssm.mamba2_prefill
         try:
             for variant in VARIANTS:
                 ssm.mamba2_prefill = _mamba2_prefill(variant)
-                out[variant] = rel(logits(cfg, params))
+                record(variant, run(cfg, params))
         finally:
             ssm.mamba2_prefill = plain
+    if {ATTN, ATTN_LOCAL} & set(cfg.layer_kinds()) and cfg.moe is None:
+        plain = attn_mod._out_project, tm.mlp
+        try:
+            for variant in ROW_PARALLEL:
+                attn_mod._out_project, tm.mlp = _row_parallel(variant)
+                record(variant, run(cfg, params))
+        finally:
+            attn_mod._out_project, tm.mlp = plain
     del params
     torch.cuda.empty_cache()
     cfg32 = dataclasses.replace(cfg, dtype="float32", attn_impl="naive")
     params = init_params(cfg32, torch.Generator(device="cuda").manual_seed(
         SEED), "cuda")
-    f32 = logits(cfg32, params)
-    out["bf16_vs_f32"] = rel(f32)
-    out["greedy_bf16_vs_f32"] = float(
-        (f32.argmax(-1) == base.argmax(-1)).float().mean())
+    record("bf16_vs_f32", run(cfg32, params))
     del params
     torch.cuda.empty_cache()
     return out

@@ -26,10 +26,10 @@ fake process group of 256 or 512 ranks in this one process
 - ``collectives`` of a prefill or decode shape: the same measure from
   the port's serving plan (``models.sharding.ServePlan.serve_schedule``:
   tensor parallelism over ``"model"``, activations moved, no weight
-  gathered) for the decoder-only stacks (GQA, MLA, Mamba-2, RG-LRU
-  beside local attention); the stacks that plan refuses on a model axis
-  above 1 (the encoder-decoder, the vision prefix) keep ``null`` with
-  the refusal as the reason.
+  gathered) for every stack (GQA, MLA, Mamba-2, RG-LRU beside local
+  attention, Whisper's encoder-decoder, InternVL2's vision prefix); a
+  shape that plan refuses keeps ``null`` with the refusal as the
+  reason.
 
 XLA's partitioner is what the reference reads ``temp_bytes`` from; the
 port has no counterpart, so it is written as ``null`` with the reason.

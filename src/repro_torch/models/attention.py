@@ -215,7 +215,7 @@ def _out_dims(out, params, tp):
 
 
 def split_dim_attention(q, k_cache, v_cache, valid, tp, head_dim,
-                        k_scale=None, v_scale=None):
+                        k_scale=None, v_scale=None, round_weights=True):
     """Attention over caches split over the head dim: q (B, T, Hq, D / m),
     every query head at this rank's dims; caches (B, S, Hkv, D / m) this
     rank's slices (int8 with whole (B, S, Hkv) scales, dequantized to q's
@@ -223,9 +223,10 @@ def split_dim_attention(q, k_cache, v_cache, valid, tp, head_dim,
     Each rank's partial scores over its dims are summed over the model
     axis (f32) before the scale, mask and softmax; the weights are rounded
     to the values' dtype before their product with this rank's slice of
-    V, as in the plain decode.  Returns (B, T, Hq, D / m): every head's
-    output at this rank's dims.  A plain route in PyTorch, no kernel: the
-    paged kernels take whole heads."""
+    V, as in the plain decode (``round_weights=False`` keeps them f32, as
+    ``naive_attention`` does: the cross-attention's decode).  Returns (B,
+    T, Hq, D / m): every head's output at this rank's dims.  A plain route
+    in PyTorch, no kernel: the paged kernels take whole heads."""
     B, T, Hq, _ = q.shape
     Hkv = k_cache.shape[2]
     if k_scale is not None:
@@ -236,8 +237,9 @@ def split_dim_attention(q, k_cache, v_cache, valid, tp, head_dim,
     s = tp.reduce(s) * head_dim ** -0.5
     s = torch.where(valid[:, None, None], s, torch.full_like(s, NEG_INF))
     w = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgst,btkd->bskgd", w.to(v_cache.dtype).float(),
-                       v_cache.float())
+    if round_weights:
+        w = w.to(v_cache.dtype).float()
+    out = torch.einsum("bkgst,btkd->bskgd", w, v_cache.float())
     return out.reshape(B, T, Hq, -1).to(q.dtype)
 
 
@@ -554,24 +556,51 @@ def cross_init(d_model, n_heads, head_dim, dtype, generator: torch.Generator,
 
 def cross_kv(params, enc_out):
     """The encoder output's keys and values, (B, T, H, hd) each: no rotary
-    embedding, no mask."""
+    embedding, no mask.  Under a serving plan ``wk``/``wv`` are this
+    rank's shards, so they are this rank's heads or head-dim slice: the
+    cache's shards (``cache_specs``)."""
     return _project(enc_out, params["wk"]), _project(enc_out, params["wv"])
 
 
-def cross_attn(params, x, enc_k, enc_v, impl="flash"):
+def cross_attn(params, x, enc_k, enc_v, impl="flash", tp=None):
     """x (B, S, d) attends every encoder frame, not causally: through
-    ``attention`` (the flash kernel on CUDA at Sq = S, Skv = T)."""
+    ``attention`` (the flash kernel on CUDA at Sq = S, Skv = T).
+
+    ``tp``: a serving plan over its model axis (``tp.cross_layout``):
+    ``"heads"`` attends this rank's heads; ``"dim"`` gathers q's, k's and
+    v's head-dim slices into whole heads for flash and keeps this rank's
+    slice of the output for ``wo``'s rows.  Either way ``wo``'s partial
+    products are summed over the model axis."""
     q = _project(x, params["wq"])
+    dims = tp is not None and tp.cross_layout == "dim"
+    if dims:
+        q, enc_k, enc_v = (tp.gather_model(t, -1) for t in (q, enc_k, enc_v))
     out = attention(q, enc_k, enc_v, causal=False, impl=impl)
-    return _out_project(out, params["wo"])
+    if tp is None:
+        return _out_project(out, params["wo"])
+    return tp.reduce(_out_project(tp.dim_slice(out) if dims else out,
+                                  params["wo"]))
 
 
-def cross_decode(params, x, enc_k, enc_v):
+def cross_decode(params, x, enc_k, enc_v, tp=None):
     """A decode step's cross-attention: x (B, 1, d) over the encoder
-    frames cached at prefill, (B, T, H, hd) each."""
+    frames cached at prefill, (B, T, H, hd) each.  ``tp`` as
+    ``cross_attn``'s: this rank's heads, or over the head dim every head's
+    partial scores over the caches' slice, summed over the model axis
+    before the softmax (``split_dim_attention``, every frame valid, the
+    weights kept f32; the query needs no gather: no rotary embedding);
+    ``wo``'s partial products summed over the axis."""
     q = _project(x, params["wq"])
-    return _out_project(cross_decode_attention(q, enc_k, enc_v),
-                        params["wo"])
+    if tp is not None and tp.cross_layout == "dim":
+        B, T = enc_k.shape[:2]
+        valid = torch.ones((B, 1, T), dtype=torch.bool, device=q.device)
+        out = split_dim_attention(q, enc_k, enc_v, valid, tp,
+                                  tp.cfg.resolved_head_dim(),
+                                  round_weights=False)
+    else:
+        out = cross_decode_attention(q, enc_k, enc_v)
+    y = _out_project(out, params["wo"])
+    return y if tp is None else tp.reduce(y)
 
 
 def cross_decode_attention(q, enc_k, enc_v):

@@ -57,12 +57,15 @@ a ``models.sharding.ServePlan``, the reference's "plain TP+DP"): the
 parameters and caches are this rank's shards and stay so; the layers
 move activations only (``sharding.model_split`` hands them the plan as
 ``tp``), the batch's rows are this rank's, and the logits its vocab
-block.  It serves every decoder-only stack: GQA (dense or MoE, full or
-windowed attention, bf16 or int8 caches), multi-head latent attention,
-Mamba-2 and RG-LRU beside local attention (``sharding.serve_layouts``
-names each kind's layout and refuses the shapes it does not take); on a
-model axis above 1 ``check_ported`` refuses the encoder-decoder and the
-vision prefix by name.
+block.  It serves every stack: GQA (dense or MoE, full or windowed
+attention, bf16 or int8 caches), multi-head latent attention, Mamba-2 and
+RG-LRU beside local attention (``sharding.serve_layouts`` names each
+kind's layout and refuses the shapes it does not take), Whisper's
+encoder-decoder (the encoder's layers split as the decoder's, over this
+rank's rows of ``batch["frames"]``; the cross-attention over heads or
+over the head dim, ``sharding.cross_split``, its caches this rank's
+shards) and InternVL2's vision prefix (this rank's rows of
+``batch["patch_embeds"]`` ahead of the tokens' vocab-split embedding).
 """
 from __future__ import annotations
 
@@ -82,35 +85,17 @@ from repro_torch.models.layers import (chunked_ce_loss, dtype_of, embed, mlp,
                                        rmsnorm, unembed)
 
 
-def check_ported(cfg: ModelConfig, model_axis: int = None) -> None:
-    """Raise ``NotImplementedError`` for a stack the port cannot run yet:
-    on a serving model axis above 1 (``model_axis``, by default the active
-    ``ServePlan``'s), the decoder-only stacks with a text frontend run;
-    the encoder-decoder and the vision prefix are refused, each with the
-    ROADMAP.md Queue A item that would port it."""
-    kinds = sorted(set(cfg.layer_kinds()))
-    for kind in kinds:
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a stack the port cannot run: a
+    layer kind or a frontend it has no counterpart of.  Every registered
+    stack runs, on one process and under a ``sharding.ServePlan``."""
+    for kind in sorted(set(cfg.layer_kinds())):
         if kind not in (ATTN, ATTN_LOCAL, ATTN_MLA, MAMBA2, RGLRU):
             raise NotImplementedError(f"{cfg.name}: layer kind {kind!r} is "
                                       "not ported")
     if cfg.frontend not in ("text", "audio_stub", "vision_stub"):
         raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} frontend "
                                   "is not ported")
-    if model_axis is None:
-        plan = sharding.serving()
-        model_axis = plan.m if plan is not None else 1
-    if model_axis <= 1:
-        return
-    refused = []
-    if cfg.is_encoder_decoder:
-        refused.append(("the encoder-decoder", "12h"))
-    if cfg.frontend == "vision_stub":
-        refused.append(("the vision prefix", "12i"))
-    if refused:
-        what, item = refused[0]
-        raise NotImplementedError(
-            f"{cfg.name}: serving {what} over a model axis of {model_axis} "
-            f"ranks is not ported (ROADMAP.md Queue A item {item})")
 
 
 def check_trainable(cfg: ModelConfig) -> None:
@@ -237,7 +222,7 @@ def _block_forward(lp, x, cfg, kind, moe_flag, positions, *, causal=True,
         hc = rmsnorm(lp["ln_cross"], x, cfg.norm_eps)
         ck, cv = attn_mod.cross_kv(lp["cross"], enc_kv)
         x = x + attn_mod.cross_attn(lp["cross"], hc, ck, cv,
-                                    impl=cfg.attn_impl)
+                                    impl=cfg.attn_impl, tp=tp)
         if want_cache:
             cache = dict(cache or {}, cross_k=ck, cross_v=cv)
     aux = None
@@ -641,7 +626,7 @@ def _block_decode(lp, x1, c, pos, cfg, kind, moe_flag,
     if "cross_k" in c:
         hc = rmsnorm(lp["ln_cross"], x1, cfg.norm_eps)
         x1 = x1 + attn_mod.cross_decode(lp["cross"], hc, c["cross_k"],
-                                        c["cross_v"])
+                                        c["cross_v"], tp=tp)
     if kind != MAMBA2:
         h2 = rmsnorm(lp["ln2"], x1, cfg.norm_eps)
         x1 = x1 + ffn_forward(lp["ffn"], h2, cfg, moe_flag, rows, tp)

@@ -62,6 +62,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import dataclasses
 import itertools
 import math
 from typing import NamedTuple
@@ -994,6 +995,21 @@ def rglru_split(cfg: ModelConfig, msize: int) -> str:
     return "channels"
 
 
+def cross_split(cfg: ModelConfig, msize: int) -> str:
+    """How ``param_specs`` splits an encoder-decoder's cross-attention
+    (one kv head per query head: ``wq``/``wk``/``wv``/``wo`` and the
+    ``cross_k``/``cross_v`` caches alike) over ``msize`` model ranks:
+    ``"heads"`` where the heads divide the axis (or no model axis), else
+    ``"dim"``, over the head dim.  Refused: a head dim that does not
+    divide it either (every cross leaf replicated)."""
+    if msize <= 1 or _div(cfg.n_heads, msize):
+        return "heads"
+    if _div(cfg.resolved_head_dim(), msize):
+        return "dim"
+    _refuse(cfg, msize, f"{cfg.n_heads} cross-attention heads and head dim "
+            f"{cfg.resolved_head_dim()} (replicated)")
+
+
 def serve_layouts(cfg: ModelConfig, msize: int) -> dict:
     """{layer kind: its layout} of every kind of ``cfg``'s stack
     (``attention_split``, ``mla_split``, ``mamba2_split``,
@@ -1051,16 +1067,27 @@ class ServePlan:
       every token, the same capacity rule, and combines its experts'
       share), else over the expert hidden dim; the partial sums stay f32
       until one all-reduce and one rounding;
+    - an encoder-decoder (Whisper): the encoder's layers split as the
+      decoder's attention and FFN layers, over this rank's rows of the
+      frames (prefill only); the cross-attention (``cross_layout``,
+      ``cross_split``) over this rank's heads, or over the head dim:
+      prefill gathers q's, k's and v's slices into whole heads for flash
+      and keeps this rank's slice of the output for ``wo``'s rows, decode
+      sums the partial scores over the cross caches' head-dim slice (f32,
+      before the softmax); ``cross_k``/``cross_v`` are this rank's shards
+      from the projections on, never gathered; then ``wo``'s all-reduce;
+    - a vision prefix (InternVL2): this rank's rows of the patches go
+      ahead of the tokens' vocab-split embedding, whose all-reduce covers
+      the tokens only; every later layer sees every position;
     - the batch's rows: ``rows`` (``RowSplit``), which an MoE dispatch's
       capacity and queues span; ``cache["pos"]`` stays whole (its spec is
       ``P()``), each rank reading its rows' positions.
 
     ``serve_schedule`` derives one step's collectives from the config and
-    the mesh, kind for kind (the dry-run's serving ``collectives``).  The
-    encoder-decoder and the vision prefix are refused by name on a model
-    axis above 1 (``models.model.check_ported``), and so is a shape that a
-    layer kind's layout does not take (``serve_layouts``).  The hooks of
-    training's plan gather nothing here: no weight is gathered."""
+    the mesh, kind for kind (the dry-run's serving ``collectives``).  A
+    shape that a layer kind's layout does not take is refused by name
+    (``serve_layouts``, ``cross_split``).  The hooks of training's plan
+    gather nothing here: no weight is gathered."""
 
     def __init__(self, mesh, cfg: ModelConfig, batch: int):
         from repro_torch.models.model import check_ported
@@ -1073,8 +1100,10 @@ class ServePlan:
         self.mesh, self.cfg, self.batch = mesh, cfg, batch
         self.axes, self.sizes = axes, dict(axes.shape)
         self.m = self.sizes.get("model", 1)
-        check_ported(cfg, model_axis=self.m)
+        check_ported(cfg)
         self.layouts = serve_layouts(cfg, self.m)
+        self.cross_layout = cross_split(cfg, self.m) \
+            if cfg.is_encoder_decoder else None
         # the stack's attention layout (GQA or MLA; "heads" without one)
         self.layout = next((v for k, v in self.layouts.items()
                             if v != "channels"), "heads")
@@ -1211,8 +1240,14 @@ class ServePlan:
         ``cache_len`` defaults to ``seq_len``.  Per layer on a model axis
         above 1, kind for kind (``ServePlan``'s account of each): the
         attention's or the branch's own collectives, then the all-reduce
-        of its output projection's partial sums and, but on Mamba-2
-        layers, the FFN's."""
+        of its output projection's partial sums, an encoder-decoder's
+        cross-attention terms and its ``wo``'s all-reduce, and, but on
+        Mamba-2 layers, the FFN's.  The embedding's all-reduce covers the
+        tokens (a vision prefix's ``n_frontend_tokens`` patches of a
+        prefill's ``seq_len`` positions are not embedded); an
+        encoder-decoder's prefill runs ``n_encoder_layers`` attention and
+        FFN layers over ``n_frontend_tokens`` frames first, the length of
+        the cross caches in every mode."""
         from repro_torch.models.layers import dtype_of
         from repro_torch.models.model import _cache_seq_len, model_stages
         from repro_torch.models.moe import chunk_layout
@@ -1233,8 +1268,19 @@ class ServePlan:
         item = torch.empty((), dtype=dtype_of(cfg)).element_size()
         act = rows * T * cfg.d_model * item
         layouts = serve_layouts(cfg, m)
-        if m > 1 and _div(cfg.vocab_size, m):
-            add("all-reduce", act)                          # the embedding
+        prefix = cfg.n_frontend_tokens if cfg.frontend == "vision_stub" \
+            and shape.mode == "prefill" else 0
+        if m > 1 and _div(cfg.vocab_size, m):               # the embedding
+            add("all-reduce", rows * (T - prefix) * cfg.d_model * item)
+        T_enc = cfg.n_frontend_tokens
+        if cfg.is_encoder_decoder and shape.mode == "prefill" and m > 1:
+            n = cfg.n_encoder_layers                        # the encoder
+            for coll, nbytes, times in _attention_terms(
+                    dataclasses.replace(cfg, kv_quant=False),
+                    attention_split(cfg, m), "prefill", rows, T_enc, T_enc,
+                    item, n):
+                add(coll, nbytes, times)
+            add("all-reduce", rows * T_enc * cfg.d_model * item, 2 * n)
         for kind, moe, n in model_stages(cfg):
             if m > 1:
                 S_c = _cache_seq_len(cfg, kind, cache_len)
@@ -1244,6 +1290,12 @@ class ServePlan:
                 # the output's partial sums: f32 for a Mamba-2 layer
                 add("all-reduce", rows * T * cfg.d_model * 4
                     if kind == MAMBA2 else act, n)
+                if cfg.is_encoder_decoder:
+                    for coll, nbytes, times in _cross_terms(
+                            cfg, cross_split(cfg, m), shape.mode, rows, T,
+                            T_enc, item, n):
+                        add(coll, nbytes, times)
+                    add("all-reduce", act, n)               # the cross wo
                 if kind in _FFN_KINDS:    # the FFN's: f32 for an MoE layer
                     add("all-reduce", rows * T * cfg.d_model * 4 if moe
                         else act, n)
@@ -1281,6 +1333,20 @@ def _attention_terms(cfg, layout, mode, rows, T, S_c, item, n):
     elif cfg.kv_quant:
         terms.append(("all-reduce", n * rows * S_c * Hkv * 4, 2))
     return terms
+
+
+def _cross_terms(cfg, layout, mode, rows, T, T_enc, item, n):
+    """An encoder-decoder's cross-attention over the head dim: in prefill
+    q's slices gathered and the encoder's k's and v's (``T_enc`` frames),
+    in decode the partial scores all-reduced (f32); over heads nothing
+    before its ``wo``'s all-reduce."""
+    if layout == "heads":
+        return []
+    H, D = cfg.n_heads, cfg.resolved_head_dim()
+    if mode == "prefill":
+        return [("all-gather", rows * T * H * D * item, n),
+                ("all-gather", rows * T_enc * H * D * item, 2 * n)]
+    return [("all-reduce", rows * H * T * T_enc * 4, n)]
 
 
 def _mla_terms(cfg, layout, mode, rows, T, S_c, item, n):

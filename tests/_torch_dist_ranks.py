@@ -32,7 +32,8 @@ for the port's multi-rank tests.  The test starts one process per rank:
 - ``serve_tp2`` / ``serve_tp4``: every case of ``SERVE_CASES`` whose mesh
   holds WORLD ranks, under a ``ServePlan``: ``prefill``, ``SERVE_DECODE``
   teacher-forced ``decode_step`` calls and, where the stack takes it, one
-  ``prefill_chunk`` (``serve_inputs``); each rank writes its rows' whole
+  ``prefill_chunk`` (``serve_inputs``: the frames or patches of an
+  encoder-decoder or a vision stack too); each rank writes its rows' whole
   logits of every call and its cache shards after the last to
   ``OUT.rank<rank>.npz`` (``<case>/...``), and its shards' bytes and
   each call's counted collectives beside ``serve_schedule``'s to
@@ -174,6 +175,18 @@ SERVE_CASES = {
                                                    "n_kv_heads": 2}),
     # 2 of 8 Mamba-2 heads a rank
     "mamba2_model4": ("mamba2-2.7b", (1, 4), {}),
+    # Whisper's encoder-decoder: 2 of 4 heads a rank in the encoder, the
+    # decoder and the cross-attention (its caches over heads); with 2
+    # heads of 64 over 4 ranks every projection of all three over the
+    # head dim; its frames and cross caches over the data axis
+    "whisper_model2": ("whisper-large-v3", (1, 2), {}),
+    "whisper_h2_model4": ("whisper-large-v3", (1, 4), {"n_heads": 2,
+                                                       "n_kv_heads": 2}),
+    "whisper_data2": ("whisper-large-v3", (2, 1), {}),
+    # InternVL2's 8 patches ahead of the tokens: 4 of 8 query heads over
+    # 1 of 2 kv heads a rank; over 4 ranks "mixed"
+    "internvl_model2": ("internvl2-76b", (1, 2), {}),
+    "internvl_model4": ("internvl2-76b", (1, 4), {}),
 }
 SERVE_BATCH, SERVE_MAX_LEN, SERVE_DECODE, SERVE_CHUNK = 2, 64, 4, 6
 
@@ -200,7 +213,10 @@ def serve_case(name):
 def serve_inputs(cfg):
     """(prompt tokens (B, S), the decode steps' tokens (SERVE_DECODE, B),
     the chunk's tokens (B, SERVE_CHUNK) or None where the stack takes no
-    ``prefill_chunk``): S past a window where the stack has one."""
+    ``prefill_chunk``, the prefill batch's stubbed frontend inputs: an
+    encoder-decoder's ``frames`` or a vision stack's ``patch_embeds``, (B,
+    n_frontend_tokens, d) f32 standard normals drawn after the tokens, or
+    none): S past a window where the stack has one."""
     from repro_torch.models.model import supports_chunked_prefill
 
     S = cfg.window + 8 if cfg.window else 24
@@ -209,7 +225,13 @@ def serve_inputs(cfg):
                                             + SERVE_CHUNK)).astype(np.int64)
     chunk = draw[:, S + SERVE_DECODE:] if supports_chunked_prefill(cfg) \
         else None
-    return draw[:, :S], draw[:, S:S + SERVE_DECODE].T.copy(), chunk
+    stub = {}
+    if cfg.frontend != "text":
+        key = "frames" if cfg.is_encoder_decoder else "patch_embeds"
+        stub[key] = rng.standard_normal(
+            (SERVE_BATCH, cfg.n_frontend_tokens, cfg.d_model)).astype(
+                np.float32)
+    return draw[:, :S], draw[:, S:S + SERVE_DECODE].T.copy(), chunk, stub
 
 
 def serve_run(name, mesh):
@@ -226,8 +248,11 @@ def serve_run(name, mesh):
     from repro_torch.weights import init_params
 
     cfg, _ = serve_case(name)
-    prompt, steps, chunk = serve_inputs(cfg)
+    prompt, steps, chunk, stub = serve_inputs(cfg)
     B, S = prompt.shape
+    # the prefill's positions count the patches; the cross caches' frames
+    positions = S + cfg.n_frontend_tokens * (cfg.frontend == "vision_stub")
+    enc_len = cfg.n_frontend_tokens * cfg.is_encoder_decoder
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     plan = ServePlan(mesh, cfg, B)
     plan.shard_params(params)
@@ -247,9 +272,11 @@ def serve_run(name, mesh):
 
     rows = plan.rows_of
     with activate(plan):
+        batch = {k: rows(torch.from_numpy(v)) for k, v in
+                 dict(stub, tokens=prompt).items()}
         logits, cache = counted(lambda: prefill(
-            params, {"tokens": rows(torch.from_numpy(prompt))}, cfg,
-            SERVE_MAX_LEN), ShapeConfig("p", S, B, "prefill"), SERVE_MAX_LEN)
+            params, batch, cfg, SERVE_MAX_LEN),
+            ShapeConfig("p", positions, B, "prefill"), SERVE_MAX_LEN)
         arrays["logits/prefill"] = plan.whole_logits(logits).numpy()
         for i, toks in enumerate(steps):
             logits, cache = counted(lambda: decode_step(
@@ -261,12 +288,14 @@ def serve_run(name, mesh):
                 params, rows(torch.from_numpy(chunk)), cfg, cache),
                 ShapeConfig("c", chunk.shape[1], B, "chunk"), SERVE_MAX_LEN)
             arrays["logits/chunk"] = plan.whole_logits(logits).numpy()
-        zeros = init_cache(cfg, B, SERVE_MAX_LEN, device="cpu")
+        zeros = init_cache(cfg, B, SERVE_MAX_LEN, device="cpu",
+                           enc_len=enc_len)
     # int8 caches' bf16 scales saved in f32 (exact)
     arrays.update({f"cache/{k}": v for k, v in flat(_tree_map(
         lambda t: t.float() if t.dtype == torch.bfloat16 else t,
         cache)).items()})
-    whole_cache = init_cache(cfg, B, SERVE_MAX_LEN, device="meta")
+    whole_cache = init_cache(cfg, B, SERVE_MAX_LEN, device="meta",
+                             enc_len=enc_len)
     structs = param_structs(cfg)
     nbytes = {
         "params": _nbytes(params),
@@ -277,8 +306,8 @@ def serve_run(name, mesh):
         "cache_placed": local_bytes(whole_cache, tree_placements(
             cache_specs(whole_cache, cfg, mesh, B), mesh), mesh)}
     return arrays, {"bytes": nbytes, "calls": calls,
-                    "layout": plan.layout, "rows": [plan.rows.index,
-                                                    plan.rows.count]}
+                    "layout": plan.layout, "cross_layout": plan.cross_layout,
+                    "rows": [plan.rows.index, plan.rows.count]}
 
 
 def _tree_map(fn, tree):

@@ -14,13 +14,19 @@ cases (``SERVE_CASES``), one set of rank processes per mesh size:
   MiniCPM3 (MLA over heads, the latent cache over its rank), Mamba-2
   (in_proj's 552 columns, 276 a rank, not head-aligned; 4 of 8 heads),
   the same with 2 B/C groups, RecurrentGemma (the RG-LRU branch on 64 of
-  128 channels, local attention "mixed", window 32, a prompt past it);
-- ``(2, 1)``: Llama-2 with its batch over the data axis;
+  128 channels, local attention "mixed", window 32, a prompt past it),
+  Whisper (2 of 4 heads a rank in the encoder, the decoder and the
+  cross-attention, 16 frames) and InternVL2 (8 patches ahead of the
+  tokens, 4 of 8 query heads over 1 of 2 kv heads);
+- ``(2, 1)``: Llama-2 and Whisper with their batch (and frames, and
+  cross caches) over the data axis;
 - ``(1, 4)``: StarCoder2 (6 heads of 24 over 2 kv heads: every projection
   over the head dim), Granite (q over heads, k/v over the head dim), the
   same with int8 caches, Mixtral with 2 experts (their hidden dim
   split), MiniCPM3 with 2 heads (``wq_b``/``wkv_b`` whole, ``wo`` over
-  ``v_head_dim``) and Mamba-2 (2 heads a rank).
+  ``v_head_dim``), Mamba-2 (2 heads a rank), Whisper with 2 heads of 64
+  (every projection of the encoder, the decoder and the cross-attention
+  over the head dim) and InternVL2 ("mixed").
 
 Each case's prefill, ``SERVE_DECODE`` teacher-forced decode steps and one
 ``prefill_chunk`` (where the stack takes it) against one process's on the
@@ -29,14 +35,14 @@ rank's cache shards after the last call against its slice of the one
 process's cache within ``REL`` of the leaf's largest; each rank's
 parameter and cache bytes equal the placements' local bytes exactly; each
 call's counted collectives equal ``ServePlan.serve_schedule``, kind for
-kind.  Llama-2, Mixtral, MiniCPM3, Mamba-2 and RecurrentGemma on ``(1,
-2)`` are held against the reference's one-device ``prefill`` and
-``decode_step`` too, on the same weights (the port's draw, handed to JAX
-leaf for leaf: the trees share the reference's layout), at ``LOGIT_TOL``
-of ``tests/test_torch_model.py``.  The encoder-decoder and the vision
-prefix are refused by name on a model axis of 2, and so is each layout a
-layer kind does not take; the dry-run writes serving collectives from
-the plan's schedule."""
+kind.  Llama-2, Mixtral, MiniCPM3, Mamba-2, RecurrentGemma, Whisper and
+InternVL2 on ``(1, 2)`` are held against the reference's one-device
+``prefill`` and ``decode_step`` too, on the same weights (the port's
+draw, handed to JAX leaf for leaf: the trees share the reference's
+layout) and frames or patches, at ``LOGIT_TOL`` of
+``tests/test_torch_model.py``.  Each layout a layer kind does not take
+is refused by name; the dry-run writes serving collectives from the
+plan's schedule."""
 import json
 
 import jax
@@ -50,12 +56,13 @@ from repro.configs import SMOKE_FACTORIES as J_SMOKE
 from repro.models import decode_step as j_decode
 from repro.models import prefill as j_prefill
 from repro_torch.configs import SMOKE_FACTORIES
-from repro_torch.configs.base import (ATTN_LOCAL, ATTN_MLA, MAMBA2, RGLRU,
-                                      ShapeConfig)
+from repro_torch.configs.base import (ATTN, ATTN_LOCAL, ATTN_MLA, MAMBA2,
+                                      RGLRU, ShapeConfig)
 from repro_torch.launch import dryrun
 from repro_torch.models import model as tm
 from repro_torch.models.sharding import (ServePlan, cache_specs,
-                                         serve_layouts, shard_index)
+                                         cross_split, serve_layouts,
+                                         shard_index)
 from repro_torch.weights import init_params
 
 from _torch_dist_ranks import (SERVE_CASES, SERVE_MAX_LEN, flat, serve_case,
@@ -65,7 +72,8 @@ from test_torch_model import LOGIT_TOL, port_config
 
 REL = 1e-5
 JAX_CASES = ("llama_model2", "mixtral_model2", "minicpm3_model2",
-             "mamba2_model2", "rgemma_model2")
+             "mamba2_model2", "rgemma_model2", "whisper_model2",
+             "internvl_model2")
 WORLDS = sorted({d * m for _, (d, m), _ in SERVE_CASES.values()})
 
 
@@ -82,9 +90,10 @@ def _jax_config(name):
 def _one_process(name, params):
     """One process's logits of every call and its final cache."""
     cfg, _ = serve_case(name)
-    prompt, steps, chunk = serve_inputs(cfg)
+    prompt, steps, chunk, stub = serve_inputs(cfg)
     out = {}
-    logits, cache = tm.prefill(params, {"tokens": torch.from_numpy(prompt)},
+    logits, cache = tm.prefill(params, {k: torch.from_numpy(v) for k, v in
+                                        dict(stub, tokens=prompt).items()},
                                cfg, SERVE_MAX_LEN)
     out["logits/prefill"] = logits.numpy()
     for i, toks in enumerate(steps):
@@ -103,10 +112,11 @@ def _reference(name, params):
     steps, from the port's ``params``."""
     jcfg = _jax_config(name)
     jparams = jax.tree.map(jnp.asarray, unflat(flat(params)))
-    prompt, steps, _ = serve_inputs(serve_case(name)[0])
+    prompt, steps, _, stub = serve_inputs(serve_case(name)[0])
     out = {}
-    logits, cache = j_prefill(jparams, {"tokens": jnp.asarray(
-        prompt, jnp.int32)}, jcfg, SERVE_MAX_LEN)
+    batch = {k: jnp.asarray(v) for k, v in stub.items()}
+    logits, cache = j_prefill(jparams, dict(batch, tokens=jnp.asarray(
+        prompt, jnp.int32)), jcfg, SERVE_MAX_LEN)
     out["logits/prefill"] = np.asarray(logits)
     for i, toks in enumerate(steps):
         logits, cache = j_decode(jparams, jnp.asarray(toks, jnp.int32),
@@ -259,10 +269,14 @@ def test_layouts(ranks):
     """The attention layout each case takes."""
     want = {"starcoder_model4": "dim", "granite_model4": "mixed",
             "granite_model4_int8": "mixed", "mixtral_e2_model4": "mixed",
-            "rgemma_model2": "mixed", "minicpm3_h2_model4": "dim"}
+            "rgemma_model2": "mixed", "minicpm3_h2_model4": "dim",
+            "whisper_h2_model4": "dim", "internvl_model4": "mixed"}
     for name in SERVE_CASES:
         for _, res in ranks[name][2]:
             assert res["layout"] == want.get(name, "heads"), name
+            cross = name.startswith("whisper") and (
+                "dim" if name == "whisper_h2_model4" else "heads")
+            assert res["cross_layout"] == (cross or None), name
 
 
 @pytest.mark.parametrize("name", JAX_CASES)
@@ -276,33 +290,23 @@ def test_logits_match_reference(ranks, name):
                                        rtol=LOGIT_TOL, err_msg=key)
 
 
-class _Mesh2:
-    axis_names, shape = ("data", "model"), {"data": 1, "model": 2}
-
-
 @pytest.mark.parametrize("arch,what", [
     ("minicpm3-4b", {ATTN_MLA: "heads"}),
     ("mamba2-2.7b", {MAMBA2: "heads"}),
     ("recurrentgemma-2b", {RGLRU: "channels", ATTN_LOCAL: "mixed"}),
-    ("whisper-large-v3", "the encoder-decoder"),
-    ("internvl2-76b", "the vision prefix"),
+    ("whisper-large-v3", {ATTN: "heads"}),
+    ("internvl2-76b", {ATTN: "heads"}),
 ])
 def test_out_of_slice_stacks_refused(arch, what):
-    """The encoder-decoder and the vision prefix on a model axis of 2 by
-    name, from the plan and from ``check_ported``; MLA, Mamba-2 and
-    RG-LRU stacks taken there, each kind with its layout.  On one rank of
-    model axis every stack is ported."""
+    """Every stack is taken on a model axis of 2, each kind with its
+    layout: MLA, Mamba-2, RG-LRU beside local attention, the
+    encoder-decoder (its cross-attention over heads) and the vision
+    prefix; ``check_ported`` refuses none."""
     cfg = SMOKE_FACTORIES[arch]()
-    tm.check_ported(cfg, model_axis=1)
-    if isinstance(what, dict):
-        tm.check_ported(cfg, model_axis=2)
-        assert serve_layouts(cfg, 2) == what
-        return
-    match = f"serving {what} over a model axis of 2 ranks"
-    with pytest.raises(NotImplementedError, match=match):
-        ServePlan(_Mesh2, cfg, 2)
-    with pytest.raises(NotImplementedError, match=match):
-        tm.check_ported(cfg, model_axis=2)
+    tm.check_ported(cfg)
+    assert serve_layouts(cfg, 2) == what
+    if cfg.is_encoder_decoder:
+        assert cross_split(cfg, 2) == "heads"
 
 
 def _with(arch, **fields):
@@ -361,17 +365,14 @@ def _fake_mesh(shape):
 
 def test_dryrun_serving_collectives(ranks):
     """The dry-run's serving collectives on a fake (1, 2) group: a decode
-    step of the GQA and the Mamba-2 case as their ranks counted it,
-    labelled with the plan's schedule; an encoder-decoder's ``null`` with
-    the refusal."""
-    names = ("llama_model2", "mamba2_model2")
+    step of the GQA, the Mamba-2 and the encoder-decoder case as their
+    ranks counted it, labelled with the plan's schedule."""
+    names = ("llama_model2", "mamba2_model2", "whisper_model2")
     shape = ShapeConfig("d", SERVE_MAX_LEN, 2, "decode")
     try:
         mesh = _fake_mesh((1, 2))
         got = {name: dryrun.serve_collectives(serve_case(name)[0], shape,
                                               mesh) for name in names}
-        none, refused = dryrun.serve_collectives(
-            SMOKE_FACTORIES["whisper-large-v3"](), shape, mesh)
     finally:
         dist.destroy_process_group()
     for name in names:
@@ -381,7 +382,6 @@ def test_dryrun_serving_collectives(ranks):
         assert {k: coll[k] for k in ("bytes", "counts")} == counted
         assert coll["total_bytes"] == sum(counted["bytes"].values())
         assert "serve_schedule" in coll["schedule"]
-    assert none is None and "the encoder-decoder" in refused
 
 
 @pytest.mark.parametrize("arch,counts", [
@@ -397,12 +397,20 @@ def test_dryrun_serving_collectives(ranks):
     # wo and the MLP all-reduced); the embedding's all-reduce
     ("recurrentgemma-2b", {"all-gather": 18 + 2 * 8,
                            "all-reduce": 1 + 2 * 18 + 3 * 8}),
-    ("whisper-large-v3", None),
+    # 20 heads of 64 over 16: every projection over the head dim; per
+    # decoder layer the self-attention's k and q gathered, its scores and
+    # wo all-reduced, the cross-attention's scores (its query needs no
+    # gather) and wo all-reduced, the MLP's; no encoder in decode; the
+    # vocab (51 866) does not divide 16
+    ("whisper-large-v3", {"all-gather": 2 * 32, "all-reduce": 5 * 32}),
+    # 64 query heads over 8 kv heads: "mixed"; per layer k and q gathered
+    # and every head's output, the scores, wo and the MLP all-reduced; the
+    # embedding's all-reduce (128 256 = 16 x 8016)
+    ("internvl2-76b", {"all-gather": 3 * 80, "all-reduce": 1 + 3 * 80}),
 ])
 def test_dryrun_production_serving_collectives(arch, counts):
     """The dry-run's decode_32k collectives on the fake 16 x 16 production
-    group for the stacks this slice serves, from the plan's schedule; the
-    encoder-decoder's ``null`` with the refusal."""
+    group, from the plan's schedule, derived layer by layer."""
     from repro_torch.configs import INPUT_SHAPES, get_config
     from repro_torch.launch.mesh import make_production_mesh
 
@@ -412,9 +420,6 @@ def test_dryrun_production_serving_collectives(arch, counts):
             get_config(arch), INPUT_SHAPES["decode_32k"], mesh)
     finally:
         dist.destroy_process_group()
-    if counts is None:
-        assert got is None and "the encoder-decoder" in why
-        return
     assert why is None
     assert {k: v for k, v in got["counts"].items() if v} == counts
     assert got["total_bytes"] == sum(got["bytes"].values()) > 0
